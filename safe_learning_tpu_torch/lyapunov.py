@@ -1,0 +1,451 @@
+"""Lyapunov stability verification on discretized state spaces.
+
+Counterpart of ``safe_learning_tpu/lyapunov.py``, part 1: the fused
+whole-grid sweep. The decrease condition for every grid point (policy,
+dynamics, possibly a GP posterior, Lyapunov values, Lipschitz threshold)
+runs on ``config.device`` in one pass, and the certified level ``c_max``
+comes from O(n) reductions, ``max{v < min v(failing)}``, not from a
+sorted scan.
+
+The JAX package's deliberate departures from the TF reference
+(``safe_learning_tpu/lyapunov.py:13-26``) hold here too:
+
+- if no state verifies, ``c_max`` is ``-inf``;
+- with ``can_shrink=False`` previously safe states are always kept;
+- states tied with the smallest failing value are excluded.
+
+Not ported yet (ROADMAP queue 1): adaptive refinement and the streamed
+sweep above ``config.fused_sweep_limit`` (item 12), the extended and
+hybrid sweeps (item 18), and meshes (item 23).
+"""
+
+from __future__ import annotations
+
+import warnings
+
+import numpy as np
+import torch
+
+from .config import config
+from .functions.base import Function, as_deterministic, as_tensor
+from .grids import GridWorld
+from .utils import tracked_mask
+
+__all__ = ["Lyapunov"]
+
+
+def _as_lipschitz(lip):
+    """Normalize a Lipschitz spec: a scalar stays a scalar, a callable
+    becomes a Function."""
+    if lip is None:
+        return None
+    if callable(lip) or isinstance(lip, Function):
+        return as_deterministic(lip)
+    return float(lip)
+
+
+def _eval_lipschitz(lip, states):
+    if isinstance(lip, Function) or callable(lip):
+        return lip(states)
+    return lip
+
+
+def _as_column_batch(lv):
+    """Normalize a local-Lipschitz evaluation to a per-state column.
+
+    ``(N,)`` means one constant per state and becomes ``(N, 1)``; a scalar
+    stays a number and broadcasts."""
+    if not torch.is_tensor(lv):
+        if np.ndim(lv) == 0:
+            return float(lv)
+        lv = as_tensor(lv)
+    if lv.ndim == 1:
+        return lv.reshape(-1, 1)
+    if lv.ndim == 0:
+        return lv.reshape(1, 1)
+    return lv
+
+
+def _lv_threshold_term(lipschitz_lyapunov, states):
+    """L_v factor of the threshold; vector-valued constants are reduced
+    with the L1 norm."""
+    lv = _eval_lipschitz(lipschitz_lyapunov, states)
+    if isinstance(lipschitz_lyapunov, Function) or callable(
+            lipschitz_lyapunov):
+        lv = _as_column_batch(lv)
+        if torch.is_tensor(lv) and lv.shape[1] > 1:
+            lv = lv.abs().sum(dim=1, keepdim=True)
+    return lv
+
+
+def _threshold(lipschitz_lyapunov, lipschitz_dynamics, states, tau):
+    """``-L_v (1 + L_f) tau``."""
+    lv = _lv_threshold_term(lipschitz_lyapunov, states)
+    lf = _eval_lipschitz(lipschitz_dynamics, states)
+    return -lv * (1.0 + lf) * tau
+
+
+def _confidence_bound(lipschitz_lyapunov, next_states):
+    """Split ``(mean, error)`` dynamics output into ``(mean, L_v error)``."""
+    if isinstance(next_states, (tuple, list)):
+        next_states, error = next_states
+        lv = _as_column_batch(_eval_lipschitz(lipschitz_lyapunov,
+                                              next_states))
+        return next_states, (lv * error).sum(dim=1, keepdim=True)
+    return next_states, 0.0
+
+
+def _decrease_bound(lyapunov_function, lipschitz_lyapunov, states,
+                    next_states):
+    """Upper confidence bound on ``v(f(x)) - v(x)``."""
+    next_states, bound = _confidence_bound(lipschitz_lyapunov, next_states)
+    v_decrease = (lyapunov_function(next_states).reshape(-1, 1)
+                  - lyapunov_function(states).reshape(-1, 1))
+    return v_decrease + bound
+
+
+def _margin_operand(margin, like):
+    """A scalar margin stays a number; a per-point ``(N,)`` margin becomes
+    an ``(N, 1)`` column in ``like``'s dtype and device."""
+    if np.ndim(margin) == 0:
+        return float(margin)
+    m = torch.as_tensor(np.asarray(margin), dtype=like.dtype,
+                        device=like.device)
+    return m.reshape(-1, 1)
+
+
+def _negative_batch(policy, dynamics, lyapunov_function, lipschitz_lyapunov,
+                    lipschitz_dynamics, tau, states, margin=0.0):
+    """Decrease-condition check for one batch of states.
+
+    Computes ``v(f(x, pi(x))) - v(x) + L_v sigma < -L_v (1 + L_f) tau -
+    margin``. Returns ``(negative, decrease, threshold)``, each ``(N,)``.
+    """
+    actions = policy(states)
+    next_states = dynamics(states, actions)
+    decrease = _decrease_bound(lyapunov_function, lipschitz_lyapunov,
+                               states, next_states)
+    threshold = _threshold(lipschitz_lyapunov, lipschitz_dynamics, states,
+                           tau)
+    negative = (decrease < threshold
+                - _margin_operand(margin, decrease)).squeeze(1)
+    return (negative, decrease.squeeze(1),
+            torch.as_tensor(threshold, dtype=decrease.dtype,
+                            device=decrease.device)
+            .broadcast_to(decrease.shape).squeeze(1))
+
+
+def _values_batch(fun, points):
+    """Evaluate a scalar function on a batch of points, flattened."""
+    return fun(points).reshape(-1)
+
+
+def _fused_update(policy, dynamics, lyapunov_function, lipschitz_lyapunov,
+                  lipschitz_dynamics, tau, points, exempt, margin=0.0,
+                  level_margin=0.0):
+    """Whole-grid safe-set update in one pass on the points' device.
+
+    Computes ``v`` on the grid, runs the decrease check for every point
+    and finds the certified level with O(n) reductions: the level-set
+    prefix in value order is unbroken exactly up to the smallest value
+    among failing states, so ``c_max = max{v(x) : v(x) < min v(failing)}``.
+    States tied with the smallest failing value are excluded.
+
+    Returns ``(safe_set, c_max, values, any_safe)`` as tensors.
+    """
+    values = lyapunov_function(points).reshape(-1)
+    actions = policy(points)
+    next_states, bound = _confidence_bound(lipschitz_lyapunov,
+                                           dynamics(points, actions))
+    decrease = (lyapunov_function(next_states).reshape(-1, 1)
+                - values.reshape(-1, 1) + bound)
+    threshold = _threshold(lipschitz_lyapunov, lipschitz_dynamics, points,
+                           tau)
+    negative = (decrease < threshold
+                - _margin_operand(margin, decrease)).squeeze(1)
+    eligible = negative | exempt
+
+    inf = torch.tensor(float("inf"), dtype=values.dtype,
+                       device=values.device)
+    v_bad = torch.where(eligible, inf, values).min()
+    # level_margin guards the value comparison as margin guards the
+    # decrease comparison (see oracle.calibrate_certificate_margin).
+    safe_set = values < v_bad - level_margin
+    any_safe = safe_set.any()
+    c_max = torch.where(any_safe,
+                        torch.where(safe_set, values, -inf).max(), -inf)
+    return safe_set, c_max, values, any_safe
+
+
+class Lyapunov:
+    """A Lyapunov function certificate over a discretized domain.
+
+    Parameters are those of ``safe_learning_tpu.Lyapunov``:
+
+    Parameters
+    ----------
+    discretization : GridWorld
+    lyapunov_function : Function or callable
+        The candidate ``v(x)``.
+    dynamics : Function or callable
+        Closed-form or uncertain dynamics; uncertain dynamics return
+        ``(mean, error_bound)`` tuples.
+    lipschitz_dynamics : float or callable
+        Closed-loop Lipschitz constant of the dynamics.
+    lipschitz_lyapunov : float or callable
+        Lipschitz constant of ``v`` (global or local).
+    tau : float
+        Discretization constant.
+    policy : Function or callable
+    initial_set : ndarray or index list, optional
+        States known to be safe a priori.
+    adaptive : bool, optional
+        Must be False: adaptive refinement is not ported yet.
+    mesh : optional
+        Must be None: meshes are not ported yet.
+    certificate_margin : float, optional
+        Absolute conservatism margin of the decrease check; ``None`` reads
+        ``config.certificate_margin`` at each sweep.
+    """
+
+    def __init__(self, discretization, lyapunov_function, dynamics,
+                 lipschitz_dynamics, lipschitz_lyapunov, tau, policy,
+                 initial_set=None, adaptive=False, mesh=None,
+                 certificate_margin=None):
+        if not isinstance(discretization, GridWorld):
+            raise TypeError("discretization must be a GridWorld")
+        if adaptive:
+            raise NotImplementedError(
+                "adaptive refinement is ROADMAP queue 1 item 12 "
+                "(lyapunov.py, part 2)")
+        if mesh is not None:
+            raise NotImplementedError(
+                "meshes are ROADMAP queue 1 item 23 (parallel)")
+        self.discretization = discretization
+        self.mesh = None
+        self.adaptive = False
+        self.policy = as_deterministic(policy)
+        self.dynamics = dynamics if isinstance(dynamics, Function) \
+            else as_deterministic(dynamics)
+        self.lyapunov_function = as_deterministic(lyapunov_function)
+        self.tau = float(tau)
+        self.certificate_margin = certificate_margin
+        self._level_margin = None
+        #: Unit roundoff the installed margin was derived at (None: an
+        #: empirical or manual margin).
+        self._certificate_margin_unit = None
+
+        self._lipschitz_dynamics = _as_lipschitz(lipschitz_dynamics)
+        self._lipschitz_lyapunov = _as_lipschitz(lipschitz_lyapunov)
+
+        nindex = discretization.nindex
+        self._safe_set_version = 0
+        self._initial_set_version = 0
+        self.safe_set = np.zeros(nindex, dtype=bool)
+        self.initial_safe_set = None
+        if initial_set is not None:
+            mask = np.zeros(nindex, dtype=bool)
+            mask[np.asarray(initial_set)] = True
+            self.initial_safe_set = mask
+            self.safe_set |= mask
+
+        self.c_max = 0.0
+        self.values = None
+        self._refinement = np.zeros(nindex, dtype=int)
+        if self.initial_safe_set is not None:
+            self._refinement[self.initial_safe_set] = 1
+        self.update_values()
+
+    # ------------------------------------------------------------------
+    @property
+    def safe_set(self):
+        """Boolean mask of certified-safe grid states (host
+        :class:`~safe_learning_tpu_torch.utils.TrackedMask`)."""
+        return self._safe_set
+
+    @safe_set.setter
+    def safe_set(self, value):
+        """Set the safe set and bump its version counter."""
+        self._safe_set = tracked_mask(value)
+        self._safe_set_version += 1
+
+    @property
+    def initial_safe_set(self):
+        """States safe a priori (exempt from the decrease check)."""
+        return self._initial_safe_set
+
+    @initial_safe_set.setter
+    def initial_safe_set(self, value):
+        """Set the initial set and bump its version counter."""
+        self._initial_safe_set = (None if value is None
+                                  else tracked_mask(value))
+        self._initial_set_version += 1
+
+    @property
+    def certificate_margin(self):
+        """Active conservatism margin of the decrease check.
+
+        The per-instance value when one was set, else
+        ``config.certificate_margin``. A scalar, or a per-grid-point
+        ``(nindex,)`` array.
+        """
+        if self._certificate_margin is not None:
+            return self._certificate_margin
+        return float(config.certificate_margin)
+
+    @certificate_margin.setter
+    def certificate_margin(self, value):
+        """Set (or with ``None`` clear) the per-instance margin."""
+        if value is None:
+            self._certificate_margin = None
+        elif np.ndim(value):
+            arr = np.asarray(value, dtype=np.float64)
+            if arr.shape != (self.discretization.nindex,):
+                raise ValueError(
+                    "per-point certificate_margin must be a "
+                    "(nindex,) array in grid order")
+            self._certificate_margin = arr
+        else:
+            self._certificate_margin = float(value)
+        self._certificate_margin_unit = None
+
+    @property
+    def level_margin(self):
+        """Conservatism margin of the level comparison ``v < v_bad``."""
+        if self._level_margin is not None:
+            return self._level_margin
+        return float(config.level_margin)
+
+    @level_margin.setter
+    def level_margin(self, value):
+        """Set (or with ``None`` clear) the per-instance level margin."""
+        self._level_margin = None if value is None else float(value)
+
+    def _require_f32_margin(self):
+        """Refuse a margin derived at a finer unit roundoff than the
+        sweep's working dtype (it could not cover the sweep's rounding)."""
+        unit = self._certificate_margin_unit
+        consumer = float(torch.finfo(config.dtype).eps) / 2
+        if unit is not None and unit < consumer:
+            raise RuntimeError(
+                "certificate_margin was derived at unit roundoff "
+                f"{unit:.2e}; it cannot cover the plain sweep's rounding "
+                f"at unit {consumer:.2e}")
+
+    def threshold(self, states, tau=None):
+        """Safety threshold ``-L_v (1 + L_f) tau``."""
+        tau = self.tau if tau is None else tau
+        return _threshold(self._lipschitz_lyapunov,
+                          self._lipschitz_dynamics, as_tensor(states), tau)
+
+    def is_safe(self, state):
+        """Whether states lie in the current safe set."""
+        idx = self.discretization.state_to_index(state).cpu().numpy()
+        return self.safe_set[idx]
+
+    def _device_points(self):
+        """Copy of the grid on ``config.device``, cached per device and
+        dtype."""
+        pts = getattr(self, "_points_dev", None)
+        if (pts is None or pts.device != config.device
+                or pts.dtype != config.dtype):
+            pts = as_tensor(self.discretization.all_points)
+            self._points_dev = pts
+        return pts
+
+    def _fused_limit(self, batch_size):
+        batch = batch_size or max(int(config.gp_batch_size), 1)
+        return max(batch, int(config.fused_sweep_limit))
+
+    def update_values(self, batch_size=None):
+        """Re-evaluate ``v`` on the whole grid (kept on the device)."""
+        if (batch_size is not None
+                or self.discretization.nindex > self._fused_limit(None)):
+            raise NotImplementedError(
+                "the streamed sweep is ROADMAP queue 1 item 12 "
+                "(lyapunov.py, part 2)")
+        self.values = _values_batch(self.lyapunov_function,
+                                    self._device_points())
+
+    def update_safe_set(self, can_shrink=True, max_refinement=1,
+                        safety_factor=1.0, parallel_iterations=None,
+                        batch_size=None, extended=False):
+        """Compute the largest certified level set and update ``safe_set``.
+
+        Runs the fused whole-grid sweep (:func:`_fused_update`).
+        ``parallel_iterations`` and ``safety_factor`` are accepted for API
+        compatibility and have no effect (a non-default value warns).
+        Grids above ``config.fused_sweep_limit`` and ``extended`` sweeps
+        are not ported yet and raise ``NotImplementedError``.
+        """
+        if safety_factor != 1.0 or parallel_iterations is not None:
+            warnings.warn(
+                "safety_factor/parallel_iterations are accepted for "
+                "reference-API compatibility but have no effect",
+                RuntimeWarning, stacklevel=2)
+        if extended not in (False, True, "hybrid"):
+            raise ValueError(
+                "extended must be False, True, or 'hybrid'; got "
+                f"{extended!r}")
+        if extended:
+            raise NotImplementedError(
+                "the extended and hybrid sweeps are ROADMAP queue 1 "
+                "item 18")
+        if max_refinement != 1:
+            raise NotImplementedError(
+                "adaptive refinement is ROADMAP queue 1 item 12 "
+                "(lyapunov.py, part 2)")
+        self._require_f32_margin()
+        if self.discretization.nindex > self._fused_limit(batch_size):
+            raise NotImplementedError(
+                "the streamed sweep is ROADMAP queue 1 item 12 "
+                "(lyapunov.py, part 2)")
+        self._update_safe_set_fused(can_shrink)
+
+    def _update_safe_set_fused(self, can_shrink):
+        """Whole-grid single-pass path."""
+        nindex = self.discretization.nindex
+        initial = (self.initial_safe_set
+                   if self.initial_safe_set is not None
+                   else np.zeros(nindex, dtype=bool))
+        # Plain copies: TrackedMask.copy() shares the counter.
+        prev_safe = np.array(self.safe_set)
+        exempt = np.array(initial)
+        if not can_shrink:
+            exempt |= prev_safe
+
+        points = self._device_points()
+        # With can_shrink the exempt mask is just the initial set; keep
+        # its device copy until that mask changes.
+        key = (id(self.initial_safe_set), self._initial_set_version,
+               getattr(self.initial_safe_set, "mutations", None),
+               points.device)
+        exempt_dev = (getattr(self, "_exempt_dev", None)
+                      if can_shrink and getattr(self, "_exempt_key",
+                                                None) == key
+                      else None)
+        if exempt_dev is None:
+            exempt_dev = torch.as_tensor(exempt, device=points.device)
+            if can_shrink:
+                self._exempt_dev = exempt_dev
+                self._exempt_key = key
+
+        safe_dev, c_max, values, _ = _fused_update(
+            self.policy, self.dynamics, self.lyapunov_function,
+            self._lipschitz_lyapunov, self._lipschitz_dynamics, self.tau,
+            points, exempt_dev, self.certificate_margin, self.level_margin)
+
+        # Values stay on the device; c_max is -inf when nothing verifies.
+        self.values = values
+        safe = safe_dev.cpu().numpy()
+        self.c_max = float(c_max)
+        refinement = np.where(safe, 1, 0)
+        if not can_shrink:
+            safe |= prev_safe
+            keep = prev_safe & (refinement == 0)
+            refinement[keep] = np.maximum(self._refinement[keep], 1)
+        if self.initial_safe_set is not None:
+            safe |= initial
+            refinement[initial] = np.maximum(refinement[initial], 1)
+        self.safe_set = safe
+        self._refinement = refinement

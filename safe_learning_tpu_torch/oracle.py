@@ -1,0 +1,210 @@
+"""Float64 oracle evaluation and conservative-certificate calibration.
+
+Counterpart of ``safe_learning_tpu/oracle.py``, part 1. A verification
+sweep in float32 could certify a grid point whose exact decrease margin
+lies inside the float32 noise band. So the sweep certifies only
+``decrease < threshold - margin``, with a margin measured here:
+
+- :func:`oracle_margins` evaluates the decrease-condition margin of a
+  Lyapunov instance in float64 on the CPU, with the same model
+  parameters the working-dtype pipeline uses (tensors widened exactly;
+  Gaussian processes rebuilt in float64 from their raw data);
+- :func:`calibrate_certificate_margin` measures the worst difference
+  between the working-dtype sweep and the oracle on a grid subsample and
+  installs ``safety`` times it.
+
+Not ported yet: ``calibrate_extended_margin`` (ROADMAP queue 1 item 19).
+"""
+
+from __future__ import annotations
+
+import contextlib
+import copy
+
+import numpy as np
+import torch
+
+from .config import config
+from .functions import gp as gp_mod
+from .functions.base import Function
+from .lyapunov import (_decrease_bound, _negative_batch, _threshold,
+                       _values_batch)
+
+__all__ = ["lift64", "oracle_margins", "oracle_safe_set",
+           "calibrate_certificate_margin"]
+
+
+@contextlib.contextmanager
+def _oracle_env():
+    """Float64 working dtype on the CPU for the duration of the block."""
+    dtype, device = config.dtype, config.device
+    config.dtype = torch.float64
+    config.device = "cpu"
+    try:
+        yield
+    finally:
+        config.dtype = dtype
+        config.device = device
+
+
+def lift64(fn):
+    """Float64 CPU copy of a function or kernel object.
+
+    Every floating tensor is widened exactly, so the copy computes the
+    exact-arithmetic value of the same model the working-dtype pipeline
+    evaluates. Gaussian processes are rebuilt from their raw data and
+    widened hyperparameters, through the same host island as any GP, so a
+    GP and its float64 copy share their factors bit for bit. Callables
+    inside :class:`LambdaFunction` are kept as they are (they must work
+    on float64 CPU tensors).
+    """
+    if fn is None or isinstance(fn, (int, float)):
+        return fn
+    if isinstance(fn, gp_mod.GaussianProcess):
+        with _oracle_env():
+            return gp_mod.GaussianProcess(
+                lift64(fn.kernel), fn.X.astype(np.float64),
+                fn.Y.astype(np.float64), float(fn.noise_variance),
+                beta=fn.beta, mean_function=lift64(fn.mean_function),
+                capacity=fn.capacity, scale=fn.scale)
+    if not isinstance(fn, (Function, gp_mod.Kernel)):
+        raise TypeError("lift64 takes a Function or a Kernel, not "
+                        "{}".format(type(fn).__name__))
+    new = copy.copy(fn)
+    for name, value in vars(fn).items():
+        if torch.is_tensor(value) and value.is_floating_point():
+            setattr(new, name, value.detach().to("cpu", torch.float64))
+        elif isinstance(value, (Function, gp_mod.Kernel)):
+            setattr(new, name, lift64(value))
+    return new
+
+
+def _host(states):
+    if torch.is_tensor(states):
+        return states.detach().cpu().numpy()
+    return np.asarray(states)
+
+
+def oracle_margins(lyapunov, states, tau=None):
+    """Exact-arithmetic margins ``decrease - threshold`` at ``states``.
+
+    Runs the whole decrease-condition pipeline of the given
+    :class:`~safe_learning_tpu_torch.Lyapunov` in float64 on the CPU.
+    Negative means the point passes the exact check. ``tau`` overrides the
+    instance's discretization constant. Returns a float64 numpy array.
+    """
+    tau = lyapunov.tau if tau is None else tau
+    policy = lift64(lyapunov.policy)
+    dynamics = lift64(lyapunov.dynamics)
+    v_fun = lift64(lyapunov.lyapunov_function)
+    lip_v = lift64(lyapunov._lipschitz_lyapunov)
+    lip_f = lift64(lyapunov._lipschitz_dynamics)
+    with _oracle_env():
+        points = torch.as_tensor(_host(states), dtype=torch.float64)
+        next_states = dynamics(points, policy(points))
+        decrease = _decrease_bound(v_fun, lip_v, points, next_states)
+        threshold = _threshold(lip_v, lip_f, points, tau)
+        margins = decrease - torch.as_tensor(
+            threshold, dtype=torch.float64).broadcast_to(decrease.shape)
+    return margins.numpy().ravel()
+
+
+def _oracle_values(lyapunov, points):
+    """Float64 Lyapunov values at ``points``."""
+    v_fun = lift64(lyapunov.lyapunov_function)
+    with _oracle_env():
+        pts = torch.as_tensor(_host(points), dtype=torch.float64)
+        return v_fun(pts).reshape(-1).numpy()
+
+
+def oracle_safe_set(lyapunov):
+    """Exact-arithmetic certified level set of a Lyapunov instance.
+
+    The construction of a fresh ``update_safe_set`` (decrease check,
+    initial-set exemption, ``v_bad = min v(failing)`` level cut) entirely
+    in float64. Returns ``(safe_set, c_max)`` with the initial set OR-ed
+    in, as the sweep does.
+    """
+    grid = lyapunov.discretization
+    points = grid.all_points
+    margins = oracle_margins(lyapunov, points)
+    values = _oracle_values(lyapunov, points)
+    negative = margins < 0.0
+    exempt = (np.asarray(lyapunov.initial_safe_set, dtype=bool)
+              if lyapunov.initial_safe_set is not None
+              else np.zeros(grid.nindex, dtype=bool))
+    eligible = negative | exempt
+    v_bad = np.inf if eligible.all() else values[~eligible].min()
+    safe = values < v_bad
+    c_max = float(values[safe].max()) if safe.any() else -np.inf
+    safe |= exempt
+    return safe, c_max
+
+
+def calibrate_certificate_margin(lyapunov, num_samples=4096, safety=2.0,
+                                 rng=None, set_margin=True, refinement=1):
+    """Measure the working-dtype pipeline error; install a dominating margin.
+
+    Compares the working-dtype decrease margins on ``config.device``
+    against the float64 oracle on a random grid subsample (drawn as the
+    JAX package draws it) and returns ``safety * max |margin - margin64|``.
+
+    Parameters
+    ----------
+    lyapunov : Lyapunov
+    num_samples : int, optional
+        Grid subsample size (the full grid is used when smaller).
+    safety : float, optional
+        Multiplier on the measured worst-case error.
+    rng : numpy Generator, optional
+    set_margin : bool, optional
+        Install the results as ``lyapunov.certificate_margin`` and
+        ``lyapunov.level_margin``.
+    refinement : int, optional
+        Must be 1: margins for adaptive sweeps are not ported yet.
+    """
+    if int(refinement) != 1:
+        raise NotImplementedError(
+            "refined calibration belongs to adaptive refinement, ROADMAP "
+            "queue 1 item 12")
+    rng = np.random.default_rng(0) if rng is None else rng
+    grid = lyapunov.discretization
+    if grid.nindex > num_samples:
+        idx = rng.choice(grid.nindex, size=num_samples, replace=False)
+        pts = grid.all_points[np.sort(idx)]
+    else:
+        pts = grid.all_points
+    pts = np.array(pts, dtype=config.np_dtype)
+
+    states = torch.as_tensor(pts, dtype=config.dtype, device=config.device)
+    _, dec, thr = _negative_batch(
+        lyapunov.policy, lyapunov.dynamics, lyapunov.lyapunov_function,
+        lyapunov._lipschitz_lyapunov, lyapunov._lipschitz_dynamics,
+        lyapunov.tau, states)
+    margins = (dec.cpu().numpy().astype(np.float64)
+               - thr.cpu().numpy().astype(np.float64))
+    err = float(np.max(np.abs(margins - oracle_margins(lyapunov, pts))))
+    margin = float(safety) * err
+    level_margin = _measured_level_margin(lyapunov, pts, safety)
+    if set_margin:
+        lyapunov.certificate_margin = margin
+        lyapunov.level_margin = level_margin
+    return margin
+
+
+def _measured_level_margin(lyapunov, pts, safety):
+    """Companion margin of the level cut.
+
+    The cut compares working-dtype Lyapunov values, so containment also
+    needs ``level_margin >= 2 * max |v - v64|`` (one delta for the cut
+    value, one for the compared state), floored at a few ULPs of the value
+    scale so that exact ties at the cut are excluded.
+    """
+    states = torch.as_tensor(pts, dtype=config.dtype, device=config.device)
+    v_dev = _values_batch(lyapunov.lyapunov_function,
+                          states).cpu().numpy().astype(np.float64)
+    v64 = _oracle_values(lyapunov, pts)
+    delta_v = float(np.max(np.abs(v_dev - v64)))
+    v_scale = float(np.max(np.abs(v64))) or 1.0
+    eps = float(np.finfo(config.np_dtype).eps)
+    return max(2.0 * float(safety) * delta_v, 4.0 * eps * v_scale)

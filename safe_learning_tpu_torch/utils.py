@@ -1,0 +1,74 @@
+"""Utilities: the mutation-tracked boolean mask behind ``Lyapunov.safe_set``.
+
+Counterpart of ``safe_learning_tpu/utils.py:34-106``; the rest of that
+module is not ported yet.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+__all__ = ["TrackedMask", "tracked_mask"]
+
+
+class TrackedMask(np.ndarray):
+    """Count in-place mutations of an ndarray view of a boolean mask.
+
+    :class:`~safe_learning_tpu_torch.lyapunov.Lyapunov` stores its safe and
+    initial masks as this view so device-resident copies can key on
+    ``(id, version, mutations)`` and never serve a stale mask after item or
+    slice assignment or an in-place logical op through an alias. The
+    counter cell is shared with every view, so mutation through a view
+    still invalidates the parent's caches.
+
+    Escape hatches that bypass tracking: ``np.asarray(mask)`` strips the
+    subclass but views the same buffer, and raw-buffer mutators
+    (``mask.fill``, ``np.put``) do not go through ``__setitem__``.
+    """
+
+    def __array_finalize__(self, obj):
+        """Share the mutation-counter cell with the source view."""
+        cell = getattr(obj, "_mut_cell", None)
+        self._mut_cell = cell if cell is not None else [0]
+
+    @property
+    def mutations(self):
+        """Count of tracked in-place mutations (shared across views)."""
+        return self._mut_cell[0]
+
+    def _bump(self):
+        self._mut_cell[0] += 1
+
+    def __setitem__(self, key, value):
+        """Assign items/slices, counting the mutation."""
+        super().__setitem__(key, value)
+        self._bump()
+
+    def __ior__(self, other):
+        """In-place OR, counting the mutation."""
+        out = super().__ior__(other)
+        self._bump()
+        return out
+
+    def __iand__(self, other):
+        """In-place AND, counting the mutation."""
+        out = super().__iand__(other)
+        self._bump()
+        return out
+
+    def __ixor__(self, other):
+        """In-place XOR, counting the mutation."""
+        out = super().__ixor__(other)
+        self._bump()
+        return out
+
+
+def tracked_mask(value):
+    """Return ``value`` as a :class:`TrackedMask`.
+
+    Other inputs are copied, so the caller's own reference is never an
+    untracked alias; an existing :class:`TrackedMask` passes through.
+    """
+    if isinstance(value, TrackedMask):
+        return value
+    return np.array(value, copy=True).view(TrackedMask)
