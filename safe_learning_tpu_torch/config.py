@@ -44,12 +44,13 @@ class Configuration:
         Default conservatism margins for the decrease and level
         comparisons (see ``safe_learning_tpu/config.py:65-79``).
     use_kernels : bool
-        Route the stationary GP predict through the hand-written kernel
-        (``ops/gp_kernel.py``). On a CPU tensor that route is the kernel's
-        plain PyTorch version.
+        Route the GP predicts through the hand-written kernels
+        (``ops/gp_kernel.py``). On a CPU tensor that route is each
+        kernel's plain PyTorch version.
     kernel_max_capacity : int
-        Largest GP data capacity routed through the kernel; larger GPs take
-        the plain matmul chain.
+        Largest GP data capacity routed through the kernels (a stack of S
+        GPs when ``S * capacity**2 <= kernel_max_capacity**2``); larger
+        GPs take the plain matmul chain.
     """
 
     def __init__(self):

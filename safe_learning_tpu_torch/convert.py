@@ -14,12 +14,15 @@ from __future__ import annotations
 
 import numpy as np
 
+from .dynamics import InvertedPendulum
 from .functions import gp as gp_mod
-from .functions.base import as_tensor
+from .functions.base import Saturation, as_tensor
 from .functions.linear import LinearSystem, QuadraticFunction
 
 __all__ = ["linear_system", "quadratic_function", "stationary_kernel",
-           "gaussian_process"]
+           "linear_kernel", "active_dims", "sum_kernel", "product_kernel",
+           "saturation", "inverted_pendulum", "gaussian_process",
+           "stacked_gaussian_process"]
 
 _KERNELS = {"rbf": gp_mod.RBF, "matern12": gp_mod.Matern12,
             "matern32": gp_mod.Matern32, "matern52": gp_mod.Matern52}
@@ -40,6 +43,45 @@ def stationary_kernel(kind, variance, lengthscales):
     ``"matern52"``) from its variance and per-dimension lengthscales."""
     ls = np.atleast_1d(np.asarray(lengthscales))
     return _KERNELS[kind](np.asarray(variance), ls, input_dim=len(ls))
+
+
+def linear_kernel(variances):
+    """``LinearKernel`` from its per-dimension variances."""
+    v = np.atleast_1d(np.asarray(variances))
+    return gp_mod.LinearKernel(v, input_dim=len(v))
+
+
+def active_dims(kernel, dims):
+    """``ActiveDims`` of a converted kernel over the input columns
+    ``dims``."""
+    return gp_mod.ActiveDims(kernel, dims)
+
+
+def sum_kernel(k1, k2):
+    """``SumKernel`` of two converted kernels."""
+    return gp_mod.SumKernel(k1, k2)
+
+
+def product_kernel(k1, k2):
+    """``ProductKernel`` of two converted kernels."""
+    return gp_mod.ProductKernel(k1, k2)
+
+
+def saturation(fun, lower, upper):
+    """``Saturation`` of a converted function between its bounds."""
+    lower, upper = np.asarray(lower), np.asarray(upper)
+    if lower.ndim == 0 and upper.ndim == 0:
+        lower, upper = float(lower), float(upper)
+    return Saturation(fun, lower, upper)
+
+
+def inverted_pendulum(mass, length, friction, dt, tx=None, tu=None):
+    """``InvertedPendulum`` from its parameters; ``tx`` and ``tu`` are the
+    normalization, or ``None``."""
+    norm = None if tx is None else (np.asarray(tx), np.asarray(tu))
+    return InvertedPendulum(float(np.asarray(mass)), float(np.asarray(
+        length)), float(np.asarray(friction)), float(dt),
+        normalization=norm)
 
 
 def gaussian_process(kernel, x, y, noise_variance, beta, scale, capacity,
@@ -70,4 +112,36 @@ def gaussian_process(kernel, x, y, noise_variance, beta, scale, capacity,
         gp.chol_inv = as_tensor(np.ascontiguousarray(adopt["chol_inv"]))
         gp.alpha = as_tensor(np.ascontiguousarray(adopt["alpha"]))
         gp._host_cache = None
+    return gp
+
+
+def stacked_gaussian_process(kernels, x, y, noise_variances, betas, scale,
+                             capacity, mean_functions=None, adopt=None):
+    """``StackedGaussianProcess`` from its data and hyperparameters.
+
+    Parameters
+    ----------
+    kernels : Kernels of the port, one per output
+    x, y : active training inputs and outputs (one column per kernel)
+    noise_variances, betas, scale, capacity : as the JAX stack holds them
+    mean_functions : Functions of the port (or ``None``), optional
+    adopt : dict, optional
+        ``chol_inv`` ``(S, cap, cap)``, ``alpha`` ``(S, cap, 1)``,
+        ``X_buf`` and ``count`` of the JAX stack. When given, they replace
+        the port's own factorizations.
+    """
+    gp = gp_mod.StackedGaussianProcess(
+        kernels, np.asarray(x), np.asarray(y), np.asarray(noise_variances),
+        betas=np.asarray(betas), mean_functions=mean_functions,
+        capacity=int(capacity), scale=float(scale))
+    if adopt is not None:
+        x_buf = np.asarray(adopt["X_buf"])
+        if x_buf.shape != tuple(gp.X_buf.shape):
+            raise ValueError("adopted X_buf has shape {}, the stack {}"
+                             .format(x_buf.shape, tuple(gp.X_buf.shape)))
+        gp.X_buf = as_tensor(np.ascontiguousarray(x_buf))
+        gp.count = int(adopt["count"])
+        gp.chol_inv = as_tensor(np.ascontiguousarray(adopt["chol_inv"]))
+        gp.alpha = as_tensor(np.ascontiguousarray(adopt["alpha"]))
+        gp._host_caches = None
     return gp

@@ -18,7 +18,7 @@
 // triangular a = L^-1 k, and 128 * (p + 1) FMAs for the reductions, while
 // it moves 20 bytes (3 coordinates in, 2 means and 1 variance out, f32).
 // So it is bound by arithmetic and by the loads that feed the FMAs, not
-// by device memory. The design for that:
+// by device memory. The design for that (gp_predict_common.cuh):
 //   - one query per thread; k (cap values per thread) is computed once
 //     into shared memory when cap <= CB_MAX and read back conflict-free
 //     (layout [j][thread]);
@@ -39,86 +39,20 @@
 // No fast-math: exp is expf/exp, as the certificate margins measure the
 // pipeline's rounding with the library exp.
 
-#include <cstdint>
-#include <cuda_runtime.h>
+#include "gp_predict_common.cuh"
 
 namespace {
 
-constexpr int NT = 128;      // threads (queries) per block
-constexpr int RB = 32;       // rows of a held in registers at a time
-constexpr int CB_MAX = 128;  // k columns staged in shared memory
-constexpr int D_MAX = 16;    // largest input dimension
-constexpr int P_MAX = 8;     // largest number of outputs
+using namespace gp_common;
 
 enum Kind { RBF = 0, MATERN12 = 1, MATERN32 = 2, MATERN52 = 3 };
 
-__device__ __forceinline__ float dev_exp(float v) { return expf(v); }
-__device__ __forceinline__ double dev_exp(double v) { return exp(v); }
-__device__ __forceinline__ float dev_sqrt(float v) { return sqrtf(v); }
-__device__ __forceinline__ double dev_sqrt(double v) { return sqrt(v); }
-
-// The formulas of STATIONARY_COVARIANCES (functions/gp.py), 1e-36 guards
-// included.
 template <typename T, int KIND>
 __device__ __forceinline__ T covariance(T r2) {
-  if (KIND == RBF) {
-    return dev_exp(T(-0.5) * r2);
-  } else if (KIND == MATERN12) {
-    return dev_exp(-dev_sqrt(r2 + T(1e-36)));
-  } else if (KIND == MATERN32) {
-    T r = dev_sqrt(T(3) * r2 + T(1e-36));
-    return (T(1) + r) * dev_exp(-r);
-  } else {
-    T r = dev_sqrt(T(5) * r2 + T(1e-36));
-    return (T(1) + r + r * r / T(3)) * dev_exp(-r);
-  }
-}
-
-// k_j for j in [j0, j0 + jn) of this thread's query, into ks[(j - j0)][tid].
-template <typename T, int KIND>
-__device__ __forceinline__ void compute_k(T* ks, const T* __restrict__ x,
-                                          const T* __restrict__ mask,
-                                          const T (&qv)[D_MAX], int d,
-                                          T var_s2, int j0, int jn) {
-  for (int j = 0; j < jn; ++j) {
-    const T* xj = x + (int64_t)(j0 + j) * d;
-    T r2 = T(0);
-#pragma unroll
-    for (int c = 0; c < D_MAX; ++c) {
-      if (c < d) {
-        T diff = __ldg(xj + c) - qv[c];
-        r2 = r2 + diff * diff;
-      }
-    }
-    ks[j * NT + threadIdx.x] =
-        covariance<T, KIND>(r2) * var_s2 * __ldg(mask + j0 + j);
-  }
-}
-
-// Row stride of the staged chol_inv tile: RB values plus 16 bytes, so a
-// column of the tile is one run of 16-byte-aligned vector loads and the
-// transposing stores spread over several banks.
-template <typename T>
-__host__ __device__ constexpr int tile_stride() {
-  return RB + 16 / (int)sizeof(T);
-}
-
-template <typename T> struct Vec16;
-template <> struct Vec16<float> { using type = float4; };
-template <> struct Vec16<double> { using type = double2; };
-
-// acc[base + i] += w_i * kj for the lanes of one 16-byte vector.
-__device__ __forceinline__ void fma_vec(float (&acc)[RB], int base,
-                                        float4 w, float kj) {
-  acc[base] += w.x * kj;
-  acc[base + 1] += w.y * kj;
-  acc[base + 2] += w.z * kj;
-  acc[base + 3] += w.w * kj;
-}
-__device__ __forceinline__ void fma_vec(double (&acc)[RB], int base,
-                                        double2 w, double kj) {
-  acc[base] += w.x * kj;
-  acc[base + 1] += w.y * kj;
+  if (KIND == RBF) return cov_rbf(r2);
+  if (KIND == MATERN12) return cov_matern12(r2);
+  if (KIND == MATERN32) return cov_matern32(r2);
+  return cov_matern52(r2);
 }
 
 template <typename T, int KIND>
@@ -129,77 +63,34 @@ gp_predict_kernel(const T* __restrict__ q, const T* __restrict__ x,
                   const T* __restrict__ var_s2_ptr, int64_t n_q, int d,
                   int cap, int p, int cb, T* __restrict__ mean_out,
                   T* __restrict__ var_out) {
-  using V = typename Vec16<T>::type;
-  constexpr int LS = tile_stride<T>();
-  constexpr int VN = 16 / (int)sizeof(T);  // lanes per vector
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* ks = reinterpret_cast<T*>(smem_raw);  // [cb][NT]: k per thread
   T* ls = ks + (int64_t)cb * NT;           // [cb][LS]: chol_inv tile^T
 
-  const int tid = threadIdx.x;
-  const int64_t qi = (int64_t)blockIdx.x * NT + tid;
-  const bool live = qi < n_q;
-  // Threads past the ragged end compute on the last query and store
-  // nothing: every thread takes part in staging the shared tiles.
-  const int64_t qrow = live ? qi : n_q - 1;
+  T qv[D_MAX];
+  int64_t qi;
+  bool live;
+  load_query(q, n_q, d, qv, qi, live);
   const T var_s2 = *var_s2_ptr;
 
-  T qv[D_MAX];
+  auto kfn = [&](int j) -> T {
+    const T* xj = x + (int64_t)j * d;
+    T r2 = T(0);
 #pragma unroll
-  for (int c = 0; c < D_MAX; ++c) qv[c] = c < d ? q[qrow * d + c] : T(0);
+    for (int c = 0; c < D_MAX; ++c) {
+      if (c < d) {
+        T diff = __ldg(xj + c) - qv[c];
+        r2 = r2 + diff * diff;
+      }
+    }
+    return covariance<T, KIND>(r2) * var_s2 * __ldg(mask + j);
+  };
 
   T macc[P_MAX];
 #pragma unroll
   for (int c = 0; c < P_MAX; ++c) macc[c] = T(0);
   T vacc = T(0);
-
-  const bool staged = cap <= cb;
-  if (staged) compute_k<T, KIND>(ks, x, mask, qv, d, var_s2, 0, cap);
-
-  for (int r0 = 0; r0 < cap; r0 += RB) {
-    const int nr = min(RB, cap - r0);
-    const int row_end = r0 + nr;
-    T acc[RB];
-#pragma unroll
-    for (int r = 0; r < RB; ++r) acc[r] = T(0);
-
-    // Columns 0 .. row_end-1: everything right of the block is zero.
-    for (int j0 = 0; j0 < row_end; j0 += cb) {
-      const int jn = min(cb, row_end - j0);
-      __syncthreads();  // the previous tile has been read
-      // Stage rows r0..r0+RB, columns j0..j0+jn of chol_inv, transposed
-      // (ls[j][r]); reads along a row are coalesced, rows past cap are 0.
-      for (int idx = tid; idx < RB * jn; idx += NT) {
-        const int r = idx / jn;
-        const int j = idx - r * jn;
-        ls[j * LS + r] =
-            r < nr ? chol_inv[(int64_t)(r0 + r) * cap + j0 + j] : T(0);
-      }
-      if (!staged) compute_k<T, KIND>(ks, x, mask, qv, d, var_s2, j0, jn);
-      __syncthreads();
-
-      const T* kcol = staged ? ks + (int64_t)j0 * NT : ks;
-      for (int j = 0; j < jn; ++j) {
-        const T kj = kcol[j * NT + tid];
-        const V* lcol = reinterpret_cast<const V*>(ls + j * LS);
-#pragma unroll
-        for (int v = 0; v < RB / VN; ++v) fma_vec(acc, v * VN, lcol[v], kj);
-      }
-    }
-
-#pragma unroll
-    for (int r = 0; r < RB; ++r) {
-      if (r < nr) {
-        const T a = acc[r];
-        vacc += a * a;
-        const T* arow = alpha + (int64_t)(r0 + r) * p;
-#pragma unroll
-        for (int c = 0; c < P_MAX; ++c) {
-          if (c < p) macc[c] += a * __ldg(arow + c);
-        }
-      }
-    }
-  }
+  solve_and_reduce(ks, ls, kfn, chol_inv, alpha, cap, p, cb, macc, vacc);
 
   if (!live) return;
 #pragma unroll
@@ -215,7 +106,7 @@ cudaError_t launch_kind(const T* q, const T* x, const T* chol_inv,
                         int64_t n_q, int d, int cap, int p, T* mean_out,
                         T* var_out, cudaStream_t stream) {
   const int cb = cap < CB_MAX ? cap : CB_MAX;
-  const size_t smem = (size_t)cb * (NT + tile_stride<T>()) * sizeof(T);
+  const size_t smem = smem_bytes<T>(cb);
   // Above 48 KB a launch is refused unless the kernel opts in.
   cudaError_t err = cudaFuncSetAttribute(
       gp_predict_kernel<T, KIND>,

@@ -23,8 +23,8 @@ from ..config import config
 __all__ = [
     "Function", "DeterministicFunction", "UncertainFunction",
     "ConstantFunction", "AddedFunction", "MultipliedFunction",
-    "MeanFunction", "LambdaFunction", "as_deterministic",
-    "concatenate_inputs", "as_tensor",
+    "MeanFunction", "Saturation", "FunctionStack", "LambdaFunction",
+    "as_deterministic", "concatenate_inputs", "as_tensor",
 ]
 
 
@@ -175,6 +175,68 @@ class MultipliedFunction(Function):
     def evaluate(self, points):
         """Evaluate the function at ``points``."""
         return self.fun1.evaluate(points) * self.fun2.evaluate(points)
+
+
+class Saturation(DeterministicFunction):
+    """Clip a wrapped function's output to ``[lower, upper]``.
+
+    Public attributes it does not have itself are read from the wrapped
+    function, as in ``safe_learning_tpu/functions/base.py:397-403``.
+    Bounds that are Python numbers stay numbers; otherwise both become
+    tensors on ``config.device``.
+    """
+
+    def __init__(self, fun, lower, upper):
+        self.fun = fun
+        if all(isinstance(b, (int, float)) for b in (lower, upper)):
+            self.lower, self.upper = float(lower), float(upper)
+        else:
+            self.lower, self.upper = as_tensor(lower), as_tensor(upper)
+        self.input_dim = fun.input_dim
+        self.output_dim = fun.output_dim
+
+    def __getattr__(self, name):
+        """Forward unknown public attributes to the wrapped function."""
+        # Private names, and any name before ``fun`` is set (a copy being
+        # rebuilt), are not forwarded.
+        if name.startswith("_") or "fun" not in self.__dict__:
+            raise AttributeError(name)
+        return getattr(self.fun, name)
+
+    def evaluate(self, points):
+        """Evaluate the function at ``points``."""
+        return torch.clamp(self.fun.evaluate(points), self.lower,
+                           self.upper)
+
+
+class FunctionStack(UncertainFunction):
+    """Stack single-output uncertain functions into a multi-output model.
+
+    One function per output dimension (for example one GP per state
+    dimension), as ``safe_learning_tpu.FunctionStack``; the outputs'
+    means and errors are concatenated along axis 1.
+    """
+
+    def __init__(self, functions):
+        self.functions = tuple(functions)
+        self.num_fun = len(self.functions)
+        self.input_dim = self.functions[0].input_dim
+        self.output_dim = sum(f.output_dim for f in self.functions)
+
+    def evaluate(self, points):
+        """Evaluate the function at ``points``."""
+        means, errors = [], []
+        for fun in self.functions:
+            mean, error = fun.evaluate(points)
+            means.append(mean)
+            errors.append(error)
+        return torch.cat(means, dim=1), torch.cat(errors, dim=1)
+
+    def add_data_point(self, x, y):
+        """Fan a measurement out to the members (not ported yet)."""
+        raise NotImplementedError(
+            "FunctionStack.add_data_point is ROADMAP queue 1 item 14 (GP "
+            "online learning)")
 
 
 class LambdaFunction(DeterministicFunction):

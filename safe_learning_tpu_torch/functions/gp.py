@@ -1,23 +1,26 @@
-"""Gaussian-process regression: stationary kernels and the exact GP.
+"""Gaussian-process regression: kernels, the exact GP and the stacked GP.
 
-Counterpart of ``safe_learning_tpu/functions/gp.py``, part 1: the
-stationary kernels, the float64 host island that factorizes the kernel
-matrix, and ``GaussianProcess`` construction, ``predict`` and
-``evaluate``. The design is the JAX package's:
+Counterpart of ``safe_learning_tpu/functions/gp.py``: the stationary,
+linear and composite kernels, the float64 host island that factorizes the
+kernel matrix, ``GaussianProcess`` and ``StackedGaussianProcess``
+construction, ``predict`` and ``evaluate``. The design is the JAX
+package's:
 
 - the training set lives in fixed-capacity buffers with a count mask;
 - the Cholesky factor of the scaled kernel matrix and its explicit
   lower-triangular inverse are computed on the host in float64 and
   uploaded, so the per-query path is ``a = L^-1 k``, ``mean = a^T alpha``,
   ``var = kdiag - sum(a^2)``;
-- a stationary kernel's predict runs as one hand-written CUDA kernel on
-  the GPU (``ops/gp_kernel.py``) that never writes ``K(X, q)`` to device
-  memory;
+- the predict runs as one hand-written CUDA kernel on the GPU
+  (``ops/gp_kernel.py``) that never writes ``K(X, q)`` to device memory:
+  a stationary kernel has its own kernel, a composite kernel compiles to
+  a covariance program, and a stacked GP runs all its outputs in one
+  launch;
 - the ``scale`` conditioning trick of the reference is kept.
 
 Not ported yet (ROADMAP queue 1): ``add_data_point`` (item 14),
-``StackedGaussianProcess``, the composite kernels,
-``fit_gp_hyperparameters`` and sampling (item 8).
+``log_marginal_likelihood``, ``fit_gp_hyperparameters`` and sampling
+(item 8).
 """
 
 from __future__ import annotations
@@ -29,7 +32,9 @@ from ..config import config
 from .base import UncertainFunction, as_tensor, dot
 
 __all__ = ["Kernel", "RBF", "Matern12", "Matern32", "Matern52",
-           "STATIONARY_COVARIANCES", "GaussianProcess"]
+           "LinearKernel", "ActiveDims", "SumKernel", "ProductKernel",
+           "STATIONARY_COVARIANCES", "GaussianProcess",
+           "StackedGaussianProcess", "coerce_stacked"]
 
 
 # ---------------------------------------------------------------------------
@@ -45,6 +50,14 @@ class Kernel:
     def diag(self, x):
         """Diagonal of ``K(x, x)``, shape ``(len(x),)``."""
         raise NotImplementedError
+
+    def __add__(self, other):
+        """Pointwise sum (kernel algebra)."""
+        return SumKernel(self, other)
+
+    def __mul__(self, other):
+        """Pointwise product (kernel algebra)."""
+        return ProductKernel(self, other)
 
 
 def _sqdist(x, z):
@@ -129,6 +142,76 @@ STATIONARY_COVARIANCES = {
 
 _KIND_OF = {RBF: "rbf", Matern12: "matern12", Matern32: "matern32",
             Matern52: "matern52"}
+
+
+class LinearKernel(Kernel):
+    """Dot-product kernel ``K(x, z) = x diag(v) z^T`` (gpflow ``Linear``)."""
+
+    def __init__(self, variances=1.0, input_dim=1):
+        v = np.atleast_1d(np.asarray(variances, dtype=config.np_dtype))
+        self.variances = as_tensor(np.broadcast_to(v, (input_dim,)).copy())
+
+    def __call__(self, x, z=None):
+        """Covariance matrix (see :class:`Kernel`)."""
+        x = torch.atleast_2d(as_tensor(x))
+        z = x if z is None else torch.atleast_2d(as_tensor(z))
+        return dot(x * self.variances, z.T)
+
+    def diag(self, x):
+        """Diagonal of ``K(x, x)``."""
+        x = torch.atleast_2d(as_tensor(x))
+        return (x * x * self.variances).sum(dim=1)
+
+
+class ActiveDims(Kernel):
+    """Restrict a kernel to a subset of input columns (gpflow
+    ``active_dims``)."""
+
+    def __init__(self, kernel, dims):
+        self.kernel = kernel
+        self.dims = tuple(int(d) for d in dims)
+
+    def _slice(self, x):
+        return torch.atleast_2d(as_tensor(x))[:, list(self.dims)]
+
+    def __call__(self, x, z=None):
+        """Covariance matrix (see :class:`Kernel`)."""
+        z = x if z is None else z
+        return self.kernel(self._slice(x), self._slice(z))
+
+    def diag(self, x):
+        """Diagonal of ``K(x, x)``."""
+        return self.kernel.diag(self._slice(x))
+
+
+class SumKernel(Kernel):
+    """Pointwise sum of two kernels (gpflow ``Add``)."""
+
+    def __init__(self, k1, k2):
+        self.k1, self.k2 = k1, k2
+
+    def __call__(self, x, z=None):
+        """Covariance matrix (see :class:`Kernel`)."""
+        return self.k1(x, z) + self.k2(x, z)
+
+    def diag(self, x):
+        """Diagonal of ``K(x, x)``."""
+        return self.k1.diag(x) + self.k2.diag(x)
+
+
+class ProductKernel(Kernel):
+    """Pointwise product of two kernels (gpflow ``Prod``)."""
+
+    def __init__(self, k1, k2):
+        self.k1, self.k2 = k1, k2
+
+    def __call__(self, x, z=None):
+        """Covariance matrix (see :class:`Kernel`)."""
+        return self.k1(x, z) * self.k2(x, z)
+
+    def diag(self, x):
+        """Diagonal of ``K(x, x)``."""
+        return self.k1.diag(x) * self.k2.diag(x)
 
 
 # ---------------------------------------------------------------------------
@@ -325,26 +408,57 @@ class GaussianProcess(UncertainFunction):
     def _stationary_kind(self):
         return _KIND_OF.get(type(self.kernel))
 
+    def _fused_numerators(self, points):
+        """``(mean_num, var_num)`` through a fused predict, or ``None``.
+
+        A stationary kernel goes to :func:`~safe_learning_tpu_torch.ops.
+        gp_kernel.fused_gp_predict` on pre-scaled inputs; a kernel that
+        compiles to a covariance program goes to
+        :func:`~safe_learning_tpu_torch.ops.gp_kernel.
+        fused_gp_predict_general`. Each is the CUDA kernel for a CUDA
+        tensor and its plain version for a CPU tensor. ``None`` means the
+        kernel does not compile; the caller then takes the matmul chain,
+        as the JAX package does.
+        """
+        from ..ops.gp_kernel import (compile_kernel_program,
+                                     fused_gp_predict,
+                                     fused_gp_predict_general,
+                                     program_params)
+
+        s2 = self.scale ** 2
+        kind = self._stationary_kind()
+        if kind is not None:
+            ls = self.kernel.lengthscales
+            return fused_gp_predict(
+                points / ls, self.X_buf / ls, self.chol_inv, self.alpha,
+                self._mask(), self.kernel.variance * s2, kind=kind)
+        # The walk that collects the parameter vector also yields the
+        # program; the built CUDA library is cached per program.
+        compiled = compile_kernel_program(self.kernel,
+                                          input_dim=self.input_dim)
+        if compiled is None:
+            return None
+        program, param_list = compiled
+        return fused_gp_predict_general(
+            points, self.X_buf, program_params(param_list, points),
+            self.chol_inv, self.alpha, self._mask(), s2, program)
+
     def predict(self, points, full_cov=False):
         """Posterior mean and (co)variance at query points.
 
-        With a stationary kernel and ``config.use_kernels``, the whole
-        predict is one call of :func:`~safe_learning_tpu_torch.ops.
-        gp_kernel.fused_gp_predict` (the CUDA kernel for a CUDA tensor,
-        its plain version for a CPU tensor). Otherwise it is the plain
-        matmul chain, as the JAX package's XLA path.
+        With ``config.use_kernels`` and a kernel that has a fused route
+        (:meth:`_fused_numerators`), the whole predict is one kernel call.
+        Otherwise it is the plain matmul chain, as the JAX package's XLA
+        path.
         """
         points = torch.atleast_2d(as_tensor(points))
         s2 = self.scale ** 2
-        kind = self._stationary_kind()
-        if (not full_cov and kind is not None and config.use_kernels
+        fused = None
+        if (not full_cov and config.use_kernels
                 and self.capacity <= config.kernel_max_capacity):
-            from ..ops.gp_kernel import fused_gp_predict
-
-            ls = self.kernel.lengthscales
-            mean_num, var_num = fused_gp_predict(
-                points / ls, self.X_buf / ls, self.chol_inv, self.alpha,
-                self._mask(), self.kernel.variance * s2, kind=kind)
+            fused = self._fused_numerators(points)
+        if fused is not None:
+            mean_num, var_num = fused
             mean = mean_num / self.scale + self._prior_mean(points)
             var = self.kernel.diag(points) - var_num / s2
             var = torch.clamp(var, min=1e-12)[:, None]
@@ -369,3 +483,279 @@ class GaussianProcess(UncertainFunction):
         raise NotImplementedError(
             "GaussianProcess.add_data_point is ROADMAP queue 1 item 14 "
             "(GP online learning)")
+
+
+# ---------------------------------------------------------------------------
+# Batched multi-output GP over shared inputs
+# ---------------------------------------------------------------------------
+class StackedGaussianProcess(UncertainFunction):
+    """A stack of single-output GPs over one shared training set.
+
+    Counterpart of ``safe_learning_tpu.StackedGaussianProcess``: the
+    batched form of per-dimension GPs in a
+    :class:`~safe_learning_tpu_torch.functions.base.FunctionStack`. Each
+    output keeps its own kernel, noise variance, ``beta`` and prior mean;
+    the training inputs are stored once, and the predict runs every output
+    in one fused kernel launch (``ops/gp_kernel.py::
+    fused_gp_predict_stacked``).
+
+    Parameters
+    ----------
+    kernels : sequence of Kernel, one per output
+    x : (n, input_dim) shared observed inputs
+    y : (n, num_fun) observed outputs, one column per kernel
+    noise_variances : float or (num_fun,) array
+    betas : float or (num_fun,) array
+    mean_functions : sequence of Function or None, optional
+    capacity : int, optional
+    scale : float, optional
+    """
+
+    def __init__(self, kernels, x, y, noise_variances, betas=2.0,
+                 mean_functions=None, capacity=None, scale=1.0):
+        kernels = tuple(kernels)
+        n_out = len(kernels)
+        x = np.atleast_2d(np.asarray(x, dtype=config.np_dtype))
+        y = np.atleast_2d(np.asarray(y, dtype=config.np_dtype))
+        if y.shape[1] != n_out:
+            raise ValueError("y must have one column per kernel")
+        if len(x) != len(y):
+            raise ValueError("x and y must have the same number of rows")
+        n, d = x.shape
+        cap = _round_capacity(n) if capacity is None else int(capacity)
+        if cap < n:
+            raise ValueError("capacity {} is below the {} data rows".format(
+                cap, n))
+
+        self.kernels = kernels
+        self.num_fun = n_out
+        self.input_dim = d
+        self.output_dim = n_out
+        self.scale = float(scale)
+        betas = np.broadcast_to(np.asarray(betas, dtype=float), (n_out,))
+        self.betas = tuple(float(b) for b in betas)
+        if mean_functions is None:
+            mean_functions = (None,) * n_out
+        self.mean_functions = tuple(mean_functions)
+        if len(self.mean_functions) != n_out:
+            raise ValueError("need one mean function (or None) per output")
+        noise = np.broadcast_to(
+            np.asarray(noise_variances, dtype=config.np_dtype), (n_out,))
+        self.noise_variances = as_tensor(noise.copy())
+
+        x_buf = np.zeros((cap, d), dtype=config.np_dtype)
+        y_buf = np.zeros((cap, n_out), dtype=config.np_dtype)
+        x_buf[:n] = x
+        y_buf[:n] = y
+        self.X_buf = as_tensor(x_buf)
+        self.Y_buf = as_tensor(y_buf)
+        self.count = n
+        self._host_caches, self.chol_inv, self.alpha = _stacked_cache(
+            self.kernels, x_buf, y_buf, self.mean_functions, n,
+            noise.astype(np.float64), self.scale)
+
+    @classmethod
+    def from_gps(cls, gps):
+        """Batch single-output GPs that share training inputs."""
+        gps = list(gps)
+        for gp in gps:
+            if not isinstance(gp, GaussianProcess):
+                raise TypeError("from_gps needs GaussianProcess members")
+            if gp.output_dim != 1:
+                raise ValueError("stack members must be single-output")
+        x0 = gps[0].X
+        for gp in gps[1:]:
+            if not np.array_equal(gp.X, x0):
+                raise ValueError("stack members must share training inputs")
+            if gp.scale != gps[0].scale:
+                raise ValueError("stack members must share `scale`")
+        y = (np.column_stack([gp.Y[:, 0] for gp in gps])
+             if len(x0) else np.empty((0, len(gps))))
+        return cls([gp.kernel for gp in gps], x0, y,
+                   noise_variances=np.array([float(gp.noise_variance)
+                                             for gp in gps]),
+                   betas=np.array([gp.beta for gp in gps]),
+                   mean_functions=[gp.mean_function for gp in gps],
+                   capacity=max(gp.capacity for gp in gps),
+                   scale=gps[0].scale)
+
+    def unstack(self):
+        """Per-output :class:`GaussianProcess` views (inverse of
+        :meth:`from_gps`).
+
+        The views reuse the stack's factors (sliced along the output axis)
+        and its float64 host caches: nothing is refactorized.
+        """
+        views = []
+        hosts = self._host_caches or (None,) * self.num_fun
+        for s in range(self.num_fun):
+            gp = object.__new__(GaussianProcess)
+            gp.__dict__.update(
+                kernel=self.kernels[s], beta=self.betas[s],
+                scale=self.scale, input_dim=self.input_dim, output_dim=1,
+                mean_function=self.mean_functions[s],
+                noise_variance=self.noise_variances[s].clone(),
+                X_buf=self.X_buf, Y_buf=self.Y_buf[:, s:s + 1].contiguous(),
+                count=self.count, _host_cache=hosts[s],
+                chol_inv=self.chol_inv[s], alpha=self.alpha[s])
+            views.append(gp)
+        return views
+
+    # -- data views -------------------------------------------------------
+    @property
+    def capacity(self):
+        """Fixed buffer capacity."""
+        return int(self.X_buf.shape[0])
+
+    @property
+    def X(self):
+        """Active observed inputs (host numpy copy)."""
+        return self.X_buf[:self.count].cpu().numpy()
+
+    @property
+    def Y(self):
+        """Active observed outputs (host numpy copy)."""
+        return self.Y_buf[:self.count].cpu().numpy()
+
+    def _mask(self):
+        return (torch.arange(self.capacity, device=self.X_buf.device)
+                < self.count).to(self.X_buf.dtype)
+
+    def _prior_means(self, points):
+        """Stacked prior means, shape ``(len(points), num_fun)``."""
+        cols = []
+        for fun in self.mean_functions:
+            if fun is None:
+                cols.append(torch.zeros((points.shape[0], 1),
+                                        dtype=points.dtype,
+                                        device=points.device))
+            else:
+                cols.append(fun(points).reshape(-1, 1))
+        return torch.cat(cols, dim=1)
+
+    # -- prediction -------------------------------------------------------
+    def _programs(self):
+        """``(programs, param_list)`` of all outputs in one parameter
+        space, or ``None`` when a kernel does not compile."""
+        from ..ops.gp_kernel import compile_kernel_program
+
+        param_list, programs = [], []
+        for kernel in self.kernels:
+            compiled = compile_kernel_program(kernel,
+                                              input_dim=self.input_dim,
+                                              params=param_list)
+            if compiled is None:
+                return None
+            program, param_list = compiled
+            programs.append(program)
+        return tuple(programs), param_list
+
+    def predict(self, points, full_cov=False):
+        """Posterior mean and variance for every output.
+
+        Returns ``(mean, var)`` of shape ``(Q, num_fun)``, or with
+        ``full_cov=True`` ``(mean, cov)`` where ``cov`` is
+        ``(num_fun, Q, Q)`` (the outputs are independent GPs).
+
+        With ``config.use_kernels``, every kernel compiling to a program,
+        and ``num_fun * capacity**2 <= kernel_max_capacity**2``, all
+        outputs run in one call of :func:`~safe_learning_tpu_torch.ops.
+        gp_kernel.fused_gp_predict_stacked`. Otherwise each output takes
+        the plain matmul chain, as the JAX package's XLA path.
+        """
+        points = torch.atleast_2d(as_tensor(points))
+        s2 = self.scale ** 2
+        mask = self._mask()
+
+        if full_cov:
+            means, covs = [], []
+            for s in range(self.num_fun):
+                a, mean = self._chain(s, points, mask)
+                means.append(mean)
+                covs.append(self.kernels[s](points, points)
+                            - dot(a.T, a) / s2)
+            mean = torch.cat(means, dim=1) + self._prior_means(points)
+            return mean, torch.stack(covs, dim=0)
+
+        compiled = None
+        if (config.use_kernels and self.num_fun * self.capacity ** 2
+                <= config.kernel_max_capacity ** 2):
+            compiled = self._programs()
+        if compiled is not None:
+            from ..ops.gp_kernel import (fused_gp_predict_stacked,
+                                         program_params)
+
+            programs, param_list = compiled
+            mean_num, var_num = fused_gp_predict_stacked(
+                points, self.X_buf, program_params(param_list, points),
+                self.chol_inv, self.alpha[:, :, 0], mask, s2, programs)
+            mean = mean_num / self.scale + self._prior_means(points)
+            kdiag = torch.stack([k.diag(points) for k in self.kernels],
+                                dim=1)
+            return mean, torch.clamp(kdiag - var_num / s2, min=1e-12)
+
+        means, variances = [], []
+        for s in range(self.num_fun):
+            a, mean = self._chain(s, points, mask)
+            means.append(mean)
+            var = self.kernels[s].diag(points) - (a * a).sum(dim=0) / s2
+            variances.append(torch.clamp(var, min=1e-12))
+        mean = torch.cat(means, dim=1) + self._prior_means(points)
+        return mean, torch.stack(variances, dim=1)
+
+    def _chain(self, s, points, mask):
+        """Output ``s``'s plain matmul chain: ``(a, mean numerator /
+        scale)`` with ``a = L^-1 k``, as the JAX package's XLA path."""
+        kx = (self.scale ** 2 * self.kernels[s](self.X_buf, points)
+              * mask[:, None])
+        a = dot(self.chol_inv[s], kx)
+        return a, dot(a.T, self.alpha[s]) / self.scale
+
+    def evaluate(self, points):
+        """Return ``(mean, beta_s * std_s)`` stacked over outputs."""
+        mean, var = self.predict(points)
+        betas = torch.as_tensor(self.betas, dtype=var.dtype,
+                                device=var.device)
+        return mean, betas * torch.sqrt(var)
+
+    def add_data_point(self, x, y):
+        """Append observations (not ported yet)."""
+        raise NotImplementedError(
+            "StackedGaussianProcess.add_data_point is ROADMAP queue 1 "
+            "item 14 (GP online learning)")
+
+
+def _stacked_cache(kernels, x_buf, y_buf, mean_functions, count, noises,
+                   scale):
+    """Per-output host factorizations, uploaded stacked along a leading
+    output axis.
+
+    Returns ``(hosts, chol_inv, alpha)``: the float64 :class:`_HostCache`
+    of each output, ``chol_inv`` of shape ``(num_fun, cap, cap)`` and
+    ``alpha`` of shape ``(num_fun, cap, 1)``, in the working dtype on
+    ``config.device`` (counterpart of ``safe_learning_tpu/functions/
+    gp.py:1227-1248``).
+    """
+    hosts = [_host_factorize(kernel, x_buf, y_buf[:, s:s + 1], mean,
+                             count, float(noises[s]), scale)
+             for s, (kernel, mean) in enumerate(zip(kernels,
+                                                    mean_functions))]
+    # solve_triangular returns Fortran order; the kernels take row-major.
+    chol_inv = np.ascontiguousarray(np.stack([h.chol_inv for h in hosts]))
+    alpha = np.ascontiguousarray(np.stack([h.alpha for h in hosts]))
+    return hosts, as_tensor(chol_inv), as_tensor(alpha)
+
+
+def coerce_stacked(dynamics):
+    """A ``FunctionStack`` of GPs becomes its :class:`StackedGaussianProcess`
+    twin; anything else passes through unchanged.
+
+    Members must share training inputs and ``scale``
+    (:meth:`StackedGaussianProcess.from_gps` raises otherwise).
+    """
+    from .base import FunctionStack
+
+    if isinstance(dynamics, FunctionStack) and dynamics.functions and \
+            all(isinstance(f, GaussianProcess) for f in dynamics.functions):
+        return StackedGaussianProcess.from_gps(dynamics.functions)
+    return dynamics

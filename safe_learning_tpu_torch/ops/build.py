@@ -1,10 +1,13 @@
 """Build the package's CUDA sources into shared libraries at first use.
 
-Each library is compiled with ``nvcc`` from the sources under ``csrc/``
-into ``safe_learning_tpu_torch/_build/`` and loaded with ``ctypes``. The
-file name carries a hash of the sources and the flags, so a changed
-source or flag builds a new library and a stale one is never loaded.
-Nothing is built when a module is imported.
+Each library is compiled with ``nvcc`` into
+``safe_learning_tpu_torch/_build/`` and loaded with ``ctypes``. A library
+is either a list of files under ``csrc/`` or a source text rendered at run
+time (a covariance program, ``ops/gp_kernel.py``) that includes headers
+from ``csrc/``. The file name carries a hash of every source, header and
+flag, so a change builds a new library and a stale one is never loaded.
+Several libraries build at once, one ``nvcc`` process each. Nothing is
+built when a module is imported.
 """
 
 from __future__ import annotations
@@ -17,7 +20,8 @@ import subprocess
 import tempfile
 import time
 
-__all__ = ["NVCC_FLAGS", "BUILD_DIR", "CSRC_DIR", "load_library"]
+__all__ = ["NVCC_FLAGS", "BUILD_DIR", "CSRC_DIR", "load_libraries",
+           "build_reports"]
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
@@ -27,8 +31,9 @@ BUILD_DIR = os.path.join(_PKG_DIR, "_build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-#: Per library name: seconds the build took in this process (0.0 when a
-#: cached library was loaded) and the compiler's report.
+#: Per library name: seconds from the start of its build (all builds of
+#: one call start together) to its end in this process (0.0 when a built
+#: library was loaded), and the compiler's report.
 build_reports = {}
 
 
@@ -48,44 +53,78 @@ def _nvcc():
                        "toolkit")
 
 
-def _digest(sources):
+def _prepare(name, sources, text):
+    """``(target library, files to compile)`` of one job.
+
+    ``sources`` are file names under ``csrc/``; the ``.cu`` files among
+    them are compiled, and all of them are hashed. A ``text`` is written
+    to ``_build/`` and compiled with the sources as its headers.
+    """
+    paths = [os.path.join(CSRC_DIR, s) for s in sources]
     h = hashlib.sha256()
     for flag in NVCC_FLAGS:
         h.update(flag.encode())
-    for src in sources:
-        with open(src, "rb") as f:
-            h.update(os.path.basename(src).encode())
+    for path in paths:
+        with open(path, "rb") as f:
+            h.update(os.path.basename(path).encode())
             h.update(f.read())
-    return h.hexdigest()[:16]
+    if text is not None:
+        h.update(text.encode())
+    digest = h.hexdigest()[:16]
+    target = os.path.join(BUILD_DIR, "lib{}-{}.so".format(name, digest))
+    if text is None:
+        return target, [p for p in paths if p.endswith(".cu")]
+    src = os.path.join(BUILD_DIR, "{}-{}.cu".format(name, digest))
+    if not os.path.exists(src):
+        fd, tmp = tempfile.mkstemp(suffix=".cu", dir=BUILD_DIR)
+        with os.fdopen(fd, "w") as f:
+            f.write(text)
+        os.replace(tmp, src)
+    return target, [src]
 
 
-def load_library(name, sources):
-    """Build (if needed) and load ``lib<name>-<hash>.so`` from ``sources``.
+def load_libraries(jobs):
+    """Build (where needed) and load one library per job.
 
-    ``sources`` are file names under ``csrc/``. Returns the
-    ``ctypes.CDLL``. The build writes to a temporary file and renames it
-    into place, so concurrent builds never load a partial library.
+    ``jobs`` are ``(name, sources, text)``: see :func:`_prepare`. Every
+    missing library starts building at once, one ``nvcc`` each; each
+    writes to a temporary file renamed into place, so concurrent builds
+    never load a partial library. Returns the ``ctypes.CDLL`` of each job,
+    in order. Raises if any build fails.
     """
-    paths = [os.path.join(CSRC_DIR, s) for s in sources]
-    target = os.path.join(BUILD_DIR, "lib{}-{}.so".format(name,
-                                                          _digest(paths)))
-    if os.path.exists(target):
-        build_reports[name] = (0.0, "cached " + target)
-        return ctypes.CDLL(target)
     os.makedirs(BUILD_DIR, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *paths]
-    start = time.perf_counter()
+    prepared = [_prepare(*job) for job in jobs]
+    running = []
     try:
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError("nvcc failed ({}):\n{}\n{}".format(
-                " ".join(cmd), proc.stdout, proc.stderr))
-        os.replace(tmp, target)
+        for (name, _, _), (target, srcs) in zip(jobs, prepared):
+            if os.path.exists(target):
+                build_reports[name] = (0.0, "cached " + target)
+                continue
+            fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+            os.close(fd)
+            cmd = [_nvcc(), *NVCC_FLAGS, "-I", CSRC_DIR, "-o", tmp, *srcs]
+            proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                    stderr=subprocess.PIPE, text=True)
+            running.append((name, target, tmp, cmd, proc,
+                            time.perf_counter()))
+        failures = []
+        for name, target, tmp, cmd, proc, start in running:
+            out, err = proc.communicate()
+            if proc.returncode != 0:
+                failures.append("nvcc failed ({}):\n{}\n{}".format(
+                    " ".join(cmd), out, err))
+                continue
+            os.replace(tmp, target)
+            build_reports[name] = (time.perf_counter() - start,
+                                   " ".join(cmd) + "\n" + out + err)
+        if failures:
+            raise RuntimeError("\n".join(failures))
     finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
-    build_reports[name] = (time.perf_counter() - start,
-                           " ".join(cmd) + "\n" + proc.stdout + proc.stderr)
-    return ctypes.CDLL(target)
+        for _, _, tmp, _, proc, _ in running:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            if os.path.exists(tmp):
+                os.unlink(tmp)
+    return [ctypes.CDLL(target) for target, _ in prepared]
+

@@ -1,40 +1,125 @@
-"""Fused GP posterior predict: a hand-written CUDA kernel and its plain twin.
+"""Fused GP posterior predicts: hand-written CUDA kernels and plain twins.
 
-Replaces the Pallas TPU kernel ``_gp_predict_kernel``
-(``safe_learning_tpu/ops/gp_kernel.py:169-214``) behind
-``fused_gp_predict`` (``:612-650``). The kernel is
-``csrc/gp_predict.cu``; its header says what bounds it on the H100 and
-what the design does about that. It is built with ``nvcc`` for
-``sm_90a`` at first use (:mod:`.build`) and bound with ``ctypes``.
+Replaces the three Pallas TPU kernels of ``safe_learning_tpu/ops/
+gp_kernel.py``:
 
-- :func:`gp_predict_plain` is the same math in plain PyTorch
-  (per-dimension differences, as the Pallas body). The CPU tests use it,
+- ``_gp_predict_kernel`` (``:169-214``, entry ``fused_gp_predict``
+  ``:612-650``), a stationary kernel on pre-scaled inputs:
+  ``csrc/gp_predict.cu``;
+- ``_gp_predict_kernel_general`` (``:271-295``, entry
+  ``fused_gp_predict_general`` ``:503-526``), a composite kernel compiled
+  to a covariance program, and ``_gp_predict_kernel_stacked``
+  (``:347-383``, entry ``fused_gp_predict_stacked`` ``:386-417``), S
+  single-output GPs over one training set: both are
+  ``csrc/gp_predict_program.cuh``, instantiated for the program (or the S
+  programs) by a source file this module renders.
+
+Every kernel is built with ``nvcc`` for ``sm_90a`` at first use
+(:mod:`.build`) and bound with ``ctypes``; the headers of the CUDA
+sources say what bounds each on the H100 and what the design does about
+that. For each entry point:
+
+- a ``*_plain`` function is the same math in plain PyTorch (per-dimension
+  differences, as the Pallas bodies). The CPU tests use it,
   ``chip_smoke.py`` holds the kernel against it on the card, and the
-  autograd rule differentiates it.
-- :func:`gp_predict_cuda` launches the kernel and counts its launches in
-  ``gp_predict_cuda.launches``.
-- :func:`fused_gp_predict` dispatches on the device of its input: a CPU
+  autograd rule differentiates it;
+- a ``*_cuda`` function launches the kernel and counts its launches in
+  its ``launches`` attribute;
+- a ``fused_*`` function dispatches on the device of its input: a CPU
   tensor goes to the plain version, a CUDA tensor to the kernel. Nothing
   falls back from the kernel to the plain version.
 
-Layout: queries are ``(Q, d)`` row-major and outputs ``(Q, p)`` and
-``(Q,)``; the JAX wrapper's transposes exist only for the TPU's lanes.
+Layout: queries are ``(Q, d)`` row-major and outputs ``(Q, p)``,
+``(Q,)`` or ``(Q, S)``; the JAX wrappers' transposes exist only for the
+TPU's lanes.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+import hashlib
 
 import torch
 
 __all__ = ["KINDS", "fused_gp_predict", "gp_predict_plain",
-           "gp_predict_cuda", "kernel_library"]
+           "gp_predict_cuda", "kernel_library", "compile_kernel_program",
+           "program_params", "gp_predict_general_plain",
+           "gp_predict_stacked_plain", "gp_predict_general_cuda",
+           "gp_predict_stacked_cuda", "fused_gp_predict_general",
+           "fused_gp_predict_stacked", "render_program_source",
+           "program_library", "build_kernels"]
 
 #: Stationary families, in the order of the kernel's ``kind`` switch.
 KINDS = ("rbf", "matern12", "matern32", "matern52")
 
+#: Most outputs and most parameters a program library takes (the kernel
+#: keeps the parameters in registers; ``csrc/gp_predict_program.cuh``).
+PROGRAM_OUTPUTS_MAX = 8
+PROGRAM_PARAMS_MAX = 64
 
+
+# ---------------------------------------------------------------------------
+# Shared launch helpers
+# ---------------------------------------------------------------------------
+def _scalar_tensor(value, like):
+    """``value`` as a tensor of ``like``'s dtype and device (a tensor
+    passes through)."""
+    if torch.is_tensor(value):
+        return value
+    return torch.tensor(value, dtype=like.dtype, device=like.device)
+
+
+def _check_tensors(tensors):
+    """All tensors CUDA, contiguous, of one float dtype and one device.
+
+    Returns ``(dtype, device)`` of the first.
+    """
+    first = next(iter(tensors.values()))
+    dtype, device = first.dtype, first.device
+    if dtype not in (torch.float32, torch.float64):
+        raise TypeError("the CUDA kernels take float32 or float64, not "
+                        "{}".format(dtype))
+    for name, t in tensors.items():
+        if t.device != device or t.dtype != dtype:
+            raise ValueError("{} is {} on {}; expected {} on {}".format(
+                name, t.dtype, t.device, dtype, device))
+        if not t.is_contiguous():
+            raise ValueError("{} must be contiguous".format(name))
+    if device.type != "cuda":
+        raise ValueError("the CUDA kernels need CUDA tensors, got "
+                         "{}".format(device))
+    return dtype, device
+
+
+def _raise_on_error(err, lib, what):
+    if err != 0:
+        raise RuntimeError("{} kernel launch failed: CUDA error {} ({})"
+                           .format(what, err,
+                                   lib.error_string(err).decode()))
+
+
+def _grads_through_plain(ctx, plain, grad_outputs, n_inputs, **static):
+    """Backward of a kernel's autograd rule: differentiate its plain twin.
+
+    The counterpart of the ``custom_jvp``s of ``safe_learning_tpu/ops/
+    gp_kernel.py:493-500, 602-609, 724-731``: gradients through the GP
+    posterior are never silently detached.
+    """
+    needs = ctx.needs_input_grad[:n_inputs]
+    inputs = [t.detach().requires_grad_(n)
+              for t, n in zip(ctx.saved_tensors, needs)]
+    with torch.enable_grad():
+        outputs = plain(*inputs, **static)
+        wrt = [t for t, n in zip(inputs, needs) if n]
+        grads = iter(torch.autograd.grad(outputs, wrt, grad_outputs,
+                                         allow_unused=True))
+    return tuple(next(grads) if n else None for n in needs) + (None,)
+
+
+# ---------------------------------------------------------------------------
+# Kernel 1: stationary families on pre-scaled inputs
+# ---------------------------------------------------------------------------
 def gp_predict_plain(points_scaled, x_scaled, chol_inv, alpha, mask,
                      kernel_variance_s2, kind="rbf"):
     """Plain PyTorch version of the fused predict (same contract).
@@ -69,9 +154,9 @@ def gp_predict_plain(points_scaled, x_scaled, chol_inv, alpha, mask,
 @functools.lru_cache(maxsize=None)
 def kernel_library():
     """Build (first call only) and bind ``csrc/gp_predict.cu``."""
-    from .build import load_library
+    from .build import load_libraries
 
-    lib = load_library("gp_predict", ["gp_predict.cu"])
+    (lib,) = load_libraries([_STATIONARY_JOB])
     args = ([ctypes.c_void_p] * 6
             + [ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_int,
                ctypes.c_int]
@@ -81,6 +166,7 @@ def kernel_library():
         fn.restype = ctypes.c_int
     lib.gp_predict_error_string.argtypes = [ctypes.c_int]
     lib.gp_predict_error_string.restype = ctypes.c_char_p
+    lib.error_string = lib.gp_predict_error_string
     lib.gp_predict_limits.argtypes = [ctypes.POINTER(ctypes.c_int)] * 2
     lib.gp_predict_limits.restype = ctypes.c_int
     return lib
@@ -102,28 +188,12 @@ def gp_predict_cuda(points_scaled, x_scaled, chol_inv, alpha, mask,
     ``kernel_variance_s2`` may also be a Python number. Launches on the
     current stream without synchronising.
     """
-    dtype = points_scaled.dtype
-    device = points_scaled.device
-    if dtype not in (torch.float32, torch.float64):
-        raise TypeError("gp_predict_cuda takes float32 or float64, not "
-                        "{}".format(dtype))
     if kind not in KINDS:
         raise ValueError("unknown stationary kind {!r}".format(kind))
-    if not torch.is_tensor(kernel_variance_s2):
-        kernel_variance_s2 = torch.tensor(kernel_variance_s2, dtype=dtype,
-                                          device=device)
-    tensors = dict(points_scaled=points_scaled, x_scaled=x_scaled,
-                   chol_inv=chol_inv, alpha=alpha, mask=mask,
-                   kernel_variance_s2=kernel_variance_s2)
-    for name, t in tensors.items():
-        if t.device != device or t.dtype != dtype:
-            raise ValueError("{} is {} on {}; expected {} on {}".format(
-                name, t.dtype, t.device, dtype, device))
-        if not t.is_contiguous():
-            raise ValueError("{} must be contiguous".format(name))
-    if device.type != "cuda":
-        raise ValueError("gp_predict_cuda needs CUDA tensors, got "
-                         "{}".format(device))
+    kernel_variance_s2 = _scalar_tensor(kernel_variance_s2, points_scaled)
+    dtype, device = _check_tensors(dict(
+        points_scaled=points_scaled, x_scaled=x_scaled, chol_inv=chol_inv,
+        alpha=alpha, mask=mask, kernel_variance_s2=kernel_variance_s2))
     n_q, d = points_scaled.shape
     cap = x_scaled.shape[0]
     p = alpha.shape[1]
@@ -153,11 +223,7 @@ def gp_predict_cuda(points_scaled, x_scaled, chol_inv, alpha, mask,
                  kernel_variance_s2.data_ptr(), n_q, d, cap, p,
                  KINDS.index(kind), mean_num.data_ptr(), var_num.data_ptr(),
                  stream)
-    if err != 0:
-        raise RuntimeError("gp_predict kernel launch failed: CUDA error "
-                           "{} ({})".format(
-                               err, lib.gp_predict_error_string(err)
-                               .decode()))
+    _raise_on_error(err, lib, "gp_predict")
     gp_predict_cuda.launches += 1
     return mean_num, var_num
 
@@ -167,12 +233,7 @@ gp_predict_cuda.launches = 0
 
 
 class _FusedPredict(torch.autograd.Function):
-    """Kernel forward; the backward differentiates the plain version.
-
-    The counterpart of ``_fused_predict_core``'s ``custom_jvp``
-    (``safe_learning_tpu/ops/gp_kernel.py:724-731``): gradients through
-    the GP posterior are never silently detached.
-    """
+    """Kernel forward; the backward differentiates the plain version."""
 
     @staticmethod
     def forward(ctx, points_scaled, x_scaled, chol_inv, alpha, mask,
@@ -185,17 +246,8 @@ class _FusedPredict(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, grad_mean, grad_var):
-        saved = ctx.saved_tensors
-        needs = ctx.needs_input_grad[:6]
-        inputs = [t.detach().requires_grad_(n) for t, n in zip(saved,
-                                                               needs)]
-        with torch.enable_grad():
-            mean_num, var_num = gp_predict_plain(*inputs, kind=ctx.kind)
-            wrt = [t for t, n in zip(inputs, needs) if n]
-            grads = iter(torch.autograd.grad(
-                (mean_num, var_num), wrt, (grad_mean, grad_var),
-                allow_unused=True))
-        return tuple(next(grads) if n else None for n in needs) + (None,)
+        return _grads_through_plain(ctx, gp_predict_plain,
+                                    (grad_mean, grad_var), 6, kind=ctx.kind)
 
 
 def fused_gp_predict(points_scaled, x_scaled, chol_inv, alpha, mask,
@@ -209,11 +261,575 @@ def fused_gp_predict(points_scaled, x_scaled, chol_inv, alpha, mask,
     if points_scaled.device.type == "cpu":
         return gp_predict_plain(points_scaled, x_scaled, chol_inv, alpha,
                                 mask, kernel_variance_s2, kind=kind)
-    if not torch.is_tensor(kernel_variance_s2):
-        kernel_variance_s2 = torch.tensor(kernel_variance_s2,
-                                          dtype=points_scaled.dtype,
-                                          device=points_scaled.device)
+    kernel_variance_s2 = _scalar_tensor(kernel_variance_s2, points_scaled)
     return _FusedPredict.apply(points_scaled.contiguous(),
                                x_scaled.contiguous(), chol_inv.contiguous(),
                                alpha.contiguous(), mask.contiguous(),
                                kernel_variance_s2.contiguous(), kind)
+
+
+# ---------------------------------------------------------------------------
+# Kernel-structure compiler: Kernel tree -> static program + flat params
+# ---------------------------------------------------------------------------
+def compile_kernel_program(kernel, input_dim=None, dims=None, params=None):
+    """Compile a kernel tree into a static covariance program.
+
+    The counterpart of ``safe_learning_tpu/ops/gp_kernel.py:41-137``, with
+    the same programs and the same parameter order. Supports the
+    stationary families with ARD lengthscales, ``LinearKernel``,
+    ``ActiveDims`` and sums and products of those.
+
+    ``input_dim`` is the dimension of the data the kernel is applied to. A
+    scalar parameter broadcasts over every input dimension (as
+    ``Kernel.__call__`` does); a vector parameter must span the input
+    exactly, else the kernel does not compile. Without ``input_dim`` the
+    parameter length is trusted.
+
+    Returns ``(program, params_list)``: ``program`` is a hashable nested
+    tuple and ``params_list`` the list of parameter tensors in the
+    working dtype, lengthscales stored as reciprocals so that the kernels
+    multiply instead of divide (:func:`program_params` flattens them).
+    Returns ``None`` if the kernel holds an unsupported node.
+    """
+    from ..functions.gp import (_KIND_OF, ActiveDims, LinearKernel,
+                                ProductKernel, SumKernel)
+
+    if params is None:
+        params = []
+
+    def offset():
+        return sum(int(p.numel()) for p in params)
+
+    def span_for(n):
+        """Input dims a leaf covers, or None when it does not compile."""
+        if dims is not None:
+            sel = tuple(dims)
+        elif input_dim is not None:
+            sel = tuple(range(int(input_dim)))
+        else:
+            sel = tuple(range(n))
+        if n != len(sel) and n != 1:
+            return None
+        return sel
+
+    if type(kernel) in _KIND_OF:
+        ls = torch.atleast_1d(kernel.lengthscales)
+        sel = span_for(int(ls.shape[0]))
+        if sel is None:
+            return None
+        if ls.shape[0] == 1 and len(sel) > 1:
+            ls = ls.expand(len(sel))
+        ls_off = offset()
+        params.append(1.0 / ls)
+        var_off = offset()
+        params.append(kernel.variance.reshape(1))
+        return (("stationary", _KIND_OF[type(kernel)], sel, ls_off,
+                 var_off), params)
+    if isinstance(kernel, LinearKernel):
+        v = torch.atleast_1d(kernel.variances)
+        sel = span_for(int(v.shape[0]))
+        if sel is None:
+            return None
+        if v.shape[0] == 1 and len(sel) > 1:
+            v = v.expand(len(sel))
+        v_off = offset()
+        params.append(v)
+        return (("linear", sel, v_off), params)
+    if isinstance(kernel, ActiveDims):
+        if dims is None:
+            sel = tuple(kernel.dims)
+        else:
+            sel = tuple(dims[i] for i in kernel.dims)
+        return compile_kernel_program(kernel.kernel, dims=sel,
+                                      params=params)
+    if isinstance(kernel, (SumKernel, ProductKernel)):
+        left = compile_kernel_program(kernel.k1, input_dim=input_dim,
+                                      dims=dims, params=params)
+        if left is None:
+            return None
+        prog1, params = left
+        right = compile_kernel_program(kernel.k2, input_dim=input_dim,
+                                       dims=dims, params=params)
+        if right is None:
+            return None
+        prog2, params = right
+        op = "sum" if isinstance(kernel, SumKernel) else "product"
+        return ((op, prog1, prog2), params)
+    return None
+
+
+def program_params(param_list, like):
+    """Flat parameter vector of a compiled program in ``like``'s dtype
+    and on its device."""
+    return torch.cat([p.reshape(-1) for p in param_list]).to(
+        dtype=like.dtype, device=like.device)
+
+
+def _eval_program(program, params, x, q, cache=None):
+    """Evaluate a compiled covariance program, as the Pallas kernels do.
+
+    ``x`` is ``(d, cap)``, ``q`` is ``(d, Q)`` and ``params`` the flat
+    parameter vector; returns the ``(cap, Q)`` covariance. ``cache`` holds
+    the per-dimension difference and product tiles, which do not depend
+    on the hyperparameters, so a program (or a stack of programs) that
+    touches a dimension twice builds each tile once
+    (``safe_learning_tpu/ops/gp_kernel.py:217-268``).
+    """
+    from ..functions.gp import STATIONARY_COVARIANCES
+
+    if cache is None:
+        cache = {}
+
+    def tile(op, dim):
+        key = (op, dim)
+        if key not in cache:
+            xd, qd = x[dim, :][:, None], q[dim, :][None, :]
+            cache[key] = xd - qd if op == "diff" else xd * qd
+        return cache[key]
+
+    op = program[0]
+    if op == "stationary":
+        _, fam, sel, ls_off, var_off = program
+        r2 = None
+        for j, dim in enumerate(sel):
+            diff = tile("diff", dim) * params[ls_off + j]
+            r2 = diff * diff if r2 is None else r2 + diff * diff
+        return params[var_off] * STATIONARY_COVARIANCES[fam](r2)
+    if op == "linear":
+        _, sel, v_off = program
+        k = None
+        for j, dim in enumerate(sel):
+            term = params[v_off + j] * tile("prod", dim)
+            k = term if k is None else k + term
+        return k
+    if op == "sum":
+        return (_eval_program(program[1], params, x, q, cache)
+                + _eval_program(program[2], params, x, q, cache))
+    if op == "product":
+        return (_eval_program(program[1], params, x, q, cache)
+                * _eval_program(program[2], params, x, q, cache))
+    raise ValueError(program)
+
+
+def _program_extent(program):
+    """``(number of parameters, smallest input dimension)`` a program
+    reads: one past its largest parameter offset and input column."""
+    op = program[0]
+    if op == "stationary":
+        _, _, sel, ls_off, var_off = program
+        return max(ls_off + len(sel), var_off + 1), max(sel) + 1
+    if op == "linear":
+        _, sel, v_off = program
+        return v_off + len(sel), max(sel) + 1
+    left, right = _program_extent(program[1]), _program_extent(program[2])
+    return max(left[0], right[0]), max(left[1], right[1])
+
+
+# ---------------------------------------------------------------------------
+# Kernels 2 and 3: plain twins
+# ---------------------------------------------------------------------------
+def gp_predict_general_plain(points, x, params, chol_inv, alpha, mask, s2,
+                             program):
+    """Plain PyTorch twin of the general fused predict.
+
+    The counterpart of ``_general_xla_equiv``
+    (``safe_learning_tpu/ops/gp_kernel.py:321-329``).
+
+    Parameters
+    ----------
+    points : (Q, d) raw query points
+    x : (cap, d) raw training inputs
+    params : (P,) flat kernel parameters (:func:`program_params`)
+    chol_inv : (cap, cap) inverse Cholesky factor of the scaled kernel
+    alpha : (cap, p) cached solve against the targets
+    mask : (cap,) active-row mask
+    s2 : scalar, the conditioning scale squared
+    program : nested tuple from :func:`compile_kernel_program`
+
+    Returns
+    -------
+    mean_num : (Q, p); var_num : (Q,)
+    """
+    k = _eval_program(program, params, x.T, points.T)
+    k = k * s2 * mask[:, None]
+    a = torch.matmul(chol_inv, k)
+    return torch.matmul(a.T, alpha), (a * a).sum(dim=0)
+
+
+def gp_predict_stacked_plain(points, x, params, chol_inv, alpha_t, mask, s2,
+                             programs):
+    """Plain PyTorch twin of the stacked fused predict.
+
+    The counterpart of ``_stacked_xla_equiv``
+    (``safe_learning_tpu/ops/gp_kernel.py:332-344``): S single-output GPs
+    over one training set, the difference and product tiles shared across
+    outputs.
+
+    Parameters
+    ----------
+    points : (Q, d) raw query points
+    x : (cap, d) raw shared training inputs
+    params : (P,) flat kernel parameters of all outputs (one offset space)
+    chol_inv : (S, cap, cap) per-output inverse Cholesky factors
+    alpha_t : (S, cap) per-output cached solves
+    mask : (cap,) active-row mask
+    s2 : scalar, the shared conditioning scale squared
+    programs : tuple of S compiled covariance programs
+
+    Returns
+    -------
+    mean_num : (Q, S); var_num : (Q, S)
+    """
+    cache = {}
+    means, pvars = [], []
+    for s, program in enumerate(programs):
+        k = _eval_program(program, params, x.T, points.T, cache)
+        k = k * s2 * mask[:, None]
+        a = torch.matmul(chol_inv[s], k)
+        means.append(torch.matmul(alpha_t[s], a))
+        pvars.append((a * a).sum(dim=0))
+    return torch.stack(means, dim=1), torch.stack(pvars, dim=1)
+
+
+# ---------------------------------------------------------------------------
+# Kernels 2 and 3: the program library
+# ---------------------------------------------------------------------------
+_COVARIANCE_FN = {"rbf": "cov_rbf", "matern12": "cov_matern12",
+                  "matern32": "cov_matern32", "matern52": "cov_matern52"}
+
+
+class _ProgramEmitter:
+    """Straight-line CUDA statements for one program's ``k_j``.
+
+    The order of operations is :func:`_eval_program`'s, so the kernel and
+    its twin round the same expressions. Each input column is read once
+    and its difference and product formed once (the tile cache of the
+    twin).
+    """
+
+    def __init__(self):
+        self.lines = []
+        self.count = 0
+        self.names = {}
+
+    def _value(self, key, expr):
+        if key not in self.names:
+            self.names[key] = self.temp(expr, name="{}{}".format(*key))
+        return self.names[key]
+
+    def temp(self, expr, name=None):
+        if name is None:
+            name = "t{}".format(self.count)
+            self.count += 1
+        self.lines.append("const T {} = {};".format(name, expr))
+        return name
+
+    def column(self, op, dim):
+        xd = self._value(("x", dim), "__ldg(xj + {})".format(dim))
+        if op == "d":
+            return self._value(("d", dim), "{} - q[{}]".format(xd, dim))
+        return self._value(("m", dim), "{} * q[{}]".format(xd, dim))
+
+    def emit(self, program):
+        op = program[0]
+        if op == "stationary":
+            _, fam, sel, ls_off, var_off = program
+            r2 = None
+            for j, dim in enumerate(sel):
+                s = self.temp("{} * pr[{}]".format(self.column("d", dim),
+                                                   ls_off + j))
+                r2 = (self.temp("{0} * {0}".format(s)) if r2 is None
+                      else self.temp("{1} + {0} * {0}".format(s, r2)))
+            return self.temp("pr[{}] * {}<T>({})".format(
+                var_off, _COVARIANCE_FN[fam], r2))
+        if op == "linear":
+            _, sel, v_off = program
+            k = None
+            for j, dim in enumerate(sel):
+                term = "pr[{}] * {}".format(v_off + j, self.column("m", dim))
+                k = self.temp(term if k is None
+                              else "{} + {}".format(k, term))
+            return k
+        if op in ("sum", "product"):
+            left = self.emit(program[1])
+            right = self.emit(program[2])
+            return self.temp("{} {} {}".format(
+                left, "+" if op == "sum" else "*", right))
+        raise ValueError(program)
+
+
+def render_program_source(programs):
+    """CUDA C++ source of the library for a tuple of covariance programs.
+
+    One program is the general kernel (kernel 2); S programs over one
+    parameter space are the stacked kernel (kernel 3). The source defines
+    ``CovarianceProgram::k<T, OUT>``, the covariance of output ``OUT``
+    between one training row and one query, as straight-line code that
+    reads the parameters from the runtime array ``pr``: a new
+    hyperparameter value never needs a new build. The template
+    ``csrc/gp_predict_program.cuh`` holds the rest of the kernel.
+    """
+    programs = tuple(programs)
+    if not 1 <= len(programs) <= PROGRAM_OUTPUTS_MAX:
+        raise ValueError("the program kernel takes 1 to {} outputs, got {}"
+                         .format(PROGRAM_OUTPUTS_MAX, len(programs)))
+    extents = [_program_extent(p) for p in programs]
+    n_params = max(e[0] for e in extents)
+    min_d = max(e[1] for e in extents)
+    if n_params > PROGRAM_PARAMS_MAX:
+        raise ValueError("the program kernel takes at most {} parameters, "
+                         "got {}".format(PROGRAM_PARAMS_MAX, n_params))
+    lines = ["// Generated by safe_learning_tpu_torch.ops.gp_kernel."
+             "render_program_source from the covariance programs:"]
+    lines += ["//   output {}: {!r}".format(s, p)
+              for s, p in enumerate(programs)]
+    lines += ['#include "gp_predict_program.cuh"', "",
+              "struct CovarianceProgram {",
+              "  static constexpr int NUM_OUT = {};".format(len(programs)),
+              "  static constexpr int NUM_PARAMS = {};".format(n_params),
+              "  static constexpr int MIN_D = {};".format(min_d), "",
+              "  template <typename T, int OUT>",
+              "  static __device__ __forceinline__ T k(",
+              "      const T* __restrict__ xj, const T (&q)[gp_common::"
+              "D_MAX],",
+              "      const T (&pr)[NUM_PARAMS]) {",
+              "    using namespace gp_common;"]
+    for s, program in enumerate(programs):
+        emitter = _ProgramEmitter()
+        result = emitter.emit(program)
+        if len(programs) == 1:
+            head = None
+        elif s == 0:
+            head = "    if constexpr (OUT == 0) {"
+        elif s < len(programs) - 1:
+            head = "    }} else if constexpr (OUT == {}) {{".format(s)
+        else:
+            head = "    } else {"
+        if head:
+            lines.append(head)
+        indent = "      " if head else "    "
+        lines += [indent + line for line in emitter.lines]
+        lines.append(indent + "return {};".format(result))
+    if len(programs) > 1:
+        lines.append("    }")
+    lines += ["  }", "};", "", "GP_PROGRAM_EXPORTS(CovarianceProgram)", ""]
+    return "\n".join(lines)
+
+
+_STATIONARY_JOB = ("gp_predict", ["gp_predict.cu", "gp_predict_common.cuh"],
+                   None)
+
+
+def _program_job(programs):
+    """``(name, headers, text)`` of a program library's build."""
+    text = render_program_source(programs)
+    name = "gp_program-" + hashlib.sha256(text.encode()).hexdigest()[:8]
+    return name, ["gp_predict_common.cuh", "gp_predict_program.cuh"], text
+
+
+def build_kernels(program_tuples=()):
+    """Build the stationary kernel and the library of each program tuple
+    at once (one ``nvcc`` each, all started together).
+
+    Later calls of :func:`kernel_library` and :func:`program_library`
+    load what this built. Returns the build names, in order.
+    """
+    from .build import load_libraries
+
+    jobs = [_STATIONARY_JOB] + [_program_job(tuple(p))
+                                for p in program_tuples]
+    load_libraries(jobs)
+    return [job[0] for job in jobs]
+
+
+@functools.lru_cache(maxsize=None)
+def program_library(programs):
+    """Build (first call only) and bind the library of a program tuple."""
+    from .build import load_libraries
+
+    (lib,) = load_libraries([_program_job(programs)])
+    args = ([ctypes.c_void_p] * 7
+            + [ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_int]
+            + [ctypes.c_void_p] * 3)
+    for fn in (lib.gp_program_f32, lib.gp_program_f64):
+        fn.argtypes = args
+        fn.restype = ctypes.c_int
+    lib.gp_program_error_string.argtypes = [ctypes.c_int]
+    lib.gp_program_error_string.restype = ctypes.c_char_p
+    lib.error_string = lib.gp_program_error_string
+    lib.gp_program_limits.argtypes = [ctypes.POINTER(ctypes.c_int)] * 5
+    lib.gp_program_limits.restype = ctypes.c_int
+    lib.gp_program_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
+    lib.gp_program_smem_bytes.restype = ctypes.c_longlong
+    limits = [ctypes.c_int() for _ in range(5)]
+    lib.gp_program_limits(*(ctypes.byref(v) for v in limits))
+    lib.limits = dict(zip(("d_max", "p_max", "num_out", "num_params",
+                           "min_d"), (v.value for v in limits)))
+    return lib
+
+
+def _launch_program(programs, points, x, params, chol_inv, alpha, mask, s2,
+                    mean_num, var_num):
+    """Validate and launch a program library; ``False`` when there was
+    nothing to launch (no queries).
+
+    ``chol_inv`` is ``(S, cap, cap)``, ``alpha`` is ``(S, cap, p)``;
+    outputs are ``mean_num`` ``(Q, S*p)`` and ``var_num`` ``(Q*S,)`` in
+    memory.
+    """
+    s2 = _scalar_tensor(s2, points)
+    dtype, device = _check_tensors(dict(
+        points=points, x=x, params=params, chol_inv=chol_inv, alpha=alpha,
+        mask=mask, s2=s2))
+    n_q, d = points.shape
+    n_out, cap, p = alpha.shape
+    if (x.shape != (cap, d) or chol_inv.shape != (n_out, cap, cap)
+            or mask.shape != (cap,) or params.dim() != 1
+            or s2.numel() != 1 or n_out != len(programs)):
+        raise ValueError("inconsistent shapes: points {}, x {}, params {}, "
+                         "chol_inv {}, alpha {}, mask {}, {} programs"
+                         .format(tuple(points.shape), tuple(x.shape),
+                                 tuple(params.shape), tuple(chol_inv.shape),
+                                 tuple(alpha.shape), tuple(mask.shape),
+                                 len(programs)))
+    lib = program_library(programs)
+    lim = lib.limits
+    if not lim["min_d"] <= d <= lim["d_max"] or p > lim["p_max"]:
+        raise ValueError("this program kernel takes {} <= d <= {} and "
+                         "p <= {}; got d={}, p={}".format(
+                             lim["min_d"], lim["d_max"], lim["p_max"], d, p))
+    if params.shape[0] != lim["num_params"]:
+        raise ValueError("the programs read {} parameters, got {}".format(
+            lim["num_params"], params.shape[0]))
+    if n_q == 0:
+        return False
+    fn = (lib.gp_program_f32 if dtype == torch.float32
+          else lib.gp_program_f64)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = fn(points.data_ptr(), x.data_ptr(), params.data_ptr(),
+                 chol_inv.data_ptr(), alpha.data_ptr(), mask.data_ptr(),
+                 s2.data_ptr(), n_q, d, cap, p, mean_num.data_ptr(),
+                 var_num.data_ptr(), stream)
+    _raise_on_error(err, lib, "gp_program")
+    return True
+
+
+def gp_predict_general_cuda(points, x, params, chol_inv, alpha, mask, s2,
+                            program):
+    """Launch the general (composite-kernel) CUDA kernel.
+
+    Same contract as :func:`gp_predict_general_plain`. ``chol_inv`` must
+    be lower-triangular; every tensor a contiguous CUDA tensor of one
+    float dtype on one device (``s2`` may be a Python number). Launches
+    on the current stream without synchronising.
+    """
+    n_q, cap, p = points.shape[0], chol_inv.shape[0], alpha.shape[-1]
+    mean_num = torch.empty((n_q, p), dtype=points.dtype,
+                           device=points.device)
+    var_num = torch.empty((n_q,), dtype=points.dtype, device=points.device)
+    if _launch_program((program,), points, x, params,
+                       chol_inv.reshape(1, cap, -1),
+                       alpha.reshape(1, cap, -1), mask, s2, mean_num,
+                       var_num):
+        gp_predict_general_cuda.launches += 1
+    return mean_num, var_num
+
+
+gp_predict_general_cuda.launches = 0
+
+
+def gp_predict_stacked_cuda(points, x, params, chol_inv, alpha_t, mask, s2,
+                            programs):
+    """Launch the stacked CUDA kernel (one launch for all S outputs).
+
+    Same contract as :func:`gp_predict_stacked_plain`; the requirements
+    of :func:`gp_predict_general_cuda` hold.
+    """
+    n_q, n_out = points.shape[0], alpha_t.shape[0]
+    mean_num = torch.empty((n_q, n_out), dtype=points.dtype,
+                           device=points.device)
+    var_num = torch.empty((n_q, n_out), dtype=points.dtype,
+                          device=points.device)
+    if _launch_program(tuple(programs), points, x, params, chol_inv,
+                       alpha_t.reshape(n_out, -1, 1), mask, s2, mean_num,
+                       var_num):
+        gp_predict_stacked_cuda.launches += 1
+    return mean_num, var_num
+
+
+gp_predict_stacked_cuda.launches = 0
+
+
+class _FusedGeneral(torch.autograd.Function):
+    """General kernel forward; the backward differentiates the twin."""
+
+    @staticmethod
+    def forward(ctx, points, x, params, chol_inv, alpha, mask, s2,
+                program):
+        ctx.program = program
+        ctx.save_for_backward(points, x, params, chol_inv, alpha, mask, s2)
+        return gp_predict_general_cuda(points, x, params, chol_inv, alpha,
+                                       mask, s2, program)
+
+    @staticmethod
+    def backward(ctx, grad_mean, grad_var):
+        return _grads_through_plain(ctx, gp_predict_general_plain,
+                                    (grad_mean, grad_var), 7,
+                                    program=ctx.program)
+
+
+class _FusedStacked(torch.autograd.Function):
+    """Stacked kernel forward; the backward differentiates the twin."""
+
+    @staticmethod
+    def forward(ctx, points, x, params, chol_inv, alpha_t, mask, s2,
+                programs):
+        ctx.programs = programs
+        ctx.save_for_backward(points, x, params, chol_inv, alpha_t, mask,
+                              s2)
+        return gp_predict_stacked_cuda(points, x, params, chol_inv, alpha_t,
+                                       mask, s2, programs)
+
+    @staticmethod
+    def backward(ctx, grad_mean, grad_var):
+        return _grads_through_plain(ctx, gp_predict_stacked_plain,
+                                    (grad_mean, grad_var), 7,
+                                    programs=ctx.programs)
+
+
+def fused_gp_predict_general(points, x, params, chol_inv, alpha, mask, s2,
+                             program):
+    """Fused posterior numerators for a composite kernel.
+
+    Same contract as :func:`gp_predict_general_plain`. A CPU tensor goes
+    to the plain version; a CUDA tensor goes to the CUDA kernel, or the
+    call raises.
+    """
+    if points.device.type == "cpu":
+        return gp_predict_general_plain(points, x, params, chol_inv, alpha,
+                                        mask, s2, program)
+    s2 = _scalar_tensor(s2, points)
+    return _FusedGeneral.apply(points.contiguous(), x.contiguous(),
+                               params.contiguous(), chol_inv.contiguous(),
+                               alpha.contiguous(), mask.contiguous(),
+                               s2.contiguous(), program)
+
+
+def fused_gp_predict_stacked(points, x, params, chol_inv, alpha_t, mask, s2,
+                             programs):
+    """Fused posterior numerators for a stack of GPs over shared inputs.
+
+    Same contract as :func:`gp_predict_stacked_plain`. A CPU tensor goes
+    to the plain version; a CUDA tensor goes to the CUDA kernel, or the
+    call raises.
+    """
+    programs = tuple(programs)
+    if points.device.type == "cpu":
+        return gp_predict_stacked_plain(points, x, params, chol_inv,
+                                        alpha_t, mask, s2, programs)
+    s2 = _scalar_tensor(s2, points)
+    return _FusedStacked.apply(points.contiguous(), x.contiguous(),
+                               params.contiguous(), chol_inv.contiguous(),
+                               alpha_t.contiguous(), mask.contiguous(),
+                               s2.contiguous(), programs)

@@ -33,6 +33,10 @@ from .lyapunov import (_decrease_bound, _negative_batch, _threshold,
 __all__ = ["lift64", "oracle_margins", "oracle_safe_set",
            "calibrate_certificate_margin"]
 
+#: Grid rows per float64 pass of :func:`oracle_margins`: at a GP capacity
+#: of 32 its intermediates take a few hundred MB.
+ORACLE_CHUNK = 2 ** 18
+
 
 @contextlib.contextmanager
 def _oracle_env():
@@ -52,14 +56,27 @@ def lift64(fn):
 
     Every floating tensor is widened exactly, so the copy computes the
     exact-arithmetic value of the same model the working-dtype pipeline
-    evaluates. Gaussian processes are rebuilt from their raw data and
-    widened hyperparameters, through the same host island as any GP, so a
-    GP and its float64 copy share their factors bit for bit. Callables
-    inside :class:`LambdaFunction` are kept as they are (they must work
-    on float64 CPU tensors).
+    evaluates. Gaussian processes, stacked ones included, are rebuilt from
+    their raw data and widened hyperparameters, through the same host
+    island as any GP, so a GP and its float64 copy share their factors bit
+    for bit. Attributes that are functions or kernels, alone or in a tuple
+    or list (a ``FunctionStack``'s members), are lifted in turn. Callables
+    inside :class:`LambdaFunction` are kept as they are (they must work on
+    float64 CPU tensors). An attribute that would stay in the working
+    dtype, such as a numpy array or a dict, raises ``TypeError``.
     """
     if fn is None or isinstance(fn, (int, float)):
         return fn
+    if isinstance(fn, gp_mod.StackedGaussianProcess):
+        with _oracle_env():
+            return gp_mod.StackedGaussianProcess(
+                tuple(lift64(k) for k in fn.kernels),
+                fn.X.astype(np.float64), fn.Y.astype(np.float64),
+                fn.noise_variances.detach().cpu().double().numpy(),
+                betas=np.asarray(fn.betas, dtype=np.float64),
+                mean_functions=tuple(lift64(m)
+                                     for m in fn.mean_functions),
+                capacity=fn.capacity, scale=fn.scale)
     if isinstance(fn, gp_mod.GaussianProcess):
         with _oracle_env():
             return gp_mod.GaussianProcess(
@@ -72,11 +89,25 @@ def lift64(fn):
                         "{}".format(type(fn).__name__))
     new = copy.copy(fn)
     for name, value in vars(fn).items():
-        if torch.is_tensor(value) and value.is_floating_point():
-            setattr(new, name, value.detach().to("cpu", torch.float64))
-        elif isinstance(value, (Function, gp_mod.Kernel)):
-            setattr(new, name, lift64(value))
+        setattr(new, name, _lift_attribute(fn, name, value))
     return new
+
+
+def _lift_attribute(owner, name, value):
+    """Float64 CPU counterpart of one attribute of a lifted object."""
+    if torch.is_tensor(value):
+        if value.is_floating_point():
+            return value.detach().to("cpu", torch.float64)
+        return value.detach().cpu()
+    if isinstance(value, (Function, gp_mod.Kernel)):
+        return lift64(value)
+    if isinstance(value, (tuple, list)):
+        return type(value)(_lift_attribute(owner, name, v) for v in value)
+    if (value is None or isinstance(value, (bool, int, float, str))
+            or callable(value)):
+        return value
+    raise TypeError("lift64 cannot lift {}.{} of type {}".format(
+        type(owner).__name__, name, type(value).__name__))
 
 
 def _host(states):
@@ -99,14 +130,21 @@ def oracle_margins(lyapunov, states, tau=None):
     v_fun = lift64(lyapunov.lyapunov_function)
     lip_v = lift64(lyapunov._lipschitz_lyapunov)
     lip_f = lift64(lyapunov._lipschitz_dynamics)
+    states = _host(states)
+    margins = np.empty(len(states))
+    # Row chunks bound the host memory of a GP posterior's (cap, rows)
+    # intermediates; each row's margin is computed independently.
     with _oracle_env():
-        points = torch.as_tensor(_host(states), dtype=torch.float64)
-        next_states = dynamics(points, policy(points))
-        decrease = _decrease_bound(v_fun, lip_v, points, next_states)
-        threshold = _threshold(lip_v, lip_f, points, tau)
-        margins = decrease - torch.as_tensor(
-            threshold, dtype=torch.float64).broadcast_to(decrease.shape)
-    return margins.numpy().ravel()
+        for start in range(0, len(states), ORACLE_CHUNK):
+            points = torch.as_tensor(states[start:start + ORACLE_CHUNK],
+                                     dtype=torch.float64)
+            next_states = dynamics(points, policy(points))
+            decrease = _decrease_bound(v_fun, lip_v, points, next_states)
+            threshold = _threshold(lip_v, lip_f, points, tau)
+            margins[start:start + len(points)] = (decrease - torch.as_tensor(
+                threshold, dtype=torch.float64).broadcast_to(
+                    decrease.shape)).numpy().ravel()
+    return margins
 
 
 def _oracle_values(lyapunov, points):

@@ -1,14 +1,38 @@
-"""Utilities: the mutation-tracked boolean mask behind ``Lyapunov.safe_set``.
+"""Utilities: the mutation-tracked boolean mask and the LQR solvers.
 
-Counterpart of ``safe_learning_tpu/utils.py:34-106``; the rest of that
-module is not ported yet.
+Counterpart of ``safe_learning_tpu/utils.py:34-106`` and ``:142-160``;
+the rest of that module is not ported yet (ROADMAP queue 1 item 11).
 """
 
 from __future__ import annotations
 
 import numpy as np
+import scipy.linalg
 
-__all__ = ["TrackedMask", "tracked_mask"]
+__all__ = ["TrackedMask", "tracked_mask", "lqr", "dlqr"]
+
+
+def lqr(a, b, q, r):
+    """Continuous-time LQR gain and Riccati solution: ``u = -k @ x``.
+
+    Host-side setup code (scipy), as ``safe_learning_tpu.utils.lqr``.
+    """
+    a, b, q, r = map(np.atleast_2d, (a, b, q, r))
+    p = scipy.linalg.solve_continuous_are(a, b, q, r)
+    k = np.linalg.solve(r, b.T.dot(p))
+    return k, p
+
+
+def dlqr(a, b, q, r):
+    """Discrete-time LQR gain and Riccati solution: ``u = -k @ x``.
+
+    Host-side setup code (scipy), as ``safe_learning_tpu.utils.dlqr``.
+    """
+    a, b, q, r = map(np.atleast_2d, (a, b, q, r))
+    p = scipy.linalg.solve_discrete_are(a, b, q, r)
+    bp = b.T.dot(p)
+    k = np.linalg.solve(bp.dot(b) + r, bp.dot(a))
+    return k, p
 
 
 class TrackedMask(np.ndarray):

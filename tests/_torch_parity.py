@@ -47,10 +47,34 @@ def to_numpy(value):
 
 
 def port_kernel(kernel):
-    """The port's copy of a JAX stationary kernel."""
-    kind = {cls: name for name, (cls, _) in KINDS.items()}[type(kernel)]
-    return convert.stationary_kernel(kind, np.asarray(kernel.variance),
-                                     np.asarray(kernel.lengthscales))
+    """The port's copy of a JAX kernel tree: stationary, linear,
+    ``ActiveDims``, sums and products, through ``convert``."""
+    from safe_learning_tpu.functions.gp import (ActiveDims, LinearKernel,
+                                                ProductKernel, SumKernel)
+
+    kinds = {cls: name for name, (cls, _) in KINDS.items()}
+    if type(kernel) in kinds:
+        return convert.stationary_kernel(kinds[type(kernel)],
+                                         np.asarray(kernel.variance),
+                                         np.asarray(kernel.lengthscales))
+    if isinstance(kernel, LinearKernel):
+        return convert.linear_kernel(np.asarray(kernel.variances))
+    if isinstance(kernel, ActiveDims):
+        return convert.active_dims(port_kernel(kernel.kernel), kernel.dims)
+    if isinstance(kernel, SumKernel):
+        return convert.sum_kernel(port_kernel(kernel.k1),
+                                  port_kernel(kernel.k2))
+    if isinstance(kernel, ProductKernel):
+        return convert.product_kernel(port_kernel(kernel.k1),
+                                      port_kernel(kernel.k2))
+    raise TypeError("no converter for {}".format(type(kernel).__name__))
+
+
+def port_mean(fun):
+    """The port's copy of a JAX ``LinearSystem`` prior mean (or None)."""
+    if fun is None:
+        return None
+    return convert.linear_system(np.asarray(fun.matrix))
 
 
 def port_gp(gp, adopt=False):
@@ -58,8 +82,7 @@ def port_gp(gp, adopt=False):
 
     ``adopt=True`` feeds the port the JAX GP's own cache.
     """
-    mean = (None if gp.mean_function is None
-            else convert.linear_system(np.asarray(gp.mean_function.matrix)))
+    mean = port_mean(gp.mean_function)
     cache = None
     if adopt:
         cache = dict(chol_inv=np.asarray(gp.chol_inv),
@@ -69,6 +92,65 @@ def port_gp(gp, adopt=False):
         port_kernel(gp.kernel), gp.X, gp.Y, float(gp.noise_variance),
         beta=gp.beta, scale=gp.scale, capacity=gp.capacity,
         mean_function=mean, adopt=cache)
+
+
+def port_stacked_gp(gp, adopt=False):
+    """The port's copy of a JAX ``StackedGaussianProcess`` with
+    ``LinearSystem`` or no priors; ``adopt=True`` feeds it the JAX stack's
+    own cache."""
+    cache = None
+    if adopt:
+        cache = dict(chol_inv=np.asarray(gp.chol_inv),
+                     alpha=np.asarray(gp.alpha),
+                     X_buf=np.asarray(gp.X_buf), count=int(gp.count))
+    return convert.stacked_gaussian_process(
+        [port_kernel(k) for k in gp.kernels], gp.X, gp.Y,
+        np.asarray(gp.noise_variances), betas=np.asarray(gp.betas),
+        scale=gp.scale, capacity=gp.capacity,
+        mean_functions=[port_mean(m) for m in gp.mean_functions],
+        adopt=cache)
+
+
+def flagship_pair(num_points, route, tau=None):
+    """The flagship instance in both packages, on the same numbers.
+
+    The port builds it (``chip_smoke.build_flagship_instance``); the JAX
+    package's twin takes the port's linearizations, LQR solution,
+    measurements and initial set, and builds its GPs as
+    ``examples/inverted_pendulum.py:27-48`` (stacked) or
+    ``examples/adaptive_safety_verification.py:53-57`` (fan-out) do.
+    Returns ``(port_lyapunov, jax_lyapunov, inst)``.
+    """
+    from chip_smoke import build_flagship_instance
+
+    lyap, inst = build_flagship_instance(num_points, route=route, tau=tau)
+    a, b, variances = inst["a"], inst["b"], inst["variances"]
+    kernels, means = [], []
+    for dim in range(2):
+        kernels.append(
+            sl.LinearKernel(variances=variances[dim], input_dim=3)
+            + sl.ActiveDims(sl.Matern32(lengthscales=1.0, input_dim=1),
+                            dims=[0])
+            * sl.ActiveDims(sl.LinearKernel(variances=variances[dim, 1],
+                                            input_dim=1), dims=[0]))
+        means.append(sl.LinearSystem([a[[dim]], b[[dim]]]))
+    xu, meas, noise = inst["xu"], inst["meas"], inst["noise"]
+    if route == "stacked":
+        dynamics = sl.StackedGaussianProcess(
+            kernels, xu, meas, noise_variances=noise, betas=2.0,
+            mean_functions=means, capacity=32)
+    else:
+        dynamics = sl.FunctionStack([
+            sl.GaussianProcess(kernel, xu, meas[:, dim:dim + 1],
+                               noise_variance=noise, beta=2.0,
+                               mean_function=mean, capacity=32)
+            for dim, (kernel, mean) in enumerate(zip(kernels, means))])
+    policy = sl.Saturation(sl.LinearSystem(-inst["k"]), -1.0, 1.0)
+    grid = sl.GridWorld([[-2.0, 2.0], [-1.5, 1.5]], num_points)
+    jlyap = sl.Lyapunov(grid, sl.QuadraticFunction(inst["s"]), dynamics,
+                        inst["lf"], inst["lv"], inst["tau"], policy,
+                        initial_set=inst["initial_set"])
+    return lyap, jlyap, inst
 
 
 def jax_bench_lyapunov(n_points):

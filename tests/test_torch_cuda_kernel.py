@@ -1,4 +1,5 @@
-"""The CUDA GP-predict kernel on the card (marked ``cuda``).
+"""The CUDA GP-predict kernels on the card (marked ``cuda``): the
+stationary kernel, and the general and stacked covariance-program kernels.
 
 These cases need an NVIDIA GPU and skip without one. They import no JAX,
 so they also run where only PyTorch is installed:
@@ -60,3 +61,84 @@ def test_cuda_predict_goes_through_the_kernel(on_cuda):
         gp_kernel.gp_predict_cuda(
             torch.zeros(5, 17, device=on_cuda),
             torch.zeros(16, 17, device=on_cuda), *args[1:])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["flagship", "ard_rbf", "product", "sum3"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_general_kernel_matches_plain(on_cuda, name, dtype):
+    """Kernel 2: ragged Q and a partly filled mask at capacities 8, 128
+    and 2048; the bound is ``chip_smoke.program_bounds``."""
+    from chip_smoke import case_queries, compare_program, program_case
+
+    for cap in (8, 128, 2048):
+        inputs, programs = program_case("general", (name,), cap, 2, 2.5,
+                                        dtype, seed=cap)
+        points = case_queries(1001, inputs[0], cap)
+        before = gp_kernel.gp_predict_general_cuda.launches
+        _, _, ratio = compare_program("general", (points,) + inputs,
+                                      programs)
+        assert gp_kernel.gp_predict_general_cuda.launches == before + 1
+        assert ratio <= 1.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_out", [1, 2, 3])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_stacked_kernel_matches_plain(on_cuda, n_out, dtype):
+    """Kernel 3 with 1 to 3 outputs at capacities 8, 128 and 1024."""
+    from chip_smoke import (STACKED_SETS, case_queries, compare_program,
+                            program_case)
+
+    for cap in (8, 128, 1024):
+        inputs, programs = program_case("stacked", STACKED_SETS[n_out], cap,
+                                        1, 1.0, dtype, seed=cap)
+        points = case_queries(1001, inputs[0], cap)
+        before = gp_kernel.gp_predict_stacked_cuda.launches
+        _, _, ratio = compare_program("stacked", (points,) + inputs,
+                                      programs)
+        assert gp_kernel.gp_predict_stacked_cuda.launches == before + 1
+        assert ratio <= 1.0
+
+
+@pytest.mark.cuda
+def test_composite_predicts_go_through_the_program_kernels(on_cuda):
+    """A composite-kernel GP launches kernel 2 once per predict, a stack
+    of two kernel 3 once; both agree with the float64 host copies; and
+    the wrappers raise on what they do not take."""
+    import numpy as np
+
+    from chip_smoke import flagship_kernel
+
+    rng = np.random.default_rng(0)
+    x = rng.uniform(-1, 1, (20, 3))
+    y = np.column_stack([np.sin(x[:, 0]), np.cos(x[:, 1])])
+    kernels = [flagship_kernel(np.array([0.3, 0.1, 0.5])),
+               flagship_kernel(np.array([0.2, 0.4, 0.1]))]
+    gp = st.GaussianProcess(kernels[0], x, y[:, :1], 1e-4, capacity=32)
+    stacked = st.StackedGaussianProcess(kernels, x, y, 1e-4, capacity=32)
+    q = torch.as_tensor(rng.uniform(-1, 1, (77, 3)), dtype=torch.float32,
+                        device=on_cuda)
+    general = gp_kernel.gp_predict_general_cuda.launches
+    mean, err = gp(q)
+    assert gp_kernel.gp_predict_general_cuda.launches == general + 1
+    stacked_before = gp_kernel.gp_predict_stacked_cuda.launches
+    mean_s, err_s = stacked(q)
+    assert gp_kernel.gp_predict_stacked_cuda.launches == stacked_before + 1
+    assert mean.is_cuda and mean_s.shape == (77, 2)
+    host = q.double().cpu()
+    for got, want in ((mean, st.oracle.lift64(gp)(host)[0]),
+                      (mean_s, st.oracle.lift64(stacked)(host)[0])):
+        # float32 at noise 1e-4 (|L^-1| near 1e2) keeps about 3 digits.
+        assert torch.allclose(got.double().cpu(), want, atol=1e-2)
+    programs, params = stacked._programs()
+    params = gp_kernel.program_params(params, q)
+    args = (stacked.X_buf, params, stacked.chol_inv,
+            stacked.alpha[:, :, 0].contiguous(), stacked._mask(), 1.0)
+    with pytest.raises(ValueError, match="parameters"):
+        gp_kernel.gp_predict_stacked_cuda(q, args[0], params[:-1],
+                                          *args[2:], programs)
+    with pytest.raises(ValueError, match="d="):
+        gp_kernel.gp_predict_stacked_cuda(q[:, :2].contiguous(),
+                                          args[0][:, :2].contiguous(),
+                                          *args[1:], programs)

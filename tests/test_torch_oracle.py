@@ -7,6 +7,7 @@ the port's oracle margins and safe set equal the JAX oracle's.
 
 import numpy as np
 import pytest
+import torch
 from numpy.testing import assert_allclose, assert_array_equal
 
 import safe_learning_tpu as sl
@@ -105,3 +106,67 @@ def test_lift64_and_unported_options():
         lyap, _ = port_bench_lyapunov(20)
     with pytest.raises(NotImplementedError, match="item 12"):
         st.oracle.calibrate_certificate_margin(lyap, refinement=2)
+
+
+class _Pair(st.DeterministicFunction):
+    """A function holding its parts in a list attribute."""
+
+    def __init__(self, parts):
+        self.parts = list(parts)
+
+    def evaluate(self, points):
+        return sum(part.evaluate(points) for part in self.parts)
+
+
+def test_lift64_lifts_containers_and_stacked_gps():
+    """A ``FunctionStack`` of float32 GPs, a ``StackedGaussianProcess`` and
+    a list attribute of functions all come out float64 on the CPU (before
+    the repair, a tuple or list attribute passed through in float32); an
+    attribute that cannot be widened raises instead of passing through."""
+    rng = np.random.default_rng(0)
+    x = rng.uniform(-1, 1, size=(10, 3))
+    y = np.column_stack([np.sin(x[:, 0]), np.cos(x[:, 1])])
+    with working_dtype("float32"):
+        kernel = (st.LinearKernel([0.3, 0.1, 0.5], input_dim=3)
+                  + st.ActiveDims(st.Matern32(1.0, 0.8, input_dim=1), [0]))
+        gps = [st.GaussianProcess(kernel, x, y[:, s:s + 1], 1e-4,
+                                  mean_function=st.LinearSystem(
+                                      np.ones((1, 3))))
+               for s in range(2)]
+        fan_out = st.FunctionStack(gps)
+        stacked = st.StackedGaussianProcess.from_gps(gps)
+        pair = _Pair([st.QuadraticFunction(np.eye(3)),
+                      st.Saturation(st.LinearSystem(np.ones((1, 3))), -1.0,
+                                    1.0)])
+    lifted = st.oracle.lift64(fan_out)
+    assert isinstance(lifted.functions, tuple)
+    for member, orig in zip(lifted.functions, gps):
+        assert member is not orig
+        assert member.X_buf.dtype == torch.float64
+        assert member.chol_inv.dtype == torch.float64
+        assert member.kernel.k1.variances.dtype == torch.float64
+        assert member.mean_function.matrix.dtype == torch.float64
+        assert_array_equal(member._host_cache.chol_inv,
+                           orig._host_cache.chol_inv)
+    assert gps[0].X_buf.dtype == torch.float32  # the original is untouched
+    lifted_stack = st.oracle.lift64(stacked)
+    assert lifted_stack.chol_inv.dtype == torch.float64
+    assert lifted_stack.kernels[1].k2.kernel.variance.dtype == torch.float64
+    assert lifted_stack.mean_functions[0].matrix.dtype == torch.float64
+    assert_allclose(lifted_stack.noise_variances.numpy(),
+                    stacked.noise_variances.numpy())
+    q = rng.uniform(-1, 1, size=(6, 3))
+    for got, want in zip(lifted(q), lifted_stack(q)):
+        assert got.dtype == torch.float64
+        assert_allclose(got.numpy(), want.numpy(), rtol=1e-12, atol=1e-14)
+    lifted_pair = st.oracle.lift64(pair)
+    assert isinstance(lifted_pair.parts, list)
+    assert lifted_pair.parts[0].matrix.dtype == torch.float64
+    assert lifted_pair.parts[1].fun.matrix.dtype == torch.float64
+    assert lifted_pair(q).dtype == torch.float64
+
+    for bad in ({"f": pair}, np.ones(3, dtype=np.float32)):
+        holder = _Pair([])
+        holder.extra = bad
+        with pytest.raises(TypeError, match="cannot lift"):
+            st.oracle.lift64(holder)
