@@ -41,17 +41,35 @@ Phases, in order; any failure raises and the exit code is not 0:
    more than the exempt initial set, and went through its kernel;
 7. times: CUDA events, median of 10 runs after warm-up, for the bench and
    flagship sweeps (one sweep a run) and for each kernel against its
-   plain version on its path's own inputs (10 calls back to back a run).
+   plain version on its path's own inputs (10 calls back to back a run);
+8. safe learning: the inverted pendulum's loop of
+   ``examples/inverted_pendulum.py`` at its ``--full`` width
+   (``build_safe_learning_instance``: 2001x1501 grid, a ``[2, 32, 32, 1]``
+   MLP policy at a seeded Xavier initialisation, the ``Triangulation``
+   value function on a 55x55 grid with the local ``L_v`` of its
+   ``GradientNorm``, a stacked GP at capacity 64 with no data): certify,
+   ten rounds of ``get_safe_sample``, a measurement and ``add_data_point``,
+   re-certify. Both sweeps pass the flagship's gate against the float64
+   oracle (outside the calibrated band, only conservative disagreements
+   explained by a simplex jump are accepted, each listed), each chosen
+   pair re-scores safe in float64 and matches the pair kernel 3's plain
+   twin chooses, the bordered appends match a fresh factorization, no
+   library is built, and each sweep and step launched kernel 3 exactly
+   once; then the loop's times.
 
 The second-to-last line is a JSON object describing each kernel; the last
 line is ``{"ok": true, "device": {...}}``.
 """
 
+import contextlib
+import copy
+import functools
 import json
 import statistics
 import subprocess
 import sys
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -213,6 +231,137 @@ def build_flagship_instance(num_points=FLAGSHIP_POINTS, route="stacked",
                       variances=variances, xu=xu, meas=meas, noise=noise,
                       lv=lv, lf=lf, tau=tau, initial_set=initial_set,
                       norms=norms)
+
+
+#: The safe-learning instance's grids and policy network at the example's
+#: ``--full`` sizes (``examples/inverted_pendulum.py:68-70, 113-116``).
+SAFE_LEARNING_POINTS = (2001, 1501)
+POLICY_POINTS = (55, 55)
+POLICY_LAYERS = (2, 32, 32, 1)
+
+
+def pendulums():
+    """The true and the wrong inverted pendulum of the NeurIPS-17 example
+    (``examples/inverted_pendulum.py:77-85``)."""
+    gravity, length = 9.81, 0.5
+    x_max = np.deg2rad(30)
+    u_max = gravity * 0.15 * length * np.sin(x_max)
+    norms = ((x_max, np.sqrt(gravity / length)), (u_max,))
+    true = st.InvertedPendulum(0.15, length, 0.1, 1 / 80,
+                               normalization=norms)
+    wrong = st.InvertedPendulum(0.1, length, 0.0, 1 / 80,
+                                normalization=norms)
+    return true, wrong
+
+
+def xavier_policy_weights(seed, layers):
+    """Xavier-uniform weights ``(fan_in, fan_out)`` and zero hidden biases
+    of an MLP from ``numpy.random.default_rng(seed)``; the output layer
+    has no bias."""
+    rng = np.random.default_rng(seed)
+    weights, biases = [], []
+    for i, (n_in, n_out) in enumerate(zip(layers[:-1], layers[1:])):
+        bound = np.sqrt(6.0 / (n_in + n_out))
+        weights.append(rng.uniform(-bound, bound, (n_in, n_out)))
+        biases.append(np.zeros(n_out) if i < len(layers) - 2 else None)
+    return weights, biases
+
+
+def build_safe_learning_instance(seed, num_points=SAFE_LEARNING_POINTS,
+                                 policy_points=POLICY_POINTS,
+                                 layers=POLICY_LAYERS):
+    """The inverted pendulum's safe-learning loop at its start, in the port.
+
+    As ``examples/inverted_pendulum.py:77-148`` builds it: the stacked GP
+    of the two composite-kernel GPs with the wrong pendulum's
+    linearization as prior (noise 1e-6, beta 2) at capacity 64 with no
+    data; an MLP policy (relu, ..., tanh; output scale 1) at its Xavier
+    initialisation from ``seed``; the value function ``-x'Sx`` of the
+    wrong model's LQR as a ``Triangulation`` on the policy grid with
+    ``project=True``; the Lyapunov candidate its negation with the local
+    ``L_v = GradientNorm(value_function, ord=inf)``; ``L_f`` from the true
+    linearization and the policy's Lipschitz bound; ``tau`` the safety
+    grid's smallest cell edge; the initial set ``v <= 0.005 max v``. The
+    policy is not trained (that is ``PolicyIteration``, not ported yet).
+    Returns ``(lyapunov, inst)`` with ``inst`` the pieces and their
+    numpy data.
+    """
+    true, wrong = pendulums()
+    q, r = np.diag([1.0, 2.0]), 1.2 * np.ones((1, 1))
+    state_limits = np.array([[-2.0, 2.0], [-1.5, 1.5]])
+    action_limits = np.array([[-1.0, 1.0]])
+    safety_disc = st.GridWorld(state_limits, num_points)
+    policy_disc = st.GridWorld(state_limits, policy_points)
+    tau = float(np.min(safety_disc.unit_maxes))
+
+    a, b = wrong.linearize()
+    a_true, b_true = true.linearize()
+    variances = np.clip((np.hstack([a_true, b_true]) - np.hstack([a, b]))
+                        ** 2, 1e-5, None)
+    noise = 0.001 ** 2
+    dynamics = st.StackedGaussianProcess(
+        [flagship_kernel(variances[dim]) for dim in range(2)],
+        np.empty((0, 3)), np.empty((0, 2)), noise_variances=noise,
+        betas=2.0, mean_functions=[st.LinearSystem([a[[dim]], b[[dim]]])
+                                   for dim in range(2)], capacity=64)
+
+    k, s = st.utils.dlqr(a, b, q, r)
+    init_lyapunov = st.QuadraticFunction(s)
+    weights, biases = xavier_policy_weights(seed, layers)
+    nonlinearities = ["relu"] * (len(layers) - 2) + ["tanh"]
+    policy = st.convert.neural_network(layers, nonlinearities,
+                                       float(action_limits[0, 1]), weights,
+                                       biases)
+    vertex_values = -init_lyapunov(
+        policy_disc.all_points).reshape(-1).cpu().numpy()
+    value_function = st.Triangulation(policy_disc, vertex_values,
+                                      project=True)
+    lip_policy = float(policy.lipschitz())
+    lf = float(np.max(np.abs(a_true)) + np.max(np.abs(b_true)) * lip_policy)
+    lyap = st.Lyapunov(safety_disc, -value_function, dynamics, lf,
+                       st.GradientNorm(value_function, ord=np.inf), tau,
+                       policy)
+    init_values = init_lyapunov(
+        safety_disc.all_points).reshape(-1).cpu().numpy()
+    lyap.initial_safe_set = init_values <= np.max(init_values) * 0.005
+    lyap.safe_set |= lyap.initial_safe_set
+    return lyap, dict(true=true, a=a, b=b, a_true=a_true, b_true=b_true,
+                      variances=variances, noise=noise, s=s,
+                      weights=weights, biases=biases,
+                      nonlinearities=nonlinearities,
+                      vertex_values=vertex_values, lf=lf, tau=tau,
+                      state_limits=state_limits,
+                      action_limits=action_limits,
+                      initial=np.array(lyap.initial_safe_set),
+                      value_function=value_function)
+
+
+#: Exploration settings of the example (``examples/inverted_pendulum.py:
+#: 170-175``).
+ACTION_VARIATION = np.array([[-0.02], [0.0], [0.02]])
+EXPLORATION_SAMPLES = 1000
+
+
+def safe_sample(lyap, inst, rng):
+    """``get_safe_sample`` with the example's settings
+    (``examples/inverted_pendulum.py:173-175``). Returns ``(xu, bound,
+    fallback)``; ``fallback`` is True when the step warned that it used
+    the backup policy."""
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always", RuntimeWarning)
+        xu, bound = st.get_safe_sample(
+            lyap, ACTION_VARIATION, inst["action_limits"],
+            num_samples=EXPLORATION_SAMPLES, rng=rng)
+    fallback = any("backup policy" in str(w.message) for w in caught)
+    return xu, bound, fallback
+
+
+def measure_and_append(lyap, inst, xu):
+    """Measure the true pendulum at ``xu`` and append the measurement to
+    the GP (``examples/inverted_pendulum.py:176-180``). Returns it."""
+    measurement = inst["true"](xu[:, :2], xu[:, 2:]).cpu().numpy()
+    lyap.dynamics = lyap.dynamics.add_data_point(xu, measurement)
+    return measurement
 
 
 # ---------------------------------------------------------------------------
@@ -728,18 +877,98 @@ def gate_2(c_max, c_ref):
     print("gate 2 passed")
 
 
+def oracle_gate(lyap, label, initial=None, explain=None):
+    """A certified sweep against the port's float64 oracle.
+
+    ``lyap`` has just run ``update_safe_set``. ``bench.py``'s first gate
+    on its level; then the decrease verdict of every grid point on the card
+    against the sign of its float64 margin, wherever that margin lies
+    outside the band of ``oracle.calibrate_certificate_margin``. Outside
+    the band, a point the card passes and the oracle fails always fails
+    the run; a point the card fails and the oracle passes (the conservative
+    direction) fails it unless ``explain`` (grid indices to a cause, or
+    ``None``, for each) names a cause. Every such point is listed. With
+    ``initial`` (the exempt initial set, a boolean mask), some point beyond
+    it must pass. Then sweeps again with the calibrated margin installed:
+    that safe set must lie inside the oracle's, and its level pass
+    ``bench.py``'s second gate. Returns the margin.
+    """
+    c_dev = lyap.c_max
+    safe = np.array(lyap.safe_set)
+    points = lyap._device_points()
+    negative = _negative_batch(
+        lyap.policy, lyap.dynamics, lyap.lyapunov_function,
+        lyap._lipschitz_lyapunov, lyap._lipschitz_dynamics, lyap.tau,
+        points)[0].cpu().numpy()
+    margin = st.oracle.calibrate_certificate_margin(lyap, num_samples=4096)
+    start = time.perf_counter()
+    all_points = lyap.discretization.all_points
+    margins64 = st.oracle.oracle_margins(lyap, all_points)
+    oracle_safe, c_ref = st.oracle.oracle_safe_set(lyap, margins=margins64)
+    print("{}: {} points, c_max={!r} (f64 oracle {!r}), {} safe points "
+          "(oracle {}); f64 host oracle in {:.3f} s".format(
+              label, len(all_points), c_dev, c_ref, int(safe.sum()),
+              int(oracle_safe.sum()), time.perf_counter() - start))
+    gate_1(c_dev, c_ref)
+
+    differ = negative != (margins64 < 0)
+    band = np.abs(margins64) <= margin
+    outside = np.flatnonzero(differ & ~band)
+    print("{}: decrease check: {} points pass on the card, {} in the f64 "
+          "oracle; {} disagree, {} within the calibrated band |margin| <= "
+          "{!r} ({} points in it), {} outside it".format(
+              label, int(negative.sum()), int((margins64 < 0).sum()),
+              int(differ.sum()), int((differ & band).sum()), margin,
+              int(band.sum()), len(outside)))
+    conservative = outside[~negative[outside]]
+    causes = dict(zip(conservative.tolist(), explain(conservative))) \
+        if explain is not None and len(conservative) else {}
+    failed = 0
+    for j in outside:
+        cause = ("the card passes a point the f64 oracle fails"
+                 if negative[j] else causes.get(int(j)))
+        failed += bool(negative[j]) or cause is None
+        print("  point {} x={} f64 margin {!r}, card verdict {}: {}".format(
+            j, all_points[j].tolist(), float(margins64[j]),
+            bool(negative[j]), cause or "UNEXPLAINED"))
+    if failed:
+        raise AssertionError("{}: {} decrease verdicts differ from the f64 "
+                             "oracle outside the calibrated band".format(
+                                 label, failed))
+    if initial is not None:
+        passing = int((negative & ~initial).sum())
+        print("{}: {} points pass outside the {} exempt initial points"
+              .format(label, passing, int(initial.sum())))
+        if passing == 0:
+            raise AssertionError("no point beyond the initial set passes "
+                                 "the decrease check")
+
+    lyap.update_safe_set()
+    check_values(lyap)
+    safe = np.array(lyap.safe_set)
+    unsafe = int((safe & ~oracle_safe).sum())
+    print("{}: with margin={!r} level_margin={!r} installed c_max={!r} "
+          "(<= oracle {!r}), {} safe points, {} of them outside the "
+          "oracle's safe set".format(label, margin, lyap.level_margin,
+                                     lyap.c_max, c_ref, int(safe.sum()),
+                                     unsafe))
+    if unsafe:
+        raise AssertionError("{}: the certified set holds {} points the f64 "
+                             "oracle does not".format(label, unsafe))
+    gate_2(lyap.c_max, c_ref)
+    return margin
+
+
 def phase_flagship_path(route):
     """The flagship verification at full width by one route: the stacked
     GP (kernel 3, one launch per sweep) or the fan-out of two GPs
-    (kernel 2, one launch per member per sweep).
+    (kernel 2, one launch per member per sweep), through ``oracle_gate``.
 
-    Besides ``bench.py``'s two gates against the port's float64 oracle,
-    the decrease verdict of every grid point on the card must agree with
-    the oracle's wherever the oracle's margin lies outside the calibrated
-    float32 band, and some points beyond the exempt initial set must pass.
-    (The certified level set cannot grow past the initial set on this
-    instance, in exact arithmetic too: near the origin the GP error term
-    keeps the decrease bound above the threshold ``-L_v (1 + L_f) tau``.)
+    Some points beyond the exempt initial set must pass the decrease
+    check. (The certified level set cannot grow past the initial set on
+    this instance, in exact arithmetic too: near the origin the GP error
+    term keeps the decrease bound above the threshold
+    ``-L_v (1 + L_f) tau``.)
     """
     kernel = ("gp_predict_stacked" if route == "stacked"
               else "gp_predict_general")
@@ -750,62 +979,18 @@ def phase_flagship_path(route):
     reset_launches()
     lyap.update_safe_set()
     first = read_launches()
-    c_dev = lyap.c_max
-    safe = np.array(lyap.safe_set)
-    points = lyap._device_points()
-    negative = _negative_batch(
-        lyap.policy, lyap.dynamics, lyap.lyapunov_function,
-        lyap._lipschitz_lyapunov, lyap._lipschitz_dynamics, lyap.tau,
-        points)[0].cpu().numpy()
-    margin = st.oracle.calibrate_certificate_margin(lyap, num_samples=4096)
-    lyap.update_safe_set()
-    launches = read_launches()
-
-    check_values(lyap)
-    start = time.perf_counter()
-    oracle_safe, c_ref = st.oracle.oracle_safe_set(lyap)
-    margins64 = st.oracle.oracle_margins(lyap,
-                                         lyap.discretization.all_points)
-    oracle_s = time.perf_counter() - start
-    initial = np.zeros(len(safe), dtype=bool)
+    initial = np.zeros(lyap.discretization.nindex, dtype=bool)
     initial[inst["initial_set"]] = True
     print("flagship {} path: {} points, tau {!r}, L_v {!r}, L_f {!r}, "
-          "threshold {!r}, {} exempt initial points; built in {:.3f} s, "
-          "f64 host oracle in {:.3f} s".format(
+          "threshold {!r}; built in {:.3f} s".format(
               route, lyap.discretization.nindex, inst["tau"], inst["lv"],
               inst["lf"], -inst["lv"] * (1 + inst["lf"]) * inst["tau"],
-              int(initial.sum()), build_s, oracle_s))
-    print("flagship {}: c_max={!r} (f64 oracle {!r}) safe_frac={!r} "
-          "(oracle {!r}) safe points {} (oracle {})".format(
-              route, c_dev, c_ref, float(safe.mean()),
-              float(oracle_safe.mean()), int(safe.sum()),
-              int(oracle_safe.sum())))
-    gate_1(c_dev, c_ref)
-    # Decrease verdicts: the card's against the oracle's at every point.
-    band = np.abs(margins64) <= margin
-    wrong = (negative != (margins64 < 0)) & ~band
-    passing = int((negative & ~initial).sum())
-    print("decrease check: {} points pass on the card, {} in the f64 "
-          "oracle; {} disagree, all within the calibrated band |margin| <= "
-          "{!r} ({} points in it); {} pass outside the initial set".format(
-              int(negative.sum()), int((margins64 < 0).sum()),
-              int((negative != (margins64 < 0)).sum()), margin,
-              int(band.sum()), passing))
-    if wrong.any():
-        raise AssertionError("{} decrease verdicts differ from the f64 "
-                             "oracle outside the calibrated band".format(
-                                 int(wrong.sum())))
-    if passing == 0:
-        raise AssertionError("no point beyond the initial set passes the "
-                             "decrease check")
-    print("conservative: margin={!r} level_margin={!r} c_max={!r} "
-          "(<= oracle {!r}) safe_frac={!r}".format(
-              margin, lyap.level_margin, lyap.c_max, c_ref,
-              float(lyap.safe_set.mean())))
-    gate_2(lyap.c_max, c_ref)
+              build_s))
+    oracle_gate(lyap, "flagship " + route, initial=initial)
+    launches = read_launches()
     print("kernel launches during the flagship {} path: first sweep {}, "
           "whole path {}".format(route, first, launches))
-    if first[kernel] < per_sweep:
+    if first[kernel] != per_sweep:
         raise AssertionError("the flagship {} sweep launched {} {} times, "
                              "not {}".format(route, kernel, first[kernel],
                                              per_sweep))
@@ -919,6 +1104,303 @@ def phase_flagship_times(card, route, lyap):
     return max(em, ev), kernel_ms, plain_ms
 
 
+# ---------------------------------------------------------------------------
+# The safe-learning loop: certify, explore and append, re-certify
+# ---------------------------------------------------------------------------
+@contextlib.contextmanager
+def plain_stacked_predict():
+    """Route the stacked GP's predict through kernel 3's plain twin (the
+    same math in plain PyTorch) instead of the kernel, for the duration
+    of the block."""
+    fused = gp_kernel.fused_gp_predict_stacked
+    gp_kernel.fused_gp_predict_stacked = gp_kernel.gp_predict_stacked_plain
+    try:
+        yield
+    finally:
+        gp_kernel.fused_gp_predict_stacked = fused
+
+
+def simplex_flips(lyap, tri, idx, mean=None):
+    """Whether the working-dtype pipeline locates grid points ``idx``, or
+    their mean next states, in another simplex of the value function
+    ``tri`` than float64 arithmetic does.
+
+    The local ``L_v = GradientNorm(tri)`` is piecewise constant, so such a
+    point's ``L_v`` differs by a whole gradient step between the two.
+    ``mean`` is the working dtype's mean next state at ``idx`` (the GP's,
+    on the whole grid, so that the rows round as in the sweep); without it
+    only the points are compared. Returns ``(at_x, at_mean)`` boolean
+    arrays (``at_mean`` is ``None`` without ``mean``).
+    """
+    pts = lyap.discretization.all_points[idx]
+    at_x = (tri.find_simplex(st.functions.base.as_tensor(pts)).cpu().numpy()
+            != _simplex64(tri, pts))
+    if mean is None:
+        return at_x, None
+    dyn64 = st.oracle.lift64(lyap.dynamics)
+    policy64 = st.oracle.lift64(lyap.policy)
+    with st.oracle._oracle_env():
+        q = torch.as_tensor(pts, dtype=torch.float64)
+        mean64 = dyn64(q, policy64(q))[0].numpy()
+    at_mean = (tri.find_simplex(mean).cpu().numpy()
+               != _simplex64(tri, mean64))
+    return at_x, at_mean
+
+
+def _simplex64(tri, points):
+    tri64 = st.oracle.lift64(tri)
+    with st.oracle._oracle_env():
+        return tri64.find_simplex(torch.as_tensor(
+            np.asarray(points), dtype=torch.float64)).numpy()
+
+
+def flip_causes(lyap, tri, idx):
+    """Why the card may fail grid points ``idx`` that the float64 oracle
+    passes: the working dtype locates the point, or its mean next state,
+    in another simplex of the value function ``tri`` than float64 does (a
+    jump of the local ``L_v``). One cause, or ``None``, per point."""
+    points = lyap._device_points()
+    mean = lyap.dynamics(points, lyap.policy(points))[0][
+        torch.as_tensor(idx, device=points.device)]
+    at_x, at_mean = simplex_flips(lyap, tri, idx, mean)
+    return ["x in another simplex" if x
+            else "mean next state in another simplex" if m else None
+            for x, m in zip(at_x, at_mean)]
+
+
+def rescore64(lyap, xu):
+    """The float64 host re-score of a chosen pair: ``v(mu) + sum_j |L_v_j|
+    sigma_j - (c_max - margin)`` with the model lifted to float64, and
+    whether the grid index of that ``mu`` is in the safe set."""
+    from safe_learning_tpu_torch.explore import _margin_of
+
+    dyn64 = st.oracle.lift64(lyap.dynamics)
+    v64 = st.oracle.lift64(lyap.lyapunov_function)
+    lv64 = st.oracle.lift64(lyap._lipschitz_lyapunov)
+    level = lyap.c_max - _margin_of(lyap)
+    with st.oracle._oracle_env():
+        mean, std = dyn64(torch.as_tensor(xu, dtype=torch.float64))
+        score = (v64(mean).reshape(-1) + (lv64(mean).abs() * std).sum(1)
+                 - level)
+        idx = int(lyap.discretization.state_to_index(mean)[0])
+    return float(score[0]), bool(lyap.safe_set[idx])
+
+
+def bound_tolerance(lyap, xu):
+    """Computed error bound of the summed predictive error at pair ``xu``
+    between kernel 3 and its plain twin: ``program_bounds`` on ``var``,
+    through ``beta sqrt(kdiag - var / s2)``, plus a few roundings of the
+    square roots and the sum."""
+    gp = lyap.dynamics
+    q = st.functions.base.as_tensor(np.asarray(xu))
+    programs, params = gp._programs()
+    s2 = gp.scale ** 2
+    unit = torch.finfo(q.dtype).eps / 2
+    _, tol_var = program_bounds(
+        q, gp.X_buf, gp_kernel.program_params(params, q), gp.chol_inv,
+        gp.alpha, gp._mask(), s2, programs, unit)
+    with plain_stacked_predict():
+        _, var = gp.predict(q)
+    betas = torch.as_tensor(gp.betas, dtype=torch.float64)
+    var, tol_var = var.double().cpu()[0], tol_var.cpu()[0]
+    bound = float((betas * var.sqrt()).sum())
+    return float((betas * tol_var / s2 / var.sqrt()).sum()) \
+        + 8 * unit * bound
+
+
+def explore_step(lyap, inst, rng, step):
+    """One round of the loop, checked. The pair chosen with kernel 3 is
+    held against the pair its plain twin chooses from the same RNG state
+    (equal, or summed predictive errors within the computed bound), a
+    pair not from the fallback must re-score below the level in float64,
+    and then the true pendulum is measured there and appended. Returns
+    ``(xu, fallback)``."""
+    twin_rng = copy.deepcopy(rng)
+    before = read_launches()["gp_predict_stacked"]
+    with plain_stacked_predict():
+        xu_p, bound_p, fallback_p = safe_sample(lyap, inst, twin_rng)
+    if read_launches()["gp_predict_stacked"] != before:
+        raise AssertionError("the plain twin's step launched kernel 3")
+    xu, bound, fallback = safe_sample(lyap, inst, rng)
+    launched = read_launches()["gp_predict_stacked"] - before
+    if launched != (2 if fallback else 1):
+        raise AssertionError("step {} launched kernel 3 {} times".format(
+            step, launched))
+    score64, in_set = rescore64(lyap, xu)
+    same = np.array_equal(xu, xu_p) and fallback == fallback_p
+    tol = 0.0 if same else (bound_tolerance(lyap, xu)
+                            + bound_tolerance(lyap, xu_p))
+    count = lyap.dynamics.count
+    measure_and_append(lyap, inst, xu)
+    print("step {}: xu={} bound={!r} fallback={} f64 re-score {!r} "
+          "mean's grid index in the safe set: {}; plain twin: {} "
+          "bound={!r}{}".format(
+              step + 1, xu[0].tolist(), bound, fallback, score64, in_set,
+              "the same pair" if same else xu_p[0].tolist(), bound_p,
+              "" if same else " (|difference| {!r} <= bound {!r}?)".format(
+                  abs(bound - bound_p), tol)))
+    if not fallback and not score64 < 0.0:
+        raise AssertionError("step {}: the chosen pair does not re-score "
+                             "safe in float64".format(step + 1))
+    if not same and not abs(bound - bound_p) <= tol:
+        raise AssertionError("step {}: kernel and plain twin chose pairs "
+                             "whose bounds differ beyond the computed "
+                             "bound".format(step + 1))
+    if lyap.dynamics.count != count + 1:
+        raise AssertionError("the append did not add one row")
+    return xu, fallback
+
+
+def append_check(gp):
+    """The bordered-append host factors of every output against a fresh
+    float64 factorization of the same data; returns the worst relative
+    difference (``max |a - b| / max |b|`` over chol, chol_inv, alpha)."""
+    from safe_learning_tpu_torch.functions.gp import _host_factorize
+
+    x_buf = gp.X_buf.cpu().numpy()
+    y_buf = gp.Y_buf.cpu().numpy()
+    noises = gp.noise_variances.cpu().double().numpy()
+    worst = 0.0
+    for s, host in enumerate(gp._host_caches):
+        fresh = _host_factorize(gp.kernels[s], x_buf, y_buf[:, s:s + 1],
+                                gp.mean_functions[s], gp.count,
+                                float(noises[s]), gp.scale)
+        if host.fresh or host.count != fresh.count:
+            raise AssertionError("output {}: the host factors are not a "
+                                 "bordered append of {} rows".format(
+                                     s, gp.count))
+        for got, want in ((host.chol, fresh.chol),
+                          (host.chol_inv, fresh.chol_inv),
+                          (host.alpha, fresh.alpha)):
+            worst = max(worst, float(np.abs(got - want).max()
+                                     / np.abs(want).max()))
+    return worst
+
+
+def stacked_inputs(lyap):
+    """Kernel 3's inputs at the sweep's own states (grid and policy)."""
+    points = lyap._device_points()
+    states = concatenate_inputs(points, lyap.policy(points))
+    gp = lyap.dynamics
+    programs, params = gp._programs()
+    return (states, gp.X_buf, gp_kernel.program_params(params, states),
+            gp.chol_inv, gp.alpha[:, :, 0].contiguous(), gp._mask(),
+            gp.scale ** 2), programs
+
+
+def phase_safe_learning(card, steps=10, seed=0):
+    """The inverted pendulum's safe-learning loop at full width.
+
+    ``build_safe_learning_instance(seed)``: certify (``update_safe_set``
+    and ``oracle_gate``, with simplex jumps as the causes it accepts),
+    then ``steps`` rounds of ``get_safe_sample``, a measurement of the
+    true pendulum and ``StackedGaussianProcess.add_data_point``
+    (``explore_step``), then the appends' checks (the bordered factors
+    against a fresh factorization within 1e-9 relative, kernel 3 on the
+    grid against its plain twin within ``program_bounds``, no library
+    built), then re-certify with ``update_values``, ``update_safe_set``
+    and the same gate. The counters are set to 0 before each sweep and
+    before the steps: each sweep launches kernel 3 once, each step once
+    (twice with the backup policy's fallback), and no other kernel runs.
+    Then times, on CUDA events beside the card: the sweep, one
+    ``get_safe_sample``, one ``add_data_point``, and kernel 3 against its
+    plain twin on the sweep's inputs. Returns ``(launches, max_abs_err,
+    kernel_ms, plain_ms)`` of kernel 3, ``launches`` counting the two
+    sweeps and the steps.
+    """
+    builds = dict(build_reports)
+    start = time.perf_counter()
+    lyap, inst = build_safe_learning_instance(seed)
+    tri = inst["value_function"]
+    print("safe learning: {} grid points, policy grid {}, NN {}, tau {!r}, "
+          "L_f {!r}, GP capacity {} with {} points, {} exempt initial "
+          "points; built in {:.3f} s".format(
+              lyap.discretization.nindex, tri.discretization.shape,
+              lyap.policy.layers, inst["tau"], inst["lf"],
+              lyap.dynamics.capacity, lyap.dynamics.count,
+              int(inst["initial"].sum()), time.perf_counter() - start))
+    explain = functools.partial(flip_causes, lyap, tri)
+    sweeps = {}
+    reset_launches()
+    lyap.update_safe_set()
+    sweeps["certify"] = read_launches()
+    flips = simplex_flips(lyap, tri, np.arange(lyap.discretization.nindex))
+    print("safe learning: the working dtype locates {} grid points in "
+          "another simplex of the value function than float64 does".format(
+              int(flips[0].sum())))
+    oracle_gate(lyap, "certify", explain=explain)
+
+    rng = np.random.default_rng(seed)
+    fallbacks = 0
+    reset_launches()
+    for step in range(steps):
+        fallbacks += explore_step(lyap, inst, rng, step)[1]
+    explored = read_launches()
+    gp = lyap.dynamics
+    worst = append_check(gp)
+    print("appends: {} points at capacity {}; bordered factors against a "
+          "fresh f64 factorization: worst relative difference {!r} "
+          "(tolerance 1e-9); {} of {} steps used the backup policy".format(
+              gp.count, gp.capacity, worst, fallbacks, steps))
+    if not worst <= 1e-9:
+        raise AssertionError("the bordered append drifted from a fresh "
+                             "factorization")
+
+    reset_launches()
+    lyap.update_values()
+    lyap.update_safe_set()
+    sweeps["re-certify"] = read_launches()
+    oracle_gate(lyap, "re-certify", explain=explain)
+    print("kernel launches on the safe-learning path: certify sweep {}, "
+          "{} steps {}, re-certify sweep {}".format(
+              sweeps["certify"], steps, explored, sweeps["re-certify"]))
+    expected = {name: 0 for name in KERNELS}
+    for name, got in sweeps.items():
+        if got != dict(expected, gp_predict_stacked=1):
+            raise AssertionError("the {} sweep launched {}, not kernel 3 "
+                                 "once".format(name, got))
+    if explored != dict(expected, gp_predict_stacked=steps + fallbacks):
+        raise AssertionError("the {} steps launched {}".format(steps,
+                                                               explored))
+    if dict(build_reports) != builds:
+        raise AssertionError("the safe-learning path built a library")
+    print("libraries built during the safe-learning path: 0")
+
+    inputs, programs = stacked_inputs(lyap)
+    em, ev, ratio = compare_program("stacked", inputs, programs)
+    shape = "Q={}, cap {}, count {}, S={}".format(
+        inputs[0].shape[0], gp.capacity, gp.count, len(programs))
+    print("safe-learning inputs ({}): max|dmean|={:.3e} max|dvar|={:.3e} "
+          "err/bound={:.3f}".format(shape, em, ev, ratio))
+    if not ratio <= 1.0:
+        raise AssertionError("kernel 3 disagrees on the safe-learning "
+                             "inputs")
+    launches = 2 + explored["gp_predict_stacked"]
+    return (launches, max(em, ev)) \
+        + safe_learning_times(card, lyap, inst, inputs, programs, shape)
+
+
+def safe_learning_times(card, lyap, inst, inputs, programs, shape):
+    """The loop's times on the card: the sweep, one ``get_safe_sample``,
+    one ``add_data_point``, and kernel 3 against its plain twin."""
+    time_sweep("safe-learning", lyap, card)
+    sample_ms = cuda_ms(lambda: safe_sample(
+        lyap, inst, np.random.default_rng(1)))
+    xu = safe_sample(lyap, inst, np.random.default_rng(1))[0]
+    y = inst["true"](xu[:, :2], xu[:, 2:]).cpu().numpy()
+    append_ms = cuda_ms(lambda: lyap.dynamics.add_data_point(xu, y))
+    print("get_safe_sample ({} candidates): {!r} ms; add_data_point at "
+          "count {}: {!r} ms [{}]".format(
+              EXPLORATION_SAMPLES * len(ACTION_VARIATION), sample_ms,
+              lyap.dynamics.count, append_ms, card))
+    kernel_ms, plain_ms = time_against_plain(
+        "gp predict stacked (safe learning)",
+        lambda: gp_kernel.gp_predict_stacked_cuda(*inputs, programs),
+        lambda: gp_kernel.gp_predict_stacked_plain(*inputs, programs),
+        card, shape)
+    return kernel_ms, plain_ms
+
+
 def main():
     card = phase_device()
     phase_build()
@@ -935,6 +1417,10 @@ def main():
         "gp_predict_general": (fan_launches["gp_predict_general"],)
         + phase_flagship_times(card, "fan_out", fan_lyap),
     }
+    del stacked_lyap, fan_lyap
+    safe = phase_safe_learning(card)
+    print("kernel 3 on the safe-learning path: {} launches, max abs err "
+          "{!r}, {!r} ms against plain {!r} ms".format(*safe))
     print(card)
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": KERNELS[name][1],

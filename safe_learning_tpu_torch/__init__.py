@@ -5,11 +5,13 @@ in PyTorch, with the JAX package's Pallas TPU kernels rewritten by hand as
 CUDA kernels for Hopper (``csrc/``). The JAX package stays the reference:
 module names mirror it, and the tests hold each ported module against it.
 
-Ported so far: grids, the function algebra with ``Saturation`` and
-``FunctionStack``, linear maps, Gaussian processes with stationary,
-linear and composite kernels, ``StackedGaussianProcess``, the inverted
-pendulum, the LQR solvers, the fused ``Lyapunov.update_safe_set`` sweep
-and the float64 oracle. Set
+Ported so far: grids, the function algebra with ``Saturation``,
+``FunctionStack`` and ``GradientNorm``, linear maps, neural networks,
+the ``Triangulation`` and ``PiecewiseConstant`` interpolants, Gaussian
+processes with stationary, linear and composite kernels,
+``StackedGaussianProcess``, online GP updates (``add_data_point``), the
+inverted pendulum, the LQR solvers, the fused ``Lyapunov.update_safe_set``
+sweep, safe exploration (``get_safe_sample``) and the float64 oracle. Set
 ``config.device`` to ``"cuda:0"`` to run on the GPU; nothing falls back
 to the CPU when CUDA is missing.
 """
@@ -18,14 +20,17 @@ from .config import config
 from .grids import DimensionError, GridWorld
 from .functions import (AddedFunction, ConstantFunction,
                         DeterministicFunction, Function, FunctionStack,
-                        LambdaFunction, LinearSystem, MeanFunction,
-                        MultipliedFunction, QuadraticFunction, Saturation,
+                        GradientNorm, LambdaFunction, LinearSystem,
+                        LyapunovNetwork, MeanFunction, MultipliedFunction,
+                        NeuralNetwork, PiecewiseConstant, QuadraticFunction,
+                        RBFNetwork, Saturation, Triangulation,
                         UncertainFunction, as_deterministic)
 from .functions.gp import (ActiveDims, GaussianProcess, LinearKernel,
                            Matern12, Matern32, Matern52, RBF,
                            StackedGaussianProcess)
 from .lyapunov import Lyapunov
 from .dynamics import InvertedPendulum
+from .explore import get_safe_sample, perturb_actions
 from . import convert, oracle, utils
 
 __version__ = "0.1.0"
@@ -33,10 +38,12 @@ __version__ = "0.1.0"
 __all__ = [
     "config", "GridWorld", "DimensionError", "AddedFunction",
     "ConstantFunction", "DeterministicFunction", "Function",
-    "FunctionStack", "LambdaFunction", "LinearSystem", "MeanFunction",
-    "MultipliedFunction", "QuadraticFunction", "Saturation",
-    "UncertainFunction", "as_deterministic", "GaussianProcess",
-    "StackedGaussianProcess", "ActiveDims", "LinearKernel", "Matern12",
-    "Matern32", "Matern52", "RBF", "Lyapunov", "InvertedPendulum",
+    "FunctionStack", "GradientNorm", "LambdaFunction", "LinearSystem",
+    "LyapunovNetwork", "MeanFunction", "MultipliedFunction",
+    "NeuralNetwork", "PiecewiseConstant", "QuadraticFunction",
+    "RBFNetwork", "Saturation", "Triangulation", "UncertainFunction",
+    "as_deterministic", "GaussianProcess", "StackedGaussianProcess",
+    "ActiveDims", "LinearKernel", "Matern12", "Matern32", "Matern52", "RBF",
+    "Lyapunov", "InvertedPendulum", "get_safe_sample", "perturb_actions",
     "convert", "oracle", "utils",
 ]

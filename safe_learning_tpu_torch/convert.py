@@ -18,11 +18,60 @@ from .dynamics import InvertedPendulum
 from .functions import gp as gp_mod
 from .functions.base import Saturation, as_tensor
 from .functions.linear import LinearSystem, QuadraticFunction
+from .functions.neural import LyapunovNetwork, NeuralNetwork, RBFNetwork
+from .functions.simplex import PiecewiseConstant, Triangulation
 
 __all__ = ["linear_system", "quadratic_function", "stationary_kernel",
            "linear_kernel", "active_dims", "sum_kernel", "product_kernel",
            "saturation", "inverted_pendulum", "gaussian_process",
-           "stacked_gaussian_process"]
+           "stacked_gaussian_process", "neural_network",
+           "lyapunov_network", "rbf_network", "triangulation",
+           "piecewise_constant"]
+
+
+def _tensors(arrays):
+    """A tuple of weight arrays as tensors, ``None`` entries kept."""
+    return tuple(None if a is None else as_tensor(np.asarray(a))
+                 for a in arrays)
+
+
+def neural_network(layers, nonlinearities, output_scale, weights, biases,
+                   use_bias=True):
+    """``NeuralNetwork`` with the given weights ``(fan_in, fan_out)`` and
+    biases (``None`` for the output layer)."""
+    net = NeuralNetwork(layers, nonlinearities, output_scale=output_scale,
+                        use_bias=use_bias)
+    return net.with_parameters({"weights": _tensors(weights),
+                                "biases": _tensors(biases)})
+
+
+def lyapunov_network(input_dim, layer_dims, activations, eps,
+                     posdef_weights, extra_weights):
+    """``LyapunovNetwork`` with the given weights (``None`` where a layer
+    does not grow)."""
+    net = LyapunovNetwork(input_dim, layer_dims, activations, eps=eps)
+    return net.with_parameters({"posdef_weights": _tensors(posdef_weights),
+                                "extra_weights": _tensors(extra_weights)})
+
+
+def rbf_network(limits, num_states, variance, weights):
+    """``RBFNetwork`` on the grid ``(limits, num_states)`` with the given
+    output weights."""
+    net = RBFNetwork(limits, num_states, variance=float(variance))
+    return net.with_parameters({"weights": as_tensor(np.asarray(weights))})
+
+
+def triangulation(discretization, vertex_values, project=False):
+    """``Triangulation`` on a port ``GridWorld`` with the given vertex
+    values."""
+    return Triangulation(discretization, np.asarray(vertex_values),
+                         project=bool(project))
+
+
+def piecewise_constant(discretization, vertex_values):
+    """``PiecewiseConstant`` on a port ``GridWorld`` with the given vertex
+    values."""
+    return PiecewiseConstant(discretization, np.asarray(vertex_values))
 
 _KERNELS = {"rbf": gp_mod.RBF, "matern12": gp_mod.Matern12,
             "matern32": gp_mod.Matern32, "matern52": gp_mod.Matern52}

@@ -1,0 +1,295 @@
+"""Safe exploration: the most informative state-action pair that provably
+maps back into the certified level set.
+
+Counterpart of ``safe_learning_tpu/explore.py``, the single step
+``get_safe_sample`` and ``perturb_actions``. One step runs on
+``config.device`` from the sampled safe states to the chosen pair: the
+policy's actions, the candidate rows (perturbed and clipped, or the cross
+product with given actions), the GP predict, the level-set test, the
+membership of the mean next state in the safe set and the argmax of the
+predictive uncertainty. Only the subsampling of safe states (host RNG)
+and the backup-policy fallback run on the host.
+
+Departures from the JAX package, on purpose:
+
+- no power-of-two padding of the safe states or the candidates: it
+  exists there so that XLA does not retrace, and a padded row (a copy of
+  the last one) cannot win the argmax before its original;
+- the per-candidate rounding margins (``explore.py:265-279``,
+  ``:378-406``) need ``errorbounds`` (ROADMAP queue 1 item 17); the step
+  uses :func:`_margin_of`, the collapse the JAX package itself takes when
+  that derivation refuses (ROADMAP queue 3);
+- ``extended=True`` and ``get_safe_sample_batch`` are not ported yet.
+"""
+
+from __future__ import annotations
+
+import warnings
+
+import numpy as np
+import torch
+
+from .config import config
+from .functions.base import as_tensor
+from .lyapunov import _as_column_batch, _eval_lipschitz
+
+__all__ = ["perturb_actions", "get_safe_sample"]
+
+
+def perturb_actions(states, actions, perturbations, limits=None):
+    """The ``(N * X, n + m)`` host matrix of perturbed state-actions.
+
+    Each state repeats once per perturbation; with ``limits`` the actions
+    are clipped and duplicate rows removed (``np.unique``, so the rows come
+    out sorted), as ``safe_learning_tpu.perturb_actions``.
+    """
+    states = np.atleast_2d(states)
+    actions = np.atleast_2d(actions)
+    perturbations = np.atleast_2d(perturbations)
+    num_states, state_dim = states.shape
+
+    states_new = np.repeat(states, len(perturbations), axis=0)
+    actions_new = (np.repeat(actions, len(perturbations), axis=0)
+                   + np.tile(perturbations, (num_states, 1)))
+    state_actions = np.column_stack((states_new, actions_new))
+
+    if limits is not None:
+        limits = np.atleast_2d(limits)
+        np.clip(state_actions[:, state_dim:], limits[:, 0], limits[:, 1],
+                out=state_actions[:, state_dim:])
+        state_actions = np.unique(np.ascontiguousarray(state_actions),
+                                  axis=0)
+    return state_actions
+
+
+def _score_candidates(dynamics, lyapunov_function, lipschitz_lyapunov,
+                      c_max, state_actions, margin=0.0):
+    """GP predict, confidence-weighted future value and level test.
+
+    Returns ``(mean, bound, safe)``: the mean next states, the summed
+    predictive error (the informativeness), and whether
+    ``v(mean) + sum_j |L_v_j| sigma_j < c_max - margin``. The error is
+    the per-dimension product, as in the decrease bound.
+    """
+    mean, std = dynamics(state_actions)
+    bound = std.sum(dim=1)
+    lv = _as_column_batch(_eval_lipschitz(lipschitz_lyapunov, mean))
+    lv = abs(lv) if isinstance(lv, float) else lv.abs()
+    future = lyapunov_function(mean).reshape(-1) + (lv * std).sum(dim=1)
+    return mean, bound, future < c_max - margin
+
+
+def _perturb_candidates(policy, safe_states, perturbations, limits):
+    """Candidate rows on the device: the policy's actions at the states,
+    each plus every perturbation and clipped to ``limits`` (or not, when
+    it is ``None``), in :func:`perturb_actions`' order before its
+    ``np.unique``."""
+    n, d = safe_states.shape
+    p, m = perturbations.shape
+    actions = _as_column_batch(policy(safe_states))
+    acts = actions[:, None, :] + perturbations[None, :, :]
+    if limits is not None:
+        acts = torch.clamp(acts, limits[:, 0], limits[:, 1])
+    states = safe_states[:, None, :].expand(n, p, d)
+    return torch.cat([states, acts], dim=-1).reshape(n * p, d + m)
+
+
+def _action_candidates(safe_states, actions):
+    """Candidate rows: every safe state with every given action."""
+    n, d = safe_states.shape
+    na, m = actions.shape
+    states = safe_states[:, None, :].expand(n, na, d)
+    acts = actions[None, :, :].expand(n, na, m)
+    return torch.cat([states, acts], dim=-1).reshape(n * na, d + m)
+
+
+def _select_best(lyapunov, state_actions, safe_set_dev, margin):
+    """Score every candidate and pick the safe one with the largest
+    predictive error. Returns ``(row, bound, safe)`` as device tensors;
+    ``safe`` is False only when no candidate is safe."""
+    mean, bound, safe = _score_candidates(
+        lyapunov.dynamics, lyapunov.lyapunov_function,
+        lyapunov._lipschitz_lyapunov, lyapunov.c_max, state_actions, margin)
+    if safe_set_dev is not None:
+        # The mean next state must lie in the current safe set.
+        grid = lyapunov.discretization
+        safe = safe & safe_set_dev[grid.state_to_index(mean)]
+    score = torch.where(safe, bound, torch.full_like(bound, -np.inf))
+    best = torch.argmax(score)
+    return state_actions[best], bound[best], safe[best]
+
+
+def get_safe_sample(lyapunov, perturbations=None, limits=None,
+                    positive=False, num_samples=None, actions=None,
+                    rng=None, extended=False):
+    """Return the most informative provably safe state-action pair.
+
+    Parameters
+    ----------
+    lyapunov : Lyapunov
+    perturbations : (X, m) array, optional
+        Perturbations of the policy's actions at the safe states.
+    limits : (m, 2) array, optional
+        Action limits; the perturbed actions are clipped to them.
+    positive : bool, optional
+        Skip the check that the mean next state lies in the safe set.
+    num_samples : int, optional
+        Subsample this many safe states (with replacement, from ``rng``).
+    actions : (A, m) array, optional
+        Explicit candidate actions, used with every safe state, when
+        ``perturbations`` is None.
+    rng : numpy Generator, optional
+    extended : bool, optional
+        Must be False: the extended scorer is ROADMAP queue 1 item 18.
+
+    Returns
+    -------
+    state_action : (1, n + m) ndarray
+    bound : float
+        The summed predictive error at the chosen pair.
+
+    When no candidate is safe, the step warns (``RuntimeWarning``) and
+    falls back to the backup policy: the unperturbed policy actions at
+    the sampled states, the one with the largest predictive error.
+    """
+    if extended:
+        raise NotImplementedError(
+            "get_safe_sample(extended=True) is ROADMAP queue 1 item 18 "
+            "(the rigor ladder)")
+    if perturbations is None and actions is None:
+        raise ValueError("provide either perturbations or actions")
+    rng = np.random.default_rng() if rng is None else rng
+    grid = lyapunov.discretization
+
+    safe_idx = np.where(lyapunov.safe_set)[0]
+    if len(safe_idx) == 0:
+        raise RuntimeError(
+            "the safe set is empty — no state to explore from (provide "
+            "an initial_set or verify with a smaller tau first)")
+    safe_states = np.asarray(grid.all_points)[safe_idx]
+    if num_samples is not None and len(safe_states) > num_samples:
+        pick = rng.choice(len(safe_states), num_samples, replace=True)
+        safe_states = safe_states[pick]
+    safe_states_dev = as_tensor(safe_states)
+
+    if perturbations is None:
+        actions = np.atleast_2d(actions)
+        action_dim = actions.shape[1]
+        candidates = _action_candidates(safe_states_dev, as_tensor(actions))
+    else:
+        perturbations = np.atleast_2d(perturbations)
+        action_dim = perturbations.shape[1]
+        candidates = _perturb_candidates(
+            lyapunov.policy, safe_states_dev, as_tensor(perturbations),
+            None if limits is None else as_tensor(np.atleast_2d(limits)))
+    safe_set_dev = None if positive else _device_safe_set(lyapunov)
+    row, bound, safe = _select_best(lyapunov, candidates, safe_set_dev,
+                                    _margin_of(lyapunov))
+    if bool(safe):
+        return (row.cpu().numpy().astype(config.np_dtype)[None],
+                float(bound))
+
+    # Nothing is safe: fall back to the backup policy (zero perturbation
+    # around the current policy).
+    warnings.warn("No safe state-action pairs found! "
+                  "Using backup policy ...", RuntimeWarning)
+    safe_actions = lyapunov.policy(safe_states_dev).cpu().numpy()
+    zero = np.zeros((1, action_dim), dtype=config.np_dtype)
+    state_actions = perturb_actions(safe_states, safe_actions, zero,
+                                    limits=limits)
+    _, bounds, _ = _evaluate_candidates(lyapunov, state_actions, positive,
+                                        margin=_fallback_margin(lyapunov))
+    best = int(np.argmax(bounds))
+    return state_actions[[best]], float(bounds[best])
+
+
+def _margin_of(lyapunov):
+    """Conservatism margin of the exploration level test.
+
+    A dedicated ``exploration_margin`` takes precedence; otherwise the
+    verification sweep's ``certificate_margin`` is reused (the
+    calibrator's measurement covers both pipelines at one scale). A
+    per-grid-point margin collapses to its largest value, since
+    candidates are not grid points. A margin derived at a finer unit
+    roundoff than the working dtype's cannot cover this scorer and
+    raises (``safe_learning_tpu/explore.py:409-449``).
+    """
+    consumer_unit = float(np.finfo(config.np_dtype).eps) / 2.0
+    margin = getattr(lyapunov, "exploration_margin", None)
+    if margin is not None:
+        unit = getattr(lyapunov, "_exploration_margin_unit", None)
+        if unit is not None and unit < consumer_unit:
+            raise RuntimeError(
+                "exploration_margin was derived at unit roundoff "
+                f"{unit:.2e}; it cannot cover the plain scorer's rounding "
+                f"at unit {consumer_unit:.2e}")
+        return float(margin)
+    margin = getattr(lyapunov, "certificate_margin", None)
+    if margin is None:
+        margin = float(config.certificate_margin)
+    else:
+        unit = getattr(lyapunov, "_certificate_margin_unit", None)
+        if unit is not None and unit < consumer_unit:
+            raise RuntimeError(
+                "certificate_margin was derived at unit roundoff "
+                f"{unit:.2e} and cannot cover the plain exploration "
+                "scorer")
+    return float(np.max(margin)) if np.ndim(margin) else float(margin)
+
+
+def _fallback_margin(lyapunov):
+    """The first margin not tagged below the working dtype's unit
+    roundoff, for the backup-policy path (which warns rather than
+    certifies, so it must not raise); else ``config.certificate_margin``
+    (``safe_learning_tpu/explore.py:452-472``)."""
+    consumer_unit = float(np.finfo(config.np_dtype).eps) / 2.0
+    for attr, unit_attr in (
+            ("exploration_margin", "_exploration_margin_unit"),
+            ("certificate_margin", "_certificate_margin_unit")):
+        margin = getattr(lyapunov, attr, None)
+        if margin is None:
+            continue
+        unit = getattr(lyapunov, unit_attr, None)
+        if unit is None or unit >= consumer_unit:
+            return (float(np.max(margin)) if np.ndim(margin)
+                    else float(margin))
+    return float(config.certificate_margin)
+
+
+def _device_safe_set(lyapunov):
+    """Copy of the boolean safe set on ``config.device``.
+
+    Cached on ``(id, version, mutations)`` of ``Lyapunov.safe_set`` (its
+    setter bumps the version; the :class:`~safe_learning_tpu_torch.utils.
+    TrackedMask` counts in-place writes), and on the device, so that a
+    changed mask is never served stale. An object without the counters
+    keys on a digest of the mask's bytes.
+    """
+    arr = lyapunov.safe_set
+    version = getattr(lyapunov, "_safe_set_version", None)
+    mut = getattr(arr, "mutations", None)
+    key = ((id(arr), version, mut) if version is not None and mut is not None
+           else (id(arr), hash(arr.tobytes())))
+    key += (config.device,)
+    cache = getattr(lyapunov, "_safe_set_dev_cache", None)
+    if cache is None or cache[0] != key:
+        cache = (key, torch.tensor(np.asarray(arr), device=config.device))
+        lyapunov._safe_set_dev_cache = cache
+    return cache[1]
+
+
+def _evaluate_candidates(lyapunov, state_actions, positive, margin=None):
+    """Score host candidate rows: ``(mean, bound, inside)`` as host
+    arrays, ``inside`` including the membership check unless
+    ``positive``."""
+    if margin is None:
+        margin = _margin_of(lyapunov)
+    mean, bound, inside = _score_candidates(
+        lyapunov.dynamics, lyapunov.lyapunov_function,
+        lyapunov._lipschitz_lyapunov, lyapunov.c_max,
+        as_tensor(state_actions), margin)
+    inside = inside.cpu().numpy()
+    if not positive:
+        idx = lyapunov.discretization.state_to_index(mean).cpu().numpy()
+        inside &= np.asarray(lyapunov.safe_set)[idx]
+    return mean.cpu().numpy(), bound.cpu().numpy(), inside

@@ -11,9 +11,17 @@ Calling conventions are the JAX package's:
 - a :class:`DeterministicFunction` returns a tensor, an
   :class:`UncertainFunction` a ``(mean, error)`` tuple;
 - the algebra ``f + g``, ``f * g``, ``-f``.
+
+Parameters are updated functionally, as in the JAX package:
+``fun.with_parameters(new)`` returns a new object, and
+``fun.parameters_dict`` is the nested dictionary of a function's
+trainable tensors (its own ``_param_fields`` and those of the functions
+it holds).
 """
 
 from __future__ import annotations
+
+import copy
 
 import numpy as np
 import torch
@@ -24,7 +32,7 @@ __all__ = [
     "Function", "DeterministicFunction", "UncertainFunction",
     "ConstantFunction", "AddedFunction", "MultipliedFunction",
     "MeanFunction", "Saturation", "FunctionStack", "LambdaFunction",
-    "as_deterministic", "concatenate_inputs", "as_tensor",
+    "GradientNorm", "as_deterministic", "concatenate_inputs", "as_tensor",
 ]
 
 
@@ -68,6 +76,9 @@ class Function:
 
     input_dim = None
     output_dim = None
+    #: Attributes holding trainable parameters: tensors, or tuples of
+    #: tensors and ``None``.
+    _param_fields = ()
 
     def __call__(self, *points):
         """Evaluate at ``points`` (positional inputs are concatenated)."""
@@ -76,6 +87,50 @@ class Function:
     def evaluate(self, points):
         """Evaluate the function at a 2D batch of points."""
         raise NotImplementedError("must be implemented by the child class")
+
+    # -- parameters (functional, ``safe_learning_tpu/functions/base.py:
+    # 129-187``) -----------------------------------------------------------
+    @property
+    def parameters_dict(self):
+        """Nested dictionary of this function's trainable parameters.
+
+        Its own ``_param_fields``, then, under the attribute's name, the
+        non-empty ``parameters_dict`` of every function it holds.
+        """
+        params = {name: getattr(self, name) for name in self._param_fields}
+        for name, child in vars(self).items():
+            if isinstance(child, Function):
+                sub = child.parameters_dict
+                if sub:
+                    params[name] = sub
+        return params
+
+    def with_parameters(self, params):
+        """Return a copy of this function with updated parameters.
+
+        ``params`` has the layout of :attr:`parameters_dict`, or a subset
+        of it. Unknown names raise ``ValueError``: attaching them would
+        leave the real parameters unchanged while reporting success.
+        """
+        allowed = set(self._param_fields) | {
+            name for name, value in vars(self).items()
+            if isinstance(value, Function) or torch.is_tensor(value)}
+        new = copy.copy(self)
+        for name, value in params.items():
+            if name not in allowed:
+                raise ValueError(
+                    "{} has no parameter field {!r} (expected a subset "
+                    "of {})".format(type(self).__name__, name,
+                                    sorted(allowed)))
+            current = getattr(new, name)
+            if isinstance(current, Function):
+                value = current.with_parameters(value)
+            setattr(new, name, value)
+        return new
+
+    def copy_parameters(self, other):
+        """Return a copy of this function with ``other``'s parameters."""
+        return self.with_parameters(other.parameters_dict)
 
     def __add__(self, other):
         """Pointwise sum."""
@@ -108,6 +163,21 @@ class Function:
 
 class DeterministicFunction(Function):
     """A function returning point values."""
+
+    def gradient(self, points):
+        """Spatial gradient by autodiff, shape ``(N, input_dim)``.
+
+        The counterpart of ``jax.vmap(jax.grad(...))``
+        (``safe_learning_tpu/functions/base.py:224-238``): the gradient of
+        the summed output at each point. Functions with a closed form
+        (``Triangulation``, ``QuadraticFunction``) override it.
+        """
+        points = torch.atleast_2d(as_tensor(points))
+
+        def scalar(x):
+            return self.evaluate(x[None, :]).sum()
+
+        return torch.func.vmap(torch.func.grad(scalar))(points)
 
 
 class UncertainFunction(Function):
@@ -233,10 +303,46 @@ class FunctionStack(UncertainFunction):
         return torch.cat(means, dim=1), torch.cat(errors, dim=1)
 
     def add_data_point(self, x, y):
-        """Fan a measurement out to the members (not ported yet)."""
-        raise NotImplementedError(
-            "FunctionStack.add_data_point is ROADMAP queue 1 item 14 (GP "
-            "online learning)")
+        """Fan a multi-output measurement out to the members.
+
+        Column ``i`` of ``y`` goes to member ``i``; returns a new stack.
+        """
+        y = np.atleast_2d(y)
+        new = copy.copy(self)
+        new.functions = tuple(fun.add_data_point(x, y[:, i:i + 1])
+                              for i, fun in enumerate(self.functions))
+        return new
+
+
+class GradientNorm(DeterministicFunction):
+    """Per-state norm of another function's spatial gradient.
+
+    A local Lipschitz constant for a Lyapunov candidate
+    (``safe_learning_tpu/functions/base.py:341-379``). ``ord`` is ``inf``
+    for the largest absolute partial derivative, 1 for their sum, or
+    ``None`` for the elementwise ``|grad|`` (one column per dimension,
+    reduced later by the threshold's L1 norm).
+    """
+
+    def __init__(self, fun, ord=None):
+        if not hasattr(fun, "gradient"):
+            raise TypeError("fun must define gradient(points)")
+        if not (ord is None or ord == 1 or np.isposinf(ord)):
+            raise ValueError("unsupported ord: {}".format(ord))
+        self.fun = fun
+        self.ord = ord
+        self.input_dim = fun.input_dim
+        self.output_dim = 1 if ord is not None else fun.input_dim
+
+    def evaluate(self, points):
+        """Evaluate the function at ``points``."""
+        grad = self.fun.gradient(points).abs()
+        grad = grad.reshape(grad.shape[0], -1)
+        if self.ord is None:
+            return grad
+        if self.ord == 1:
+            return grad.sum(dim=1, keepdim=True)
+        return grad.amax(dim=1, keepdim=True)
 
 
 class LambdaFunction(DeterministicFunction):

@@ -16,14 +16,20 @@ package's:
   a stationary kernel has its own kernel, a composite kernel compiles to
   a covariance program, and a stacked GP runs all its outputs in one
   launch;
-- the ``scale`` conditioning trick of the reference is kept.
+- the ``scale`` conditioning trick of the reference is kept;
+- ``add_data_point`` returns a new GP whose host factors grow by an
+  O(n^2) bordered Cholesky append in float64 (``_bordered_append``), or
+  are refactorized when that is refused, and whose buffers are rebuilt at
+  the next power of two past capacity.
 
-Not ported yet (ROADMAP queue 1): ``add_data_point`` (item 14),
-``log_marginal_likelihood``, ``fit_gp_hyperparameters`` and sampling
-(item 8).
+Not ported yet (ROADMAP queue 1): the working-dtype device append that
+``get_safe_sample_batch`` uses (item 14), ``log_marginal_likelihood``,
+``fit_gp_hyperparameters`` and sampling (item 8).
 """
 
 from __future__ import annotations
+
+import copy
 
 import numpy as np
 import torch
@@ -250,17 +256,26 @@ def _prior64(mean_function, x_rows, width):
 
 
 class _HostCache:
-    """Float64 host copy of a GP's Cholesky cache."""
+    """Float64 host copy of a GP's Cholesky cache.
 
-    __slots__ = ("chol", "chol_inv", "alpha", "count", "jitter", "x_rows")
+    ``x_rows`` are the active training inputs as stored (working dtype),
+    so an append needs no copy from the device. ``fresh`` is True for a
+    factorization from scratch (bit for bit the float64 oracle's) and
+    False after a bordered append.
+    """
 
-    def __init__(self, chol, chol_inv, alpha, count, jitter, x_rows):
+    __slots__ = ("chol", "chol_inv", "alpha", "count", "jitter", "x_rows",
+                 "fresh")
+
+    def __init__(self, chol, chol_inv, alpha, count, jitter, x_rows,
+                 fresh=True):
         self.chol = chol
         self.chol_inv = chol_inv
         self.alpha = alpha
         self.count = int(count)
         self.jitter = float(jitter)
         self.x_rows = x_rows
+        self.fresh = bool(fresh)
 
 
 def _host_factorize(kernel, x_buf, y_buf, mean_function, count,
@@ -306,6 +321,69 @@ def _host_factorize(kernel, x_buf, y_buf, mean_function, count,
     target[:n] = float(scale) * (y_buf[:n].astype(np.float64) - prior)
     alpha = chol_inv @ target
     return _HostCache(chol, chol_inv, alpha, n, jitter, x_rows)
+
+
+def _bordered_append(host, kernel, x_new, y_new, mean_function,
+                     noise_variance, scale, capacity):
+    """O(n^2) bordered Cholesky append of ``m`` observations, in float64.
+
+    The recurrence a fresh factorization runs for the new rows (the
+    leading block of the factor does not change), with the kernel columns
+    and the prior assembled by the same float64 code as
+    :func:`_host_factorize`, so the result matches a refactorization to
+    float64 roundoff (``safe_learning_tpu/functions/gp.py:704-771``).
+    Returns the new :class:`_HostCache`, or ``None`` past ``capacity`` or
+    when a pivot is not safely positive: the caller then refactorizes,
+    with the jitter loop.
+    """
+    import scipy.linalg
+
+    n = host.count
+    m = len(y_new)
+    if n + m > int(capacity):
+        return None
+    s = float(scale)
+    s2 = s * s
+    x_new = np.asarray(x_new, dtype=host.x_rows.dtype).reshape(m, -1)
+    rows = np.vstack([host.x_rows, x_new]) if n else x_new
+    k_cols = _assemble64(kernel, rows, x_new) * s2
+    prior_new = _prior64(mean_function, x_new, y_new.shape[1])
+    target_new = s * (np.asarray(y_new, dtype=np.float64) - prior_new)
+    noise = float(noise_variance)
+
+    chol = host.chol.copy()
+    chol_inv = host.chol_inv.copy()
+    alpha = host.alpha.copy()
+    for j in range(m):
+        i = n + j
+        diag = k_cols[i, j] + s2 * (noise + host.jitter)
+        lj = scipy.linalg.solve_triangular(
+            chol[:i, :i], k_cols[:i, j], lower=True, check_finite=False)
+        d2 = diag - lj @ lj
+        # A pivot near float64 roundoff of the quadratic form goes to the
+        # refactorization and its jitter instead.
+        if not np.isfinite(d2) or d2 <= 1e-12 * max(diag, 1e-30):
+            return None
+        d = np.sqrt(d2)
+        chol[i, :i] = lj
+        chol[i, i] = d
+        chol_inv[i, :i] = -(lj @ chol_inv[:i, :i]) / d
+        chol_inv[i, i] = 1.0 / d
+        alpha[i, :] = (target_new[j] - lj @ alpha[:i, :]) / d
+    return _HostCache(chol, chol_inv, alpha, n + m, host.jitter, rows,
+                      fresh=False)
+
+
+def _append_rows(buf, rows, n):
+    """A copy of the buffer ``buf`` with ``rows`` written from row ``n``."""
+    out = buf.clone()
+    out[n:n + len(rows)] = torch.as_tensor(np.array(rows), dtype=buf.dtype,
+                                           device=buf.device)
+    return out
+
+
+def _host(tensor):
+    return tensor.detach().cpu().numpy()
 
 
 def _cache_parts(kernel, x_buf, y_buf, mean_function, count,
@@ -479,10 +557,43 @@ class GaussianProcess(UncertainFunction):
         return mean, self.beta * torch.sqrt(var)
 
     def add_data_point(self, x, y):
-        """Append observations (not ported yet)."""
-        raise NotImplementedError(
-            "GaussianProcess.add_data_point is ROADMAP queue 1 item 14 "
-            "(GP online learning)")
+        """Append observations; returns a new GP.
+
+        Past capacity the GP is rebuilt at the next power of two. Else the
+        rows are written into copies of the buffers and, with the host
+        factors at hand, the factors grow by :func:`_bordered_append`;
+        otherwise (or when that refuses) they are refactorized
+        (``safe_learning_tpu/functions/gp.py:529-574``).
+        """
+        x = np.atleast_2d(np.asarray(x, dtype=config.np_dtype))
+        y = np.atleast_2d(np.asarray(y, dtype=config.np_dtype))
+        n, n_new = self.count, len(x)
+        if n + n_new > self.capacity:
+            return GaussianProcess(
+                self.kernel, np.vstack([self.X, x]), np.vstack([self.Y, y]),
+                float(self.noise_variance), beta=self.beta,
+                mean_function=self.mean_function,
+                capacity=_round_capacity(n + n_new), scale=self.scale)
+        new = copy.copy(self)
+        new.X_buf = _append_rows(self.X_buf, x, n)
+        new.Y_buf = _append_rows(self.Y_buf, y, n)
+        new.count = n + n_new
+        host = self._host_cache
+        host_new = None
+        if host is not None and host.count == n:
+            host_new = _bordered_append(
+                host, self.kernel, x, y, self.mean_function,
+                float(self.noise_variance), self.scale, self.capacity)
+        if host_new is None:
+            new._host_cache, new.chol_inv, new.alpha = _cache_parts(
+                self.kernel, _host(new.X_buf), _host(new.Y_buf),
+                self.mean_function, new.count, float(self.noise_variance),
+                self.scale)
+        else:
+            new._host_cache = host_new
+            new.chol_inv = as_tensor(np.ascontiguousarray(host_new.chol_inv))
+            new.alpha = as_tensor(np.ascontiguousarray(host_new.alpha))
+        return new
 
 
 # ---------------------------------------------------------------------------
@@ -719,10 +830,44 @@ class StackedGaussianProcess(UncertainFunction):
         return mean, betas * torch.sqrt(var)
 
     def add_data_point(self, x, y):
-        """Append observations (not ported yet)."""
-        raise NotImplementedError(
-            "StackedGaussianProcess.add_data_point is ROADMAP queue 1 "
-            "item 14 (GP online learning)")
+        """Append measurements of every output; returns a new stack.
+
+        One buffer append for all outputs, then each output's factors as
+        :meth:`GaussianProcess.add_data_point` grows them; if one output's
+        bordered append refuses, all are refactorized
+        (``safe_learning_tpu/functions/gp.py:1160-1224``).
+        """
+        x = np.atleast_2d(np.asarray(x, dtype=config.np_dtype))
+        y = np.atleast_2d(np.asarray(y, dtype=config.np_dtype))
+        n, n_new = self.count, len(x)
+        noises = _host(self.noise_variances).astype(np.float64)
+        if n + n_new > self.capacity:
+            return StackedGaussianProcess(
+                self.kernels, np.vstack([self.X, x]), np.vstack([self.Y, y]),
+                _host(self.noise_variances), betas=np.asarray(self.betas),
+                mean_functions=self.mean_functions,
+                capacity=_round_capacity(n + n_new), scale=self.scale)
+        new = copy.copy(self)
+        new.X_buf = _append_rows(self.X_buf, x, n)
+        new.Y_buf = _append_rows(self.Y_buf, y, n)
+        new.count = n + n_new
+        hosts = self._host_caches
+        hosts_new = None
+        if hosts is not None and all(h.count == n for h in hosts):
+            hosts_new = [_bordered_append(
+                hosts[s], self.kernels[s], x, y[:, s:s + 1],
+                self.mean_functions[s], float(noises[s]), self.scale,
+                self.capacity) for s in range(self.num_fun)]
+            if any(h is None for h in hosts_new):
+                hosts_new = None
+        if hosts_new is None:
+            new._host_caches, new.chol_inv, new.alpha = _stacked_cache(
+                self.kernels, _host(new.X_buf), _host(new.Y_buf),
+                self.mean_functions, new.count, noises, self.scale)
+        else:
+            new._host_caches = hosts_new
+            new.chol_inv, new.alpha = _upload_stacked(hosts_new)
+        return new
 
 
 def _stacked_cache(kernels, x_buf, y_buf, mean_functions, count, noises,
@@ -740,10 +885,16 @@ def _stacked_cache(kernels, x_buf, y_buf, mean_functions, count, noises,
                              count, float(noises[s]), scale)
              for s, (kernel, mean) in enumerate(zip(kernels,
                                                     mean_functions))]
+    return (hosts,) + _upload_stacked(hosts)
+
+
+def _upload_stacked(hosts):
+    """``(chol_inv, alpha)`` of per-output host caches, stacked along a
+    leading output axis, in the working dtype on ``config.device``."""
     # solve_triangular returns Fortran order; the kernels take row-major.
     chol_inv = np.ascontiguousarray(np.stack([h.chol_inv for h in hosts]))
     alpha = np.ascontiguousarray(np.stack([h.alpha for h in hosts]))
-    return hosts, as_tensor(chol_inv), as_tensor(alpha)
+    return as_tensor(chol_inv), as_tensor(alpha)
 
 
 def coerce_stacked(dynamics):

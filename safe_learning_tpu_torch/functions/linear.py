@@ -22,6 +22,8 @@ class LinearSystem(DeterministicFunction):
     ``A @ x + B @ u``.
     """
 
+    _param_fields = ("matrix",)
+
     def __init__(self, matrices):
         if isinstance(matrices, (list, tuple)):
             matrix = np.hstack([

@@ -79,6 +79,11 @@ class GridWorld:
         return int(np.prod(self.num_points))
 
     @property
+    def nrectangles(self):
+        """Total number of grid cells."""
+        return int(np.prod(self.num_points - 1))
+
+    @property
     def offset(self):
         """Lower corner of the domain."""
         return self.limits[:, 0]
@@ -169,4 +174,34 @@ class GridWorld:
         ijk = torch.round((states - lim[:, 0]) / unit).to(torch.int64)
         strides = torch.as_tensor(row_major_strides(self.shape),
                                   device=states.device)
+        return torch.sum(ijk * strides, dim=-1)
+
+    def _cell_shape(self):
+        return tuple(n - 1 for n in self._num_points)
+
+    def state_to_rectangle(self, states):
+        """Convert states to the flat indices of their containing cells,
+        clipped to the grid, shape ``(N,)``."""
+        states = torch.atleast_2d(as_tensor(states))
+        offset = torch.as_tensor(self.offset, dtype=states.dtype,
+                                 device=states.device)
+        unit = torch.as_tensor(self.unit_maxes, dtype=states.dtype,
+                               device=states.device)
+        top = torch.as_tensor(self.num_points - 2, device=states.device)
+        ijk = torch.minimum(torch.floor((states - offset) / unit).to(
+            torch.int64).clamp(min=0), top)
+        strides = torch.as_tensor(row_major_strides(self._cell_shape()),
+                                  device=states.device)
+        return torch.sum(ijk * strides, dim=-1)
+
+    def rectangle_corner_index(self, rectangles):
+        """Flat vertex index of each cell's lower corner, shape ``(N,)``."""
+        rectangles = torch.atleast_1d(as_tensor(rectangles,
+                                                dtype=torch.int64))
+        cell_strides = torch.as_tensor(row_major_strides(self._cell_shape()),
+                                       device=rectangles.device)
+        sizes = torch.as_tensor(self._cell_shape(), device=rectangles.device)
+        ijk = (rectangles[:, None] // cell_strides) % sizes
+        strides = torch.as_tensor(row_major_strides(self.shape),
+                                  device=rectangles.device)
         return torch.sum(ijk * strides, dim=-1)

@@ -27,6 +27,7 @@ import torch
 from .config import config
 from .functions import gp as gp_mod
 from .functions.base import Function
+from .grids import GridWorld
 from .lyapunov import (_decrease_bound, _negative_batch, _threshold,
                        _values_batch)
 
@@ -60,8 +61,11 @@ def lift64(fn):
     their raw data and widened hyperparameters, through the same host
     island as any GP, so a GP and its float64 copy share their factors bit
     for bit. Attributes that are functions or kernels, alone or in a tuple
-    or list (a ``FunctionStack``'s members), are lifted in turn. Callables
-    inside :class:`LambdaFunction` are kept as they are (they must work on
+    or list (a ``FunctionStack``'s members, a network's weights and its
+    ``None`` output bias), are lifted in turn. A ``GridWorld`` (a
+    ``Triangulation``'s discretization) passes through: its metadata is
+    float64 and its points follow ``config.dtype``. Callables inside
+    :class:`LambdaFunction` are kept as they are (they must work on
     float64 CPU tensors). An attribute that would stay in the working
     dtype, such as a numpy array or a dict, raises ``TypeError``.
     """
@@ -103,7 +107,9 @@ def _lift_attribute(owner, name, value):
         return lift64(value)
     if isinstance(value, (tuple, list)):
         return type(value)(_lift_attribute(owner, name, v) for v in value)
-    if (value is None or isinstance(value, (bool, int, float, str))
+    # A grid is float64 host metadata whose points follow config.dtype.
+    if (value is None or isinstance(value, (bool, int, float, str,
+                                            GridWorld))
             or callable(value)):
         return value
     raise TypeError("lift64 cannot lift {}.{} of type {}".format(
@@ -155,17 +161,19 @@ def _oracle_values(lyapunov, points):
         return v_fun(pts).reshape(-1).numpy()
 
 
-def oracle_safe_set(lyapunov):
+def oracle_safe_set(lyapunov, margins=None):
     """Exact-arithmetic certified level set of a Lyapunov instance.
 
     The construction of a fresh ``update_safe_set`` (decrease check,
     initial-set exemption, ``v_bad = min v(failing)`` level cut) entirely
-    in float64. Returns ``(safe_set, c_max)`` with the initial set OR-ed
-    in, as the sweep does.
+    in float64. ``margins`` are :func:`oracle_margins` at the grid's
+    points when the caller has them already. Returns ``(safe_set,
+    c_max)`` with the initial set OR-ed in, as the sweep does.
     """
     grid = lyapunov.discretization
     points = grid.all_points
-    margins = oracle_margins(lyapunov, points)
+    if margins is None:
+        margins = oracle_margins(lyapunov, points)
     values = _oracle_values(lyapunov, points)
     negative = margins < 0.0
     exempt = (np.asarray(lyapunov.initial_safe_set, dtype=bool)

@@ -1,15 +1,61 @@
-"""Utilities: the mutation-tracked boolean mask and the LQR solvers.
+"""Utilities: the mutation-tracked boolean mask, the LQR solvers,
+``batchify`` and closed-loop rollouts.
 
-Counterpart of ``safe_learning_tpu/utils.py:34-106`` and ``:142-160``;
-the rest of that module is not ported yet (ROADMAP queue 1 item 11).
+Counterpart of ``safe_learning_tpu/utils.py:34-121``, ``:142-160`` and
+``:182-208``; the training helpers are not ported yet (ROADMAP queue 1
+item 11).
 """
 
 from __future__ import annotations
 
+import itertools
+
 import numpy as np
 import scipy.linalg
+import torch
 
-__all__ = ["TrackedMask", "tracked_mask", "lqr", "dlqr"]
+from .functions.base import as_tensor
+
+__all__ = ["TrackedMask", "tracked_mask", "lqr", "dlqr", "batchify",
+           "compute_trajectory"]
+
+
+def batchify(arrays, batch_size):
+    """Yield ``(start_index, batches)``: consecutive slices of
+    ``batch_size`` rows of each array, in order."""
+    if not isinstance(arrays, (list, tuple)):
+        arrays = (arrays,)
+    for i in itertools.count(start=0, step=batch_size):
+        batches = [array[i:i + batch_size] for array in arrays]
+        if not len(batches[0]):
+            break
+        yield i, batches
+
+
+def compute_trajectory(dynamics, policy, initial_state, num_steps):
+    """Roll out a closed-loop system for ``num_steps`` states.
+
+    A plain loop of policy and dynamics calls on the device of the
+    working tensors (the JAX package compiles it as one ``lax.scan``); an
+    uncertain model contributes its mean.
+
+    Returns
+    -------
+    states : (num_steps, state_dim) tensor, the initial state first
+    actions : (num_steps - 1, action_dim) tensor
+    """
+    state = torch.atleast_2d(as_tensor(initial_state))
+    states, actions = [state], []
+    for _ in range(num_steps - 1):
+        action = policy(state)
+        state = dynamics(state, action)
+        if isinstance(state, tuple):
+            state = state[0]
+        states.append(state)
+        actions.append(action)
+    if not actions:
+        actions = [policy(state)[:0]]
+    return torch.cat(states), torch.cat(actions)
 
 
 def lqr(a, b, q, r):

@@ -142,3 +142,61 @@ def test_composite_predicts_go_through_the_program_kernels(on_cuda):
         gp_kernel.gp_predict_stacked_cuda(q[:, :2].contiguous(),
                                           args[0][:, :2].contiguous(),
                                           *args[1:], programs)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("count", [0, 1, 10])
+def test_stacked_kernel_at_the_safe_learning_shapes(on_cuda, count):
+    """Kernel 3 as the safe-learning loop feeds it: the example's stacked
+    GP at capacity 64 with 0, 1 or 10 measurements (0: an all-zero mask,
+    identity ``chol_inv`` and zero ``alpha``, so the numerators vanish),
+    at the 3,000 candidate rows of one exploration step."""
+    import numpy as np
+
+    from chip_smoke import compare_program, flagship_kernel
+
+    rng = np.random.default_rng(count)
+    x = rng.uniform(-1, 1, (count, 3))
+    y = 0.1 * np.column_stack([np.sin(x.sum(1)), np.cos(x[:, 0])])
+    gp = st.StackedGaussianProcess(
+        [flagship_kernel(np.array([0.3, 0.1, 0.5])),
+         flagship_kernel(np.array([0.2, 0.4, 0.1]))], x, y, 1e-6,
+        capacity=64)
+    programs, params = gp._programs()
+    q = torch.as_tensor(rng.uniform(-1, 1, (3000, 3)), dtype=torch.float32,
+                        device=on_cuda)
+    inputs = (q, gp.X_buf, gp_kernel.program_params(params, q),
+              gp.chol_inv, gp.alpha[:, :, 0].contiguous(), gp._mask(), 1.0)
+    before = gp_kernel.gp_predict_stacked_cuda.launches
+    _, _, ratio = compare_program("stacked", inputs, programs)
+    assert gp_kernel.gp_predict_stacked_cuda.launches == before + 1
+    assert ratio <= 1.0
+    if count == 0:
+        mean_num, var_num = gp_kernel.gp_predict_stacked_cuda(*inputs,
+                                                              programs)
+        assert not mean_num.any() and not var_num.any()
+
+
+@pytest.mark.cuda
+def test_safe_sample_with_kernel_matches_plain_twin(on_cuda):
+    """Three rounds of the safe-learning loop on a small instance: each
+    pair chosen through kernel 3 equals the pair its plain twin chooses
+    from the same RNG state (or their bounds agree within the computed
+    bound), re-scores safe in float64, and the GP grows by one row
+    (``chip_smoke.explore_step`` checks all of it)."""
+    import numpy as np
+
+    from chip_smoke import (bound_tolerance, build_safe_learning_instance,
+                            explore_step)
+
+    lyap, inst = build_safe_learning_instance(0, (101, 76), (11, 11),
+                                              (2, 8, 8, 1))
+    lyap.update_safe_set()
+    rng = np.random.default_rng(0)
+    for step in range(3):
+        xu, _ = explore_step(lyap, inst, rng, step)
+    assert lyap.dynamics.count == 3
+    assert lyap.dynamics.X_buf.is_cuda
+    before = gp_kernel.gp_predict_stacked_cuda.launches
+    assert 0.0 < bound_tolerance(lyap, xu) < 1e-3
+    assert gp_kernel.gp_predict_stacked_cuda.launches == before

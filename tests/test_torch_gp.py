@@ -154,11 +154,16 @@ def test_bench_gp_posterior_matches_jax_at_grid_points():
 
 
 def test_unported_paths_raise():
+    """Bad input raises. ``add_data_point``, which raised until online updates
+    were ported, now returns a grown GP and leaves the old one as it was
+    (``tests/test_torch_gp_append.py`` holds it against the JAX
+    package)."""
     with working_dtype("float64"):
         gp = st.GaussianProcess(st.RBF(1.0, 1.0), np.zeros((2, 1)),
                                 np.zeros((2, 1)), noise_variance=0.1)
-    with pytest.raises(NotImplementedError, match="queue 1 item 14"):
-        gp.add_data_point(np.ones((1, 1)), np.ones((1, 1)))
+        grown = gp.add_data_point(np.ones((1, 1)), np.ones((1, 1)))
+    assert (grown.count, gp.count) == (3, 2)
+    assert_allclose(grown.Y[-1], [1.0])
     with pytest.raises(ValueError, match="capacity"):
         st.GaussianProcess(st.RBF(1.0, 1.0), np.zeros((9, 1)),
                            np.zeros((9, 1)), noise_variance=0.1,

@@ -285,12 +285,20 @@ def test_kernel_routing_rule():
 
 
 def test_unported_paths_raise():
+    """Bad input raises. ``add_data_point``, which raised until online updates
+    were ported, now appends to the stack and to a ``FunctionStack`` of
+    its members alike (``tests/test_torch_gp_append.py`` holds it
+    against the JAX package)."""
     with working_dtype("float64"):
         gps = [port_gp(g) for g in _jax_members(np.random.default_rng(9))]
         stacked = st.StackedGaussianProcess.from_gps(gps)
-    for model in (stacked, st.FunctionStack(gps)):
-        with pytest.raises(NotImplementedError, match="queue 1 item 14"):
-            model.add_data_point(np.ones((1, 3)), np.ones((1, 2)))
+        grown = [model.add_data_point(np.ones((1, 3)), np.ones((1, 2)))
+                 for model in (stacked, st.FunctionStack(gps))]
+        q = np.random.default_rng(10).uniform(-1, 1, (7, 3))
+        for got, want in zip(grown[0](q), grown[1](q)):
+            assert_allclose(to_numpy(got), to_numpy(want), rtol=1e-10,
+                            atol=1e-12)
+    assert grown[0].count == stacked.count + 1
     with pytest.raises(ValueError, match="one column per kernel"):
         st.StackedGaussianProcess(stacked.kernels, np.zeros((3, 3)),
                                   np.zeros((3, 3)), 1e-4)
