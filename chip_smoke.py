@@ -39,9 +39,8 @@ Phases, in order; any failure raises and the exit code is not 0:
    of two ``GaussianProcess``es (kernel 2). Each passes the two gates
    against the port's float64 oracle (``oracle.oracle_safe_set``), certifies
    more than the exempt initial set, and went through its kernel;
-7. times: CUDA events, median of 10 runs after warm-up, for the bench and
-   flagship sweeps (one sweep a run) and for each kernel against its
-   plain version on its path's own inputs (10 calls back to back a run);
+7. sweep times: CUDA events, median of 10 runs after warm-up, for the
+   bench and flagship sweeps (one sweep a run);
 8. safe learning: the inverted pendulum's loop of
    ``examples/inverted_pendulum.py`` at its ``--full`` width
    (``build_safe_learning_instance``: 2001x1501 grid, a ``[2, 32, 32, 1]``
@@ -55,10 +54,26 @@ Phases, in order; any failure raises and the exit code is not 0:
    pair re-scores safe in float64 and matches the pair kernel 3's plain
    twin chooses, the bordered appends match a fresh factorization, no
    library is built, and each sweep and step launched kernel 3 exactly
-   once; then the loop's times.
+   once; then the loop's sweep and step times (``loop_step_times``);
+9. count cases, kernel 1 and kernels 2 and 3 (``COUNT_CASES``: counts 0,
+   1, 10, both sides of each bucket edge 16/32/64/128, 129 and 2048,
+   below and at capacity): the kernels' loops bounded by the count,
+   against the plain versions at full capacity, exact zeros at count 0;
+10. kernel times: each kernel against its plain version on its path's
+    own inputs, on the device alone (a CUDA graph of 10 calls,
+    ``graph_ms``) and as a caller sees it (10 eager calls), and each
+    kernel's bound at those inputs (``kernel_bound``); then the loop's
+    step times again, to show how far the work before moved them;
+11. profiles, after every time: torch.profiler over the safe-learning and
+    the bench sweeps (``profile_sweep``), the device's busy share and
+    where its time goes.
 
-The second-to-last line is a JSON object describing each kernel; the last
-line is ``{"ok": true, "device": {...}}``.
+The end-to-end times (phases 7 and 8) come before the count cases and
+before any CUDA graph is captured.
+
+The second-to-last line is a JSON object describing each kernel
+(``kernel_rows``: launches, error, times, bound and its kind, per path);
+the last line is ``{"ok": true, "device": {...}}``.
 """
 
 import contextlib
@@ -475,18 +490,21 @@ def program_bounds(points, x, params, chol_inv, alpha, mask, s2, programs,
     return torch.cat(tol_mean), torch.cat(tol_var)
 
 
-def compare_program(route, inputs, programs):
+def compare_program(route, inputs, programs, count=None):
     """Kernel 2 (``route="general"``) or 3 (``"stacked"``) against its
-    plain version on one input set; returns the errors and the worst
+    plain version on one input set, the kernel's loops bounded by
+    ``count`` (``None``: the capacity); returns the errors and the worst
     error-to-bound ratio."""
     points, x, params, chol_inv, alpha, mask, s2 = inputs
     if route == "general":
         (program,) = programs
-        mean_k, var_k = gp_kernel.gp_predict_general_cuda(*inputs, program)
+        mean_k, var_k = gp_kernel.gp_predict_general_cuda(*inputs, program,
+                                                          count=count)
         mean_p, var_p = gp_kernel.gp_predict_general_plain(*inputs, program)
         li, al = chol_inv[None], alpha[None]
     else:
-        mean_k, var_k = gp_kernel.gp_predict_stacked_cuda(*inputs, programs)
+        mean_k, var_k = gp_kernel.gp_predict_stacked_cuda(*inputs, programs,
+                                                          count=count)
         mean_p, var_p = gp_kernel.gp_predict_stacked_plain(*inputs,
                                                            programs)
         li, al = chol_inv, alpha[:, :, None]
@@ -505,11 +523,11 @@ def compare_program(route, inputs, programs):
     return float(err_mean.max()), float(err_var.max()), ratio
 
 
-def program_case(route, names, cap, p, scale, dtype, seed):
+def program_case(route, names, cap, p, scale, dtype, seed, n=None):
     """Inputs of one kernel-2/3 case: a GP (general) or a stacked GP over
-    ``cap - cap // 4`` random points and random queries."""
+    ``n`` (default ``cap - cap // 4``) random points."""
     rng = np.random.default_rng(seed)
-    n = cap - cap // 4
+    n = cap - cap // 4 if n is None else n
     x = rng.uniform(-1.0, 1.0, (n, 3))
     width = p if route == "general" else len(names)
     y = np.column_stack([np.sin((j + 1) * x.sum(axis=1) + 0.3 * j)
@@ -606,9 +624,11 @@ def rounding_bounds(inputs, kind):
     return tol_mean, tol_var
 
 
-def compare(inputs, kind):
-    """Kernel against plain on one input set; returns the errors."""
-    mean_k, var_k = gp_kernel.gp_predict_cuda(*inputs, kind=kind)
+def compare(inputs, kind, count=None):
+    """Kernel against plain on one input set, the kernel's loops bounded
+    by ``count`` (``None``: the capacity); returns the errors."""
+    mean_k, var_k = gp_kernel.gp_predict_cuda(*inputs, kind=kind,
+                                              count=count)
     mean_p, var_p = gp_kernel.gp_predict_plain(*inputs, kind=kind)
     torch.cuda.synchronize()
     tol_mean, tol_var = rounding_bounds(inputs, kind)
@@ -634,18 +654,20 @@ def case_inputs(gp, n_q, seed):
             gp.kernel.variance * gp.scale ** 2)
 
 
-def case_gp(kind, cap, p, scale, dtype, seed):
-    """A GP at capacity ``cap`` with a quarter of the rows padding."""
+def case_gp(kind, cap, p, scale, dtype, seed, n=None, d=3):
+    """A GP at capacity ``cap`` over ``n`` random points (default: a
+    quarter of the rows padding) in ``d`` dimensions."""
     rng = np.random.default_rng(seed)
-    n = cap - cap // 4
-    x = rng.uniform(-1.0, 1.0, (n, 3))
+    n = cap - cap // 4 if n is None else n
+    x = rng.uniform(-1.0, 1.0, (n, d))
+    ls = [0.7, 1.4, 0.9] if d == 3 else np.linspace(0.7, 1.4, d)
     y = np.column_stack([np.sin((j + 1) * x.sum(axis=1) + 0.3 * j)
                          for j in range(p)])
     old = st.config.dtype
     st.config.dtype = dtype
     try:
         return st.GaussianProcess(
-            KERNEL_CLASSES[kind](1.3, [0.7, 1.4, 0.9], input_dim=3), x, y,
+            KERNEL_CLASSES[kind](1.3, ls, input_dim=d), x, y,
             noise_variance=1e-3, beta=2.0, capacity=cap, scale=scale)
     finally:
         st.config.dtype = old
@@ -680,18 +702,70 @@ def phase_build():
     for name in names:
         seconds, report = build_reports[name]
         print("build {}: {:.3f} s of nvcc".format(name, seconds))
-        # The compiler's register, spill and shared-memory lines.
+        # Each entry function (mangled), its registers and spills.
         print("\n".join(line for line in report.splitlines()
-                        if "Used" in line or "spill" in line
-                        or "nvcc" in line))
+                        if "Compiling entry function" in line
+                        or "Used" in line or "spill" in line))
     print("build: {} libraries in {:.3f} s wall".format(len(names), wall))
     for programs in tuples:
         print("program library: {!r}".format(programs))
-    lib = gp_kernel.program_library(tuples[0])
-    print("dynamic shared memory per block of 128 queries: " + ", ".join(
-        "{} B at cap {} ({})".format(lib.gp_program_smem_bytes(cap, size),
-                                     cap, name)
-        for cap in (32, 128) for size, name in ((4, "f32"), (8, "f64"))))
+    for programs in (tuples[0], next(t for t in tuples if len(t) == 2)):
+        lib = gp_kernel.program_library(programs)
+        print("dynamic shared memory per block, S={}, p=1, d=3: ".format(
+            len(programs)) + ", ".join(
+                "{} B at count {} ({})".format(
+                    lib.gp_program_smem_bytes(count, size, 1, 3), count,
+                    name)
+                for count in (10, 32, 64, 128, 129)
+                for size, name in ((4, "f32"), (8, "f64"))))
+
+
+#: ``(count, capacity)`` of the count cases: a GP holding ``count`` points
+#: at that capacity, the kernels' loops bounded by the count. Count 0 (an
+#: all-zero mask), small counts, both sides of every bucket edge of the
+#: tiled body (16, 32, 64, 128), the streamed body above it, and count
+#: below and equal to capacity.
+COUNT_CASES = ((0, 64), (1, 128), (10, 64), (15, 16), (16, 128), (17, 32),
+               (31, 32), (32, 32), (33, 64), (64, 64), (65, 128),
+               (127, 128), (128, 128), (129, 256), (2048, 2048))
+
+
+def count_queries(count):
+    """Ragged query counts of the count cases (fewer above 128 rows)."""
+    return 65537 if count > 128 else (1001, 100003)[count % 2]
+
+
+def phase_program_count_cases():
+    """Kernels 2 and 3 with the loops bounded by the GP's count, against
+    their plain versions (full capacity) within ``program_bounds``: the
+    general kernel on the ``product`` program with 2 outputs, the stacked
+    kernel on two flagship programs (one ``sum3`` output at capacity
+    2048, as the GP routes allow), float32 and float64. At count 0 the
+    outputs must be exact zeros."""
+    worst, case = 0.0, 0
+    for dtype in (torch.float32, torch.float64):
+        for count, cap in COUNT_CASES:
+            stacked = ("sum3",) if cap > 1024 else STACKED_SETS[2]
+            for route, names, p in (("general", ("product",), 2),
+                                    ("stacked", stacked, 1)):
+                case += 1
+                inputs, programs = program_case(route, names, cap, p, 2.5,
+                                                dtype, seed=500 + case,
+                                                n=count)
+                n_q = count_queries(count)
+                points = case_queries(n_q, inputs[0], 500 + case)
+                em, ev, ratio = compare_program(route, (points,) + inputs,
+                                                programs, count=count)
+                print("{} count case {:2d} {} count={:4d} cap={:4d} Q={:6d}: "
+                      "max|dmean|={:.3e} max|dvar|={:.3e} err/bound={:.3f}"
+                      .format(route, case, str(dtype)[6:], count, cap, n_q,
+                              em, ev, ratio))
+                if not ratio <= 1.0 or (count == 0 and em + ev != 0.0):
+                    raise AssertionError("{} kernel at count {} disagrees "
+                                         "with plain".format(route, count))
+                worst = max(worst, ratio)
+    print("kernels 2 and 3 at counts below capacity: {} cases, worst "
+          "err/bound {:.3f} (bound: program_bounds)".format(case, worst))
 
 
 def phase_program_cases():
@@ -809,6 +883,36 @@ def phase_kernel_cases():
           "{:.3e} (tolerance 1e-12)".format(gerr))
     if not gerr <= 1e-12:
         raise AssertionError("gradient through the kernel differs")
+
+
+def phase_kernel_count_cases():
+    """Kernel 1 with its loops bounded by the GP's count (``COUNT_CASES``,
+    the kinds in turn, float32 and float64) against its plain version at
+    full capacity, within ``rounding_bounds``. At count 0 the outputs must
+    be exact zeros."""
+    worst, case = 0.0, 0
+    # d = 6 once per dtype: the dimensions past the 4 that k unrolls from
+    # registers.
+    for dtype in (torch.float32, torch.float64):
+        for ci, (count, cap) in enumerate(COUNT_CASES + ((40, 64),)):
+            kind = gp_kernel.KINDS[ci % len(gp_kernel.KINDS)]
+            d = 6 if ci == len(COUNT_CASES) else 3
+            case += 1
+            gp = case_gp(kind, cap, 2, 2.5, dtype, seed=300 + case, n=count,
+                         d=d)
+            n_q = count_queries(count)
+            em, ev, ratio = compare(case_inputs(gp, n_q, 300 + case), kind,
+                                    count=gp.count)
+            print("count case {:2d} {} {:8s} d={} count={:4d} cap={:4d} "
+                  "Q={:6d}: max|dmean|={:.3e} max|dvar|={:.3e} "
+                  "err/bound={:.3f}".format(case, str(dtype)[6:], kind, d,
+                                            count, cap, n_q, em, ev, ratio))
+            if not ratio <= 1.0 or (count == 0 and em + ev != 0.0):
+                raise AssertionError("kernel 1 at count {} disagrees with "
+                                     "plain".format(count))
+            worst = max(worst, ratio)
+    print("kernel 1 at counts below capacity: {} cases, worst err/bound "
+          "{:.3f} (bound: rounding_bounds)".format(case, worst))
 
 
 def phase_bench_path():
@@ -1025,22 +1129,169 @@ def time_sweep(name, lyap, card):
                                  card))
 
 
+#: Kernel-name fragments of the profile's categories, first match wins.
+PROFILE_GROUPS = (("GP kernel", ("gp_predict", "gp_program")),
+                  ("cuBLAS", ("gemm", "gemv", "cublas", "xmma", "cutlass")),
+                  ("reduction", ("reduce",)),
+                  ("gather/index", ("index", "gather", "scatter")),
+                  ("elementwise", ("elementwise", "vectorized")),
+                  ("copy/fill", ("copy", "fill", "memcpy", "memset")))
+
+
+def profile_sweep(name, lyap, card, sweeps=5):
+    """Where one sweep's device time goes: torch.profiler over ``sweeps``
+    sweeps after a warm-up, kernels grouped by ``PROFILE_GROUPS``, beside
+    the sweep's CUDA-event time in the same window. Prints the device's
+    busy share and the largest kernels; returns the groups' milliseconds
+    per sweep."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    sweep = sweep_fn(lyap)
+    sweep()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        start.record()
+        for _ in range(sweeps):
+            sweep()
+        end.record()
+        torch.cuda.synchronize()
+    wall = start.elapsed_time(end) / sweeps
+    kernels = []
+    for ev in prof.key_averages():
+        if ev.device_type != DeviceType.CUDA:
+            continue
+        us = getattr(ev, "self_device_time_total", None)
+        if us is None:
+            us = ev.self_cuda_time_total
+        kernels.append((us / 1e3 / sweeps, ev.count // sweeps, ev.key))
+    busy = sum(ms for ms, _, _ in kernels)
+    groups = {}
+    for ms, _, key in kernels:
+        group = next((g for g, frags in PROFILE_GROUPS
+                      if any(f in key.lower() for f in frags)), "other")
+        groups[group] = groups.get(group, 0.0) + ms
+    print("{} sweep profile: {!r} ms a sweep by CUDA events, device busy "
+          "{!r} ms ({:.1%}) [{}]".format(name, wall, busy,
+                                         busy / wall if wall else 0.0, card))
+    for group, ms in sorted(groups.items(), key=lambda kv: -kv[1]):
+        print("  {}: {!r} ms ({:.1%} of busy)".format(group, ms,
+                                                      ms / busy))
+    for ms, count, key in sorted(kernels, reverse=True)[:8]:
+        print("  {!r} ms, {} a sweep: {}".format(ms, count, key[:110]))
+    return groups
+
+
+def graph_ms(fn, reps=10, batch=10):
+    """Median milliseconds of one call of ``fn`` on the device: ``batch``
+    calls captured in a CUDA graph, the graph replayed ``reps`` times
+    between CUDA events. The host's work per call (argument checks,
+    allocations, the ctypes call) is not in it."""
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        for _ in range(2):
+            fn()
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(batch):
+            fn()
+    ms = cuda_ms(graph.replay, reps=reps, warmup=1) / batch
+    del graph
+    return ms
+
+
 def time_against_plain(name, kernel, plain, card, shape):
-    """Kernel against plain, in turns (plain, kernel, kernel, plain)."""
-    plain_runs = [cuda_ms(plain, batch=10)]
-    kernel_runs = [cuda_ms(kernel, batch=10), cuda_ms(kernel, batch=10)]
-    plain_runs.append(cuda_ms(plain, batch=10))
+    """Kernel against plain on the device (``graph_ms``), in turns
+    (plain, kernel, kernel, plain); then the kernel as a caller sees it,
+    10 eager calls back to back (``cuda_ms``), host work included.
+    Returns ``(kernel_ms, plain_ms, eager_ms)``."""
+    plain_runs = [graph_ms(plain)]
+    kernel_runs = [graph_ms(kernel), graph_ms(kernel)]
+    plain_runs.append(graph_ms(plain))
+    eager_ms = cuda_ms(kernel, batch=10)
     kernel_ms = statistics.mean(kernel_runs)
     plain_ms = statistics.mean(plain_runs)
-    print("{} at {}: kernel {!r} ms (runs {!r}), plain {!r} ms (runs {!r}) "
-          "[{}]".format(name, shape, kernel_ms, kernel_runs, plain_ms,
-                        plain_runs, card))
-    return kernel_ms, plain_ms
+    print("{} at {}: kernel {!r} ms (runs {!r}), plain {!r} ms (runs {!r}); "
+          "kernel by 10 eager calls {!r} ms [{}]".format(
+              name, shape, kernel_ms, kernel_runs, plain_ms, plain_runs,
+              eager_ms, card))
+    return kernel_ms, plain_ms, eager_ms
+
+
+#: The H100 SXM's published peaks (NVIDIA's data sheet, dense, 700 W):
+#: FP32 on the CUDA cores and HBM3 bandwidth. TF32 is not allowed on the
+#: kernels' path, so FP32 is their arithmetic peak.
+FP32_FLOPS = 67e12
+HBM_BYTES_PER_S = 3.35e12
+
+#: Operations of one stationary covariance from r^2 (exp and sqrt one
+#: each), as ``gp_predict_common.cuh`` writes them.
+COV_OPS = {"rbf": 2, "matern12": 4, "matern32": 7, "matern52": 10}
+
+
+def stationary_ops(kind, d):
+    """Operations of kernel 1's ``k_j`` per row and query: ``d``
+    differences, ``d`` squares and ``d - 1`` adds for ``r^2``, the
+    covariance, the scale and the mask."""
+    return 3 * d - 1 + COV_OPS[kind] + 2
+
+
+def program_ops(programs):
+    """Operations of every output's ``k_j`` per row and query, counted as
+    the function needs them: each distinct column difference or product
+    once across all outputs (they do not depend on the parameters; the
+    plain twin shares them), then per output its parameter multiplies,
+    ``n - 1`` adds per ``n``-term sum, each covariance, the sums and
+    products of the program's nodes, the scale and the mask."""
+    columns = set()
+
+    def ops(node):
+        op = node[0]
+        if op == "stationary":
+            _, fam, sel = node[:3]
+            columns.update(("diff", dim) for dim in sel)
+            # Lengthscale multiplies, squares, adds, covariance, variance.
+            return 3 * len(sel) - 1 + COV_OPS[fam] + 1
+        if op == "linear":
+            columns.update(("prod", dim) for dim in node[1])
+            return 2 * len(node[1]) - 1
+        return ops(node[1]) + ops(node[2]) + 1
+
+    per_output = sum(ops(program) + 2 for program in programs)
+    return len(columns) + per_output
+
+
+def kernel_bound(n_q, d, count, p, n_out, k_ops, itemsize):
+    """The least time of one predict on the H100 at these inputs:
+    ``(bound_ms, bound_by, bound_kind)``.
+
+    Operations, with ``n = count``: per query and output ``n^2`` for the
+    triangular solve (``n (n + 1) / 2`` multiplies, ``n (n - 1) / 2``
+    adds) and ``(p + 1) (2 n - 1)`` for the reductions; per query
+    ``n * k_ops`` for k (``k_ops``: every output's operations per row,
+    ``stationary_ops`` or ``program_ops``); over ``FP32_FLOPS``. Bytes:
+    queries, the active rows of x, chol_inv, alpha and the mask read
+    once, the outputs written once, over ``HBM_BYTES_PER_S``. The larger
+    wins.
+    """
+    flops = n_q * (n_out * (count * count + (p + 1) * max(2 * count - 1, 0))
+                   + count * k_ops)
+    values = (n_q * d + count * d + n_out * count * (count + p) + count
+              + n_q * n_out * (p + 1))
+    ops_ms = flops / FP32_FLOPS * 1e3
+    bytes_ms = values * itemsize / HBM_BYTES_PER_S * 1e3
+    if ops_ms >= bytes_ms:
+        return ops_ms, "operations", "fp32"
+    return bytes_ms, "bytes", "hbm"
 
 
 def phase_times(card, inst, lyap):
-    """Kernel 1 and the bench sweep on the bench path's inputs."""
-    time_sweep("bench", lyap, card)
+    """Kernel 1 against its plain version on the bench path's inputs."""
     points = lyap._device_points()
     # The kernel's inputs exactly as the sweep makes them.
     gp = inst["gp"]
@@ -1049,24 +1300,30 @@ def phase_times(card, inst, lyap):
     inputs = ((states / ls).contiguous(), (gp.X_buf / ls).contiguous(),
               gp.chol_inv, gp.alpha, gp._mask(),
               gp.kernel.variance * gp.scale ** 2)
-    em, ev, ratio = compare(inputs, "rbf")
-    print("bench-path inputs (Q={}, cap={}, p={}): max|dmean|={:.3e} "
-          "max|dvar|={:.3e} err/bound={:.3f}".format(
-              states.shape[0], gp.capacity, gp.output_dim, em, ev, ratio))
+    em, ev, ratio = compare(inputs, "rbf", count=gp.count)
+    print("bench-path inputs (Q={}, cap={}, count={}, p={}): max|dmean|="
+          "{:.3e} max|dvar|={:.3e} err/bound={:.3f}".format(
+              states.shape[0], gp.capacity, gp.count, gp.output_dim, em, ev,
+              ratio))
     if not ratio <= 1.0:
         raise AssertionError("kernel disagrees on the bench-path inputs")
-    kernel_ms, plain_ms = time_against_plain(
+    kernel_ms, plain_ms, eager_ms = time_against_plain(
         "gp predict",
-        lambda: gp_kernel.gp_predict_cuda(*inputs, kind="rbf"),
+        lambda: gp_kernel.gp_predict_cuda(*inputs, kind="rbf",
+                                          count=gp.count),
         lambda: gp_kernel.gp_predict_plain(*inputs, kind="rbf"), card,
-        "Q={}, cap {}".format(states.shape[0], gp.capacity))
-    return max(em, ev), kernel_ms, plain_ms
+        "Q={}, cap {}, count {}".format(states.shape[0], gp.capacity,
+                                        gp.count))
+    bound = kernel_bound(states.shape[0], states.shape[1], gp.count,
+                         gp.output_dim, 1,
+                         stationary_ops("rbf", states.shape[1]),
+                         states.element_size())
+    return (max(em, ev), kernel_ms, plain_ms, eager_ms) + bound
 
 
 def phase_flagship_times(card, route, lyap):
-    """A flagship route's sweep, and its kernel against its plain version
-    on the sweep's own inputs."""
-    time_sweep("flagship " + route, lyap, card)
+    """A flagship route's kernel against its plain version on the sweep's
+    own inputs."""
     points = lyap._device_points()
     states = concatenate_inputs(points, lyap.policy(points))
     if route == "stacked":
@@ -1088,20 +1345,28 @@ def phase_flagship_times(card, route, lyap):
         cuda, plain = (gp_kernel.gp_predict_general_cuda,
                        gp_kernel.gp_predict_general_plain)
         arg = program
+    # s2 on the device: a host scalar would be copied to the card inside
+    # the CUDA graph that times the kernel, which capture refuses.
+    inputs = inputs[:-1] + (torch.tensor(inputs[-1], dtype=states.dtype,
+                                         device=states.device),)
     em, ev, ratio = compare_program("general" if route == "fan_out"
-                                    else "stacked", inputs, programs)
-    shape = "Q={}, cap {}, S={}".format(states.shape[0], gp.capacity,
-                                        len(programs))
+                                    else "stacked", inputs, programs,
+                                    count=gp.count)
+    shape = "Q={}, cap {}, count {}, S={}".format(
+        states.shape[0], gp.capacity, gp.count, len(programs))
     print("flagship {} inputs ({}): max|dmean|={:.3e} max|dvar|={:.3e} "
           "err/bound={:.3f}".format(route, shape, em, ev, ratio))
     if not ratio <= 1.0:
         raise AssertionError("kernel disagrees on the flagship inputs")
-    kernel_ms, plain_ms = time_against_plain(
+    kernel_ms, plain_ms, eager_ms = time_against_plain(
         "gp predict {}".format("stacked" if route == "stacked"
                                else "general"),
-        lambda: cuda(*inputs, arg), lambda: plain(*inputs, arg), card,
-        shape)
-    return max(em, ev), kernel_ms, plain_ms
+        lambda: cuda(*inputs, arg, count=gp.count),
+        lambda: plain(*inputs, arg), card, shape)
+    bound = kernel_bound(states.shape[0], states.shape[1], gp.count, 1,
+                         len(programs), program_ops(programs),
+                         states.element_size())
+    return (max(em, ev), kernel_ms, plain_ms, eager_ms) + bound
 
 
 # ---------------------------------------------------------------------------
@@ -1283,9 +1548,12 @@ def stacked_inputs(lyap):
     states = concatenate_inputs(points, lyap.policy(points))
     gp = lyap.dynamics
     programs, params = gp._programs()
+    # On the device, for the CUDA graph that times the kernel.
+    s2 = torch.tensor(gp.scale ** 2, dtype=states.dtype,
+                      device=states.device)
     return (states, gp.X_buf, gp_kernel.program_params(params, states),
             gp.chol_inv, gp.alpha[:, :, 0].contiguous(), gp._mask(),
-            gp.scale ** 2), programs
+            s2), programs
 
 
 def phase_safe_learning(card, steps=10, seed=0):
@@ -1303,10 +1571,10 @@ def phase_safe_learning(card, steps=10, seed=0):
     before the steps: each sweep launches kernel 3 once, each step once
     (twice with the backup policy's fallback), and no other kernel runs.
     Then times, on CUDA events beside the card: the sweep, one
-    ``get_safe_sample``, one ``add_data_point``, and kernel 3 against its
-    plain twin on the sweep's inputs. Returns ``(launches, max_abs_err,
-    kernel_ms, plain_ms)`` of kernel 3, ``launches`` counting the two
-    sweeps and the steps.
+    ``get_safe_sample`` and one ``add_data_point`` (``loop_step_times``).
+    Returns ``(lyap, inst, launches, max_abs_err)``, ``launches`` of
+    kernel 3 counting the two sweeps and the steps, ``max_abs_err`` its
+    error against the plain twin on the sweep's inputs.
     """
     builds = dict(build_reports)
     start = time.perf_counter()
@@ -1367,7 +1635,8 @@ def phase_safe_learning(card, steps=10, seed=0):
     print("libraries built during the safe-learning path: 0")
 
     inputs, programs = stacked_inputs(lyap)
-    em, ev, ratio = compare_program("stacked", inputs, programs)
+    em, ev, ratio = compare_program("stacked", inputs, programs,
+                                    count=gp.count)
     shape = "Q={}, cap {}, count {}, S={}".format(
         inputs[0].shape[0], gp.capacity, gp.count, len(programs))
     print("safe-learning inputs ({}): max|dmean|={:.3e} max|dvar|={:.3e} "
@@ -1375,30 +1644,46 @@ def phase_safe_learning(card, steps=10, seed=0):
     if not ratio <= 1.0:
         raise AssertionError("kernel 3 disagrees on the safe-learning "
                              "inputs")
-    launches = 2 + explored["gp_predict_stacked"]
-    return (launches, max(em, ev)) \
-        + safe_learning_times(card, lyap, inst, inputs, programs, shape)
-
-
-def safe_learning_times(card, lyap, inst, inputs, programs, shape):
-    """The loop's times on the card: the sweep, one ``get_safe_sample``,
-    one ``add_data_point``, and kernel 3 against its plain twin."""
     time_sweep("safe-learning", lyap, card)
+    loop_step_times(card, lyap, inst, "before the count cases and the "
+                    "CUDA graphs")
+    return lyap, inst, 2 + explored["gp_predict_stacked"], max(em, ev)
+
+
+def loop_step_times(card, lyap, inst, when):
+    """One ``get_safe_sample`` and one ``add_data_point`` at the loop's
+    last state, CUDA events around the host call, median of 10. Both are
+    host-bound, so ``main`` takes them twice: before the count cases and
+    the CUDA graphs of the kernel timings, and after them, which shows
+    how far the process's history moves them."""
     sample_ms = cuda_ms(lambda: safe_sample(
         lyap, inst, np.random.default_rng(1)))
     xu = safe_sample(lyap, inst, np.random.default_rng(1))[0]
     y = inst["true"](xu[:, :2], xu[:, 2:]).cpu().numpy()
     append_ms = cuda_ms(lambda: lyap.dynamics.add_data_point(xu, y))
-    print("get_safe_sample ({} candidates): {!r} ms; add_data_point at "
-          "count {}: {!r} ms [{}]".format(
-              EXPLORATION_SAMPLES * len(ACTION_VARIATION), sample_ms,
+    print("get_safe_sample ({} candidates), {}: {!r} ms; add_data_point "
+          "at count {}: {!r} ms [{}]".format(
+              EXPLORATION_SAMPLES * len(ACTION_VARIATION), when, sample_ms,
               lyap.dynamics.count, append_ms, card))
-    kernel_ms, plain_ms = time_against_plain(
+
+
+def safe_learning_times(card, lyap):
+    """Kernel 3 against its plain twin on the safe-learning sweep's
+    inputs: ``(kernel_ms, plain_ms, eager_ms, bound_ms, bound_by,
+    bound_kind)``."""
+    inputs, programs = stacked_inputs(lyap)
+    gp = lyap.dynamics
+    states = inputs[0]
+    kernel_ms, plain_ms, eager_ms = time_against_plain(
         "gp predict stacked (safe learning)",
-        lambda: gp_kernel.gp_predict_stacked_cuda(*inputs, programs),
+        lambda: gp_kernel.gp_predict_stacked_cuda(*inputs, programs,
+                                                  count=gp.count),
         lambda: gp_kernel.gp_predict_stacked_plain(*inputs, programs),
-        card, shape)
-    return kernel_ms, plain_ms
+        card, "Q={}, cap {}, count {}, S={}".format(
+            states.shape[0], gp.capacity, gp.count, len(programs)))
+    return (kernel_ms, plain_ms, eager_ms) + kernel_bound(
+        states.shape[0], states.shape[1], gp.count, 1, len(programs),
+        program_ops(programs), states.element_size())
 
 
 def main():
@@ -1409,28 +1694,63 @@ def main():
     inst, bench_lyap, bench_launches = phase_bench_path()
     stacked_lyap, stacked_launches = phase_flagship_path("stacked")
     fan_lyap, fan_launches = phase_flagship_path("fan_out")
-    results = {
-        "gp_predict": (bench_launches["gp_predict"],)
-        + phase_times(card, inst, bench_lyap),
-        "gp_predict_stacked": (stacked_launches["gp_predict_stacked"],)
-        + phase_flagship_times(card, "stacked", stacked_lyap),
-        "gp_predict_general": (fan_launches["gp_predict_general"],)
-        + phase_flagship_times(card, "fan_out", fan_lyap),
-    }
+    # The host-bound end-to-end times come first: the sweeps and the
+    # loop's steps, before the count cases and before any CUDA graph is
+    # captured for the kernel timings.
+    time_sweep("bench", bench_lyap, card)
+    time_sweep("flagship stacked", stacked_lyap, card)
+    time_sweep("flagship fan_out", fan_lyap, card)
+    safe_lyap, safe_inst, safe_launches, safe_err = phase_safe_learning(card)
+    phase_kernel_count_cases()
+    phase_program_count_cases()
+    # Per kernel and path: (launches, max_abs_err, ms, plain_ms, eager_ms,
+    # bound_ms, bound_by, bound_kind).
+    paths = [
+        ("gp_predict", "bench", (bench_launches["gp_predict"],)
+         + phase_times(card, inst, bench_lyap)),
+        ("gp_predict_stacked", "flagship_stacked",
+         (stacked_launches["gp_predict_stacked"],)
+         + phase_flagship_times(card, "stacked", stacked_lyap)),
+        ("gp_predict_general", "flagship_fan_out",
+         (fan_launches["gp_predict_general"],)
+         + phase_flagship_times(card, "fan_out", fan_lyap)),
+    ]
     del stacked_lyap, fan_lyap
-    safe = phase_safe_learning(card)
+    safe = (safe_launches, safe_err) + safe_learning_times(card, safe_lyap)
     print("kernel 3 on the safe-learning path: {} launches, max abs err "
-          "{!r}, {!r} ms against plain {!r} ms".format(*safe))
+          "{!r}, {!r} ms against plain {!r} ms (eager {!r} ms), bound {!r} "
+          "ms ({}, {})".format(*safe))
+    paths.append(("gp_predict_stacked", "safe_learning", safe))
+    loop_step_times(card, safe_lyap, safe_inst, "after the count cases and "
+                    "the CUDA graphs")
+    # Profiles come after every time: the profiler's tracing may slow the
+    # host's dispatch of what runs after it.
+    profile_sweep("safe-learning", safe_lyap, card)
+    profile_sweep("bench", bench_lyap, card)
     print(card)
-    print(json.dumps({"kernels": [
-        {"name": name, "route": "cuda", "source": KERNELS[name][1],
-         "replaces": KERNELS[name][2], "launches": launches,
-         "max_abs_err": err, "ms": kernel_ms, "plain_ms": plain_ms}
-        for name, (launches, err, kernel_ms, plain_ms)
-        in results.items()]}))
+    print(json.dumps({"kernels": kernel_rows(paths)}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
+
+
+def kernel_rows(paths):
+    """The ``kernels`` JSON rows: one per kernel, its numbers from the
+    last path listed for it (kernel 3: the safe-learning loop), and every
+    path's numbers under ``paths``. No single PyTorch call computes a GP
+    posterior numerator, so ``library_ms`` is null."""
+    keys = ("launches", "max_abs_err", "ms", "plain_ms", "eager_ms",
+            "bound_ms", "bound_by", "bound_kind")
+    rows = {}
+    for name, path, numbers in paths:
+        entry = dict(zip(keys, numbers), path=path)
+        entry["share_of_bound"] = entry["bound_ms"] / entry["ms"]
+        row = rows.setdefault(name, {
+            "name": name, "route": "cuda", "source": KERNELS[name][1],
+            "replaces": KERNELS[name][2], "library_ms": None, "paths": []})
+        row.update({k: entry[k] for k in keys + ("path",)})
+        row["paths"].append(entry)
+    return list(rows.values())
 
 
 if __name__ == "__main__":

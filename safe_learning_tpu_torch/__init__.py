@@ -11,9 +11,9 @@ the ``Triangulation`` and ``PiecewiseConstant`` interpolants, Gaussian
 processes with stationary, linear and composite kernels,
 ``StackedGaussianProcess``, online GP updates (``add_data_point``), the
 inverted pendulum, the LQR solvers, the fused ``Lyapunov.update_safe_set``
-sweep, safe exploration (``get_safe_sample``) and the float64 oracle. Set
-``config.device`` to ``"cuda:0"`` to run on the GPU; nothing falls back
-to the CPU when CUDA is missing.
+sweep, safe exploration (``get_safe_sample``) and the float64 oracle. The
+port runs on ``cuda:0`` unless the caller sets ``config.device = "cpu"``;
+nothing falls back to the CPU when CUDA is missing.
 """
 
 from .config import config

@@ -1,9 +1,11 @@
 """Global configuration for the PyTorch/CUDA port.
 
 Counterpart of ``safe_learning_tpu/config.py``. The working dtype is
-float32 by default with a float64 switch, and the device is explicit: the
-caller sets ``config.device`` (``"cuda:0"`` on the GPU). Nothing in the
-package moves work to the CPU because CUDA is missing.
+float32 by default with a float64 switch, and the device is the GPU,
+``cuda:0``, unless the caller sets ``config.device = "cpu"`` (as the CPU
+tests do). Nothing is checked at import, and nothing in the package moves
+work to the CPU because CUDA is missing: on a PyTorch built without CUDA
+the first tensor made on the default device raises.
 
 Importing this module turns TF32 off for matmuls and cuDNN and keeps the
 float32 matmul precision at ``"highest"``. TF32 keeps about ten mantissa
@@ -33,8 +35,9 @@ class Configuration:
         Working floating dtype: ``torch.float32`` (default) or
         ``torch.float64``.
     device : torch.device
-        Device every model tensor and sweep lives on. Defaults to the CPU;
-        set it to ``"cuda:0"`` to run on the GPU.
+        Device every model tensor and sweep lives on. Defaults to
+        ``cuda:0``; set it to ``"cpu"`` to run the kernels' plain PyTorch
+        versions on the CPU.
     gp_batch_size : int
         Grid points per batch when a sweep is streamed.
     fused_sweep_limit : int
@@ -55,7 +58,7 @@ class Configuration:
 
     def __init__(self):
         self._dtype = torch.float32
-        self._device = torch.device("cpu")
+        self._device = torch.device("cuda:0")
         self.gp_batch_size = 2 ** 16
         self.fused_sweep_limit = 2 ** 24
         self.certificate_margin = 0.0

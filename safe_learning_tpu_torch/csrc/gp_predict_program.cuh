@@ -9,7 +9,9 @@
 //     `fused_gp_predict_stacked`): S single-output GPs over one training
 //     set, each with its own program, chol_inv and alpha, in one launch.
 // One template serves both. A source file rendered by
-// ops/gp_kernel.py::render_program_source defines
+// ops/gp_kernel.py::render_program_source defines, in an anonymous
+// namespace (each library's instantiations and their launch caches stay
+// its own),
 //
 //   struct CovarianceProgram {
 //     static constexpr int NUM_OUT, NUM_PARAMS, MIN_D;
@@ -22,32 +24,33 @@
 // compiled in, as the Pallas kernels trace it statically
 // (gp_kernel.py:220-222); the parameter values are a runtime array, so a
 // new hyperparameter value needs no new build. For every query and every
-// output s < S:
+// output s < S, over the n = count active rows:
 //
-//   k_j          = k_s(x_j, q) * s2 * mask_j     (j < cap)
-//   a            = chol_inv[s] * k
+//   k_j          = k_s(x_j, q) * s2 * mask_j     (j < n)
+//   a            = chol_inv[s, :n, :n] * k
 //   mean[q, s*p + c] = sum_i a_i alpha[s][i][c]  (c < p)
 //   var[q, s]    = sum_i a_i^2
 //
-// What bounds it on the H100. As for the stationary kernel
-// (gp_predict.cu's header), the triangular solve a = L^-1 k dominates:
-// cap (cap + 1) / 2 FMAs per query and output against a few dozen for
-// the program (the flagship's composite kernel: 3 products and a Matern
-// exp per j), while a query moves (d + 2 S) values. So it is bound by
-// arithmetic and the loads feeding the FMAs, not by device memory. The
-// design carries gp_predict.cu's over (solve_and_reduce in
-// gp_predict_common.cuh: one query per thread, k staged per thread in
-// shared memory, the chol_inv row tile staged transposed, the triangular
-// skip, chunked k above cap 128, ragged Q computed on the last query and
-// not stored). What is new:
-//   - the program's parameters are loaded once per thread into registers
-//     (pr), and each input column is read and differenced once per j;
-//   - the S outputs run back to back through the same shared buffers.
-//     Keeping k of all outputs at once would cost S * cap * NT values
-//     (128 KB at cap 128, S = 2, f32) beside the chol_inv tile; instead
-//     each output recomputes its differences and products (d = 3: a few
-//     FMAs), which on the GPU is a register and L1 matter, not HBM
-//     traffic as on the TPU.
+// What bounds it on the H100. The safe-learning loop calls it at cap 64
+// with count 0 to 10, S = 2, on 3,003,501 grid points: per query and
+// output about n (n + 1) / 2 solve FMAs and n evaluations of the program
+// (the flagship's composite kernel: 3 products, a Matern sqrt and exp
+// per row), against 28 bytes moved (3 coordinates in, 2 means and 2
+// variances out). At count 10 that is about 39 us of FP32 work and 25 us
+// of device memory on the whole grid, and looping to the capacity
+// instead of the count would multiply 97 % of the solve's FMAs by exact
+// zeros. The flagship (cap = count = 32) is FP32-bound the same way; at
+// these counts evaluating the program costs more than the solve. The
+// design is gp_predict_common.cuh's: loops stop at the count, a bucket
+// NB >= count picks the tile shape at
+// launch, chol_inv of all S outputs stays resident in shared memory where
+// S * NB^2 fits in the block's budget (8 KB at the flagship, 0.8 KB in the
+// safe-learning loop; else one output at a time, restaged per tile), and
+// the solve is the register-tiled outer product. Per tile the outputs run
+// back to back: each evaluates its program into the k tile, solves,
+// reduces and stores; the parameters sit in registers (pr) for the whole
+// block, and each input column is read and differenced once per row.
+// Above count 128 the streamed body (solve_streamed) runs instead.
 // Numerics follow the plain twin (ops/gp_kernel.py::_eval_program):
 // lengthscales enter as reciprocals multiplied into the differences, the
 // program's k is scaled by s2 * mask afterwards, the 1e-36 guards of the
@@ -65,93 +68,209 @@ using namespace gp_common;
 constexpr int S_MAX = 8;        // most outputs (programs) per library
 constexpr int PARAMS_MAX = 64;  // most program parameters (registers)
 
-// Output OUT, then the outputs after it.
-template <typename T, class Prog, int OUT>
-__device__ __forceinline__ void run_outputs(
-    T* ks, T* ls, const T* __restrict__ x, const T* __restrict__ chol_inv,
-    const T* __restrict__ alpha, const T* __restrict__ mask,
-    const T (&qv)[D_MAX], const T (&pr)[Prog::NUM_PARAMS], int d, int cap,
-    int p, int cb, T s2, bool live, int64_t qi, T* __restrict__ mean_out,
-    T* __restrict__ var_out) {
-  auto kfn = [&](int j) -> T {
-    const T* xj = x + (int64_t)j * d;
-    return Prog::template k<T, OUT>(xj, qv, pr) * s2 * __ldg(mask + j);
-  };
-  T macc[P_MAX];
-#pragma unroll
-  for (int c = 0; c < P_MAX; ++c) macc[c] = T(0);
-  T vacc = T(0);
-  solve_and_reduce(ks, ls, kfn, chol_inv + (int64_t)OUT * cap * cap,
-                   alpha + (int64_t)OUT * cap * p, cap, p, cb, macc, vacc);
-  if (live) {
-#pragma unroll
-    for (int c = 0; c < P_MAX; ++c) {
-      if (c < p) mean_out[(qi * Prog::NUM_OUT + OUT) * p + c] = macc[c];
-    }
-    var_out[qi * Prog::NUM_OUT + OUT] = vacc;
+template <typename T>
+struct Args {
+  const T *q, *x, *params, *chol_inv, *alpha, *mask, *s2;
+  int64_t n_q;
+  int d, cap, n, p;
+  T *mean_out, *var_out;
+};
+
+// Output OUT of one query tile, then the outputs after it. With
+// `resident`, ls holds every output's chol_inv; else this stages OUT's.
+template <typename T, class Prog, int NB, int OUT>
+__device__ __forceinline__ void tile_outputs(
+    const TiledSmem<T, NB>& sm, bool resident, const Args<T>& a,
+    const T (&qv)[D_MAX], const T (&pr)[Prog::NUM_PARAMS], T s2,
+    int64_t q0) {
+  constexpr int LSZ = NB * ls_stride<T>(NB);
+  if (!resident) {
+    stage_chol_inv<T, NB>(sm.ls, a.chol_inv + (int64_t)OUT * a.cap * a.cap,
+                          a.cap, a.n);
   }
+  const T* xs = sm.xs;
+  const T* ms = sm.ms;
+  const int d = a.d;
+  fill_k<T, NB>(sm.ks, [&](int j) {
+    return Prog::template k<T, OUT>(xs + j * d, qv, pr) * s2 * ms[j];
+  }, a.n);
+  __syncthreads();  // k (and chol_inv) staged
+  solve_tile<T, NB>(sm.ks, resident ? sm.ls + OUT * LSZ : sm.ls, sm.red,
+                    a.alpha + (int64_t)OUT * a.cap * a.p, a.n, a.p);
+  __syncthreads();  // partials written; k and chol_inv may be replaced
+  store_tile<T, NB>(sm.red, q0, a.n_q, a.p, Prog::NUM_OUT, OUT, a.mean_out,
+                    a.var_out);
   if constexpr (OUT + 1 < Prog::NUM_OUT) {
-    run_outputs<T, Prog, OUT + 1>(ks, ls, x, chol_inv, alpha, mask, qv, pr,
-                                  d, cap, p, cb, s2, live, qi, mean_out,
-                                  var_out);
+    tile_outputs<T, Prog, NB, OUT + 1>(sm, resident, a, qv, pr, s2, q0);
   }
 }
 
 template <typename T, class Prog>
-__global__ void __launch_bounds__(NT)
-gp_program_kernel(const T* __restrict__ q, const T* __restrict__ x,
-                  const T* __restrict__ params,
-                  const T* __restrict__ chol_inv,
-                  const T* __restrict__ alpha, const T* __restrict__ mask,
-                  const T* __restrict__ s2_ptr, int64_t n_q, int d, int cap,
-                  int p, int cb, T* __restrict__ mean_out,
-                  T* __restrict__ var_out) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* ks = reinterpret_cast<T*>(smem_raw);  // [cb][NT]: k per thread
-  T* ls = ks + (int64_t)cb * NT;           // [cb][LS]: chol_inv tile^T
-
-  T qv[D_MAX];
-  int64_t qi;
-  bool live;
-  load_query(q, n_q, d, qv, qi, live);
-  const T s2 = *s2_ptr;
-  T pr[Prog::NUM_PARAMS];
+__device__ __forceinline__ void load_params(const T* __restrict__ params,
+                                            T (&pr)[Prog::NUM_PARAMS]) {
 #pragma unroll
   for (int i = 0; i < Prog::NUM_PARAMS; ++i) pr[i] = __ldg(params + i);
+}
 
-  run_outputs<T, Prog, 0>(ks, ls, x, chol_inv, alpha, mask, qv, pr, d, cap,
-                          p, cb, s2, live, qi, mean_out, var_out);
+// Tiled body, bucket NB >= n (gp_predict_common.cuh).
+template <typename T, class Prog, int NB>
+__global__ void __launch_bounds__(NT, (tiled_min_blocks<T, NB>()))
+gp_program_tiled(const Args<T> a, bool resident) {
+  constexpr int TQ = Tile<NB>::TQ;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const TiledSmem<T, NB> sm(smem_raw, resident ? Prog::NUM_OUT : 1, a.p,
+                            a.d);
+  if (resident) {
+    for (int s = 0; s < Prog::NUM_OUT; ++s) {
+      stage_chol_inv<T, NB>(sm.ls + s * NB * ls_stride<T>(NB),
+                            a.chol_inv + (int64_t)s * a.cap * a.cap, a.cap,
+                            a.n);
+    }
+  }
+  stage_rows(sm.xs, sm.ms, a.x, a.mask, a.n, a.d);
+  __syncthreads();  // x and the mask staged
+  T pr[Prog::NUM_PARAMS];
+  load_params<T, Prog>(a.params, pr);
+  const T s2 = *a.s2;
+  const int64_t n_tiles = (a.n_q + TQ - 1) / TQ;
+  for (int64_t t = blockIdx.x; t < n_tiles; t += gridDim.x) {
+    const int64_t q0 = t * TQ;
+    T qv[D_MAX];
+    load_row(a.q, q0 + threadIdx.x % TQ, a.n_q, a.d, qv);
+    tile_outputs<T, Prog, NB, 0>(sm, resident, a, qv, pr, s2, q0);
+  }
+}
+
+// Streamed body (n > N_TILED_MAX): output OUT, then the outputs after it.
+template <typename T, class Prog, int OUT>
+__device__ __forceinline__ void streamed_outputs(
+    T* ks, T* ls, const Args<T>& a, const T (&qv)[D_MAX],
+    const T (&pr)[Prog::NUM_PARAMS], T s2, int64_t qi) {
+  const T* __restrict__ x = a.x;
+  const T* __restrict__ mask = a.mask;
+  const int d = a.d;
+  T macc[P_MAX];
+#pragma unroll
+  for (int c = 0; c < P_MAX; ++c) macc[c] = T(0);
+  T vacc = T(0);
+  solve_streamed(ks, ls, [&](int j) {
+    return Prog::template k<T, OUT>(x + (int64_t)j * d, qv, pr) * s2 *
+           mask[j];
+  }, a.chol_inv + (int64_t)OUT * a.cap * a.cap,
+     a.alpha + (int64_t)OUT * a.cap * a.p, a.cap, a.n, a.p, macc, vacc);
+  if (qi < a.n_q) {
+#pragma unroll
+    for (int c = 0; c < P_MAX; ++c) {
+      if (c < a.p) a.mean_out[(qi * Prog::NUM_OUT + OUT) * a.p + c] = macc[c];
+    }
+    a.var_out[qi * Prog::NUM_OUT + OUT] = vacc;
+  }
+  if constexpr (OUT + 1 < Prog::NUM_OUT) {
+    streamed_outputs<T, Prog, OUT + 1>(ks, ls, a, qv, pr, s2, qi);
+  }
+}
+
+template <typename T, class Prog>
+__global__ void __launch_bounds__(NTS)
+gp_program_streamed(const Args<T> a) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* ks = reinterpret_cast<T*>(smem_raw);  // [CB][NTS]: k per thread
+  T* ls = ks + (int64_t)CB * NTS;          // [CB][LS]: chol_inv tile^T
+  const int64_t qi = (int64_t)blockIdx.x * NTS + threadIdx.x;
+  T qv[D_MAX];
+  load_row(a.q, qi, a.n_q, a.d, qv);
+  T pr[Prog::NUM_PARAMS];
+  load_params<T, Prog>(a.params, pr);
+  streamed_outputs<T, Prog, 0>(ks, ls, a, qv, pr, *a.s2, qi);
+}
+
+template <typename T, class Prog>
+cudaError_t launch_streamed(const Args<T>& a, cudaStream_t stream) {
+  auto kernel = gp_program_streamed<T, Prog>;
+  const size_t smem = streamed_smem_bytes<T>();
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  const int64_t blocks = (a.n_q + NTS - 1) / NTS;
+  kernel<<<(unsigned)blocks, NTS, smem, stream>>>(a);
+  return cudaGetLastError();
+}
+
+// How many outputs' chol_inv a tiled block at bucket NB holds: all S
+// where they fit, else one (restaged per tile and output), else 0 (the
+// streamed body runs).
+template <typename T, class Prog, int NB>
+int resident_outputs(int p, int d) {
+  if (tiled_smem_bytes<T, NB>(Prog::NUM_OUT, p, d) <= SMEM_MAX) {
+    return Prog::NUM_OUT;
+  }
+  return tiled_smem_bytes<T, NB>(1, p, d) <= SMEM_MAX ? 1 : 0;
+}
+
+template <typename T, class Prog, int NB>
+cudaError_t launch_tiled(const Args<T>& a, cudaStream_t stream) {
+  static GridCache cache;
+  auto kernel = gp_program_tiled<T, Prog, NB>;
+  const int n_res = resident_outputs<T, Prog, NB>(a.p, a.d);
+  if (n_res == 0) return launch_streamed<T, Prog>(a, stream);
+  const bool resident = n_res == Prog::NUM_OUT;
+  const size_t smem = tiled_smem_bytes<T, NB>(n_res, a.p, a.d);
+  int grid = 0;
+  const cudaError_t err =
+      persistent_grid(cache, kernel, smem, a.n_q, Tile<NB>::TQ, &grid);
+  if (err != cudaSuccess) return err;
+  kernel<<<grid, NT, smem, stream>>>(a, resident);
+  return cudaGetLastError();
 }
 
 template <typename T, class Prog>
 int launch(const void* q, const void* x, const void* params,
            const void* chol_inv, const void* alpha, const void* mask,
-           const void* s2, int64_t n_q, int d, int cap, int p,
+           const void* s2, int64_t n_q, int d, int cap, int count, int p,
            void* mean_out, void* var_out, void* stream) {
   static_assert(Prog::NUM_OUT >= 1 && Prog::NUM_OUT <= S_MAX,
                 "program library output count");
   static_assert(Prog::NUM_PARAMS >= 1 && Prog::NUM_PARAMS <= PARAMS_MAX,
                 "program library parameter count");
   if (n_q <= 0 || d < Prog::MIN_D || d > D_MAX || p < 1 || p > P_MAX ||
-      cap < 1 || (n_q + NT - 1) / NT > 0x7fffffffLL) {
+      cap < 1 || count < 0 || count > cap ||
+      (n_q + NTS - 1) / NTS > 0x7fffffffLL) {
     return (int)cudaErrorInvalidValue;
   }
-  const int cb = cap < CB_MAX ? cap : CB_MAX;
-  const size_t smem = smem_bytes<T>(cb);
-  // Above 48 KB a launch is refused unless the kernel opts in.
-  cudaError_t err = cudaFuncSetAttribute(
-      gp_program_kernel<T, Prog>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const int64_t blocks = (n_q + NT - 1) / NT;
-  gp_program_kernel<T, Prog><<<(unsigned)blocks, NT, smem,
-                               static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(q), static_cast<const T*>(x),
-      static_cast<const T*>(params), static_cast<const T*>(chol_inv),
-      static_cast<const T*>(alpha), static_cast<const T*>(mask),
-      static_cast<const T*>(s2), n_q, d, cap, p, cb,
-      static_cast<T*>(mean_out), static_cast<T*>(var_out));
-  return (int)cudaGetLastError();
+  const Args<T> a{static_cast<const T*>(q), static_cast<const T*>(x),
+                  static_cast<const T*>(params),
+                  static_cast<const T*>(chol_inv),
+                  static_cast<const T*>(alpha), static_cast<const T*>(mask),
+                  static_cast<const T*>(s2), n_q, d, cap, count, p,
+                  static_cast<T*>(mean_out), static_cast<T*>(var_out)};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (count <= 16) return (int)launch_tiled<T, Prog, 16>(a, st);
+  if (count <= 32) return (int)launch_tiled<T, Prog, 32>(a, st);
+  if (count <= 64) return (int)launch_tiled<T, Prog, 64>(a, st);
+  if (count <= N_TILED_MAX) {
+    return (int)launch_tiled<T, Prog, N_TILED_MAX>(a, st);
+  }
+  return (int)launch_streamed<T, Prog>(a, st);
+}
+
+// Dynamic shared memory of one block at bucket NB (see launch_tiled).
+template <typename T, class Prog, int NB>
+long long bucket_smem_bytes(int p, int d) {
+  const int n_res = resident_outputs<T, Prog, NB>(p, d);
+  return n_res ? (long long)tiled_smem_bytes<T, NB>(n_res, p, d)
+               : (long long)streamed_smem_bytes<T>();
+}
+
+// Dynamic shared memory of one block at a count (see launch).
+template <typename T, class Prog>
+long long smem_bytes(int count, int p, int d) {
+  if (count <= 16) return bucket_smem_bytes<T, Prog, 16>(p, d);
+  if (count <= 32) return bucket_smem_bytes<T, Prog, 32>(p, d);
+  if (count <= 64) return bucket_smem_bytes<T, Prog, 64>(p, d);
+  if (count <= N_TILED_MAX) {
+    return bucket_smem_bytes<T, Prog, N_TILED_MAX>(p, d);
+  }
+  return streamed_smem_bytes<T>();
 }
 
 }  // namespace gp_program
@@ -159,27 +278,28 @@ int launch(const void* q, const void* x, const void* params,
 // Plain C interface of one program library, bound with ctypes. Every
 // pointer is a device pointer except `stream` (a cudaStream_t); chol_inv
 // is [S][cap][cap], alpha [S][cap][p], mean_out [Q][S * p], var_out
-// [Q][S]. Returns a cudaError_t; 0 is success. gp_program_smem_bytes is
-// the dynamic shared memory of one block at a capacity.
+// [Q][S]; `count` is the number of active rows (0 <= count <= cap).
+// Returns a cudaError_t; 0 is success. gp_program_smem_bytes is the
+// dynamic shared memory of one block at a count, p and d.
 #define GP_PROGRAM_EXPORTS(PROG)                                            \
   extern "C" {                                                              \
   int gp_program_f32(const void* q, const void* x, const void* params,     \
                      const void* chol_inv, const void* alpha,               \
                      const void* mask, const void* s2, int64_t n_q, int d,  \
-                     int cap, int p, void* mean_out, void* var_out,         \
-                     void* stream) {                                        \
+                     int cap, int count, int p, void* mean_out,             \
+                     void* var_out, void* stream) {                         \
     return gp_program::launch<float, PROG>(q, x, params, chol_inv, alpha,  \
-                                           mask, s2, n_q, d, cap, p,        \
+                                           mask, s2, n_q, d, cap, count, p, \
                                            mean_out, var_out, stream);      \
   }                                                                         \
   int gp_program_f64(const void* q, const void* x, const void* params,     \
                      const void* chol_inv, const void* alpha,               \
                      const void* mask, const void* s2, int64_t n_q, int d,  \
-                     int cap, int p, void* mean_out, void* var_out,         \
-                     void* stream) {                                        \
+                     int cap, int count, int p, void* mean_out,             \
+                     void* var_out, void* stream) {                         \
     return gp_program::launch<double, PROG>(q, x, params, chol_inv, alpha, \
-                                            mask, s2, n_q, d, cap, p,       \
-                                            mean_out, var_out, stream);     \
+                                            mask, s2, n_q, d, cap, count,   \
+                                            p, mean_out, var_out, stream);  \
   }                                                                         \
   const char* gp_program_error_string(int err) {                            \
     return cudaGetErrorString(static_cast<cudaError_t>(err));               \
@@ -193,9 +313,9 @@ int launch(const void* q, const void* x, const void* params,
     *min_d = PROG::MIN_D;                                                   \
     return 0;                                                               \
   }                                                                         \
-  long long gp_program_smem_bytes(int cap, int itemsize) {                  \
-    const int cb = cap < gp_common::CB_MAX ? cap : gp_common::CB_MAX;       \
-    return itemsize == 8 ? (long long)gp_common::smem_bytes<double>(cb)     \
-                         : (long long)gp_common::smem_bytes<float>(cb);     \
+  long long gp_program_smem_bytes(int count, int itemsize, int p, int d) {  \
+    return itemsize == 8                                                    \
+               ? gp_program::smem_bytes<double, PROG>(count, p, d)          \
+               : gp_program::smem_bytes<float, PROG>(count, p, d);          \
   }                                                                         \
   }

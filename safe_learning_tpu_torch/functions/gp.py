@@ -494,9 +494,10 @@ class GaussianProcess(UncertainFunction):
         compiles to a covariance program goes to
         :func:`~safe_learning_tpu_torch.ops.gp_kernel.
         fused_gp_predict_general`. Each is the CUDA kernel for a CUDA
-        tensor and its plain version for a CPU tensor. ``None`` means the
-        kernel does not compile; the caller then takes the matmul chain,
-        as the JAX package does.
+        tensor and its plain version for a CPU tensor; the GP's host
+        ``count`` bounds the kernels' loops (no device sync). ``None``
+        means the kernel does not compile; the caller then takes the
+        matmul chain, as the JAX package does.
         """
         from ..ops.gp_kernel import (compile_kernel_program,
                                      fused_gp_predict,
@@ -509,7 +510,8 @@ class GaussianProcess(UncertainFunction):
             ls = self.kernel.lengthscales
             return fused_gp_predict(
                 points / ls, self.X_buf / ls, self.chol_inv, self.alpha,
-                self._mask(), self.kernel.variance * s2, kind=kind)
+                self._mask(), self.kernel.variance * s2, kind=kind,
+                count=self.count)
         # The walk that collects the parameter vector also yields the
         # program; the built CUDA library is cached per program.
         compiled = compile_kernel_program(self.kernel,
@@ -519,7 +521,8 @@ class GaussianProcess(UncertainFunction):
         program, param_list = compiled
         return fused_gp_predict_general(
             points, self.X_buf, program_params(param_list, points),
-            self.chol_inv, self.alpha, self._mask(), s2, program)
+            self.chol_inv, self.alpha, self._mask(), s2, program,
+            count=self.count)
 
     def predict(self, points, full_cov=False):
         """Posterior mean and (co)variance at query points.
@@ -799,7 +802,8 @@ class StackedGaussianProcess(UncertainFunction):
             programs, param_list = compiled
             mean_num, var_num = fused_gp_predict_stacked(
                 points, self.X_buf, program_params(param_list, points),
-                self.chol_inv, self.alpha[:, :, 0], mask, s2, programs)
+                self.chol_inv, self.alpha[:, :, 0], mask, s2, programs,
+                count=self.count)
             mean = mean_num / self.scale + self._prior_means(points)
             kdiag = torch.stack([k.diag(points) for k in self.kernels],
                                 dim=1)

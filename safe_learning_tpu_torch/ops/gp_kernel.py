@@ -29,6 +29,12 @@ that. For each entry point:
   tensor goes to the plain version, a CUDA tensor to the kernel. Nothing
   falls back from the kernel to the plain version.
 
+Each takes ``count``, the GP's number of active rows (``None``: the
+capacity). The kernels' loops stop there, which skips only exact zeros
+under the GP's precondition (``mask[count:] == 0`` and
+``chol_inv[count:, :count] == 0``); the plain versions accept it and
+compute at full capacity, as the Pallas kernels do.
+
 Layout: queries are ``(Q, d)`` row-major and outputs ``(Q, p)``,
 ``(Q,)`` or ``(Q, S)``; the JAX wrappers' transposes exist only for the
 TPU's lanes.
@@ -114,15 +120,29 @@ def _grads_through_plain(ctx, plain, grad_outputs, n_inputs, **static):
         wrt = [t for t, n in zip(inputs, needs) if n]
         grads = iter(torch.autograd.grad(outputs, wrt, grad_outputs,
                                          allow_unused=True))
-    return tuple(next(grads) if n else None for n in needs) + (None,)
+    extra = len(ctx.needs_input_grad) - n_inputs
+    return tuple(next(grads) if n else None for n in needs) + (None,) * extra
+
+
+def _active_rows(count, cap):
+    """The kernels' row count: ``count``, or ``cap`` for ``None``."""
+    count = cap if count is None else int(count)
+    if not 0 <= count <= cap:
+        raise ValueError("count must lie in [0, {}], got {}".format(cap,
+                                                                  count))
+    return count
 
 
 # ---------------------------------------------------------------------------
 # Kernel 1: stationary families on pre-scaled inputs
 # ---------------------------------------------------------------------------
 def gp_predict_plain(points_scaled, x_scaled, chol_inv, alpha, mask,
-                     kernel_variance_s2, kind="rbf"):
+                     kernel_variance_s2, kind="rbf", count=None):
     """Plain PyTorch version of the fused predict (same contract).
+
+    ``count`` is accepted and ignored: this is the full-capacity math of
+    the Pallas kernel, which equals the kernel's count-bounded loops under
+    the precondition of :func:`gp_predict_cuda`.
 
     Parameters
     ----------
@@ -133,6 +153,7 @@ def gp_predict_plain(points_scaled, x_scaled, chol_inv, alpha, mask,
     mask : (cap,) active-row mask
     kernel_variance_s2 : scalar, kernel variance times scale^2
     kind : str, stationary kernel family
+    count : int or None, active rows (ignored here)
 
     Returns
     -------
@@ -158,8 +179,7 @@ def kernel_library():
 
     (lib,) = load_libraries([_STATIONARY_JOB])
     args = ([ctypes.c_void_p] * 6
-            + [ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-               ctypes.c_int]
+            + [ctypes.c_int64] + [ctypes.c_int] * 5
             + [ctypes.c_void_p] * 3)
     for fn in (lib.gp_predict_f32, lib.gp_predict_f64):
         fn.argtypes = args
@@ -179,14 +199,17 @@ def _kernel_limits(lib):
 
 
 def gp_predict_cuda(points_scaled, x_scaled, chol_inv, alpha, mask,
-                    kernel_variance_s2, kind="rbf"):
+                    kernel_variance_s2, kind="rbf", count=None):
     """Launch the CUDA kernel (same contract as :func:`gp_predict_plain`).
 
-    ``chol_inv`` must be lower-triangular, as the GP's host island makes
-    it: the kernel skips the zero upper part. Every tensor must be a
-    contiguous CUDA tensor of one float dtype on one device;
-    ``kernel_variance_s2`` may also be a Python number. Launches on the
-    current stream without synchronising.
+    ``count`` (``None`` means the capacity) is the number of active rows;
+    the kernel's loops stop there. Precondition, which the GP's host
+    island (``_host_factorize``, ``_bordered_append``) guarantees:
+    ``chol_inv`` is lower-triangular, ``mask[count:] == 0`` and
+    ``chol_inv[count:, :count] == 0``, so every skipped term is an exact
+    zero. Every tensor must be a contiguous CUDA tensor of one float dtype
+    on one device; ``kernel_variance_s2`` may also be a Python number.
+    Launches on the current stream without synchronising.
     """
     if kind not in KINDS:
         raise ValueError("unknown stationary kind {!r}".format(kind))
@@ -205,6 +228,7 @@ def gp_predict_cuda(points_scaled, x_scaled, chol_inv, alpha, mask,
                              tuple(points_scaled.shape),
                              tuple(x_scaled.shape), tuple(chol_inv.shape),
                              tuple(alpha.shape), tuple(mask.shape)))
+    count = _active_rows(count, cap)
     lib = kernel_library()
     d_max, p_max = _kernel_limits(lib)
     if d > d_max or p > p_max:
@@ -220,7 +244,7 @@ def gp_predict_cuda(points_scaled, x_scaled, chol_inv, alpha, mask,
         stream = torch.cuda.current_stream(device).cuda_stream
         err = fn(points_scaled.data_ptr(), x_scaled.data_ptr(),
                  chol_inv.data_ptr(), alpha.data_ptr(), mask.data_ptr(),
-                 kernel_variance_s2.data_ptr(), n_q, d, cap, p,
+                 kernel_variance_s2.data_ptr(), n_q, d, cap, count, p,
                  KINDS.index(kind), mean_num.data_ptr(), var_num.data_ptr(),
                  stream)
     _raise_on_error(err, lib, "gp_predict")
@@ -237,12 +261,13 @@ class _FusedPredict(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, points_scaled, x_scaled, chol_inv, alpha, mask,
-                kernel_variance_s2, kind):
+                kernel_variance_s2, kind, count):
         ctx.kind = kind
         ctx.save_for_backward(points_scaled, x_scaled, chol_inv, alpha,
                               mask, kernel_variance_s2)
         return gp_predict_cuda(points_scaled, x_scaled, chol_inv, alpha,
-                               mask, kernel_variance_s2, kind=kind)
+                               mask, kernel_variance_s2, kind=kind,
+                               count=count)
 
     @staticmethod
     def backward(ctx, grad_mean, grad_var):
@@ -251,7 +276,7 @@ class _FusedPredict(torch.autograd.Function):
 
 
 def fused_gp_predict(points_scaled, x_scaled, chol_inv, alpha, mask,
-                     kernel_variance_s2, kind="rbf"):
+                     kernel_variance_s2, kind="rbf", count=None):
     """Fused posterior mean/variance numerators over query points.
 
     Same contract as :func:`gp_predict_plain`. A CPU tensor goes to the
@@ -260,12 +285,13 @@ def fused_gp_predict(points_scaled, x_scaled, chol_inv, alpha, mask,
     """
     if points_scaled.device.type == "cpu":
         return gp_predict_plain(points_scaled, x_scaled, chol_inv, alpha,
-                                mask, kernel_variance_s2, kind=kind)
+                                mask, kernel_variance_s2, kind=kind,
+                                count=count)
     kernel_variance_s2 = _scalar_tensor(kernel_variance_s2, points_scaled)
     return _FusedPredict.apply(points_scaled.contiguous(),
                                x_scaled.contiguous(), chol_inv.contiguous(),
                                alpha.contiguous(), mask.contiguous(),
-                               kernel_variance_s2.contiguous(), kind)
+                               kernel_variance_s2.contiguous(), kind, count)
 
 
 # ---------------------------------------------------------------------------
@@ -429,11 +455,12 @@ def _program_extent(program):
 # Kernels 2 and 3: plain twins
 # ---------------------------------------------------------------------------
 def gp_predict_general_plain(points, x, params, chol_inv, alpha, mask, s2,
-                             program):
+                             program, count=None):
     """Plain PyTorch twin of the general fused predict.
 
     The counterpart of ``_general_xla_equiv``
-    (``safe_learning_tpu/ops/gp_kernel.py:321-329``).
+    (``safe_learning_tpu/ops/gp_kernel.py:321-329``). ``count`` is
+    accepted and ignored: this is the full-capacity math.
 
     Parameters
     ----------
@@ -457,13 +484,14 @@ def gp_predict_general_plain(points, x, params, chol_inv, alpha, mask, s2,
 
 
 def gp_predict_stacked_plain(points, x, params, chol_inv, alpha_t, mask, s2,
-                             programs):
+                             programs, count=None):
     """Plain PyTorch twin of the stacked fused predict.
 
     The counterpart of ``_stacked_xla_equiv``
     (``safe_learning_tpu/ops/gp_kernel.py:332-344``): S single-output GPs
     over one training set, the difference and product tiles shared across
-    outputs.
+    outputs. ``count`` is accepted and ignored: this is the full-capacity
+    math.
 
     Parameters
     ----------
@@ -525,7 +553,7 @@ class _ProgramEmitter:
         return name
 
     def column(self, op, dim):
-        xd = self._value(("x", dim), "__ldg(xj + {})".format(dim))
+        xd = self._value(("x", dim), "xj[{}]".format(dim))
         if op == "d":
             return self._value(("d", dim), "{} - q[{}]".format(xd, dim))
         return self._value(("m", dim), "{} * q[{}]".format(xd, dim))
@@ -583,15 +611,19 @@ def render_program_source(programs):
              "render_program_source from the covariance programs:"]
     lines += ["//   output {}: {!r}".format(s, p)
               for s, p in enumerate(programs)]
+    # The struct has internal linkage, so every template instantiated with
+    # it does too: each library keeps its own launch caches, where the
+    # same mangled name in every library would make them one process-wide
+    # (GNU unique) object.
     lines += ['#include "gp_predict_program.cuh"', "",
+              "namespace {", "",
               "struct CovarianceProgram {",
               "  static constexpr int NUM_OUT = {};".format(len(programs)),
               "  static constexpr int NUM_PARAMS = {};".format(n_params),
               "  static constexpr int MIN_D = {};".format(min_d), "",
               "  template <typename T, int OUT>",
               "  static __device__ __forceinline__ T k(",
-              "      const T* __restrict__ xj, const T (&q)[gp_common::"
-              "D_MAX],",
+              "      const T* xj, const T (&q)[gp_common::D_MAX],",
               "      const T (&pr)[NUM_PARAMS]) {",
               "    using namespace gp_common;"]
     for s, program in enumerate(programs):
@@ -612,7 +644,8 @@ def render_program_source(programs):
         lines.append(indent + "return {};".format(result))
     if len(programs) > 1:
         lines.append("    }")
-    lines += ["  }", "};", "", "GP_PROGRAM_EXPORTS(CovarianceProgram)", ""]
+    lines += ["  }", "};", "", "}  // namespace", "",
+              "GP_PROGRAM_EXPORTS(CovarianceProgram)", ""]
     return "\n".join(lines)
 
 
@@ -649,7 +682,7 @@ def program_library(programs):
 
     (lib,) = load_libraries([_program_job(programs)])
     args = ([ctypes.c_void_p] * 7
-            + [ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_int]
+            + [ctypes.c_int64] + [ctypes.c_int] * 4
             + [ctypes.c_void_p] * 3)
     for fn in (lib.gp_program_f32, lib.gp_program_f64):
         fn.argtypes = args
@@ -659,7 +692,7 @@ def program_library(programs):
     lib.error_string = lib.gp_program_error_string
     lib.gp_program_limits.argtypes = [ctypes.POINTER(ctypes.c_int)] * 5
     lib.gp_program_limits.restype = ctypes.c_int
-    lib.gp_program_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
+    lib.gp_program_smem_bytes.argtypes = [ctypes.c_int] * 4
     lib.gp_program_smem_bytes.restype = ctypes.c_longlong
     limits = [ctypes.c_int() for _ in range(5)]
     lib.gp_program_limits(*(ctypes.byref(v) for v in limits))
@@ -669,13 +702,13 @@ def program_library(programs):
 
 
 def _launch_program(programs, points, x, params, chol_inv, alpha, mask, s2,
-                    mean_num, var_num):
+                    count, mean_num, var_num):
     """Validate and launch a program library; ``False`` when there was
     nothing to launch (no queries).
 
     ``chol_inv`` is ``(S, cap, cap)``, ``alpha`` is ``(S, cap, p)``;
     outputs are ``mean_num`` ``(Q, S*p)`` and ``var_num`` ``(Q*S,)`` in
-    memory.
+    memory. ``count`` is the number of active rows (``None``: ``cap``).
     """
     s2 = _scalar_tensor(s2, points)
     dtype, device = _check_tensors(dict(
@@ -692,6 +725,7 @@ def _launch_program(programs, points, x, params, chol_inv, alpha, mask, s2,
                                  tuple(params.shape), tuple(chol_inv.shape),
                                  tuple(alpha.shape), tuple(mask.shape),
                                  len(programs)))
+    count = _active_rows(count, cap)
     lib = program_library(programs)
     lim = lib.limits
     if not lim["min_d"] <= d <= lim["d_max"] or p > lim["p_max"]:
@@ -709,20 +743,24 @@ def _launch_program(programs, points, x, params, chol_inv, alpha, mask, s2,
         stream = torch.cuda.current_stream(device).cuda_stream
         err = fn(points.data_ptr(), x.data_ptr(), params.data_ptr(),
                  chol_inv.data_ptr(), alpha.data_ptr(), mask.data_ptr(),
-                 s2.data_ptr(), n_q, d, cap, p, mean_num.data_ptr(),
+                 s2.data_ptr(), n_q, d, cap, count, p, mean_num.data_ptr(),
                  var_num.data_ptr(), stream)
     _raise_on_error(err, lib, "gp_program")
     return True
 
 
 def gp_predict_general_cuda(points, x, params, chol_inv, alpha, mask, s2,
-                            program):
+                            program, count=None):
     """Launch the general (composite-kernel) CUDA kernel.
 
-    Same contract as :func:`gp_predict_general_plain`. ``chol_inv`` must
-    be lower-triangular; every tensor a contiguous CUDA tensor of one
-    float dtype on one device (``s2`` may be a Python number). Launches
-    on the current stream without synchronising.
+    Same contract as :func:`gp_predict_general_plain`. ``count`` (``None``
+    means the capacity) is the number of active rows; the kernel's loops
+    stop there. Precondition, which ``_host_factorize`` and
+    ``_bordered_append`` guarantee: ``chol_inv`` is lower-triangular,
+    ``mask[count:] == 0`` and ``chol_inv[count:, :count] == 0``. Every
+    tensor must be a contiguous CUDA tensor of one float dtype on one
+    device (``s2`` may be a Python number). Launches on the current
+    stream without synchronising.
     """
     n_q, cap, p = points.shape[0], chol_inv.shape[0], alpha.shape[-1]
     mean_num = torch.empty((n_q, p), dtype=points.dtype,
@@ -730,7 +768,7 @@ def gp_predict_general_cuda(points, x, params, chol_inv, alpha, mask, s2,
     var_num = torch.empty((n_q,), dtype=points.dtype, device=points.device)
     if _launch_program((program,), points, x, params,
                        chol_inv.reshape(1, cap, -1),
-                       alpha.reshape(1, cap, -1), mask, s2, mean_num,
+                       alpha.reshape(1, cap, -1), mask, s2, count, mean_num,
                        var_num):
         gp_predict_general_cuda.launches += 1
     return mean_num, var_num
@@ -740,11 +778,12 @@ gp_predict_general_cuda.launches = 0
 
 
 def gp_predict_stacked_cuda(points, x, params, chol_inv, alpha_t, mask, s2,
-                            programs):
+                            programs, count=None):
     """Launch the stacked CUDA kernel (one launch for all S outputs).
 
-    Same contract as :func:`gp_predict_stacked_plain`; the requirements
-    of :func:`gp_predict_general_cuda` hold.
+    Same contract as :func:`gp_predict_stacked_plain`; ``count`` and the
+    precondition of :func:`gp_predict_general_cuda` hold for every
+    output's ``chol_inv[s]``.
     """
     n_q, n_out = points.shape[0], alpha_t.shape[0]
     mean_num = torch.empty((n_q, n_out), dtype=points.dtype,
@@ -752,8 +791,8 @@ def gp_predict_stacked_cuda(points, x, params, chol_inv, alpha_t, mask, s2,
     var_num = torch.empty((n_q, n_out), dtype=points.dtype,
                           device=points.device)
     if _launch_program(tuple(programs), points, x, params, chol_inv,
-                       alpha_t.reshape(n_out, -1, 1), mask, s2, mean_num,
-                       var_num):
+                       alpha_t.reshape(n_out, -1, 1), mask, s2, count,
+                       mean_num, var_num):
         gp_predict_stacked_cuda.launches += 1
     return mean_num, var_num
 
@@ -766,11 +805,11 @@ class _FusedGeneral(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, points, x, params, chol_inv, alpha, mask, s2,
-                program):
+                program, count):
         ctx.program = program
         ctx.save_for_backward(points, x, params, chol_inv, alpha, mask, s2)
         return gp_predict_general_cuda(points, x, params, chol_inv, alpha,
-                                       mask, s2, program)
+                                       mask, s2, program, count=count)
 
     @staticmethod
     def backward(ctx, grad_mean, grad_var):
@@ -784,12 +823,12 @@ class _FusedStacked(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, points, x, params, chol_inv, alpha_t, mask, s2,
-                programs):
+                programs, count):
         ctx.programs = programs
         ctx.save_for_backward(points, x, params, chol_inv, alpha_t, mask,
                               s2)
         return gp_predict_stacked_cuda(points, x, params, chol_inv, alpha_t,
-                                       mask, s2, programs)
+                                       mask, s2, programs, count=count)
 
     @staticmethod
     def backward(ctx, grad_mean, grad_var):
@@ -799,7 +838,7 @@ class _FusedStacked(torch.autograd.Function):
 
 
 def fused_gp_predict_general(points, x, params, chol_inv, alpha, mask, s2,
-                             program):
+                             program, count=None):
     """Fused posterior numerators for a composite kernel.
 
     Same contract as :func:`gp_predict_general_plain`. A CPU tensor goes
@@ -808,16 +847,16 @@ def fused_gp_predict_general(points, x, params, chol_inv, alpha, mask, s2,
     """
     if points.device.type == "cpu":
         return gp_predict_general_plain(points, x, params, chol_inv, alpha,
-                                        mask, s2, program)
+                                        mask, s2, program, count=count)
     s2 = _scalar_tensor(s2, points)
     return _FusedGeneral.apply(points.contiguous(), x.contiguous(),
                                params.contiguous(), chol_inv.contiguous(),
                                alpha.contiguous(), mask.contiguous(),
-                               s2.contiguous(), program)
+                               s2.contiguous(), program, count)
 
 
 def fused_gp_predict_stacked(points, x, params, chol_inv, alpha_t, mask, s2,
-                             programs):
+                             programs, count=None):
     """Fused posterior numerators for a stack of GPs over shared inputs.
 
     Same contract as :func:`gp_predict_stacked_plain`. A CPU tensor goes
@@ -827,9 +866,10 @@ def fused_gp_predict_stacked(points, x, params, chol_inv, alpha_t, mask, s2,
     programs = tuple(programs)
     if points.device.type == "cpu":
         return gp_predict_stacked_plain(points, x, params, chol_inv,
-                                        alpha_t, mask, s2, programs)
+                                        alpha_t, mask, s2, programs,
+                                        count=count)
     s2 = _scalar_tensor(s2, points)
     return _FusedStacked.apply(points.contiguous(), x.contiguous(),
                                params.contiguous(), chol_inv.contiguous(),
                                alpha_t.contiguous(), mask.contiguous(),
-                               s2.contiguous(), programs)
+                               s2.contiguous(), programs, count)

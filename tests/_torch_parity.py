@@ -2,7 +2,8 @@
 
 Every parity test builds one instance from numpy data in both packages
 and compares the outputs as numpy arrays. Tier-1 runs several pytest
-workers at once, so torch is held to one intra-op thread here.
+workers at once, so torch is held to one intra-op thread here, and the
+port, which runs on ``cuda:0`` by default, is asked for the CPU.
 """
 
 import contextlib
@@ -16,6 +17,7 @@ import safe_learning_tpu_torch as st
 from safe_learning_tpu_torch import convert
 
 torch.set_num_threads(1)
+st.config.device = "cpu"
 
 KINDS = {"rbf": (sl.RBF, st.RBF), "matern12": (sl.Matern12, st.Matern12),
          "matern32": (sl.Matern32, st.Matern32),

@@ -200,3 +200,50 @@ def test_safe_sample_with_kernel_matches_plain_twin(on_cuda):
     before = gp_kernel.gp_predict_stacked_cuda.launches
     assert 0.0 < bound_tolerance(lyap, xu) < 1e-3
     assert gp_kernel.gp_predict_stacked_cuda.launches == before
+
+
+#: ``(count, capacity)``: an all-zero mask, a small count, both sides of a
+#: bucket edge of the tiled body, and the streamed body above it.
+COUNT_CASES = [(0, 64), (10, 64), (16, 32), (17, 32), (129, 256)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("count,cap", COUNT_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_kernel_at_counts_below_capacity(on_cuda, count, cap, dtype):
+    """Kernel 1 with its loops bounded by the count, against the plain
+    version at full capacity within ``chip_smoke.rounding_bounds``; exact
+    zeros at count 0."""
+    from chip_smoke import case_gp, case_inputs, compare
+
+    gp = case_gp("matern32", cap, 2, 2.5, dtype, seed=count, n=count)
+    before = gp_kernel.gp_predict_cuda.launches
+    em, ev, ratio = compare(case_inputs(gp, 1001, count), "matern32",
+                            count=gp.count)
+    assert gp_kernel.gp_predict_cuda.launches == before + 1
+    assert ratio <= 1.0
+    if count == 0:
+        assert em == ev == 0.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("count,cap", COUNT_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_stacked_kernel_at_counts_below_capacity(on_cuda, count, cap,
+                                                 dtype):
+    """Kernel 3 on two flagship programs with its loops bounded by the
+    count, against the plain twin within ``chip_smoke.program_bounds``;
+    exact zeros at count 0; the stacked GP's predict passes its count."""
+    from chip_smoke import (STACKED_SETS, case_queries, compare_program,
+                            program_case)
+
+    inputs, programs = program_case("stacked", STACKED_SETS[2], cap, 1, 1.0,
+                                    dtype, seed=count, n=count)
+    points = case_queries(1001, inputs[0], count)
+    before = gp_kernel.gp_predict_stacked_cuda.launches
+    em, ev, ratio = compare_program("stacked", (points,) + inputs, programs,
+                                    count=count)
+    assert gp_kernel.gp_predict_stacked_cuda.launches == before + 1
+    assert ratio <= 1.0
+    if count == 0:
+        assert em == ev == 0.0

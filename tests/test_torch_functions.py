@@ -184,3 +184,29 @@ def test_chip_smoke_refuses_without_gpu(tmp_path):
                               capture_output=True, text=True, timeout=120)
         assert proc.returncode != 0
         assert '"ok"' not in proc.stdout
+
+
+@pytest.mark.parametrize("outputs,k_ops", [(1, 24), (2, 44)])
+def test_kernel_bound_counts_what_the_function_needs(outputs, k_ops):
+    """``chip_smoke.program_ops`` on the flagship's program: the four
+    column products and differences (x0 q0, x1 q1, x2 q2, x0 - q0) once
+    across the outputs, then 20 operations per output. ``kernel_bound`` at
+    the flagship's count 32: per output ``n^2`` for the solve and
+    ``(p + 1) (2 n - 1)`` for the reductions, then ``n * k_ops``;
+    FP32-bound at 10^6 queries."""
+    from chip_smoke import (FP32_FLOPS, flagship_kernel, kernel_bound,
+                            program_ops)
+    from safe_learning_tpu_torch.ops.gp_kernel import compile_kernel_program
+
+    programs = tuple(compile_kernel_program(flagship_kernel([v] * 3),
+                                            input_dim=3)[0]
+                     for v in (1.0, 2.0)[:outputs])
+    # Per output: the 3-term linear sum 3 multiplies + 2 adds; the
+    # Matern32 term 1 lengthscale multiply + 1 square + 7 + 1 variance;
+    # the 1-term linear 1; the product and the sum 2; scale and mask 2.
+    assert program_ops(programs) == k_ops == 4 + 20 * outputs
+    n, p, n_q = 32, 1, 10 ** 6
+    flops = outputs * (n * n + (p + 1) * (2 * n - 1)) + n * k_ops
+    ms, by, kind = kernel_bound(n_q, 3, n, p, outputs, k_ops, 4)
+    assert (by, kind) == ("operations", "fp32")
+    assert ms == pytest.approx(n_q * flops / FP32_FLOPS * 1e3, rel=1e-12)
