@@ -55,20 +55,49 @@ Phases, in order; any failure raises and the exit code is not 0:
    twin chooses, the bordered appends match a fresh factorization, no
    library is built, and each sweep and step launched kernel 3 exactly
    once; then the loop's sweep and step times (``loop_step_times``);
-9. count cases, kernel 1 and kernels 2 and 3 (``COUNT_CASES``: counts 0,
-   1, 10, both sides of each bucket edge 16/32/64/128, 129 and 2048,
-   below and at capacity): the kernels' loops bounded by the count,
-   against the plain versions at full capacity, exact zeros at count 0;
-10. kernel times: each kernel against its plain version on its path's
+9. training (``phase_training``, ``SafeTraining``): the example's policy
+   iteration at its ``--full`` width, the same instance with the example's
+   reward and ``gamma`` 0.98 in a ``PolicyIteration``: 3000 pretraining
+   ascent steps on the GP's mean, two rounds of the exact value solve and
+   200 steps of the ascent penalised by the Lyapunov Lagrangian, certify,
+   then 5 iterations of 10 exploration steps, a round and a certify; the
+   closed loop from ``(1, -0.5)``. Checks, each raising: (1) kernel 3
+   carries every GP predict, launched exactly once per ascent step, value
+   solve, sweep and exploration step (twice with the backup fallback), no
+   other kernel and no library built; (2) at the first penalised step's
+   minibatch (GP count 0) and at the last iteration's, the loss and the
+   policy gradient through kernel 3's autograd rule against the plain
+   route, with and without the penalty: float64 on the card to 1e-12 and
+   1e-9 relative, float32 per sample within ``future_value_bounds``
+   (samples that change simplex excluded and counted) and the gradient
+   to 1e-4; (3) every value solve is a fixed point to 2 tol in float64 on
+   the host, and a one-iteration solve raises ``OptimizationError``; (4)
+   the trained policy holds no autograd state and a trained sweep's peak
+   memory is within 10 % of phase 8's; (5) the last certify passes
+   ``oracle_gate``; (6) the true pendulum under the trained policy ends
+   below a state norm of 0.5 within 100 steps. Reported: the rewards of
+   the old and new policy, the safe fraction and ``c_max`` after each
+   certify, ``compute_roa`` of the trained closed loop; timed: each
+   stage's wall time, each ascent's step time, each value solve, the
+   trained sweep, the loop's steps, ``compute_roa``;
+10. count cases, kernel 1 and kernels 2 and 3 (``COUNT_CASES``: counts 0,
+    1, 10, both sides of each bucket edge 16/32/64/128, 129 and 2048,
+    below and at capacity): the kernels' loops bounded by the count,
+    against the plain versions at full capacity, exact zeros at count 0;
+11. kernel times: each kernel against its plain version on its path's
     own inputs, on the device alone (a CUDA graph of 10 calls,
     ``graph_ms``) and as a caller sees it (10 eager calls), and each
-    kernel's bound at those inputs (``kernel_bound``); then the loop's
-    step times again, to show how far the work before moved them;
-11. profiles, after every time: torch.profiler over the safe-learning and
-    the bench sweeps (``profile_sweep``), the device's busy share and
-    where its time goes.
+    kernel's bound at those inputs (``kernel_bound``), kernel 3 also at a
+    training ascent step's inputs; then the loop's step times again, to
+    show how far the work before moved them;
+12. profiles, after every time: torch.profiler over the safe-learning and
+    the bench sweeps (``profile_sweep``) and over 20 pretraining and 20
+    penalised ascent steps (``profile_training``), the device's busy
+    share, its operations per unit and where its time goes; the ascent
+    fails if the host waits for the device inside its step loop
+    (``torch.cuda.set_sync_debug_mode``).
 
-The end-to-end times (phases 7 and 8) come before the count cases and
+The end-to-end times (phases 7 to 9) come before the count cases and
 before any CUDA graph is captured.
 
 The second-to-last line is a JSON object describing each kernel
@@ -76,6 +105,7 @@ The second-to-last line is a JSON object describing each kernel
 the last line is ``{"ok": true, "device": {...}}``.
 """
 
+import collections
 import contextlib
 import copy
 import functools
@@ -297,7 +327,7 @@ def build_safe_learning_instance(seed, num_points=SAFE_LEARNING_POINTS,
     ``L_v = GradientNorm(value_function, ord=inf)``; ``L_f`` from the true
     linearization and the policy's Lipschitz bound; ``tau`` the safety
     grid's smallest cell edge; the initial set ``v <= 0.005 max v``. The
-    policy is not trained (that is ``PolicyIteration``, not ported yet).
+    policy is at its initialisation: :class:`SafeTraining` trains it.
     Returns ``(lyapunov, inst)`` with ``inst`` the pieces and their
     numpy data.
     """
@@ -377,6 +407,107 @@ def measure_and_append(lyap, inst, xu):
     measurement = inst["true"](xu[:, :2], xu[:, 2:]).cpu().numpy()
     lyap.dynamics = lyap.dynamics.add_data_point(xu, measurement)
     return measurement
+
+
+#: The example's ``--full`` training depth and its step sizes
+#: (``examples/inverted_pendulum.py:68-71, 127-168``).
+PRETRAIN_ITERS, POLICY_ITERS = 3000, 200
+OUTER_ITERS, DATA_PER_ITER = 5, 10
+BATCH_SIZE, GAMMA = 1000, 0.98
+
+
+class SafeTraining:
+    """``examples/inverted_pendulum.py:62-275`` in the port, stage by stage.
+
+    Starts from ``build_safe_learning_instance(seed, ...)``: the policy,
+    the stacked GP and the value function become a ``PolicyIteration``
+    with the example's reward ``-x'Qx - u'Ru`` and ``gamma`` 0.98. The
+    stages are the example's: :meth:`pretrain` (ascent on the GP's mean at
+    learning rate 0.1, minibatches from the policy grid), then the
+    Lyapunov instance takes the trained policy and its ``L_f`` (the
+    example builds the instance at this point; the one built before is
+    the same but for those two); :meth:`optimize` (its
+    ``rl_optimize_policy``: the exact value solve, the candidate ``-v``
+    with ``L_v = GradientNorm(v)``, ``L_f`` again, and the penalised
+    ascent at learning rate 0.01 on the safety grid); :meth:`update_gp`
+    (``get_safe_sample``, the true pendulum, ``add_data_point``);
+    :meth:`certify`.
+
+    ``generator`` draws the minibatches (seeded ``seed`` on
+    ``config.device`` by default) and ``rng`` the exploration
+    subsamples. ``L_f`` takes the policy's spectral bound on the host, in
+    float64 (:meth:`lipschitz_dynamics`). ``before_ascent(trainer)``, when
+    set, runs after each value solve and before its ascent.
+    """
+
+    def __init__(self, seed, num_points=SAFE_LEARNING_POINTS,
+                 policy_points=POLICY_POINTS, layers=POLICY_LAYERS,
+                 batch_size=BATCH_SIZE):
+        from scipy.linalg import block_diag
+
+        self.lyap, self.inst = build_safe_learning_instance(
+            seed, num_points, policy_points, layers)
+        self.reward = st.QuadraticFunction(block_diag(
+            -np.diag([1.0, 2.0]), -1.2 * np.ones((1, 1))))
+        self.rl = st.PolicyIteration(self.lyap.policy, self.lyap.dynamics,
+                                     self.reward,
+                                     self.inst["value_function"],
+                                     gamma=GAMMA)
+        self.batch_size = batch_size
+        self.generator = torch.Generator(
+            device=st.config.device).manual_seed(seed)
+        self.rng = np.random.default_rng(seed)
+        self.before_ascent = None
+
+    def lipschitz_dynamics(self):
+        """``L_f = max|A| + max|B| L_pi`` of the true linearization, with
+        the policy's Lipschitz bound from an SVD of each weight on the
+        host, in float64 (``examples/inverted_pendulum.py:137-140``)."""
+        lip = float(st.oracle.lift64(self.rl.policy).lipschitz())
+        return float(np.max(np.abs(self.inst["a_true"]))
+                     + np.max(np.abs(self.inst["b_true"])) * lip)
+
+    def pretrain(self, steps=PRETRAIN_ITERS):
+        """Ascent on the GP's mean dynamics (no penalty); then the
+        Lyapunov instance takes the policy and its ``L_f``. Returns the
+        losses."""
+        losses = self.rl.optimize_policy(
+            steps=steps, learning_rate=0.1, batch_size=self.batch_size,
+            generator=self.generator,
+            sample_space=self.rl.value_function.discretization)
+        self.lyap.policy = self.rl.policy
+        self.lyap._lipschitz_dynamics = self.lipschitz_dynamics()
+        return losses
+
+    def optimize(self, steps=POLICY_ITERS):
+        """``rl_optimize_policy``: value solve, Lyapunov pieces, penalised
+        ascent. Returns the losses."""
+        rl, lyap = self.rl, self.lyap
+        rl.optimize_value_function()
+        lyap.lyapunov_function = -rl.value_function
+        lyap._lipschitz_lyapunov = st.GradientNorm(rl.value_function,
+                                                   ord=np.inf)
+        lyap._lipschitz_dynamics = self.lipschitz_dynamics()
+        if self.before_ascent is not None:
+            self.before_ascent(self)
+        losses = rl.optimize_policy(
+            steps=steps, learning_rate=0.01, batch_size=self.batch_size,
+            generator=self.generator, lyapunov=lyap,
+            lagrange_multiplier=1.0, sample_space=lyap.discretization)
+        lyap.policy = rl.policy
+        return losses
+
+    def update_gp(self):
+        """One exploration step; returns ``(xu, fallback)``."""
+        xu, _, fallback = safe_sample(self.lyap, self.inst, self.rng)
+        measure_and_append(self.lyap, self.inst, xu)
+        self.rl.dynamics = self.lyap.dynamics
+        return xu, fallback
+
+    def certify(self):
+        """``lyap.update_values()`` and the sweep."""
+        self.lyap.update_values()
+        self.lyap.update_safe_set()
 
 
 # ---------------------------------------------------------------------------
@@ -1139,49 +1270,66 @@ PROFILE_GROUPS = (("GP kernel", ("gp_predict", "gp_program")),
 
 
 def profile_sweep(name, lyap, card, sweeps=5):
-    """Where one sweep's device time goes: torch.profiler over ``sweeps``
-    sweeps after a warm-up, kernels grouped by ``PROFILE_GROUPS``, beside
-    the sweep's CUDA-event time in the same window. Prints the device's
-    busy share and the largest kernels; returns the groups' milliseconds
-    per sweep."""
+    """``profile_window`` over ``sweeps`` sweeps."""
+    sweep = sweep_fn(lyap)
+
+    def run():
+        for _ in range(sweeps):
+            sweep()
+
+    return profile_window("{} sweep".format(name), run, sweeps, card)
+
+
+def profile_window(label, run, reps, card):
+    """Where the device time of ``run`` (``reps`` repetitions of a unit:
+    a sweep, an ascent step) goes: torch.profiler over one call after a
+    warm-up call, kernels grouped by ``PROFILE_GROUPS``, beside the
+    CUDA-event time of the same window. Prints the device's busy share,
+    the device operations a unit and the largest kernels; returns the
+    groups' milliseconds per unit."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    sweep = sweep_fn(lyap)
-    sweep()
+    run()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         start.record()
-        for _ in range(sweeps):
-            sweep()
+        run()
         end.record()
         torch.cuda.synchronize()
-    wall = start.elapsed_time(end) / sweeps
-    kernels = []
+    wall = start.elapsed_time(end) / reps
+    kernels, host = [], []
     for ev in prof.key_averages():
         if ev.device_type != DeviceType.CUDA:
+            host.append((ev.self_cpu_time_total / 1e3 / reps, ev.key))
             continue
         us = getattr(ev, "self_device_time_total", None)
         if us is None:
             us = ev.self_cuda_time_total
-        kernels.append((us / 1e3 / sweeps, ev.count // sweeps, ev.key))
+        kernels.append((us / 1e3 / reps, ev.count / reps, ev.key))
     busy = sum(ms for ms, _, _ in kernels)
+    print("{} host: {!r} ms a unit inside PyTorch's operators (self CPU "
+          "time under the profiler), the rest in Python; largest: {}".format(
+              label, sum(ms for ms, _ in host), ", ".join(
+                  "{} {:.4f} ms".format(key, ms)
+                  for ms, key in sorted(host, reverse=True)[:6])))
     groups = {}
     for ms, _, key in kernels:
         group = next((g for g, frags in PROFILE_GROUPS
                       if any(f in key.lower() for f in frags)), "other")
         groups[group] = groups.get(group, 0.0) + ms
-    print("{} sweep profile: {!r} ms a sweep by CUDA events, device busy "
-          "{!r} ms ({:.1%}) [{}]".format(name, wall, busy,
-                                         busy / wall if wall else 0.0, card))
+    print("{} profile: {!r} ms a unit by CUDA events, device busy {!r} ms "
+          "({:.1%}), {!r} device operations a unit [{}]".format(
+              label, wall, busy, busy / wall if wall else 0.0,
+              sum(count for _, count, _ in kernels), card))
     for group, ms in sorted(groups.items(), key=lambda kv: -kv[1]):
         print("  {}: {!r} ms ({:.1%} of busy)".format(group, ms,
                                                       ms / busy))
     for ms, count, key in sorted(kernels, reverse=True)[:8]:
-        print("  {!r} ms, {} a sweep: {}".format(ms, count, key[:110]))
+        print("  {!r} ms, {!r} a unit: {}".format(ms, count, key[:110]))
     return groups
 
 
@@ -1572,9 +1720,10 @@ def phase_safe_learning(card, steps=10, seed=0):
     (twice with the backup policy's fallback), and no other kernel runs.
     Then times, on CUDA events beside the card: the sweep, one
     ``get_safe_sample`` and one ``add_data_point`` (``loop_step_times``).
-    Returns ``(lyap, inst, launches, max_abs_err)``, ``launches`` of
-    kernel 3 counting the two sweeps and the steps, ``max_abs_err`` its
-    error against the plain twin on the sweep's inputs.
+    Returns ``(lyap, inst, launches, max_abs_err, peak)``, ``launches``
+    of kernel 3 counting the two sweeps and the steps, ``max_abs_err`` its
+    error against the plain twin on the sweep's inputs, ``peak`` the bytes
+    a sweep allocates at its peak (``sweep_peak_bytes``).
     """
     builds = dict(build_reports)
     start = time.perf_counter()
@@ -1644,10 +1793,25 @@ def phase_safe_learning(card, steps=10, seed=0):
     if not ratio <= 1.0:
         raise AssertionError("kernel 3 disagrees on the safe-learning "
                              "inputs")
+    peak = sweep_peak_bytes(lyap)
+    print("safe-learning sweep: {} bytes allocated at its peak beyond those "
+          "held before it".format(peak))
     time_sweep("safe-learning", lyap, card)
     loop_step_times(card, lyap, inst, "before the count cases and the "
                     "CUDA graphs")
-    return lyap, inst, 2 + explored["gp_predict_stacked"], max(em, ev)
+    return lyap, inst, 2 + explored["gp_predict_stacked"], max(em, ev), peak
+
+
+def sweep_peak_bytes(lyap):
+    """Device memory one ``update_safe_set`` allocates at its peak beyond
+    what was allocated before it (``torch.cuda.max_memory_allocated``
+    after ``reset_peak_memory_stats``)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    lyap.update_safe_set()
+    torch.cuda.synchronize()
+    return torch.cuda.max_memory_allocated() - base
 
 
 def loop_step_times(card, lyap, inst, when):
@@ -1686,6 +1850,534 @@ def safe_learning_times(card, lyap):
         program_ops(programs), states.element_size())
 
 
+# ---------------------------------------------------------------------------
+# Training: the example's policy iteration at its --full width
+# ---------------------------------------------------------------------------
+@contextlib.contextmanager
+def uncounted():
+    """Launches inside the block (the checks' comparisons) do not count:
+    every kernel's counter is restored at its end."""
+    saved = read_launches()
+    try:
+        yield
+    finally:
+        for name, (wrapper, _, _) in KERNELS.items():
+            wrapper.launches = saved[name]
+
+
+@contextlib.contextmanager
+def kernel_route(use_kernels, dtype=None):
+    """``config.use_kernels`` (and the working dtype) for the block."""
+    old = st.config.use_kernels, st.config.dtype
+    st.config.use_kernels = use_kernels
+    st.config.dtype = old[1] if dtype is None else dtype
+    try:
+        yield
+    finally:
+        st.config.use_kernels, st.config.dtype = old
+
+
+def _on_device(value, device):
+    """A copy of a function, kernel or container with every tensor moved
+    to ``device``; other attributes are shared."""
+    if torch.is_tensor(value):
+        return value.to(device)
+    if isinstance(value, (tuple, list)):
+        return type(value)(_on_device(v, device) for v in value)
+    if isinstance(value, (st.Function, st.functions.gp.Kernel)):
+        new = copy.copy(value)
+        for name, attr in vars(value).items():
+            setattr(new, name, _on_device(attr, device))
+        return new
+    return value
+
+
+def float64_copy(fn):
+    """Float64 copy of a function on ``config.device``: ``oracle.lift64``
+    (GPs rebuilt from their data), then moved."""
+    return _on_device(st.oracle.lift64(fn), st.config.device)
+
+
+def ascent_pieces(trainer, dtype):
+    """``(policy, dynamics, reward, value_function, lyapunov pieces)`` of
+    the trainer's penalised ascent in ``dtype``: the working objects, or
+    their ``float64_copy``."""
+    rl, lyap = trainer.rl, trainer.lyap
+    if dtype == st.config.dtype:
+        return (rl.policy, rl.dynamics, rl.reward_function,
+                rl.value_function, (lyap.lyapunov_function,
+                                    lyap._lipschitz_lyapunov,
+                                    lyap._lipschitz_dynamics, lyap.tau, 1.0))
+    vf = float64_copy(rl.value_function)
+    return (float64_copy(rl.policy), float64_copy(rl.dynamics),
+            float64_copy(rl.reward_function), vf,
+            (-vf, st.GradientNorm(vf, ord=np.inf), lyap._lipschitz_dynamics,
+             lyap.tau, 1.0))
+
+
+def ascent_route(pieces, states, penalty, use_kernels, keep=None):
+    """One ascent step's pieces by one GP route, as ``rl._policy_ascent``
+    takes it: the per-sample future values (and, with ``penalty``, the
+    unpenalised ones), the loss ``-mean`` (over the rows ``keep`` only,
+    when given, divided by all rows), its gradient with respect to every
+    policy weight, and the GP's mean and error at the rows."""
+    from safe_learning_tpu_torch.rl import (_future_values_core,
+                                            _future_values_lyapunov)
+    from safe_learning_tpu_torch.utils import _tree_leaves, _tree_map
+
+    policy, dynamics, reward, vf, lyap = pieces
+    with kernel_route(use_kernels, states.dtype):
+        leaves = _tree_map(lambda w: w.detach().requires_grad_(True),
+                           policy.parameters_dict)
+        pol = policy.with_parameters(leaves)
+        fv = (_future_values_lyapunov(pol, dynamics, reward, vf, GAMMA,
+                                      states, None, *lyap) if penalty
+              else _future_values_core(pol, dynamics, reward, vf, GAMMA,
+                                       states, None))
+        weight = (torch.ones_like(fv) if keep is None
+                  else keep.to(fv.dtype).reshape(-1, 1))
+        loss = -(fv * weight).sum() / fv.shape[0]
+        grads = torch.autograd.grad(loss, _tree_leaves(leaves))
+        with torch.no_grad():
+            actions = policy(states)
+            mean, err = dynamics(states, actions)
+            core = _future_values_core(policy, dynamics, reward, vf, GAMMA,
+                                       states, actions)
+    return dict(fv=fv.detach(), core=core, loss=loss.detach(), grads=grads,
+                mean=mean, err=err, actions=actions)
+
+
+def _relative(a, b):
+    """``max |a - b| / max |b|`` over a tuple of tensors."""
+    return (max(float((x - y).abs().max()) for x, y in zip(a, b))
+            / max(float(y.abs().max()) for y in b))
+
+
+def future_value_bounds(pieces, states, plain, penalty):
+    """Per-sample bound on ``|kernel route - plain route|`` of the future
+    values in the working dtype, where both routes locate the next state
+    in the same simplex of the value function ``v``.
+
+    The GP means differ by ``program_bounds``' ``tol_mean / scale`` plus
+    two roundings of the mean; ``v`` at the next state then by its local
+    gradient norm ``G`` (the same in both routes) times the L1 difference,
+    plus ``16 u max|v|`` for each route's interpolation rounding. With
+    the penalty, the errors ``beta sqrt(var)`` differ by ``beta (dvar /
+    sqrt(var) + 2 u sqrt(var))``, ``dvar`` from ``tol_var / s2`` and
+    the roundings of the division and subtraction, times ``G``; and the
+    penalty's sums round ``4 u`` of their terms. The reward and every term
+    at the state itself are the same in both routes.
+    """
+    policy, gp, _, vf, _ = pieces
+    unit = torch.finfo(states.dtype).eps / 2
+    q = concatenate_inputs(states, plain["actions"])
+    programs, params = gp._programs()
+    s2 = gp.scale ** 2
+    tol_mean, tol_var = program_bounds(
+        q, gp.X_buf, gp_kernel.program_params(params, q), gp.chol_inv,
+        gp.alpha, gp._mask(), s2, programs, unit)
+    mean = plain["mean"].double()
+    dm = (tol_mean / gp.scale + 2 * unit * mean.abs()).sum(dim=1)
+    g = st.GradientNorm(vf, ord=np.inf)(plain["mean"]).double().reshape(-1)
+    vmax = float(vf.parameters.abs().max())
+    dv = g * dm + 16 * unit * vmax
+    bound = GAMMA * dv + 2 * unit * plain["core"].double().abs().reshape(-1)
+    if not penalty:
+        return bound
+    betas = torch.as_tensor(gp.betas, dtype=torch.float64,
+                            device=states.device)
+    var = (plain["err"].double() / betas) ** 2
+    kdiag = torch.stack([k.diag(q) for k in gp.kernels], dim=1).double()
+    dvar = tol_var / s2 + 2 * unit * (kdiag + var)
+    derr = betas * (dvar / var.sqrt() + 2 * unit * var.sqrt())
+    constraint = (plain["core"] - plain["fv"]).double().abs().reshape(-1)
+    return (bound + dv + g * derr.sum(dim=1)
+            + 4 * unit * (constraint + 2 * vmax)
+            + 2 * unit * plain["fv"].double().abs().reshape(-1))
+
+
+def gradient_check(trainer, states, label):
+    """Check 2 of the training phase, on one minibatch: the kernel route
+    against the plain route, with and without the Lyapunov penalty.
+
+    In float64 on the card (``float64_copy`` of every piece, kernel 3's
+    float64 instantiation): the loss within 1e-12 relative and the
+    gradient within 1e-9 relative (of its largest entry). In float32: the
+    per-sample future values within ``future_value_bounds``, except the
+    samples whose next state the two routes locate in different simplices
+    of the value function (excluded and counted), and the gradient of the
+    loss over the rest within 1e-4 relative.
+    """
+    for penalty in (False, True):
+        with uncounted():
+            pieces = ascent_pieces(trainer, torch.float64)
+            k64, p64 = (ascent_route(pieces, states.double(), penalty, route)
+                        for route in (True, False))
+            loss_rel = float((k64["loss"] - p64["loss"]).abs()
+                             / p64["loss"].abs())
+            grad_rel = _relative(k64["grads"], p64["grads"])
+            pieces = ascent_pieces(trainer, st.config.dtype)
+            k32, p32 = (ascent_route(pieces, states, penalty, route)
+                        for route in (True, False))
+            vf = pieces[3]
+            flips = vf.find_simplex(k32["mean"]) != vf.find_simplex(
+                p32["mean"])
+            keep = ~flips
+            bound = future_value_bounds(pieces, states, p32, penalty)
+            diff = (k32["fv"] - p32["fv"]).double().abs().reshape(-1)
+            ratio = float((diff[keep] / bound[keep]).max())
+            k32, p32 = (ascent_route(pieces, states, penalty, route, keep)
+                        for route in (True, False))
+            grad32 = _relative(k32["grads"], p32["grads"])
+        print("training gradient check, {}, {}penalty, GP count {}: float64 "
+              "loss rel. diff {!r} (<= 1e-12), gradient rel. diff {!r} "
+              "(<= 1e-9); float32: {} of {} samples change simplex "
+              "(excluded), future values at {!r} of the bound, gradient "
+              "rel. diff {!r} (<= 1e-4)".format(
+                  label, "" if penalty else "no ", trainer.rl.dynamics.count,
+                  loss_rel, grad_rel, int(flips.sum()), len(flips), ratio,
+                  grad32))
+        if not (loss_rel <= 1e-12 and grad_rel <= 1e-9 and ratio <= 1.0
+                and grad32 <= 1e-4):
+            raise AssertionError("the gradient through kernel 3's autograd "
+                                 "rule differs from the plain route's")
+
+
+def check_fixed_point(trainer, tol=1e-5):
+    """Check 3: the last value solve is a fixed point. On the host in
+    float64, with ``B`` from ``Triangulation.parameter_derivative`` at the
+    solve's next states: ``max|v - r - gamma B v| / max(1, max|v|) <= 2
+    tol``. Returns ``(iterations, residual)``."""
+    rl = trainer.rl
+    with uncounted(), torch.no_grad():
+        actions = rl.policy(rl.state_space)
+        nxt = rl.dynamics(rl.state_space, actions)[0]
+        r = rl.reward_function(rl.state_space, actions).reshape(-1)
+    b = rl.value_function.parameter_derivative(nxt).tocsr()
+    v = rl.value_function.parameters[:, 0].double().cpu().numpy()
+    r = r.double().cpu().numpy()
+    residual = (np.abs(v - r - rl.gamma * (b @ v)).max()
+                / max(1.0, np.abs(v).max()))
+    iterations, delta = rl._last_solve
+    if not residual <= 2 * tol:
+        raise AssertionError("the value solve is not a fixed point: "
+                             "residual {!r}".format(residual))
+    return iterations, delta, residual
+
+
+class EventTimer:
+    """CUDA events around host calls: ``wrap(fn)`` records each call's
+    milliseconds in ``times``."""
+
+    def __init__(self):
+        self.times = []
+
+    def wrap(self, fn):
+        def timed(*args, **kwargs):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = fn(*args, **kwargs)
+            end.record()
+            end.synchronize()
+            self.times.append((start.elapsed_time(end), kwargs))
+            return out
+        return timed
+
+
+def phase_training(card, sweep_peak):
+    """The example's training at its ``--full`` width (``SafeTraining``:
+    2001x1501 safety grid, 55x55 policy grid, the ``[2, 32, 32, 1]`` MLP,
+    batches of 1000, the stacked GP at capacity 64): pretraining, two
+    rounds of ``optimize``, certify, then ``OUTER_ITERS`` iterations of
+    ``DATA_PER_ITER`` exploration steps, ``optimize`` and certify; then
+    the closed loop from ``x0 = (1, -0.5)``.
+
+    Checks, each raising: (1) every stage launches kernel 3 exactly once
+    per ascent step, value solve, certify sweep and exploration step
+    (twice with the backup fallback), no other kernel, and no library is
+    built; (2) ``gradient_check`` at the first penalised step's minibatch
+    (GP count 0) and at that of the last iteration; (3)
+    ``check_fixed_point`` after every value solve, and
+    ``optimize_value_function(max_iter=1)`` raises ``OptimizationError``;
+    (4) the trained policy's tensors are detached and a certify sweep's
+    peak memory is within 10 % of ``sweep_peak`` (phase 8's); (5) the last
+    certify passes ``oracle_gate``, simplex jumps the accepted causes;
+    (6) the example's assertion, the true pendulum from ``(1, -0.5)``
+    below a state norm of 0.5 within 100 steps. Reported: the rewards of
+    the old and new policy, the safe fraction and ``c_max`` after each
+    certify, and ``compute_roa`` of the trained closed loop on the safety
+    grid. Times: each ascent's per-step ms, each value solve's ms and
+    iterations, the example's stages (wall), the trained sweep, a
+    ``get_safe_sample`` and an ``add_data_point``, ``compute_roa``.
+
+    Returns ``(trainer, launches, minibatch)``: kernel 3's launches over
+    the whole run and the last checked minibatch (for the kernel's
+    timing).
+    """
+    from safe_learning_tpu_torch.utils import _tree_leaves
+
+    if (torch.backends.cuda.matmul.allow_tf32
+            or torch.backends.cudnn.allow_tf32):
+        raise AssertionError("TF32 is on")
+    builds = dict(build_reports)
+    start = time.perf_counter()
+    trainer = SafeTraining(seed=0)
+    rl, lyap, inst = trainer.rl, trainer.lyap, trainer.inst
+    print("training: {} grid points, policy grid {}, NN {}, batch {}, GP "
+          "capacity {}; pretrain {} steps, 2 + {} rounds of {} penalised "
+          "steps, {} exploration steps a round; built in {:.3f} s".format(
+              lyap.discretization.nindex,
+              rl.value_function.discretization.shape, lyap.policy.layers,
+              trainer.batch_size, lyap.dynamics.capacity, PRETRAIN_ITERS,
+              OUTER_ITERS, POLICY_ITERS, DATA_PER_ITER,
+              time.perf_counter() - start))
+    ascents, solves = EventTimer(), EventTimer()
+    rl.optimize_policy = ascents.wrap(rl.optimize_policy)
+    rl.optimize_value_function = solves.wrap(rl.optimize_value_function)
+    checked = {}
+    fixed_points = []
+    # Seconds the checks take inside a stage; its wall time less these is
+    # what the example's Timer reads.
+    in_checks = [0.0]
+
+    def before_ascent(tr):
+        torch.cuda.synchronize()
+        begin = time.perf_counter()
+        fixed_points.append(check_fixed_point(tr))
+        # The first penalised ascent, and the last iteration's.
+        label = {1: "first penalised step",
+                 2 + OUTER_ITERS: "last iteration's first step"}.get(
+                     len(fixed_points))
+        if label is not None:
+            twin = torch.Generator(device=st.config.device)
+            twin.set_state(tr.generator.get_state())
+            space = tr.lyap.discretization.limits
+            states = rl._draw_minibatch(
+                twin, tr.batch_size, st.functions.base.as_tensor(space[:, 0]),
+                st.functions.base.as_tensor(space[:, 1]))
+            gradient_check(tr, states, label)
+            checked["minibatch"] = states
+        torch.cuda.synchronize()
+        in_checks[0] += time.perf_counter() - begin
+
+    trainer.before_ascent = before_ascent
+    expected = {name: 0 for name in KERNELS}
+    total = [0]
+    walls = []
+
+    def stage(name, fn, launches):
+        reset_launches()
+        in_checks[0] = 0.0
+        torch.cuda.synchronize()
+        begin = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - begin - in_checks[0]
+        walls.append(wall)
+        got = read_launches()
+        want = dict(expected, gp_predict_stacked=launches(out))
+        print("{}: {!r} s wall, {!r} s of checks excluded; launches {} "
+              "(expected {})".format(name, wall, in_checks[0], got, want))
+        if got != want:
+            raise AssertionError("{} launched {}, not {}".format(name, got,
+                                                                 want))
+        total[0] += got["gp_predict_stacked"]
+        return out
+
+    def certified(label):
+        print("training: after {}: safe fraction {!r}, c_max {!r}".format(
+            label, float(lyap.safe_set.mean()), lyap.c_max))
+
+    losses = stage("pretrain policy on mean dynamics",
+                   lambda: trainer.pretrain(PRETRAIN_ITERS),
+                   lambda out: PRETRAIN_ITERS)
+    print("pretrain losses: first {!r}, last {!r}".format(losses[0],
+                                                          losses[-1]))
+    stage("initial certify", lambda: lyap.update_safe_set(),
+          lambda out: 1)
+    certified("pretraining")
+
+    def initial():
+        trainer.optimize(POLICY_ITERS)
+        trainer.optimize(POLICY_ITERS)
+        trainer.certify()
+
+    stage("initial safe policy optimization", initial,
+          lambda out: 2 * (1 + POLICY_ITERS) + 1)
+    certified("the initial policy optimization")
+    for it in range(OUTER_ITERS):
+        def iteration():
+            fallbacks = sum(trainer.update_gp()[1]
+                            for _ in range(DATA_PER_ITER))
+            trainer.optimize(POLICY_ITERS)
+            trainer.certify()
+            return fallbacks
+
+        stage("iteration {}".format(it + 1), iteration,
+              lambda fallbacks: DATA_PER_ITER + fallbacks + POLICY_ITERS + 2)
+        certified("iteration {} (GP count {})".format(it + 1,
+                                                      lyap.dynamics.count))
+    print("time to a trained, certified policy: {!r} s, the sum of the "
+          "stages' wall times [{}]".format(sum(walls), card))
+    if dict(build_reports) != builds:
+        raise AssertionError("the training phase built a library")
+    print("libraries built during the training phase: 0")
+
+    for ms, kwargs in ascents.times:
+        steps = kwargs["steps"]
+        print("ascent of {} steps ({}): {!r} ms, {!r} ms a step [{}]".format(
+            steps, "penalised" if kwargs.get("lyapunov") else "pretraining",
+            ms, ms / steps, card))
+    for (ms, _), (iters, delta, residual) in zip(solves.times, fixed_points):
+        print("value solve: {!r} ms, {} iterations, delta {!r}, float64 "
+              "residual {!r} (<= 2e-5) [{}]".format(ms, iters, delta,
+                                                    residual, card))
+    with uncounted():
+        try:
+            rl.optimize_value_function(max_iter=1)
+        except st.OptimizationError as exc:
+            print("optimize_value_function(max_iter=1) raised "
+                  "OptimizationError: {}".format(exc))
+        else:
+            raise AssertionError("a one-iteration value solve converged")
+
+    leaves = _tree_leaves(rl.policy.parameters_dict)
+    if any(t.requires_grad or t.grad_fn is not None for t in leaves):
+        raise AssertionError("the trained policy holds autograd state")
+    peak = sweep_peak_bytes(lyap)
+    print("trained sweep: {} bytes at its peak, phase 8's {}; the policy's "
+          "{} tensors are detached".format(peak, sweep_peak, len(leaves)))
+    if not abs(peak - sweep_peak) <= 0.1 * sweep_peak:
+        raise AssertionError("the trained sweep's peak memory differs by "
+                             "more than 10 %")
+
+    tri = rl.value_function
+    oracle_gate(lyap, "trained certify",
+                explain=functools.partial(flip_causes, lyap, tri))
+
+    x0 = np.array([[1.0, -0.5]])
+    true = inst["true"]
+    with torch.no_grad():
+        states_new, actions_new = st.utils.compute_trajectory(
+            true, rl.policy, x0, 100)
+        init = st.Saturation(st.LinearSystem(-st.utils.dlqr(
+            inst["a"], inst["b"], np.diag([1.0, 2.0]),
+            1.2 * np.ones((1, 1)))[0]), -1.0, 1.0)
+        states_old, actions_old = st.utils.compute_trajectory(
+            true, init, x0, 100)
+        rewards = [float(trainer.reward(s[:-1], a).sum())
+                   for s, a in ((states_old, actions_old),
+                                (states_new, actions_new))]
+    final_norm = float(torch.linalg.norm(states_new[-1]))
+    print("reward old: {!r}  reward new: {!r}; final state norm (new "
+          "policy): {!r}".format(rewards[0], rewards[1], final_norm))
+    if not final_norm < 0.5:
+        raise AssertionError("the learned policy does not stabilize the "
+                             "pendulum")
+
+    horizon = 1000
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    with torch.no_grad():
+        start.record()
+        roa = st.compute_roa(lyap.discretization,
+                             lambda x: true(x, rl.policy(x)),
+                             horizon=horizon, tol=0.01)
+        end.record()
+        end.synchronize()
+    safe = np.array(lyap.safe_set)
+    print("compute_roa of the trained closed loop on the true pendulum: {} "
+          "of {} grid points reach |x| <= 0.01 within {} steps ({} s of "
+          "simulated time); {} of the {} certified points lie in it; {!r} "
+          "ms [{}]".format(int(roa.sum()), roa.size, horizon,
+                           horizon * true.dt, int((roa & safe).sum()),
+                           int(safe.sum()), start.elapsed_time(end), card))
+    time_sweep("trained safe-learning", lyap, card)
+    loop_step_times(card, lyap, inst, "after training")
+    return trainer, total[0], checked["minibatch"]
+
+
+def training_times(card, trainer, minibatch):
+    """Kernel 3 against its plain twin at an ascent step's inputs (the
+    checked minibatch and the trained policy's actions, the final GP):
+    ``(max_abs_err, kernel_ms, plain_ms, eager_ms, bound_ms, bound_by,
+    bound_kind)``."""
+    gp = trainer.rl.dynamics
+    with torch.no_grad():
+        states = concatenate_inputs(minibatch,
+                                    trainer.rl.policy(minibatch))
+    programs, params = gp._programs()
+    s2 = torch.tensor(gp.scale ** 2, dtype=states.dtype,
+                      device=states.device)
+    inputs = (states, gp.X_buf, gp_kernel.program_params(params, states),
+              gp.chol_inv, gp.alpha[:, :, 0].contiguous(), gp._mask(), s2)
+    em, ev, ratio = compare_program("stacked", inputs, programs,
+                                    count=gp.count)
+    shape = "Q={}, cap {}, count {}, S={}".format(
+        states.shape[0], gp.capacity, gp.count, len(programs))
+    print("training inputs ({}): max|dmean|={:.3e} max|dvar|={:.3e} "
+          "err/bound={:.3f}".format(shape, em, ev, ratio))
+    if not ratio <= 1.0:
+        raise AssertionError("kernel 3 disagrees on the training inputs")
+    times = time_against_plain(
+        "gp predict stacked (training)",
+        lambda: gp_kernel.gp_predict_stacked_cuda(*inputs, programs,
+                                                  count=gp.count),
+        lambda: gp_kernel.gp_predict_stacked_plain(*inputs, programs),
+        card, shape)
+    return (max(em, ev),) + times + kernel_bound(
+        states.shape[0], states.shape[1], gp.count, 1, len(programs),
+        program_ops(programs), states.element_size())
+
+
+def profile_training(card, trainer, penalised, steps=20):
+    """``profile_window`` over ``steps`` ascent steps, penalised (learning
+    rate 0.01, minibatches from the safety grid) or as in pretraining (0.1,
+    the policy grid, no penalty), on a copy of the trainer's
+    ``PolicyIteration`` with its generator cloned."""
+    rl = copy.copy(trainer.rl)
+    lyap = trainer.lyap
+    twin = torch.Generator(device=st.config.device)
+    twin.set_state(trainer.generator.get_state())
+    if penalised:
+        kwargs = dict(learning_rate=0.01, lyapunov=lyap,
+                      lagrange_multiplier=1.0,
+                      sample_space=lyap.discretization)
+    else:
+        kwargs = dict(learning_rate=0.1,
+                      sample_space=rl.value_function.discretization)
+
+    def run():
+        # The class's method: the instance's own is wrapped by a timer.
+        st.PolicyIteration.optimize_policy(
+            rl, steps=steps, batch_size=trainer.batch_size, generator=twin,
+            **kwargs)
+
+    label = "{} ascent step".format("penalised" if penalised
+                                    else "pretraining")
+    groups = profile_window(label, run, steps, card)
+    # The host may wait for the device around an ascent (its box's limits
+    # to the card, its losses back), never inside the step loop: every
+    # synchronising call of one run is counted, by caller.
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            run()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    syncs = collections.Counter(
+        "{}:{}".format(w.filename, w.lineno) for w in caught
+        if "synchronizing" in str(w.message))
+    print("{}: {} synchronising calls in {} steps, by caller: {}".format(
+        label, sum(syncs.values()), steps, dict(syncs)))
+    if sum(syncs.values()) >= steps:
+        raise AssertionError("the host waits for the device inside the "
+                             "ascent's step loop")
+    return groups
+
+
 def main():
     card = phase_device()
     phase_build()
@@ -1700,7 +2392,9 @@ def main():
     time_sweep("bench", bench_lyap, card)
     time_sweep("flagship stacked", stacked_lyap, card)
     time_sweep("flagship fan_out", fan_lyap, card)
-    safe_lyap, safe_inst, safe_launches, safe_err = phase_safe_learning(card)
+    safe_lyap, safe_inst, safe_launches, safe_err, safe_peak = \
+        phase_safe_learning(card)
+    trainer, train_launches, minibatch = phase_training(card, safe_peak)
     phase_kernel_count_cases()
     phase_program_count_cases()
     # Per kernel and path: (launches, max_abs_err, ms, plain_ms, eager_ms,
@@ -1716,6 +2410,11 @@ def main():
          + phase_flagship_times(card, "fan_out", fan_lyap)),
     ]
     del stacked_lyap, fan_lyap
+    train = (train_launches,) + training_times(card, trainer, minibatch)
+    print("kernel 3 on the training path: {} launches, max abs err {!r}, "
+          "{!r} ms against plain {!r} ms (eager {!r} ms), bound {!r} ms "
+          "({}, {})".format(*train))
+    paths.append(("gp_predict_stacked", "training", train))
     safe = (safe_launches, safe_err) + safe_learning_times(card, safe_lyap)
     print("kernel 3 on the safe-learning path: {} launches, max abs err "
           "{!r}, {!r} ms against plain {!r} ms (eager {!r} ms), bound {!r} "
@@ -1727,6 +2426,8 @@ def main():
     # host's dispatch of what runs after it.
     profile_sweep("safe-learning", safe_lyap, card)
     profile_sweep("bench", bench_lyap, card)
+    profile_training(card, trainer, penalised=False)
+    profile_training(card, trainer, penalised=True)
     print(card)
     print(json.dumps({"kernels": kernel_rows(paths)}))
     print(json.dumps({"ok": True, "device": {

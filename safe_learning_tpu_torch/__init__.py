@@ -10,8 +10,14 @@ Ported so far: grids, the function algebra with ``Saturation``,
 the ``Triangulation`` and ``PiecewiseConstant`` interpolants, Gaussian
 processes with stationary, linear and composite kernels,
 ``StackedGaussianProcess``, online GP updates (``add_data_point``), the
-inverted pendulum, the LQR solvers, the fused ``Lyapunov.update_safe_set``
-sweep, safe exploration (``get_safe_sample``) and the float64 oracle. The
+inverted pendulum, the fused ``Lyapunov.update_safe_set`` sweep and the
+policy-facing Lyapunov pieces (``safety_constraint``, ``v_decrease_bound``),
+safe exploration (``get_safe_sample``), dynamic programming
+(``PolicyIteration``: the exact PWL value solve, policy ascent with the
+Lyapunov Lagrangian, ``policy_iteration`` and
+``discrete_policy_optimization``), the closed-loop analysis tools
+(``compute_roa``, ``reward_rollout``), all of ``utils`` and the float64
+oracle. The
 port runs on ``cuda:0`` unless the caller sets ``config.device = "cpu"``;
 nothing falls back to the CPU when CUDA is missing.
 """
@@ -31,7 +37,10 @@ from .functions.gp import (ActiveDims, GaussianProcess, LinearKernel,
 from .lyapunov import Lyapunov
 from .dynamics import InvertedPendulum
 from .explore import get_safe_sample, perturb_actions
-from . import convert, oracle, utils
+from .rl import OptimizationError, PolicyIteration
+from .analysis import (compute_closedloop_response, compute_roa, gridify,
+                       reward_rollout)
+from . import analysis, convert, oracle, rl, utils
 
 __version__ = "0.1.0"
 
@@ -45,5 +54,7 @@ __all__ = [
     "as_deterministic", "GaussianProcess", "StackedGaussianProcess",
     "ActiveDims", "LinearKernel", "Matern12", "Matern32", "Matern52", "RBF",
     "Lyapunov", "InvertedPendulum", "get_safe_sample", "perturb_actions",
-    "convert", "oracle", "utils",
+    "PolicyIteration", "OptimizationError", "compute_roa", "reward_rollout",
+    "compute_closedloop_response", "gridify", "analysis", "convert",
+    "oracle", "rl", "utils",
 ]

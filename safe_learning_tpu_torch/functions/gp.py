@@ -178,7 +178,13 @@ class ActiveDims(Kernel):
         self.dims = tuple(int(d) for d in dims)
 
     def _slice(self, x):
-        return torch.atleast_2d(as_tensor(x))[:, list(self.dims)]
+        x = torch.atleast_2d(as_tensor(x))
+        lo, hi = self.dims[0], self.dims[-1] + 1
+        if self.dims == tuple(range(lo, hi)):
+            # A view: an index list would be copied to the device, and the
+            # host would wait for the device at every call.
+            return x[:, lo:hi]
+        return x[:, list(self.dims)]
 
     def __call__(self, x, z=None):
         """Covariance matrix (see :class:`Kernel`)."""
@@ -648,6 +654,9 @@ class StackedGaussianProcess(UncertainFunction):
         self.scale = float(scale)
         betas = np.broadcast_to(np.asarray(betas, dtype=float), (n_out,))
         self.betas = tuple(float(b) for b in betas)
+        # On the device once: a copy at every evaluate would make the host
+        # wait for the device.
+        self._betas = as_tensor(np.asarray(self.betas))
         if mean_functions is None:
             mean_functions = (None,) * n_out
         self.mean_functions = tuple(mean_functions)
@@ -829,9 +838,7 @@ class StackedGaussianProcess(UncertainFunction):
     def evaluate(self, points):
         """Return ``(mean, beta_s * std_s)`` stacked over outputs."""
         mean, var = self.predict(points)
-        betas = torch.as_tensor(self.betas, dtype=var.dtype,
-                                device=var.device)
-        return mean, betas * torch.sqrt(var)
+        return mean, self._betas.to(var.dtype) * torch.sqrt(var)
 
     def add_data_point(self, x, y):
         """Append measurements of every output; returns a new stack.

@@ -332,6 +332,15 @@ class Lyapunov:
                 f"{unit:.2e}; it cannot cover the plain sweep's rounding "
                 f"at unit {consumer:.2e}")
 
+    def lipschitz_dynamics(self, states):
+        """Global or local Lipschitz constant of the dynamics at
+        ``states``."""
+        return _eval_lipschitz(self._lipschitz_dynamics, states)
+
+    def lipschitz_lyapunov(self, states):
+        """Global or local Lipschitz constant of ``v`` at ``states``."""
+        return _eval_lipschitz(self._lipschitz_lyapunov, states)
+
     def threshold(self, states, tau=None):
         """Safety threshold ``-L_v (1 + L_f) tau``."""
         tau = self.tau if tau is None else tau
@@ -342,6 +351,39 @@ class Lyapunov:
         """Whether states lie in the current safe set."""
         idx = self.discretization.state_to_index(state).cpu().numpy()
         return self.safe_set[idx]
+
+    def v_decrease_confidence(self, states, next_states):
+        """``(v(f(x)) - v(x), L_v error)``, each ``(N, 1)``; the error
+        term is 0 for deterministic dynamics (a ``(mean, error)`` tuple
+        gives uncertain ones)."""
+        if isinstance(next_states, (tuple, list)):
+            next_states, error = next_states
+            lv = _as_column_batch(self.lipschitz_lyapunov(next_states))
+            bound = (lv * error).sum(dim=1, keepdim=True)
+        else:
+            bound = torch.zeros((), dtype=config.dtype,
+                                device=config.device)
+        v_decrease = (self.lyapunov_function(next_states).reshape(-1, 1)
+                      - self.lyapunov_function(states).reshape(-1, 1))
+        return v_decrease, bound
+
+    def v_decrease_bound(self, states, next_states):
+        """Upper bound on the decrease ``v(f(x)) - v(x)``."""
+        v_dot, error = self.v_decrease_confidence(states, next_states)
+        return v_dot + error
+
+    def safety_constraint(self, policy, include_initial=True):
+        """Whether each grid state passes the decrease check under
+        ``policy``'s actions (host boolean array); with
+        ``include_initial`` the initial set counts as passing."""
+        points = self._device_points()
+        actions = as_deterministic(policy)(points)
+        prediction = self.dynamics(points, actions)
+        bound = self.v_decrease_bound(points, prediction)
+        negative = (bound < self.threshold(points)).squeeze(1).cpu().numpy()
+        if include_initial and self.initial_safe_set is not None:
+            negative |= self.initial_safe_set
+        return np.asarray(negative)
 
     def _device_points(self):
         """Copy of the grid on ``config.device``, cached per device and

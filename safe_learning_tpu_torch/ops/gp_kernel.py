@@ -70,10 +70,11 @@ PROGRAM_PARAMS_MAX = 64
 # ---------------------------------------------------------------------------
 def _scalar_tensor(value, like):
     """``value`` as a tensor of ``like``'s dtype and device (a tensor
-    passes through)."""
+    passes through). Filled on the device: a copy from the host would make
+    the host wait for the device at every launch."""
     if torch.is_tensor(value):
         return value
-    return torch.tensor(value, dtype=like.dtype, device=like.device)
+    return torch.full((), value, dtype=like.dtype, device=like.device)
 
 
 def _check_tensors(tensors):

@@ -178,6 +178,84 @@ def test_stacked_kernel_at_the_safe_learning_shapes(on_cuda, count):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("count", [0, 10, 50])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_stacked_gradient_at_the_training_shapes(on_cuda, count, dtype):
+    """Kernel 3's autograd rule as the policy ascent takes it: the
+    example's stacked GP at capacity 64 with 0, 10 or 50 measurements, a
+    minibatch of 1000 state-action rows, one launch per predict.
+
+    float64: the GP's means, errors and the gradient of their sum with
+    respect to the rows through the kernel, against the plain route
+    (``config.use_kernels = False``), within 1e-9 relative (of the
+    largest entry). float32 rounding on this GP (50 random points, noise
+    1e-6) moves the plain route's gradient by up to a third from
+    float64's, so the float32 case holds the rule itself on the GP's
+    inputs: the kernel's numerators against its plain twin within
+    ``program_bounds``, and the gradient of their sum through the rule
+    (``fused_gp_predict_stacked``) against the twin's own, within 1e-6
+    relative."""
+    import numpy as np
+
+    from chip_smoke import compare_program, flagship_kernel
+
+    rng = np.random.default_rng(count)
+    x = rng.uniform(-1, 1, (count, 3))
+    y = 0.1 * np.column_stack([np.sin(x.sum(1)), np.cos(x[:, 0])])
+    old = st.config.dtype
+    st.config.dtype = dtype
+    try:
+        gp = st.StackedGaussianProcess(
+            [flagship_kernel(np.array([0.3, 0.1, 0.5])),
+             flagship_kernel(np.array([0.2, 0.4, 0.1]))], x, y, 1e-6,
+            mean_functions=[st.LinearSystem([[1.0, 0.1, 0.0]]),
+                            st.LinearSystem([[0.2, 0.9, 0.3]])],
+            capacity=64)
+    finally:
+        st.config.dtype = old
+    rows = torch.as_tensor(rng.uniform(-1, 1, (1000, 3)), dtype=dtype,
+                           device=on_cuda)
+    programs, params = gp._programs()
+    inputs = (gp.X_buf, gp_kernel.program_params(params, rows), gp.chol_inv,
+              gp.alpha[:, :, 0].contiguous(), gp._mask(),
+              torch.tensor(gp.scale ** 2, dtype=dtype, device=on_cuda))
+
+    def route(predict):
+        """``(kernel launches, outputs and the gradient of their sum)`` of
+        ``predict`` at the rows."""
+        q = rows.clone().requires_grad_(True)
+        before = gp_kernel.gp_predict_stacked_cuda.launches
+        outputs = predict(q)
+        launched = gp_kernel.gp_predict_stacked_cuda.launches - before
+        (grad,) = torch.autograd.grad(sum(t.sum() for t in outputs), q)
+        return launched, [t.detach() for t in outputs] + [grad]
+
+    def public(use_kernels):
+        st.config.use_kernels = use_kernels
+        try:
+            return route(gp)
+        finally:
+            st.config.use_kernels = True
+
+    if dtype == torch.float64:
+        (launched, got), (plain, want) = public(True), public(False)
+        rtol = 1e-9
+    else:
+        assert compare_program("stacked", (rows,) + inputs, programs,
+                               count=gp.count)[2] <= 1.0
+        launched, got = route(lambda q: gp_kernel.fused_gp_predict_stacked(
+            q, *inputs, programs, count=gp.count))
+        plain, want = route(lambda q: gp_kernel.gp_predict_stacked_plain(
+            q, *inputs, programs))
+        got, want, rtol = got[-1:], want[-1:], 1e-6
+    assert (launched, plain) == (1, 0)
+    for g, w in zip(got, want):
+        assert torch.isfinite(g).all()
+        scale = float(w.abs().max())
+        assert float((g - w).abs().max()) <= rtol * scale
+
+
+@pytest.mark.cuda
 def test_safe_sample_with_kernel_matches_plain_twin(on_cuda):
     """Three rounds of the safe-learning loop on a small instance: each
     pair chosen through kernel 3 equals the pair its plain twin chooses

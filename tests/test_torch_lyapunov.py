@@ -12,6 +12,7 @@ import pytest
 import torch
 from numpy.testing import assert_allclose, assert_array_equal
 
+import safe_learning_tpu as sl
 import safe_learning_tpu_torch as st
 
 from _torch_parity import (jax_bench_lyapunov, port_gp, to_numpy,
@@ -181,3 +182,46 @@ def test_bench_instance_decrease_margins_match_jax(bench_pair):
     assert_array_equal(neg_t, neg_j)
     assert_allclose(dec_t, dec_j, rtol=0, atol=1e-12)
     assert_allclose(thr_t, thr_j, rtol=0, atol=1e-15)
+
+
+@pytest.mark.parametrize("include_initial", [True, False])
+def test_safety_constraint_matches_jax(bench_pair, include_initial):
+    """The policy-facing mask of ``one_d_example.py``'s constraint: the
+    decrease check on the whole grid under a policy, equal to JAX's."""
+    jlyap, plyap = bench_pair
+    k = np.array([[0.3, -0.2]])
+    with working_dtype("float64"):
+        got = plyap.safety_constraint(st.LinearSystem(k),
+                                      include_initial=include_initial)
+        want = jlyap.safety_constraint(sl.LinearSystem(k),
+                                       include_initial=include_initial)
+    assert got.dtype == bool and got.shape == (plyap.discretization.nindex,)
+    assert_array_equal(got, want)
+    assert 0 < got.sum() < got.size
+    if include_initial:
+        assert got[plyap.initial_safe_set].all()
+
+
+def test_v_decrease_bound_and_lipschitz_match_jax(bench_pair):
+    jlyap, plyap = bench_pair
+    pts = jlyap.discretization.all_points[::131]
+    with working_dtype("float64"):
+        x = torch.as_tensor(pts)
+        nxt = plyap.dynamics(x, plyap.policy(x))
+        jnxt = jlyap.dynamics(pts, jlyap.policy(pts))
+        for got, want in ((plyap.v_decrease_bound(x, nxt),
+                           jlyap.v_decrease_bound(pts, jnxt)),
+                          (plyap.v_decrease_bound(x, nxt[0]),
+                           jlyap.v_decrease_bound(pts, jnxt[0])),
+                          (plyap.lipschitz_lyapunov(x),
+                           jlyap.lipschitz_lyapunov(pts))):
+            # The decrease is a difference of values near 1: 1e-12
+            # absolute, as the batch check above.
+            assert_allclose(to_numpy(got), np.asarray(want), rtol=1e-12,
+                            atol=1e-12)
+        dot, err = plyap.v_decrease_confidence(x, nxt)
+        jdot, jerr = jlyap.v_decrease_confidence(pts, jnxt)
+        assert_allclose(to_numpy(err), np.asarray(jerr), rtol=1e-12,
+                        atol=1e-12)
+        assert float(plyap.v_decrease_confidence(x, nxt[0])[1]) == 0.0
+        assert plyap.lipschitz_dynamics(x) == jlyap.lipschitz_dynamics(pts)
