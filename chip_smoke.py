@@ -80,24 +80,39 @@ Phases, in order; any failure raises and the exit code is not 0:
    certify, ``compute_roa`` of the trained closed loop; timed: each
    stage's wall time, each ascent's step time, each value solve, the
    trained sweep, the loop's steps, ``compute_roa``;
-10. count cases, kernel 1 and kernels 2 and 3 (``COUNT_CASES``: counts 0,
+10. adaptive verification (``phase_adaptive``,
+    ``build_adaptive_instance``): ``examples/adaptive_safety_verification.
+    py --full``, a 501x501 grid, a stacked GP at capacity 181, sorted
+    certifies with refinement up to 16, 12 updates of 15 measurements by
+    ``get_safe_sample_batch`` (the device append between steps). Checks:
+    kernel 3 once per sampler step, coarse pass and refinement chunk; no
+    host wait inside the sampler's steps; each batch's pairs against the
+    plain twin's; every device append's count precondition and its GP
+    against the float64 refresh; the first and last certify against the
+    float64 oracle with the refined calibration as the band; the first
+    certify by the fan-out route (kernel 2) equal; the example's
+    assertion. Per update: safe fraction, ``c_max``, largest N(x),
+    chunks, refined points, wall and CUDA-event times;
+11. count cases, kernel 1 and kernels 2 and 3 (``COUNT_CASES``: counts 0,
     1, 10, both sides of each bucket edge 16/32/64/128, 129 and 2048,
     below and at capacity): the kernels' loops bounded by the count,
     against the plain versions at full capacity, exact zeros at count 0;
-11. kernel times: each kernel against its plain version on its path's
+12. kernel times: each kernel against its plain version on its path's
     own inputs, on the device alone (a CUDA graph of 10 calls,
     ``graph_ms``) and as a caller sees it (10 eager calls), and each
     kernel's bound at those inputs (``kernel_bound``), kernel 3 also at a
-    training ascent step's inputs; then the loop's step times again, to
-    show how far the work before moved them;
-12. profiles, after every time: torch.profiler over the safe-learning and
-    the bench sweeps (``profile_sweep``) and over 20 pretraining and 20
-    penalised ascent steps (``profile_training``), the device's busy
+    training ascent step's inputs and at the adaptive path's coarse pass
+    and refinement chunk (count 181); then the loop's step times again,
+    to show how far the work before moved them;
+13. profiles, after every time: torch.profiler over the safe-learning and
+    the bench sweeps (``profile_sweep``), over 20 pretraining and 20
+    penalised ascent steps (``profile_training``) and over the adaptive
+    path's batches and certifies (``profile_adaptive``), the device's busy
     share, its operations per unit and where its time goes; the ascent
     fails if the host waits for the device inside its step loop
     (``torch.cuda.set_sync_debug_mode``).
 
-The end-to-end times (phases 7 to 9) come before the count cases and
+The end-to-end times (phases 7 to 10) come before the count cases and
 before any CUDA graph is captured.
 
 The second-to-last line is a JSON object describing each kernel
@@ -114,14 +129,19 @@ import statistics
 import subprocess
 import sys
 import time
+import types
 import warnings
 
 import numpy as np
 import torch
 
 import safe_learning_tpu_torch as st
+from safe_learning_tpu_torch import explore as explore_mod
+from safe_learning_tpu_torch import lyapunov as lyapunov_mod
 from safe_learning_tpu_torch.functions.base import concatenate_inputs
-from safe_learning_tpu_torch.lyapunov import _fused_update, _negative_batch
+from safe_learning_tpu_torch.lyapunov import (_decrease_bound, _fused_update,
+                                              _negative_batch, _threshold,
+                                              refinement_offsets)
 from safe_learning_tpu_torch.ops import gp_kernel
 from safe_learning_tpu_torch.ops.build import build_reports
 
@@ -379,6 +399,99 @@ def build_safe_learning_instance(seed, num_points=SAFE_LEARNING_POINTS,
                       action_limits=action_limits,
                       initial=np.array(lyap.initial_safe_set),
                       value_function=value_function)
+
+
+#: ``examples/adaptive_safety_verification.py --full``: its grid, its
+#: refinement, its 12 updates of 15 measurements, the GP capacity it
+#: derives from them (``:132-146``) and its exploration settings
+#: (``:176-178``, ``:207-210``).
+ADAPTIVE_POINTS, ADAPTIVE_REFINEMENT = 501, 16
+ADAPTIVE_UPDATES, ADAPTIVE_DATA = 12, 15
+ADAPTIVE_CAPACITY = max(64, 1 + ADAPTIVE_UPDATES * ADAPTIVE_DATA)
+ADAPTIVE_VARIATION, ADAPTIVE_LIMITS = np.array([[0.0]]), np.array([[-1.0,
+                                                                    1.0]])
+
+
+class AbsoluteValue(st.DeterministicFunction):
+    """``|f(x)|`` elementwise. The example writes its ``L_v = |2 P x|`` as
+    a lambda; as a function object holding ``f`` it is one that
+    ``oracle.lift64`` widens (a lambda keeps its closure's tensors on the
+    card)."""
+
+    def __init__(self, fun):
+        self.fun = fun
+        self.input_dim, self.output_dim = fun.input_dim, fun.output_dim
+
+    def evaluate(self, points):
+        return torch.abs(self.fun(points))
+
+
+def build_adaptive_instance(num_states=ADAPTIVE_POINTS,
+                            capacity=ADAPTIVE_CAPACITY, route="stacked"):
+    """The adaptive example's verification instance in the port.
+
+    As ``examples/adaptive_safety_verification.py:60-108`` builds it: the
+    true pendulum ``(0.15, 0.5, 0.1)`` and the wrong one ``(0.1, 0.4,
+    0.0)`` at ``dt = 0.01``, normalized; per-dimension composite-kernel
+    GPs with the wrong linearization as prior mean, prior variances
+    ``(true - wrong)^2`` clipped at 1e-3, one zero datum, noise 1e-6,
+    beta 2, at ``capacity``; ``route="stacked"`` batches them as a
+    ``StackedGaussianProcess`` (kernel 3), ``route="fan_out"`` keeps a
+    ``FunctionStack`` of ``GaussianProcess``es (kernel 2, the example's
+    ``--sequential`` model); the true model's LQR (``Q = diag(1, 2)``,
+    ``R = 1.2``) with ``P / max|P|`` as the quadratic candidate and the
+    saturated policy; ``L_v = |2 P x|`` and ``L_f`` the 1-norm bound;
+    ``tau = sum(unit_maxes) / 2`` on a ``num_states^2`` grid over
+    ``[-1, 1]^2``; the initial set ``|x|_2 <= 0.2``; ``adaptive=True``.
+    Returns ``(lyapunov, inst)``: ``inst`` holds the true pendulum, the
+    measurement ``Function`` over ``(x, u)`` rows and the numpy pieces.
+    """
+    dt, gravity = 0.01, 9.81
+    theta_max = np.deg2rad(30)
+    omega_max = np.sqrt(gravity / 0.5)
+    u_max = gravity * 0.15 * 0.5 * np.sin(theta_max)
+    norms = ((theta_max, omega_max), (u_max,))
+    true = st.InvertedPendulum(0.15, 0.5, 0.1, dt, normalization=norms)
+    wrong = st.InvertedPendulum(0.1, 0.4, 0.0, dt, normalization=norms)
+    a_true, b_true = true.linearize()
+    a, b = wrong.linearize()
+    variances = np.clip((np.hstack([a_true, b_true]) - np.hstack([a, b]))
+                        ** 2, 1e-3, None)
+    kernels = [flagship_kernel(variances[dim]) for dim in range(2)]
+    means = [st.LinearSystem([a[[dim]], b[[dim]]]) for dim in range(2)]
+    noise = 0.001 ** 2
+    if route == "stacked":
+        dynamics = st.StackedGaussianProcess(
+            kernels, np.zeros((1, 3)), np.zeros((1, 2)),
+            noise_variances=[noise] * 2, betas=2.0, mean_functions=means,
+            capacity=capacity)
+    elif route == "fan_out":
+        dynamics = st.FunctionStack([
+            st.GaussianProcess(kernel, np.zeros((1, 3)), np.zeros((1, 1)),
+                               noise_variance=noise, beta=2.0,
+                               mean_function=mean, capacity=capacity)
+            for kernel, mean in zip(kernels, means)])
+    else:
+        raise ValueError("route must be 'stacked' or 'fan_out'")
+
+    grid = st.GridWorld([[-1.0, 1.0]] * 2, num_states)
+    tau = float(np.sum(grid.unit_maxes) / 2)
+    initial = np.linalg.norm(grid.all_points, ord=2, axis=1) <= 0.2
+    k, p = st.utils.dlqr(a_true, b_true, np.diag([1.0, 2.0]),
+                         1.2 * np.identity(1))
+    p = p / np.abs(p).max()
+    policy = st.Saturation(st.LinearSystem(-k), -1.0, 1.0)
+    lf = (np.linalg.norm(a_true, 1)
+          + np.linalg.norm(b_true, 1) * np.linalg.norm(-k, 1))
+    lv = AbsoluteValue(st.LinearSystem([2 * p]))
+    lyap = st.Lyapunov(grid, st.QuadraticFunction(p), dynamics, lf, lv, tau,
+                       policy, initial_set=np.where(initial)[0],
+                       adaptive=True)
+    measure = st.LambdaFunction(lambda sa: true(sa[:, :2], sa[:, 2:]),
+                                input_dim=3, output_dim=2)
+    return lyap, dict(true=true, measure=measure, a=a, b=b, a_true=a_true,
+                      b_true=b_true, k=k, p=p, variances=variances,
+                      noise=noise, tau=tau, lf=lf, initial=initial)
 
 
 #: Exploration settings of the example (``examples/inverted_pendulum.py:
@@ -1690,9 +1803,10 @@ def append_check(gp):
     return worst
 
 
-def stacked_inputs(lyap):
-    """Kernel 3's inputs at the sweep's own states (grid and policy)."""
-    points = lyap._device_points()
+def stacked_inputs(lyap, points=None):
+    """Kernel 3's inputs at the sweep's own states: ``points`` (default:
+    the grid) and the policy's actions there."""
+    points = lyap._device_points() if points is None else points
     states = concatenate_inputs(points, lyap.policy(points))
     gp = lyap.dynamics
     programs, params = gp._programs()
@@ -1831,15 +1945,15 @@ def loop_step_times(card, lyap, inst, when):
               lyap.dynamics.count, append_ms, card))
 
 
-def safe_learning_times(card, lyap):
-    """Kernel 3 against its plain twin on the safe-learning sweep's
-    inputs: ``(kernel_ms, plain_ms, eager_ms, bound_ms, bound_by,
-    bound_kind)``."""
-    inputs, programs = stacked_inputs(lyap)
+def safe_learning_times(card, lyap, points=None, label="safe learning"):
+    """Kernel 3 against its plain twin on a sweep's inputs (``points``, by
+    default the grid): ``(kernel_ms, plain_ms, eager_ms, bound_ms,
+    bound_by, bound_kind)``."""
+    inputs, programs = stacked_inputs(lyap, points)
     gp = lyap.dynamics
     states = inputs[0]
     kernel_ms, plain_ms, eager_ms = time_against_plain(
-        "gp predict stacked (safe learning)",
+        "gp predict stacked ({})".format(label),
         lambda: gp_kernel.gp_predict_stacked_cuda(*inputs, programs,
                                                   count=gp.count),
         lambda: gp_kernel.gp_predict_stacked_plain(*inputs, programs),
@@ -2378,6 +2492,497 @@ def profile_training(card, trainer, penalised, steps=20):
     return groups
 
 
+# ---------------------------------------------------------------------------
+# The adaptive example: refined certifies and k-step exploration
+# ---------------------------------------------------------------------------
+#: Rescued states whose full sub-grids the float64 oracle checks when a
+#: certify rescued more (a seeded sample), besides every rescued state
+#: whose float32 refined margin lies within ``NEAR_BAND`` calibrated
+#: margins of failing.
+ORACLE_RESCUE_SAMPLE, NEAR_BAND = 4096, 10.0
+
+#: Largest difference, on the mean and on ``beta * std``, between the GP
+#: the sampler advanced on the device and the float64-refreshed GP at a
+#: batch's chosen pairs, as a share of the smallest summed predictive
+#: error the batch chose by: the device GP only ranks candidates. The
+#: float32 append's error in ``std`` is the cancellation in ``kdiag -
+#: |L^-1 k|^2`` (a variance 1e-4 to 1e-3 of ``kdiag`` at the chosen
+#: pairs) over ``2 std``; a first run on the H100 differed by at most
+#: 3.6e-6 against errors of 2.3e-3 and more, a share of 1.6e-3.
+APPEND_SHARE = 0.01
+
+
+@contextlib.contextmanager
+def patched(module, name, wrap):
+    """``module.name`` replaced by ``wrap(module.name)`` for the block."""
+    inner = getattr(module, name)
+    setattr(module, name, wrap(inner))
+    try:
+        yield
+    finally:
+        setattr(module, name, inner)
+
+
+def no_host_waits(fn):
+    """``fn`` under ``torch.cuda.set_sync_debug_mode("error")``: any call
+    in it that makes the host wait for the device raises."""
+    @functools.wraps(fn)
+    def strict(*args, **kwargs):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return fn(*args, **kwargs)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return strict
+
+
+def recorded(log, keep=lambda args, out: out):
+    """A wrapper that appends ``keep(args, out)`` of each call to ``log``."""
+    def wrap(fn):
+        @functools.wraps(fn)
+        def record(*args, **kwargs):
+            out = fn(*args, **kwargs)
+            log.append(keep(args, out))
+            return out
+        return record
+    return wrap
+
+
+def sample_batch(lyap, inst, rng, apply=True, strict=True):
+    """One update's ``get_safe_sample_batch`` with the example's settings
+    (``examples/adaptive_safety_verification.py:176-178``, ``:207-210``),
+    with ``strict`` its k device steps (``explore._sample_steps``) under
+    ``no_host_waits``. Returns ``(result, gps)``: ``gps`` are the GPs the
+    sampler advanced on the device, one a step."""
+    gps = []
+    with patched(explore_mod, "_sample_steps",
+                 no_host_waits if strict else (lambda fn: fn)), \
+            patched(explore_mod, "_device_border_append", recorded(gps)):
+        out = st.get_safe_sample_batch(
+            lyap, inst["measure"], ADAPTIVE_DATA, ADAPTIVE_VARIATION,
+            ADAPTIVE_LIMITS, positive=True, num_samples=EXPLORATION_SAMPLES,
+            rng=rng, apply=apply)
+    return out, gps
+
+
+def check_batch(update, lyap, gp0, got, gps, twin):
+    """Checks 3 and 4 of ``phase_adaptive`` on one batch.
+
+    The pairs chosen through kernel 3 against those its plain twin chose
+    from the same rng (``twin``): equal, or at the first step where they
+    differ (the trajectories part there, and the comparison stops),
+    summed predictive errors within ``bound_tolerance`` at the GP both
+    carried to that step, and the twin's preference for its own pair no
+    larger than the two routes' difference at the two pairs
+    (``pair_scores``). Then every device append's precondition
+    (``chol_inv[:, n:, :n] == 0``, the rows past the count as the host
+    factorization left them, ``mask[n:] == 0``), and the device-advanced
+    GP against the float64-refreshed one at the chosen pairs within
+    ``APPEND_SHARE``. Returns ``(steps that matched the twin, mean
+    difference, error difference, share)``."""
+    sas, _, bounds, safes = got
+    tsas, _, tbounds, tsafes = twin
+    matched = len(sas)
+    for j in range(len(sas)):
+        if np.array_equal(sas[j], tsas[j]) and safes[j] == tsafes[j]:
+            continue
+        gp_j = gps[j - 1] if j else gp0
+        holder = types.SimpleNamespace(dynamics=gp_j)
+        tol = (bound_tolerance(holder, sas[j:j + 1])
+               + bound_tolerance(holder, tsas[j:j + 1]))
+        diff = abs(float(bounds[j]) - float(tbounds[j]))
+        # Both pairs scored by both routes as the sampler scores them: the
+        # kernel's pick is its argmax, so where the twin's pick is safe
+        # under the kernel too, the twin can prefer its own pick by no
+        # more than the two routes differ at the two pairs.
+        pairs = np.concatenate([sas[j:j + 1], tsas[j:j + 1]])
+        k_err, k_safe = pair_scores(lyap, gp_j, pairs)
+        with plain_stacked_predict():
+            t_err, _ = pair_scores(lyap, gp_j, pairs)
+        gap = float(t_err[1] - t_err[0])
+        # Plus a few float32 spacings: the pairs are scored here in a
+        # launch of 2 queries, in the batch among 2,000.
+        rounding = float(np.abs(k_err - t_err).sum()
+                         + 8 * np.finfo(np.float32).eps * t_err.max())
+        print("update {} step {}: kernel 3 chose {} (bound {!r}), its plain "
+              "twin {} (bound {!r}){}; |difference| {!r} <= computed bound "
+              "{!r}?; the twin prefers its pair by {!r}, the routes differ "
+              "by {!r} at the two pairs{}".format(
+                  update, j + 1, sas[j].tolist(), float(bounds[j]),
+                  tsas[j].tolist(), float(tbounds[j]),
+                  ", the mirror image" if np.array_equal(sas[j], -tsas[j])
+                  else "", diff, tol, gap, rounding,
+                  "" if k_safe[1] else " (the twin's pair fails the level "
+                  "test under kernel 3)"))
+        if not diff <= tol or (k_safe[1] and not gap <= rounding):
+            raise AssertionError("update {} step {}: kernel 3 and its plain "
+                                 "twin chose pairs whose bounds differ "
+                                 "beyond what their rounding explains"
+                                 .format(update, j + 1))
+        matched = j
+        break
+
+    n0, fresh = gp0.count, gp0.chol_inv
+    holds = []
+    for j, gp in enumerate(gps):
+        n = n0 + j + 1
+        if gp.count != n:
+            raise AssertionError("device append {} left count {}".format(
+                j + 1, gp.count))
+        holds.append((gp.chol_inv[:, n:, :n] == 0).all()
+                     & (gp.chol_inv[:, n:] == fresh[:, n:]).all()
+                     & (gp._mask()[n:] == 0).all())
+    if not bool(torch.stack(holds).all()):
+        raise AssertionError("update {}: a device append broke the kernels' "
+                             "count precondition".format(update))
+    q = st.functions.base.as_tensor(sas)
+    (mean_d, err_d), (mean_r, err_r) = gps[-1](q), lyap.dynamics(q)
+    d_mean = float((mean_d - mean_r).abs().max())
+    d_err = float((err_d - err_r).abs().max())
+    share = max(d_mean, d_err) / float(bounds.min())
+    if not share <= APPEND_SHARE:
+        raise AssertionError("update {}: the device-advanced GP differs from "
+                             "the float64 refresh by {!r} (mean) and {!r} "
+                             "(beta std) at the chosen pairs, {!r} of the "
+                             "smallest chosen error".format(
+                                 update, d_mean, d_err, share))
+    return matched, d_mean, d_err, share
+
+
+def pair_scores(lyap, gp, pairs):
+    """The sampler's scores of host ``pairs`` against ``gp``
+    (``explore._score_candidates``): the summed predictive errors as
+    float64 host values, and the level test."""
+    _, err, safe = explore_mod._score_candidates(
+        gp, lyap.lyapunov_function, lyap._lipschitz_lyapunov, lyap.c_max,
+        st.functions.base.as_tensor(pairs), explore_mod._margin_of(lyap))
+    return err.double().cpu().numpy(), safe.cpu().numpy()
+
+
+def refined_margins(lyap, idx, r, states_per_chunk=4096):
+    """Float32 margins ``decrease - threshold`` at every point of the
+    ``R^d`` sub-grids of grid states ``idx`` at ``tau / R``, as the
+    refinement walk computes them: a host ``(len(idx), R^d)`` array."""
+    points = lyap._device_points()
+    offsets = refinement_offsets(lyap.discretization.unit_maxes, r, points)
+    out = []
+    for start in range(0, len(idx), states_per_chunk):
+        flat = sub_points(grid_states(points, idx[start:start +
+                                                  states_per_chunk]),
+                          offsets)
+        decrease = _decrease_bound(
+            lyap.lyapunov_function, lyap._lipschitz_lyapunov, flat,
+            lyap.dynamics(flat, lyap.policy(flat)))
+        threshold = _threshold(lyap._lipschitz_lyapunov,
+                               lyap._lipschitz_dynamics, flat, lyap.tau / r)
+        out.append((decrease - threshold).reshape(-1, offsets.shape[0])
+                   .cpu().numpy())
+    return np.concatenate(out) if out else np.zeros((0, offsets.shape[0]))
+
+
+def grid_states(points, idx):
+    """The device points at host grid indices ``idx``."""
+    return points[torch.as_tensor(np.asarray(idx), device=points.device)]
+
+
+def sub_points(states, offsets):
+    """The sub-grid points of ``states`` on the device, state by state, in
+    ``lyapunov._refined_negative_batch``'s order."""
+    return (states[:, None, :] + offsets[None]).reshape(-1, states.shape[1])
+
+
+def check_certify(lyap, exempt, band, r, label):
+    """Check 5 of ``phase_adaptive``: every state the certify's prefix
+    holds passes the host float64 oracle (``oracle.oracle_margins``) or
+    lies inside the calibrated band ``|margin| <= band``. Coarse passes
+    (``_refinement == 1``) are held at ``tau``; refined rescues
+    (``_refinement == R``) at all ``R^d`` sub-points at ``tau / R``, all
+    of them, or a seeded sample of ``ORACLE_RESCUE_SAMPLE`` plus every one
+    whose float32 refined margin is within ``NEAR_BAND`` bands of
+    failing; exempt states pass by definition."""
+    safe, ref = np.asarray(lyap.safe_set), lyap._refinement
+    checked = safe & ~exempt
+    coarse = np.flatnonzero(checked & (ref == 1))
+    rescued = np.flatnonzero(checked & (ref == r))
+    if (checked & (ref != 1) & (ref != r)).any():
+        raise AssertionError("{}: a certified state has a refinement "
+                             "other than 1 and {}".format(label, r))
+    start = time.perf_counter()
+    pts = lyap.discretization.all_points
+    bad = int((st.oracle.oracle_margins(lyap, pts[coarse]) > band).sum())
+    worst = refined_margins(lyap, rescued, r).max(axis=1)
+    near = rescued[worst > -NEAR_BAND * band]
+    sample = rescued
+    if len(rescued) > ORACLE_RESCUE_SAMPLE:
+        sample = np.random.default_rng(0).choice(
+            rescued, ORACLE_RESCUE_SAMPLE, replace=False)
+    held = np.union1d(sample, near)
+    points = lyap._device_points()
+    offsets = refinement_offsets(lyap.discretization.unit_maxes, r, points)
+    subs = sub_points(grid_states(points, held), offsets).cpu().numpy()
+    bad_refined = int((st.oracle.oracle_margins(
+        lyap, subs, tau=lyap.tau / r) > band).sum())
+    print("{}: {} certified states beyond the {} exempt ones: {} coarse "
+          "passes held at tau, {} fail the f64 oracle outside the band "
+          "{!r}; {} refined rescues, {} of them held at all {} sub-points "
+          "at tau/{} ({} sampled, {} within {}x the band of failing in "
+          "float32, {} with a float32 sub-point margin >= 0), {} sub-points "
+          "fail outside the band; {:.3f} s".format(
+              label, len(coarse) + len(rescued), int(exempt.sum()),
+              len(coarse), bad, band, len(rescued), len(held),
+              offsets.shape[0], r, len(sample), len(near), NEAR_BAND,
+              int((worst >= 0).sum()), bad_refined,
+              time.perf_counter() - start))
+    if bad or bad_refined:
+        raise AssertionError("{}: the certify holds states the f64 oracle "
+                             "fails outside the calibrated band".format(
+                                 label))
+
+
+def timed_certify(lyap, r):
+    """``update_safe_set(can_shrink=False, max_refinement=r)`` as the
+    example runs it, with its wall time (synchronised), its coarse
+    passes' and refinement chunks' CUDA-event times and the states of
+    its last chunk. Returns ``(wall_ms, coarse_ms, chunks_ms,
+    last_chunk_states)``."""
+    coarse, chunks, states = EventTimer(), EventTimer(), []
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    with patched(lyapunov_mod, "_negative_batch", coarse.wrap), \
+            patched(lyapunov_mod, "_refined_negative_batch", chunks.wrap), \
+            patched(lyapunov_mod, "_refined_negative_batch",
+                    recorded(states, lambda args, out: args[6])):
+        lyap.update_safe_set(can_shrink=False, max_refinement=r)
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - start) * 1e3
+    return (wall, sum(ms for ms, _ in coarse.times),
+            sum(ms for ms, _ in chunks.times), states[-1] if states else None)
+
+
+def phase_adaptive(card, updates=ADAPTIVE_UPDATES):
+    """``examples/adaptive_safety_verification.py --full`` on the card.
+
+    ``build_adaptive_instance()``: the 501x501 grid, the stacked GP at
+    capacity 181, ``max_refinement`` 16. Certify, then ``updates`` times
+    ``get_safe_sample_batch`` (15 measurements, ``default_rng(0)``) and a
+    certify, each ``can_shrink=False``; then the example's assertion
+    ``history[-1] >= history[0] > 0``. Checks, each raising:
+
+    1. kernel 3 launches exactly once per sampler step, coarse pass and
+       refinement chunk, no other kernel, and no library is built;
+    2. the sampler's k steps make the host wait for the device nowhere
+       (``no_host_waits``): the one copy after them is the only sync;
+    3. each batch's pairs against those of kernel 3's plain twin from the
+       same rng (``check_batch``);
+    4. each device append keeps the kernels' count precondition, and the
+       device-advanced GP predicts the chosen pairs as the float64
+       refresh does within ``APPEND_TOL`` (``check_batch``);
+    5. the first and the last certify against the float64 oracle, with
+       ``calibrate_certificate_margin(refinement=16)`` (not installed, as
+       the example runs) as the band (``check_certify``);
+    6. the first certify by the fan-out route (``route="fan_out"``,
+       kernel 2, twice a predict) gives the same safe set, ``c_max`` and
+       ``_refinement``;
+    7. the example's assertion.
+
+    Prints per update the safe fraction, ``c_max`` and the largest N(x),
+    the refinement chunks and refined points, the batch's and the
+    certify's wall ms and the coarse pass's and chunks' CUDA-event ms.
+    Returns a namespace: ``lyap``, ``inst``, ``launches`` (kernel 3's
+    over the run), ``chunk_states`` (the last refinement chunk's states)
+    and ``gp_before_last`` (the GP the last batch started from).
+    """
+    r = ADAPTIVE_REFINEMENT
+    builds = dict(build_reports)
+
+    # 6, first: the fan-out route's first certify, with its own counts.
+    fan, _ = build_adaptive_instance(route="fan_out")
+    reset_launches()
+    fan.update_safe_set(can_shrink=False, max_refinement=r)
+    fan_launches = read_launches()
+    fan_counts = fan.last_sweep_counts
+    expected = {name: 0 for name in KERNELS}
+    per_pass = 1 + fan_counts["refinement_chunks"]
+    if fan_launches != dict(expected, gp_predict_general=2 * per_pass):
+        raise AssertionError("the fan-out certify launched {}, not kernel 2 "
+                             "twice in each of {} passes".format(
+                                 fan_launches, per_pass))
+    fan_result = (np.array(fan.safe_set), fan.c_max, fan._refinement.copy())
+    del fan
+
+    start = time.perf_counter()
+    lyap, inst = build_adaptive_instance()
+    grid = lyap.discretization
+    print("adaptive: grid size {}, tau {!r}, L_f {!r}, GP capacity {} with "
+          "{} point, {} exempt initial states, max_refinement {}; built in "
+          "{:.3f} s".format(grid.nindex, lyap.tau, inst["lf"],
+                            lyap.dynamics.capacity, lyap.dynamics.count,
+                            int(inst["initial"].sum()), r,
+                            time.perf_counter() - start))
+
+    def certify(label, oracle):
+        """One certify with checks 1 and (when ``oracle``) 5."""
+        exempt = inst["initial"] | np.asarray(lyap.safe_set)
+        if oracle:
+            with uncounted():
+                band = st.oracle.calibrate_certificate_margin(
+                    lyap, refinement=r, set_margin=False)
+        before = read_launches()
+        wall, coarse_ms, chunks_ms, chunk_states = timed_certify(lyap, r)
+        got = {k: v - before[k] for k, v in read_launches().items()}
+        counts = lyap.last_sweep_counts
+        passes = counts["coarse_batches"] + counts["refinement_chunks"]
+        if got != dict(expected, gp_predict_stacked=passes):
+            raise AssertionError("the {} launched {}, not kernel 3 once in "
+                                 "each of {} passes".format(label, got,
+                                                            passes))
+        check_values(lyap)
+        if oracle:
+            with uncounted():
+                check_certify(lyap, exempt, band, r, label)
+        return wall, coarse_ms, chunks_ms, chunk_states, got
+
+    reset_launches()
+    first = certify("first certify", oracle=True)
+    for name, a, b in zip(("safe_set", "c_max", "_refinement"),
+                          (np.array(lyap.safe_set), lyap.c_max,
+                           lyap._refinement), fan_result):
+        if not np.array_equal(a, b):
+            raise AssertionError("the fan-out route's first certify gives "
+                                 "another {}".format(name))
+    print("adaptive: the fan-out route (kernel 2, {} launches in {} passes) "
+          "certifies the same safe set, c_max and _refinement".format(
+              fan_launches["gp_predict_general"], per_pass))
+    print("initial certified fraction: {:.4f}  c_max: {!r}  max N(x): {}; "
+          "{}; certify {!r} ms wall, coarse pass {!r} ms, chunks {!r} ms "
+          "[{}]".format(float(lyap.safe_set.mean()), lyap.c_max,
+                        int(lyap._refinement.max()), lyap.last_sweep_counts,
+                        first[0], first[1], first[2], card))
+
+    rng = np.random.default_rng(0)
+    history = []
+    matched = steps = 0
+    last_chunk = first[3]
+    for update in range(1, updates + 1):
+        gp0 = lyap.dynamics
+        with uncounted(), plain_stacked_predict():
+            before = read_launches()
+            twin, _ = sample_batch(lyap, inst, copy.deepcopy(rng),
+                                   apply=False, strict=False)
+            if read_launches() != before:
+                raise AssertionError("the plain twin's batch launched a "
+                                     "kernel")
+        before = read_launches()
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        got, gps = sample_batch(lyap, inst, rng)
+        batch_ms = (time.perf_counter() - start) * 1e3
+        sampled = {k: v - before[k] for k, v in read_launches().items()}
+        if sampled != dict(expected, gp_predict_stacked=ADAPTIVE_DATA):
+            raise AssertionError("update {}: the batch launched {}".format(
+                update, sampled))
+        with uncounted():
+            same, d_mean, d_err, share = check_batch(update, lyap, gp0, got,
+                                                     gps, twin)
+        matched += same
+        steps += ADAPTIVE_DATA
+        wall, coarse_ms, chunks_ms, chunk_states, swept = certify(
+            "certify {}".format(update), oracle=update == updates)
+        history.append(float(lyap.safe_set.mean()))
+        counts = lyap.last_sweep_counts
+        print("update {}: safe fraction {:.4f}  c_max {!r}  max N(x) {}; {} "
+              "refinement chunks, {} refined points, {} rescued states; "
+              "batch {!r} ms ({} backup steps, {} of {} pairs as the plain "
+              "twin's, device GP within {!r} / {!r} of the f64 refresh, "
+              "{!r} of the smallest chosen error), "
+              "certify {!r} ms wall, coarse pass {!r} ms, chunks {!r} ms by "
+              "CUDA events; kernel 3 launches: batch {}, certify {} "
+              "[{}]".format(
+                  update, history[-1], lyap.c_max,
+                  int(lyap._refinement.max()), counts["refinement_chunks"],
+                  counts["refined_points"], counts["rescued_states"],
+                  batch_ms, int((~got[3]).sum()), same, ADAPTIVE_DATA,
+                  d_mean, d_err, share, wall, coarse_ms, chunks_ms,
+                  sampled["gp_predict_stacked"],
+                  swept["gp_predict_stacked"], card))
+        if chunk_states is not None:
+            last_chunk = chunk_states
+    launches = read_launches()
+    if not history[-1] >= history[0] > 0:
+        raise AssertionError("safe set should not shrink: {}".format(
+            history))
+    print("safe-set growth: {}".format(" ".join(
+        "{:.4f}".format(h) for h in history)))
+    print("adaptive: {} of {} sampler steps chose the plain twin's pair; "
+          "kernel launches over the run {}; GP count {}".format(
+              matched, steps, launches, lyap.dynamics.count))
+    if dict(build_reports) != builds:
+        raise AssertionError("the adaptive path built a library")
+    print("libraries built during the adaptive path: 0")
+    if last_chunk is None:
+        raise AssertionError("no certify ran a refinement chunk")
+    return types.SimpleNamespace(
+        lyap=lyap, inst=inst, launches=launches["gp_predict_stacked"],
+        chunk_states=last_chunk, gp_before_last=gp0)
+
+
+def profile_adaptive(card, run, reps=3):
+    """``profile_window`` over the adaptive path's two units at its last
+    update: a 15-step batch from the GP the last batch started from
+    (``apply=False``: the GP stays as it is) and a certify (the same
+    safe set again: nothing changed since the last one)."""
+    lyap = run.lyap
+    final = lyap.dynamics
+
+    def batches():
+        lyap.dynamics = run.gp_before_last
+        try:
+            for seed in range(reps):
+                sample_batch(lyap, run.inst, np.random.default_rng(seed),
+                             apply=False, strict=False)
+        finally:
+            lyap.dynamics = final
+
+    def certifies():
+        for _ in range(reps):
+            lyap.update_safe_set(can_shrink=False,
+                                 max_refinement=ADAPTIVE_REFINEMENT)
+
+    with uncounted():
+        profile_window("adaptive batch of {} steps".format(ADAPTIVE_DATA),
+                       batches, reps, card)
+        profile_window("adaptive certify", certifies, reps, card)
+
+
+def adaptive_times(card, lyap, chunk_states):
+    """Kernel 3 on the adaptive path's inputs at the final GP (count 181):
+    a coarse pass over the grid and the last certify's last refinement
+    chunk (its states' sub-grids), each checked against the plain twin
+    within ``program_bounds`` and timed. Returns ``(max_abs_err,
+    coarse, chunk)``, each of the two ``safe_learning_times``' tuple."""
+    points = lyap._device_points()
+    offsets = refinement_offsets(lyap.discretization.unit_maxes,
+                                 ADAPTIVE_REFINEMENT, points)
+    flat = sub_points(chunk_states, offsets)
+    worst = 0.0
+    for label, pts in (("coarse pass", points), ("refinement chunk", flat)):
+        inputs, programs = stacked_inputs(lyap, pts)
+        em, ev, ratio = compare_program("stacked", inputs, programs,
+                                        count=lyap.dynamics.count)
+        print("adaptive {} inputs (Q={}, cap {}, count {}): max|dmean|={:.3e}"
+              " max|dvar|={:.3e} err/bound={:.3f}".format(
+                  label, inputs[0].shape[0], lyap.dynamics.capacity,
+                  lyap.dynamics.count, em, ev, ratio))
+        if not ratio <= 1.0:
+            raise AssertionError("kernel 3 disagrees on the adaptive {} "
+                                 "inputs".format(label))
+        worst = max(worst, em, ev)
+    return (worst,
+            safe_learning_times(card, lyap, points, "adaptive coarse pass"),
+            safe_learning_times(card, lyap, flat,
+                                "adaptive refinement chunk"))
+
+
 def main():
     card = phase_device()
     phase_build()
@@ -2395,6 +3000,7 @@ def main():
     safe_lyap, safe_inst, safe_launches, safe_err, safe_peak = \
         phase_safe_learning(card)
     trainer, train_launches, minibatch = phase_training(card, safe_peak)
+    adaptive = phase_adaptive(card)
     phase_kernel_count_cases()
     phase_program_count_cases()
     # Per kernel and path: (launches, max_abs_err, ms, plain_ms, eager_ms,
@@ -2420,6 +3026,20 @@ def main():
           "{!r}, {!r} ms against plain {!r} ms (eager {!r} ms), bound {!r} "
           "ms ({}, {})".format(*safe))
     paths.append(("gp_predict_stacked", "safe_learning", safe))
+    err, coarse, chunk = adaptive_times(card, adaptive.lyap,
+                                        adaptive.chunk_states)
+    for label, numbers in (("refinement chunk", chunk),
+                           ("coarse pass", coarse)):
+        print("kernel 3 on the adaptive path's {}: {} launches on the path, "
+              "max abs err {!r}, {!r} ms against plain {!r} ms (eager {!r} "
+              "ms), bound {!r} ms ({}, {})".format(
+                  label, adaptive.launches, err, *numbers))
+    # The path's numbers are the coarse pass's (listed last); the chunk's
+    # ride along under "paths".
+    paths.append(("gp_predict_stacked", "adaptive_refinement_chunk",
+                  (adaptive.launches, err) + chunk))
+    paths.append(("gp_predict_stacked", "adaptive",
+                  (adaptive.launches, err) + coarse))
     loop_step_times(card, safe_lyap, safe_inst, "after the count cases and "
                     "the CUDA graphs")
     # Profiles come after every time: the profiler's tracing may slow the
@@ -2428,6 +3048,7 @@ def main():
     profile_sweep("bench", bench_lyap, card)
     profile_training(card, trainer, penalised=False)
     profile_training(card, trainer, penalised=True)
+    profile_adaptive(card, adaptive)
     print(card)
     print(json.dumps({"kernels": kernel_rows(paths)}))
     print(json.dumps({"ok": True, "device": {
@@ -2437,7 +3058,8 @@ def main():
 
 def kernel_rows(paths):
     """The ``kernels`` JSON rows: one per kernel, its numbers from the
-    last path listed for it (kernel 3: the safe-learning loop), and every
+    last path listed for it (kernel 3: the adaptive path's coarse pass),
+    and every
     path's numbers under ``paths``. No single PyTorch call computes a GP
     posterior numerator, so ``library_ms`` is null."""
     keys = ("launches", "max_abs_err", "ms", "plain_ms", "eager_ms",

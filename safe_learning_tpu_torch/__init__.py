@@ -9,15 +9,16 @@ Ported so far: grids, the function algebra with ``Saturation``,
 ``FunctionStack`` and ``GradientNorm``, linear maps, neural networks,
 the ``Triangulation`` and ``PiecewiseConstant`` interpolants, Gaussian
 processes with stationary, linear and composite kernels,
-``StackedGaussianProcess``, online GP updates (``add_data_point``), the
-inverted pendulum, the fused ``Lyapunov.update_safe_set`` sweep and the
-policy-facing Lyapunov pieces (``safety_constraint``, ``v_decrease_bound``),
-safe exploration (``get_safe_sample``), dynamic programming
+``StackedGaussianProcess``, online GP updates (``add_data_point`` and the
+device append), the inverted pendulum, the fused and the adaptive
+``Lyapunov.update_safe_set`` sweeps and the policy-facing Lyapunov pieces
+(``safety_constraint``, ``v_decrease_bound``), safe exploration
+(``get_safe_sample``, ``get_safe_sample_batch``), dynamic programming
 (``PolicyIteration``: the exact PWL value solve, policy ascent with the
 Lyapunov Lagrangian, ``policy_iteration`` and
 ``discrete_policy_optimization``), the closed-loop analysis tools
-(``compute_roa``, ``reward_rollout``), all of ``utils`` and the float64
-oracle. The
+(``compute_roa``, ``reward_rollout``), all of ``utils``, the float64
+oracle and the margin calibration, refined sweeps included. The
 port runs on ``cuda:0`` unless the caller sets ``config.device = "cpu"``;
 nothing falls back to the CPU when CUDA is missing.
 """
@@ -36,7 +37,8 @@ from .functions.gp import (ActiveDims, GaussianProcess, LinearKernel,
                            StackedGaussianProcess)
 from .lyapunov import Lyapunov
 from .dynamics import InvertedPendulum
-from .explore import get_safe_sample, perturb_actions
+from .explore import (get_safe_sample, get_safe_sample_batch,
+                      perturb_actions)
 from .rl import OptimizationError, PolicyIteration
 from .analysis import (compute_closedloop_response, compute_roa, gridify,
                        reward_rollout)
@@ -53,7 +55,8 @@ __all__ = [
     "RBFNetwork", "Saturation", "Triangulation", "UncertainFunction",
     "as_deterministic", "GaussianProcess", "StackedGaussianProcess",
     "ActiveDims", "LinearKernel", "Matern12", "Matern32", "Matern52", "RBF",
-    "Lyapunov", "InvertedPendulum", "get_safe_sample", "perturb_actions",
+    "Lyapunov", "InvertedPendulum", "get_safe_sample",
+    "get_safe_sample_batch", "perturb_actions",
     "PolicyIteration", "OptimizationError", "compute_roa", "reward_rollout",
     "compute_closedloop_response", "gridify", "analysis", "convert",
     "oracle", "rl", "utils",

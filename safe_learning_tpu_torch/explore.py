@@ -1,14 +1,17 @@
 """Safe exploration: the most informative state-action pair that provably
 maps back into the certified level set.
 
-Counterpart of ``safe_learning_tpu/explore.py``, the single step
-``get_safe_sample`` and ``perturb_actions``. One step runs on
-``config.device`` from the sampled safe states to the chosen pair: the
-policy's actions, the candidate rows (perturbed and clipped, or the cross
-product with given actions), the GP predict, the level-set test, the
-membership of the mean next state in the safe set and the argmax of the
-predictive uncertainty. Only the subsampling of safe states (host RNG)
-and the backup-policy fallback run on the host.
+Counterpart of ``safe_learning_tpu/explore.py``: the single step
+``get_safe_sample``, the k-step ``get_safe_sample_batch`` and
+``perturb_actions``. One step runs on ``config.device`` from the sampled
+safe states to the chosen pair: the policy's actions, the candidate rows
+(perturbed and clipped, or the cross product with given actions), the GP
+predict, the level-set test, the membership of the mean next state in the
+safe set and the argmax of the predictive uncertainty. Only the
+subsampling of safe states (host RNG) and the single step's backup-policy
+fallback run on the host. ``get_safe_sample_batch`` runs k such steps,
+each measuring the chosen pair and appending it to the GP on the device,
+with no host wait between them.
 
 Departures from the JAX package, on purpose:
 
@@ -19,7 +22,10 @@ Departures from the JAX package, on purpose:
   ``:378-406``) need ``errorbounds`` (ROADMAP queue 1 item 17); the step
   uses :func:`_margin_of`, the collapse the JAX package itself takes when
   that derivation refuses (ROADMAP queue 3);
-- ``extended=True`` and ``get_safe_sample_batch`` are not ported yet.
+- a batch step scores its candidates and its backup rows in one GP
+  predict (the JAX package predicts twice), and its noise key is a
+  ``torch.Generator``;
+- ``extended=True`` is not ported yet.
 """
 
 from __future__ import annotations
@@ -31,9 +37,10 @@ import torch
 
 from .config import config
 from .functions.base import as_tensor
+from .functions.gp import _device_border_append
 from .lyapunov import _as_column_batch, _eval_lipschitz
 
-__all__ = ["perturb_actions", "get_safe_sample"]
+__all__ = ["perturb_actions", "get_safe_sample", "get_safe_sample_batch"]
 
 
 def perturb_actions(states, actions, perturbations, limits=None):
@@ -201,6 +208,155 @@ def get_safe_sample(lyapunov, perturbations=None, limits=None,
                                         margin=_fallback_margin(lyapunov))
     best = int(np.argmax(bounds))
     return state_actions[[best]], float(bounds[best])
+
+
+def get_safe_sample_batch(lyapunov, true_dynamics, num_steps,
+                          perturbations, limits=None, positive=False,
+                          num_samples=None, rng=None, noise_key=None,
+                          apply=True):
+    """Run ``num_steps`` sample, measure and append rounds on the device.
+
+    The k-step form of :func:`get_safe_sample` for learning loops that
+    certify only after a round of measurements
+    (``safe_learning_tpu/explore.py:600-720``). A host loop of k steps in
+    which nothing waits for the device: each step scores its candidates
+    (the policy's actions at that step's safe-state subsample, perturbed)
+    and their backup rows (zero perturbation) against the GP carried from
+    the step before, in one predict; picks the most informative safe
+    candidate, or the most informative backup row when none is safe, on
+    the device; measures ``true_dynamics`` there; and appends the
+    measurement with the working-dtype device append
+    (:func:`~safe_learning_tpu_torch.functions.gp._device_border_append`).
+    After the loop one copy brings the results to the host, and with
+    ``apply`` one float64 ``add_data_point`` refreshes
+    ``lyapunov.dynamics``.
+
+    Parameters
+    ----------
+    lyapunov : Lyapunov
+        Its dynamics must be a :class:`~safe_learning_tpu_torch.
+        GaussianProcess` or :class:`~safe_learning_tpu_torch.
+        StackedGaussianProcess` with room for ``num_steps`` rows.
+    true_dynamics : Function
+        The measured system, called with the chosen ``(1, n + m)`` pair
+        on the device (and ``noise_key=`` when one is given).
+    num_steps : int
+    perturbations : (p, m) array
+        Action perturbations; the backup rows use none, so a zero row is
+        not required.
+    limits, positive, num_samples, rng
+        As in :func:`get_safe_sample`; the subsample is drawn once for all
+        steps, ``rng.choice(len(safe), size=(k, num_samples))``, as the
+        JAX package draws it.
+    noise_key : torch.Generator, optional
+        Passed to every measurement as ``noise_key=``; a JAX PRNG key is
+        not accepted.
+    apply : bool, optional
+        Append all measurements to ``lyapunov.dynamics`` before returning.
+
+    Returns
+    -------
+    state_actions : (k, n + m) ndarray
+    measurements : (k, p) ndarray
+    bounds : (k,) ndarray
+        The summed predictive error at each chosen pair.
+    safe_flags : (k,) ndarray of bool
+        False where the step used the backup rows (a ``RuntimeWarning``
+        says how many).
+
+    A per-grid-point ``certificate_margin`` collapses to its largest value
+    (:func:`_margin_of`), as in the JAX package.
+    """
+    if noise_key is not None and not isinstance(noise_key, torch.Generator):
+        raise TypeError("noise_key must be a torch.Generator (JAX PRNG keys "
+                        "are not accepted)")
+    rng = np.random.default_rng() if rng is None else rng
+    grid = lyapunov.discretization
+    k = int(num_steps)
+    gp = lyapunov.dynamics
+    if gp.count + k > gp.capacity:
+        raise ValueError(
+            "GP capacity {} cannot hold {} more measurements (count {}); "
+            "construct the GP with a larger capacity=".format(
+                gp.capacity, k, gp.count))
+    safe_idx = np.where(lyapunov.safe_set)[0]
+    if len(safe_idx) == 0:
+        raise RuntimeError(
+            "the safe set is empty — no state to explore from (provide "
+            "an initial_set or verify with a smaller tau first)")
+    all_safe = np.asarray(grid.all_points)[safe_idx]
+    if num_samples is not None and len(all_safe) > num_samples:
+        picks = rng.choice(len(all_safe), size=(k, int(num_samples)),
+                           replace=True)
+        states = as_tensor(all_safe[picks])
+    else:
+        states = as_tensor(all_safe)[None].expand(k, -1, -1)
+
+    # Everything the loop reads is on the device before it starts.
+    perturbations = as_tensor(np.atleast_2d(perturbations))
+    rows = _sample_steps(
+        lyapunov, gp, true_dynamics, states, perturbations,
+        None if limits is None else as_tensor(np.atleast_2d(limits)),
+        _margin_of(lyapunov),
+        None if positive else _device_safe_set(lyapunov), noise_key)
+
+    # One copy to the host for the whole batch.
+    out = rows.cpu().numpy()
+    width = states.shape[-1] + perturbations.shape[1]
+    sas = out[:, :width].astype(config.np_dtype)
+    ys = out[:, width:-2].astype(config.np_dtype)
+    bounds = out[:, -2]
+    safes = out[:, -1] > 0
+    if not safes.all():
+        warnings.warn("No safe state-action pairs found at {} of {} "
+                      "steps! Using backup policy ...".format(
+                          int((~safes).sum()), k), RuntimeWarning)
+    if apply:
+        lyapunov.dynamics = lyapunov.dynamics.add_data_point(sas, ys)
+    return sas, ys, bounds, safes
+
+
+def _sample_steps(lyapunov, gp, true_dynamics, states, perturbations,
+                  limits, margin, safe_set_dev, noise_key):
+    """The k device steps of :func:`get_safe_sample_batch`, from the
+    ``(k, N, d)`` state subsamples on the device to one ``(k, n + m + p +
+    2)`` tensor of rows ``(pair, measurement, bound, safe)``.
+
+    Nothing in here waits for the device: every input is on it before
+    the first step, the choice between a safe candidate and a backup row
+    is a ``torch.where``, and the carried GP advances by
+    :func:`_device_border_append`, whose count is a host integer.
+    """
+    grid = lyapunov.discretization
+    policy = lyapunov.policy
+    zero = torch.zeros_like(perturbations[:1])
+    rows = []
+    for states_j in states:
+        candidates = _perturb_candidates(policy, states_j, perturbations,
+                                         limits)
+        n_cand = candidates.shape[0]
+        candidates = torch.cat([candidates, _perturb_candidates(
+            policy, states_j, zero, limits)])
+        mean, bound, safe = _score_candidates(
+            gp, lyapunov.lyapunov_function, lyapunov._lipschitz_lyapunov,
+            lyapunov.c_max, candidates, margin)
+        safe = safe[:n_cand]
+        if safe_set_dev is not None:
+            safe = safe & safe_set_dev[grid.state_to_index(mean[:n_cand])]
+        any_safe = safe.any()
+        best = torch.argmax(torch.where(safe, bound[:n_cand],
+                                        torch.full_like(bound[:n_cand],
+                                                        -np.inf)))
+        best_backup = torch.argmax(bound[n_cand:]) + n_cand
+        pick = torch.where(any_safe, best, best_backup).reshape(1)
+        sa = candidates.index_select(0, pick)
+        y = (true_dynamics(sa) if noise_key is None
+             else true_dynamics(sa, noise_key=noise_key))
+        gp = _device_border_append(gp, sa, y)
+        rows.append(torch.cat([sa[0], y.reshape(-1).to(sa.dtype),
+                               bound.index_select(0, pick),
+                               any_safe.to(sa.dtype).reshape(1)]))
+    return torch.stack(rows)
 
 
 def _margin_of(lyapunov):

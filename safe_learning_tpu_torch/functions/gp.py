@@ -20,10 +20,12 @@ package's:
 - ``add_data_point`` returns a new GP whose host factors grow by an
   O(n^2) bordered Cholesky append in float64 (``_bordered_append``), or
   are refactorized when that is refused, and whose buffers are rebuilt at
-  the next power of two past capacity.
+  the next power of two past capacity;
+- ``_device_border_append`` grows the device factors by one observation
+  in the working dtype with no host round trip, between the measurements
+  of ``explore.get_safe_sample_batch``.
 
-Not ported yet (ROADMAP queue 1): the working-dtype device append that
-``get_safe_sample_batch`` uses (item 14), ``log_marginal_likelihood``,
+Not ported yet (ROADMAP queue 1): ``log_marginal_likelihood``,
 ``fit_gp_hyperparameters`` and sampling (item 8).
 """
 
@@ -383,9 +385,82 @@ def _bordered_append(host, kernel, x_new, y_new, mean_function,
 def _append_rows(buf, rows, n):
     """A copy of the buffer ``buf`` with ``rows`` written from row ``n``."""
     out = buf.clone()
-    out[n:n + len(rows)] = torch.as_tensor(np.array(rows), dtype=buf.dtype,
-                                           device=buf.device)
+    if not torch.is_tensor(rows):
+        rows = torch.as_tensor(np.array(rows))
+    out[n:n + len(rows)] = rows.to(device=buf.device, dtype=buf.dtype)
     return out
+
+
+def _border_one(kernel, chol_inv, alpha, noise, x_buf, x_new, mask, i, s2,
+                target):
+    """One output's bordered step at row ``i``: the new rows of
+    ``chol_inv`` (``(cap,)``) and of ``alpha`` (``(p,)``).
+
+    ``y = L^-1 k`` comes from the cached inverse, not from a solve with
+    ``L`` (equal in exact arithmetic), so no device factor ``L`` is kept.
+    The pivot is clamped at ``1e-10 max(diag, 1e-30)``, as the JAX
+    package's device append (``safe_learning_tpu/functions/gp.py:
+    799-818``); rows past ``i`` stay as the host factorization left them,
+    so ``chol_inv[count:, :count] == 0`` still holds.
+    """
+    kj = s2 * kernel(x_buf, x_new)[:, 0] * mask
+    diag = s2 * (kernel.diag(x_new)[0] + noise)
+    y = chol_inv @ kj
+    d2 = diag - (y * y).sum()
+    d = torch.sqrt(torch.maximum(
+        d2, 1e-10 * torch.clamp(diag, min=1e-30)))
+    inv_row = -(y @ chol_inv) / d
+    inv_row[i] = 1.0 / d
+    return inv_row, (target - y @ alpha) / d
+
+
+def _device_border_append(gp, x_new, y_new):
+    """Append one observation of every output on the device (selection
+    grade); returns a new GP.
+
+    The working-dtype counterpart of :func:`_bordered_append`
+    (``safe_learning_tpu/functions/gp.py:774-843``) for
+    :class:`GaussianProcess` and :class:`StackedGaussianProcess`:
+    ``x_new`` is a ``(1, input_dim)`` and ``y_new`` a ``(1, output_dim)``
+    tensor on the GP's device. The buffers, ``chol_inv`` and ``alpha`` are
+    new tensors with row ``count`` written; the count becomes
+    ``count + 1`` on the host, so nothing waits for the device. The new
+    GP has no float64 host cache: its :meth:`add_data_point` refactorizes.
+    ``explore.get_safe_sample_batch`` advances its copy of the GP with it
+    between measurements and refreshes the original once, in float64.
+    """
+    i = gp.count
+    if i >= gp.capacity:
+        raise ValueError("the GP is full (capacity {})".format(gp.capacity))
+    s = gp.scale
+    s2 = s * s
+    x_new = x_new.to(gp.X_buf.dtype).reshape(1, -1)
+    y_new = y_new.to(gp.Y_buf.dtype).reshape(1, -1)
+    mask = gp._mask()
+    x_buf = _append_rows(gp.X_buf, x_new, i)
+    new = copy.copy(gp)
+    new.X_buf = x_buf
+    new.Y_buf = _append_rows(gp.Y_buf, y_new, i)
+    new.count = i + 1
+    chol_inv = gp.chol_inv.clone()
+    alpha = gp.alpha.clone()
+    if isinstance(gp, StackedGaussianProcess):
+        target = s * (y_new - gp._prior_means(x_new))[0]
+        for out, kernel in enumerate(gp.kernels):
+            chol_inv[out, i], alpha[out, i] = _border_one(
+                kernel, gp.chol_inv[out], gp.alpha[out],
+                gp.noise_variances[out], x_buf, x_new, mask, i, s2,
+                target[out:out + 1])
+        new._host_caches = None
+    else:
+        prior = gp._prior_mean(x_new)
+        target = s * (y_new - prior)[0]
+        chol_inv[i], alpha[i] = _border_one(
+            gp.kernel, gp.chol_inv, gp.alpha, gp.noise_variance, x_buf,
+            x_new, mask, i, s2, target)
+        new._host_cache = None
+    new.chol_inv, new.alpha = chol_inv, alpha
+    return new
 
 
 def _host(tensor):

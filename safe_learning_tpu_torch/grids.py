@@ -162,18 +162,29 @@ class GridWorld:
                                  device=indices.device)
         return ijk.to(dtype) * unit + offset
 
+    def _index_constants(self, like):
+        """``(limits, unit_maxes, strides)`` as tensors in ``like``'s dtype
+        and on its device, copied there once: a copy from the host at
+        every call would make the host wait for the device."""
+        key = (like.dtype, like.device, config.np_dtype)
+        cache = self.__dict__.setdefault("_index_constants_cache", {})
+        if key not in cache:
+            cache[key] = (
+                torch.as_tensor(self.limits, dtype=like.dtype,
+                                device=like.device),
+                torch.as_tensor(self.unit_maxes, dtype=like.dtype,
+                                device=like.device),
+                torch.as_tensor(row_major_strides(self.shape),
+                                device=like.device))
+        return cache[key]
+
     def state_to_index(self, states):
         """Convert states to nearest-vertex flat indices, shape ``(N,)``."""
         states = torch.atleast_2d(as_tensor(states))
         self._check_dimensions(states)
-        lim = torch.as_tensor(self.limits, dtype=states.dtype,
-                              device=states.device)
+        lim, unit, strides = self._index_constants(states)
         states = torch.clamp(states, lim[:, 0], lim[:, 1])
-        unit = torch.as_tensor(self.unit_maxes, dtype=states.dtype,
-                               device=states.device)
         ijk = torch.round((states - lim[:, 0]) / unit).to(torch.int64)
-        strides = torch.as_tensor(row_major_strides(self.shape),
-                                  device=states.device)
         return torch.sum(ijk * strides, dim=-1)
 
     def _cell_shape(self):

@@ -1,21 +1,37 @@
 """Lyapunov stability verification on discretized state spaces.
 
-Counterpart of ``safe_learning_tpu/lyapunov.py``, part 1: the fused
-whole-grid sweep. The decrease condition for every grid point (policy,
-dynamics, possibly a GP posterior, Lyapunov values, Lipschitz threshold)
-runs on ``config.device`` in one pass, and the certified level ``c_max``
-comes from O(n) reductions, ``max{v < min v(failing)}``, not from a
-sorted scan.
+Counterpart of ``safe_learning_tpu/lyapunov.py``: the fused whole-grid
+sweep and the adaptive sorted sweep.
+
+- The fused sweep: the decrease condition for every grid point (policy,
+  dynamics, possibly a GP posterior, Lyapunov values, Lipschitz
+  threshold) runs on ``config.device`` in one pass, and the certified
+  level ``c_max`` comes from O(n) reductions, ``max{v < min v(failing)}``,
+  not from a sorted scan.
+- The adaptive sweep (``Lyapunov(adaptive=True)``): the grid is sorted by
+  value on the device, the coarse check runs over it in one pass (or in
+  ``batch_size`` batches), and the failing states after the first failure
+  are re-checked in value order on their full ``R^d`` sub-grids at
+  ``tau / R``, in chunks of refined points, until the first state that no
+  check rescues.
 
 The JAX package's deliberate departures from the TF reference
 (``safe_learning_tpu/lyapunov.py:13-26``) hold here too:
 
 - if no state verifies, ``c_max`` is ``-inf``;
 - with ``can_shrink=False`` previously safe states are always kept;
-- states tied with the smallest failing value are excluded.
+- the fused sweep excludes states tied with the smallest failing value;
+  the sorted sweep keeps those that sort before it (a stable sort, as the
+  JAX package's host ``argsort``);
+- the refined check evaluates the dynamics at the sub-grid points, with
+  per-sub-point thresholds, always at the maximum refinement ``R``.
 
-Not ported yet (ROADMAP queue 1): adaptive refinement and the streamed
-sweep above ``config.fused_sweep_limit`` (item 12), the extended and
+A ``Triangulation`` candidate defined on the verification grid gives its
+vertex values directly, as the JAX package reads them
+(``safe_learning_tpu/lyapunov.py:667-683``).
+
+Not ported yet (ROADMAP queue 1): the streamed sweep of non-adaptive
+grids above ``config.fused_sweep_limit`` (item 12c), the extended and
 hybrid sweeps (item 18), and meshes (item 23).
 """
 
@@ -28,10 +44,16 @@ import torch
 
 from .config import config
 from .functions.base import Function, as_deterministic, as_tensor
+from .functions.simplex import Triangulation
 from .grids import GridWorld
 from .utils import tracked_mask
 
 __all__ = ["Lyapunov"]
+
+#: Refined points per chunk of the adaptive sweep's refinement walk (one
+#: dynamics evaluation, and one GP kernel launch, a chunk). The result
+#: does not depend on it.
+REFINED_POINTS_PER_CHUNK = 2 ** 20
 
 
 def _as_lipschitz(lip):
@@ -105,13 +127,14 @@ def _decrease_bound(lyapunov_function, lipschitz_lyapunov, states,
 
 
 def _margin_operand(margin, like):
-    """A scalar margin stays a number; a per-point ``(N,)`` margin becomes
-    an ``(N, 1)`` column in ``like``'s dtype and device."""
+    """A scalar margin stays a number; a per-point ``(N,)`` margin (an
+    array or a tensor) becomes an ``(N, 1)`` column in ``like``'s dtype
+    and device."""
     if np.ndim(margin) == 0:
         return float(margin)
-    m = torch.as_tensor(np.asarray(margin), dtype=like.dtype,
-                        device=like.device)
-    return m.reshape(-1, 1)
+    if not torch.is_tensor(margin):
+        margin = torch.as_tensor(np.asarray(margin))
+    return margin.to(device=like.device, dtype=like.dtype).reshape(-1, 1)
 
 
 def _negative_batch(policy, dynamics, lyapunov_function, lipschitz_lyapunov,
@@ -135,6 +158,50 @@ def _negative_batch(policy, dynamics, lyapunov_function, lipschitz_lyapunov,
             .broadcast_to(decrease.shape).squeeze(1))
 
 
+def refinement_offsets(unit_maxes, max_refinement, like):
+    """``(R^d, d)`` offsets of a cell's ``R^d`` sub-grid from its centre,
+    ``0.5 (1 - 1/R) unit_maxes (-1 + 2 j / (R - 1))`` for ``j`` in
+    ``0..R-1`` per dimension (all zero for ``R = 1``), in ``like``'s
+    dtype and device; the order is ``safe_learning_tpu/lyapunov.py:
+    204-211``'s."""
+    r = int(max_refinement)
+    d = len(unit_maxes)
+    combos = np.stack(np.meshgrid(*[np.arange(r)] * d, indexing="ij"),
+                      axis=-1).reshape(-1, d).astype(np.float64)
+    unit = (-1.0 + 2.0 * combos / (r - 1.0) if r > 1
+            else np.zeros_like(combos))
+    unit = torch.as_tensor(unit, dtype=like.dtype, device=like.device)
+    maxes = torch.as_tensor(np.asarray(unit_maxes), dtype=like.dtype,
+                            device=like.device)
+    return ((0.5 * (1.0 - 1.0 / r)) * maxes) * unit
+
+
+def _refined_negative_batch(policy, dynamics, lyapunov_function,
+                            lipschitz_lyapunov, lipschitz_dynamics, tau,
+                            states, offsets, max_refinement, margin=0.0):
+    """Decrease check of each state's full ``R^d`` sub-grid at ``tau / R``.
+
+    ``offsets`` are :func:`refinement_offsets`. The dynamics, the local
+    Lipschitz constants and the threshold are evaluated at every sub-grid
+    point (``safe_learning_tpu/lyapunov.py:177-226``); a per-state
+    ``(N,)`` margin applies to all its sub-points. Returns ``(N,)``: every
+    sub-point passes.
+    """
+    r = int(max_refinement)
+    n, d = states.shape
+    flat = (states[:, None, :] + offsets[None, :, :]).reshape(-1, d)
+    actions = policy(flat)
+    decrease = _decrease_bound(lyapunov_function, lipschitz_lyapunov, flat,
+                               dynamics(flat, actions))
+    threshold = _threshold(lipschitz_lyapunov, lipschitz_dynamics, flat,
+                           tau / r)
+    m = _margin_operand(margin, decrease)
+    if not isinstance(m, float):
+        m = m.repeat_interleave(offsets.shape[0], dim=0)
+    ok = decrease < threshold - m
+    return ok.reshape(n, -1).all(dim=1)
+
+
 def _values_batch(fun, points):
     """Evaluate a scalar function on a batch of points, flattened."""
     return fun(points).reshape(-1)
@@ -142,7 +209,7 @@ def _values_batch(fun, points):
 
 def _fused_update(policy, dynamics, lyapunov_function, lipschitz_lyapunov,
                   lipschitz_dynamics, tau, points, exempt, margin=0.0,
-                  level_margin=0.0):
+                  level_margin=0.0, values_direct=None):
     """Whole-grid safe-set update in one pass on the points' device.
 
     Computes ``v`` on the grid, runs the decrease check for every point
@@ -150,10 +217,16 @@ def _fused_update(policy, dynamics, lyapunov_function, lipschitz_lyapunov,
     prefix in value order is unbroken exactly up to the smallest value
     among failing states, so ``c_max = max{v(x) : v(x) < min v(failing)}``.
     States tied with the smallest failing value are excluded.
+    ``values_direct`` are the grid values when the caller has them (a
+    ``Triangulation`` candidate on this grid); ``v(f(x))`` still goes
+    through the candidate.
 
     Returns ``(safe_set, c_max, values, any_safe)`` as tensors.
     """
-    values = lyapunov_function(points).reshape(-1)
+    if values_direct is not None:
+        values = values_direct.reshape(-1)
+    else:
+        values = lyapunov_function(points).reshape(-1)
     actions = policy(points)
     next_states, bound = _confidence_bound(lipschitz_lyapunov,
                                            dynamics(points, actions))
@@ -200,7 +273,7 @@ class Lyapunov:
     initial_set : ndarray or index list, optional
         States known to be safe a priori.
     adaptive : bool, optional
-        Must be False: adaptive refinement is not ported yet.
+        Enable adaptive refinement in :meth:`update_safe_set`.
     mesh : optional
         Must be None: meshes are not ported yet.
     certificate_margin : float, optional
@@ -214,16 +287,15 @@ class Lyapunov:
                  certificate_margin=None):
         if not isinstance(discretization, GridWorld):
             raise TypeError("discretization must be a GridWorld")
-        if adaptive:
-            raise NotImplementedError(
-                "adaptive refinement is ROADMAP queue 1 item 12 "
-                "(lyapunov.py, part 2)")
         if mesh is not None:
             raise NotImplementedError(
                 "meshes are ROADMAP queue 1 item 23 (parallel)")
         self.discretization = discretization
         self.mesh = None
-        self.adaptive = False
+        self.adaptive = bool(adaptive)
+        #: The last adaptive sweep's work: coarse batches, refinement
+        #: chunks and refined states (diagnostics; ``None`` before one).
+        self.last_sweep_counts = None
         self.policy = as_deterministic(policy)
         self.dynamics = dynamics if isinstance(dynamics, Function) \
             else as_deterministic(dynamics)
@@ -399,12 +471,26 @@ class Lyapunov:
         batch = batch_size or max(int(config.gp_batch_size), 1)
         return max(batch, int(config.fused_sweep_limit))
 
+    def _direct_grid_values(self):
+        """Vertex values of a ``Triangulation`` candidate defined on this
+        grid (``v(grid)`` is exactly its parameters), flattened; ``None``
+        for every other candidate."""
+        lf = self.lyapunov_function
+        if (isinstance(lf, Triangulation) and lf.output_dim == 1
+                and lf.discretization == self.discretization):
+            return lf.parameters.reshape(-1)
+        return None
+
     def update_values(self, batch_size=None):
         """Re-evaluate ``v`` on the whole grid (kept on the device)."""
+        direct = self._direct_grid_values()
+        if direct is not None:
+            self.values = direct
+            return
         if (batch_size is not None
                 or self.discretization.nindex > self._fused_limit(None)):
             raise NotImplementedError(
-                "the streamed sweep is ROADMAP queue 1 item 12 "
+                "the streamed sweep is ROADMAP queue 1 item 12c "
                 "(lyapunov.py, part 2)")
         self.values = _values_batch(self.lyapunov_function,
                                     self._device_points())
@@ -414,11 +500,17 @@ class Lyapunov:
                         batch_size=None, extended=False):
         """Compute the largest certified level set and update ``safe_set``.
 
-        Runs the fused whole-grid sweep (:func:`_fused_update`).
-        ``parallel_iterations`` and ``safety_factor`` are accepted for API
-        compatibility and have no effect (a non-default value warns).
-        Grids above ``config.fused_sweep_limit`` and ``extended`` sweeps
-        are not ported yet and raise ``NotImplementedError``.
+        A non-adaptive instance runs the fused whole-grid sweep
+        (:func:`_fused_update`) and ignores ``max_refinement``, as the JAX
+        package does. An adaptive one runs the sorted sweep
+        (:meth:`_update_safe_set_adaptive`): the coarse check in batches
+        of ``batch_size`` (default: the whole grid up to
+        ``config.fused_sweep_limit``), then the refinement walk at
+        ``max_refinement``. ``parallel_iterations`` and ``safety_factor``
+        are accepted for API compatibility and have no effect (a
+        non-default value warns). Non-adaptive grids above
+        ``config.fused_sweep_limit`` and ``extended`` sweeps are not
+        ported yet and raise ``NotImplementedError``.
         """
         if safety_factor != 1.0 or parallel_iterations is not None:
             warnings.warn(
@@ -433,19 +525,22 @@ class Lyapunov:
             raise NotImplementedError(
                 "the extended and hybrid sweeps are ROADMAP queue 1 "
                 "item 18")
-        if max_refinement != 1:
-            raise NotImplementedError(
-                "adaptive refinement is ROADMAP queue 1 item 12 "
-                "(lyapunov.py, part 2)")
         self._require_f32_margin()
+        if self.adaptive:
+            self._update_safe_set_adaptive(can_shrink, int(max_refinement),
+                                           batch_size)
+            return
         if self.discretization.nindex > self._fused_limit(batch_size):
             raise NotImplementedError(
-                "the streamed sweep is ROADMAP queue 1 item 12 "
+                "the streamed sweep is ROADMAP queue 1 item 12c "
                 "(lyapunov.py, part 2)")
         self._update_safe_set_fused(can_shrink)
 
-    def _update_safe_set_fused(self, can_shrink):
-        """Whole-grid single-pass path."""
+    def _exempt_and_previous(self, can_shrink):
+        """``(initial, prev_safe, exempt)`` host masks: the initial set
+        (all False without one), the safe set before the sweep, and the
+        states that pass without the decrease check (the initial set, and
+        the previous safe set when ``can_shrink`` is False)."""
         nindex = self.discretization.nindex
         initial = (self.initial_safe_set
                    if self.initial_safe_set is not None
@@ -455,7 +550,145 @@ class Lyapunov:
         exempt = np.array(initial)
         if not can_shrink:
             exempt |= prev_safe
+        return initial, prev_safe, exempt
 
+    def _store(self, safe, refinement, can_shrink, initial, prev_safe):
+        """Install a sweep's host safe mask and refinement levels, with the
+        previous safe set kept (``can_shrink=False``) and the initial set
+        added, each at a refinement of at least 1."""
+        if not can_shrink:
+            safe |= prev_safe
+            keep = prev_safe & (refinement == 0)
+            refinement[keep] = np.maximum(self._refinement[keep], 1)
+        if self.initial_safe_set is not None:
+            safe |= initial
+            refinement[initial] = np.maximum(refinement[initial], 1)
+        self.safe_set = safe
+        self._refinement = refinement
+
+    def _update_safe_set_adaptive(self, can_shrink, max_refinement,
+                                  batch_size):
+        """The sorted sweep with adaptive refinement, on the device.
+
+        ``safe_learning_tpu/lyapunov.py:1040-1275`` without the mesh,
+        extended and hybrid branches:
+
+        1. ``values`` is refreshed and sorted by value with a stable sort
+           (ties keep grid order, as the JAX package's host ``argsort``);
+        2. the coarse check runs over the sorted grid, in batches of
+           ``batch_size`` states (default: all of it up to
+           ``config.fused_sweep_limit``); a state passes it, or is
+           exempt;
+        3. the states that fail it are re-checked in value order on their
+           full ``R^d`` sub-grids at ``tau / R``
+           (:func:`_refined_negative_batch`), in chunks of about
+           ``REFINED_POINTS_PER_CHUNK`` refined points, one host read a
+           chunk; the walk stops at the first state no check rescues;
+        4. the certified prefix ends before that state, trimmed by
+           ``level_margin``; ``_refinement`` is 1 for a coarse pass or an
+           exempt state, ``R`` for a refined rescue.
+
+        The result does not depend on the batch or the chunk size. A
+        per-point ``certificate_margin`` rides along in value order.
+        """
+        grid = self.discretization
+        nindex = grid.nindex
+        points = self._device_points()
+        device = points.device
+        r = max(int(max_refinement), 1)
+        initial, prev_safe, exempt = self._exempt_and_previous(can_shrink)
+
+        self.update_values()
+        values = self.values
+        order = torch.sort(values, stable=True).indices
+        sorted_values = values[order]
+        exempt_sorted = torch.as_tensor(exempt, device=device)[order]
+        margin = self.certificate_margin
+        if np.ndim(margin):
+            margin = torch.as_tensor(margin, dtype=points.dtype,
+                                     device=device)[order]
+
+        def margin_at(index):
+            return margin if isinstance(margin, float) else margin[index]
+
+        # 2. The coarse check, batch by batch, into one sorted mask.
+        batch = batch_size or max(int(config.gp_batch_size),
+                                  min(nindex, self._fused_limit(None)))
+        passed = torch.empty(nindex, dtype=torch.bool, device=device)
+        batches = 0
+        for start in range(0, nindex, batch):
+            idx = order[start:start + batch]
+            passed[start:start + len(idx)] = _negative_batch(
+                self.policy, self.dynamics, self.lyapunov_function,
+                self._lipschitz_lyapunov, self._lipschitz_dynamics,
+                self.tau, points[idx],
+                margin_at(slice(start, start + len(idx))))[0]
+            batches += 1
+        passed |= exempt_sorted
+
+        # 3. The refinement walk over the failing states in value order.
+        failing = torch.nonzero(~passed).reshape(-1)
+        n_fail = int(failing.shape[0])
+        stop = nindex if n_fail == 0 else None
+        chunks = refined_points = rescued = 0
+        if n_fail and r > 1:
+            offsets = refinement_offsets(grid.unit_maxes, r, points)
+            chunk = max(1, REFINED_POINTS_PER_CHUNK // offsets.shape[0])
+            for start in range(0, n_fail, chunk):
+                pos = failing[start:start + chunk]
+                ok = _refined_negative_batch(
+                    self.policy, self.dynamics, self.lyapunov_function,
+                    self._lipschitz_lyapunov, self._lipschitz_dynamics,
+                    self.tau, points[order[pos]], offsets, r,
+                    margin_at(pos))
+                chunks += 1
+                refined_points += len(pos) * offsets.shape[0]
+                # One read a chunk: whether every state passed, the first
+                # that did not, and its sorted position.
+                first = (~ok).long().argmax().reshape(1)
+                all_ok, first_bad, bad_pos = torch.cat(
+                    [ok.all().long().reshape(1), first,
+                     pos.gather(0, first)]).tolist()
+                if not all_ok:
+                    rescued += first_bad
+                    stop = bad_pos
+                    break
+                rescued += len(pos)
+            else:
+                stop = nindex
+        elif n_fail:
+            stop = int(failing[0])
+        self.last_sweep_counts = dict(coarse_batches=batches,
+                                      refinement_chunks=chunks,
+                                      refined_points=refined_points,
+                                      rescued_states=rescued)
+
+        # 4. The prefix, trimmed by the level margin.
+        max_index = stop - 1
+        level_margin = self.level_margin
+        if level_margin > 0.0 and 0 <= max_index < nindex - 1:
+            trimmed = int(torch.searchsorted(
+                sorted_values, sorted_values[stop:stop + 1] - level_margin,
+                side="left")) - 1
+            max_index = min(max_index, trimmed)
+        self.c_max = (float(sorted_values[max_index]) if max_index >= 0
+                      else -np.inf)
+
+        rank = torch.arange(nindex, device=device)
+        in_prefix = rank <= max_index
+        ref_sorted = torch.where(passed, 1, torch.where(rank < stop, r, 0))
+        ref_sorted = torch.where(in_prefix, ref_sorted, 0)
+        safe_dev = torch.empty(nindex, dtype=torch.bool, device=device)
+        safe_dev[order] = in_prefix
+        ref_dev = torch.empty(nindex, dtype=ref_sorted.dtype, device=device)
+        ref_dev[order] = ref_sorted
+        safe = safe_dev.cpu().numpy()
+        refinement = ref_dev.cpu().numpy().astype(int)
+        self._store(safe, refinement, can_shrink, initial, prev_safe)
+
+    def _update_safe_set_fused(self, can_shrink):
+        """Whole-grid single-pass path."""
+        initial, prev_safe, exempt = self._exempt_and_previous(can_shrink)
         points = self._device_points()
         # With can_shrink the exempt mask is just the initial set; keep
         # its device copy until that mask changes.
@@ -475,19 +708,12 @@ class Lyapunov:
         safe_dev, c_max, values, _ = _fused_update(
             self.policy, self.dynamics, self.lyapunov_function,
             self._lipschitz_lyapunov, self._lipschitz_dynamics, self.tau,
-            points, exempt_dev, self.certificate_margin, self.level_margin)
+            points, exempt_dev, self.certificate_margin, self.level_margin,
+            self._direct_grid_values())
 
         # Values stay on the device; c_max is -inf when nothing verifies.
         self.values = values
         safe = safe_dev.cpu().numpy()
         self.c_max = float(c_max)
-        refinement = np.where(safe, 1, 0)
-        if not can_shrink:
-            safe |= prev_safe
-            keep = prev_safe & (refinement == 0)
-            refinement[keep] = np.maximum(self._refinement[keep], 1)
-        if self.initial_safe_set is not None:
-            safe |= initial
-            refinement[initial] = np.maximum(refinement[initial], 1)
-        self.safe_set = safe
-        self._refinement = refinement
+        self._store(safe, np.where(safe, 1, 0), can_shrink, initial,
+                    prev_safe)

@@ -10,7 +10,8 @@ lies inside the float32 noise band. So the sweep certifies only
   parameters the working-dtype pipeline uses (tensors widened exactly;
   Gaussian processes rebuilt in float64 from their raw data);
 - :func:`calibrate_certificate_margin` measures the worst difference
-  between the working-dtype sweep and the oracle on a grid subsample and
+  between the working-dtype sweep and the oracle on a grid subsample,
+  half of it moved onto refined sub-grids for adaptive sweeps, and
   installs ``safety`` times it.
 
 Not ported yet: ``calibrate_extended_margin`` (ROADMAP queue 1 item 19).
@@ -207,12 +208,12 @@ def calibrate_certificate_margin(lyapunov, num_samples=4096, safety=2.0,
         Install the results as ``lyapunov.certificate_margin`` and
         ``lyapunov.level_margin``.
     refinement : int, optional
-        Must be 1: margins for adaptive sweeps are not ported yet.
+        The ``max_refinement`` ``R`` of the adaptive sweeps the margin will
+        guard. With ``R > 1`` a random half of the subsample moves onto
+        random points of the cells' ``R``-refined sub-grids and is measured
+        against ``tau / R``, the comparison of the refined check
+        (``safe_learning_tpu/oracle.py:219-255``, the same draws).
     """
-    if int(refinement) != 1:
-        raise NotImplementedError(
-            "refined calibration belongs to adaptive refinement, ROADMAP "
-            "queue 1 item 12")
     rng = np.random.default_rng(0) if rng is None else rng
     grid = lyapunov.discretization
     if grid.nindex > num_samples:
@@ -220,16 +221,36 @@ def calibrate_certificate_margin(lyapunov, num_samples=4096, safety=2.0,
         pts = grid.all_points[np.sort(idx)]
     else:
         pts = grid.all_points
+    refinement = int(refinement)
     pts = np.array(pts, dtype=config.np_dtype)
+    refined = np.zeros(pts.shape[0], dtype=bool)
+    if refinement > 1:
+        refined = rng.random(pts.shape[0]) < 0.5
+        j = rng.integers(0, refinement, size=(int(refined.sum()),
+                                              pts.shape[1]))
+        unit = -1.0 + 2.0 * j / (refinement - 1.0)
+        half_width = (0.5 * (1.0 - 1.0 / refinement)
+                      * np.asarray(grid.unit_maxes))
+        pts[refined] = pts[refined] + (half_width * unit).astype(
+            config.np_dtype)
 
-    states = torch.as_tensor(pts, dtype=config.dtype, device=config.device)
-    _, dec, thr = _negative_batch(
-        lyapunov.policy, lyapunov.dynamics, lyapunov.lyapunov_function,
-        lyapunov._lipschitz_lyapunov, lyapunov._lipschitz_dynamics,
-        lyapunov.tau, states)
-    margins = (dec.cpu().numpy().astype(np.float64)
-               - thr.cpu().numpy().astype(np.float64))
-    err = float(np.max(np.abs(margins - oracle_margins(lyapunov, pts))))
+    def measure(points, tau):
+        """Worst ``|margin - margin64|`` at ``points`` against ``tau``."""
+        if points.shape[0] == 0:
+            return 0.0
+        states = torch.as_tensor(points, dtype=config.dtype,
+                                 device=config.device)
+        _, dec, thr = _negative_batch(
+            lyapunov.policy, lyapunov.dynamics, lyapunov.lyapunov_function,
+            lyapunov._lipschitz_lyapunov, lyapunov._lipschitz_dynamics,
+            tau, states)
+        margins = (dec.cpu().numpy().astype(np.float64)
+                   - thr.cpu().numpy().astype(np.float64))
+        return float(np.max(np.abs(
+            margins - oracle_margins(lyapunov, points, tau=tau))))
+
+    err = max(measure(pts[~refined], lyapunov.tau),
+              measure(pts[refined], lyapunov.tau / max(refinement, 1)))
     margin = float(safety) * err
     level_margin = _measured_level_margin(lyapunov, pts, safety)
     if set_margin:

@@ -11,6 +11,7 @@ import contextlib
 import jax.numpy as jnp
 import numpy as np
 import torch
+from numpy.testing import assert_allclose, assert_array_equal
 
 import safe_learning_tpu as sl
 import safe_learning_tpu_torch as st
@@ -152,6 +153,46 @@ def flagship_pair(num_points, route, tau=None):
     jlyap = sl.Lyapunov(grid, sl.QuadraticFunction(inst["s"]), dynamics,
                         inst["lf"], inst["lv"], inst["tau"], policy,
                         initial_set=inst["initial_set"])
+    return lyap, jlyap, inst
+
+
+def adaptive_pair(num_states, capacity, route="stacked"):
+    """The adaptive example's instance in both packages.
+
+    The JAX twin from ``examples/adaptive_safety_verification.
+    build_instance``, the port's from ``chip_smoke.build_adaptive_instance``
+    (``route`` "stacked" or "fan_out"), each built by its own package. The
+    pieces must agree: the Riccati matrix ``P``, the gain ``K``, the prior
+    variances, ``tau``, ``L_f``, the initial set and the GP's data.
+    Returns ``(port_lyapunov, jax_lyapunov, inst)``.
+    """
+    from chip_smoke import build_adaptive_instance
+    from examples.adaptive_safety_verification import build_instance
+
+    jlyap, jtrue = build_instance(num_states, capacity=capacity,
+                                  stacked=route == "stacked")
+    lyap, inst = build_adaptive_instance(num_states, capacity, route)
+    assert_allclose(inst["p"], np.asarray(jlyap.lyapunov_function.matrix),
+                    rtol=1e-12)
+    assert_allclose(-inst["k"], np.asarray(jlyap.policy.fun.matrix),
+                    rtol=1e-12)
+    jgps = (jlyap.dynamics.unstack() if route == "stacked"
+            else jlyap.dynamics.functions)
+    gps = (lyap.dynamics.unstack() if route == "stacked"
+           else lyap.dynamics.functions)
+    for dim, (gp, jgp) in enumerate(zip(gps, jgps)):
+        assert_allclose(inst["variances"][dim],
+                        np.asarray(jgp.kernel.k1.variances), rtol=1e-12)
+        assert_array_equal(gp.X, np.asarray(jgp.X))
+        assert_array_equal(gp.Y, np.asarray(jgp.Y))
+        assert gp.capacity == jgp.capacity == capacity
+    assert lyap.tau == jlyap.tau
+    assert_allclose(lyap._lipschitz_dynamics, jlyap._lipschitz_dynamics,
+                    rtol=1e-12)
+    assert_array_equal(lyap.initial_safe_set, jlyap.initial_safe_set)
+    assert_array_equal(lyap.discretization.all_points,
+                       jlyap.discretization.all_points)
+    inst["jax_true"] = jtrue
     return lyap, jlyap, inst
 
 

@@ -325,3 +325,59 @@ def test_stacked_kernel_at_counts_below_capacity(on_cuda, count, cap,
     assert ratio <= 1.0
     if count == 0:
         assert em == ev == 0.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("count", [1, 128, 129, 181])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_stacked_kernel_at_the_adaptive_capacity(on_cuda, count, dtype):
+    """Kernel 3 at the adaptive example's GP capacity, 181 (not a power
+    of two; ``S cap^2`` float32 values exceed one SM's shared memory), at
+    counts on both sides of the tiled body's last bucket edge and at
+    capacity, against the plain twin within ``chip_smoke.program_bounds``."""
+    from chip_smoke import (ADAPTIVE_CAPACITY, STACKED_SETS, case_queries,
+                            compare_program, program_case)
+
+    inputs, programs = program_case("stacked", STACKED_SETS[2],
+                                    ADAPTIVE_CAPACITY, 1, 1.0, dtype,
+                                    seed=count, n=count)
+    points = case_queries(4099, inputs[0], count)
+    before = gp_kernel.gp_predict_stacked_cuda.launches
+    _, _, ratio = compare_program("stacked", (points,) + inputs, programs,
+                                  count=count)
+    assert gp_kernel.gp_predict_stacked_cuda.launches == before + 1
+    assert ratio <= 1.0
+
+
+@pytest.mark.cuda
+def test_sample_batch_on_the_card_matches_the_cpu_plain_route(on_cuda):
+    """``get_safe_sample_batch`` at a small size of the adaptive example
+    (41x41 grid, capacity 64, k = 6) on the card through kernel 3, and on
+    the CPU through the plain twin, both in float64: the same pairs, the
+    measurements and bounds to 1e-9, one kernel launch a step."""
+    import numpy as np
+
+    from chip_smoke import build_adaptive_instance
+
+    def batch(device):
+        old = st.config.device, st.config.dtype
+        st.config.device, st.config.dtype = device, torch.float64
+        try:
+            lyap, inst = build_adaptive_instance(41, 64)
+            lyap.update_safe_set(can_shrink=False, max_refinement=4)
+            before = gp_kernel.gp_predict_stacked_cuda.launches
+            out = st.get_safe_sample_batch(
+                lyap, inst["measure"], 6, np.array([[0.0]]),
+                np.array([[-1.0, 1.0]]), positive=True, num_samples=1000,
+                rng=np.random.default_rng(0))
+            return out, gp_kernel.gp_predict_stacked_cuda.launches - before
+        finally:
+            st.config.device, st.config.dtype = old
+
+    (sas, ys, bounds, safes), launched = batch("cuda:0")
+    (want_sas, want_ys, want_bounds, want_safes), plain = batch("cpu")
+    assert (launched, plain) == (6, 0)
+    assert np.array_equal(sas, want_sas)
+    assert np.array_equal(safes, want_safes) and safes.all()
+    assert np.allclose(ys, want_ys, rtol=0, atol=1e-9)
+    assert np.allclose(bounds, want_bounds, rtol=0, atol=1e-9)

@@ -115,15 +115,11 @@ def test_unported_paths_raise():
         grid = st.GridWorld([[-1, 1]], 9)
         args = (grid, _quad_v(), st.LinearSystem(np.array([[0.5, 0.0]])),
                 0.4, 0.3, 0.1, st.LambdaFunction(lambda x: 0.0 * x))
-        with pytest.raises(NotImplementedError, match="item 12"):
-            st.Lyapunov(*args, adaptive=True)
         with pytest.raises(NotImplementedError, match="item 23"):
             st.Lyapunov(*args, mesh=object())
         lyap = st.Lyapunov(*args)
         with pytest.raises(NotImplementedError, match="item 18"):
             lyap.update_safe_set(extended=True)
-        with pytest.raises(NotImplementedError, match="item 12"):
-            lyap.update_safe_set(max_refinement=3)
         old = st.config.fused_sweep_limit, st.config.gp_batch_size
         st.config.fused_sweep_limit, st.config.gp_batch_size = 4, 4
         try:

@@ -102,10 +102,6 @@ def test_lift64_and_unported_options():
     assert_allclose(lifted(x).numpy(), [[2.0 * 3.25 - 0.5]])
     with pytest.raises(TypeError):
         st.oracle.lift64(object())
-    with working_dtype("float64"):
-        lyap, _ = port_bench_lyapunov(20)
-    with pytest.raises(NotImplementedError, match="item 12"):
-        st.oracle.calibrate_certificate_margin(lyap, refinement=2)
 
 
 class _Pair(st.DeterministicFunction):
