@@ -16,8 +16,10 @@ Phases, in order; any failure raises and the exit code is not 0:
 3. kernel 1 against plain: the stationary GP-predict kernel against its
    plain PyTorch version on the card, for every stationary kind,
    capacities 8, 128 and 2048 with a partly filled mask, 1 and 2 outputs,
-   scale 1 and 2.5, ragged query counts, float32 and float64, each within
-   a computed rounding bound; one gradient through the autograd rule;
+   scale 1 and 2.5, ragged query counts, float32 and float64, and at the
+   cart-pole's d = 5, p = 4 and the d = 16, p = 8 edge (``WIDE_CASES``),
+   each within a computed rounding bound; one gradient through the
+   autograd rule;
 4. kernels 2 and 3 against plain: the general and stacked program kernels
    against their plain versions, for four programs (the flagship's
    composite kernel, an ARD RBF, a product of stationary kernels on
@@ -93,18 +95,44 @@ Phases, in order; any failure raises and the exit code is not 0:
     certify by the fan-out route (kernel 2) equal; the example's
     assertion. Per update: safe fraction, ``c_max``, largest N(x),
     chunks, refined points, wall and CUDA-event times;
-11. count cases, kernel 1 and kernels 2 and 3 (``COUNT_CASES``: counts 0,
+11. cart-pole verification (``phase_cartpole_verification``,
+    ``build_cartpole_instance``): ``benchmarks/cartpole_51x4_sweep.py``'s
+    instance, the reference's largest workload, a 51^4 = 6,765,201-state
+    grid and a 128-point RBF GP over the 5 state-action inputs with 4
+    outputs: one sweep launches kernel 1 once at d = 5, p = 4; the sweep
+    passes ``oracle_gate``; the sweep's time and checks/s;
+12. cart-pole RL (``phase_cartpole_rl``): ``examples/
+    reinforcement_learning_cartpole.py --full`` through the port's script,
+    400 joint actor-critic iterations of 50 + 10 eager SGD steps, the
+    closed loops, and both 2000-step ROAs over the 51^4 grid with no host
+    wait in the rollouts; the example's assertions; the float32 LQR ROA
+    against a float64 rollout of 65,536 sampled states; the fractions
+    beside the JAX package's record, the training's and the rollouts'
+    times, the peak memory;
+13. 1-D ROA (``phase_one_d_roa``): ``examples/
+    one_d_region_of_attraction_estimate.py --full`` through the port's
+    script, its true system drawn from the JAX package's normals
+    (``ONE_D_NORMALS``): kernel 2 once a GP predict (each sweep and
+    ``evaluate``), the record's history (0.199 -> 1.000 within 3
+    measurements, ``c_max`` 1.0000) against the same loop on the CPU, the
+    last certify through ``oracle_gate``; then ``fit_gp_hyperparameters``
+    on the card (Adam, L-BFGS-B) within 1e-3 of the float64 fit;
+14. count cases, kernel 1 and kernels 2 and 3 (``COUNT_CASES``: counts 0,
     1, 10, both sides of each bucket edge 16/32/64/128, 129 and 2048,
-    below and at capacity): the kernels' loops bounded by the count,
-    against the plain versions at full capacity, exact zeros at count 0;
-12. kernel times: each kernel against its plain version on its path's
+    below and at capacity; kernel 1 also at d = 6, and at d = 5, p = 4 and
+    d = 16, p = 8, ``WIDE_COUNT_CASES``): the kernels' loops bounded by
+    the count, against the plain versions at full capacity, exact zeros at
+    count 0;
+15. kernel times: each kernel against its plain version on its path's
     own inputs, on the device alone (a CUDA graph of 10 calls,
     ``graph_ms``) and as a caller sees it (10 eager calls), and each
-    kernel's bound at those inputs (``kernel_bound``), kernel 3 also at a
-    training ascent step's inputs and at the adaptive path's coarse pass
-    and refinement chunk (count 181); then the loop's step times again,
-    to show how far the work before moved them;
-13. profiles, after every time: torch.profiler over the safe-learning and
+    kernel's bound at those inputs (``kernel_bound``): kernel 1 at the
+    cart-pole's and the bench's sweep, kernel 2 at the 1-D and the
+    flagship fan-out sweep, kernel 3 at the flagship, a training ascent
+    step, the safe-learning sweep and the adaptive path's coarse pass and
+    refinement chunk (count 181); then the loop's step times again, to
+    show how far the work before moved them;
+16. profiles, after every time: torch.profiler over the safe-learning and
     the bench sweeps (``profile_sweep``), over 20 pretraining and 20
     penalised ascent steps (``profile_training``) and over the adaptive
     path's batches and certifies (``profile_adaptive``), the device's busy
@@ -112,7 +140,7 @@ Phases, in order; any failure raises and the exit code is not 0:
     fails if the host waits for the device inside its step loop
     (``torch.cuda.set_sync_debug_mode``).
 
-The end-to-end times (phases 7 to 10) come before the count cases and
+The end-to-end times (phases 7 to 13) come before the count cases and
 before any CUDA graph is captured.
 
 The second-to-last line is a JSON object describing each kernel
@@ -494,6 +522,100 @@ def build_adaptive_instance(num_states=ADAPTIVE_POINTS,
                       noise=noise, tau=tau, lf=lf, initial=initial)
 
 
+#: The cart-pole verification grid, 51^4 = 6,765,201 states: the
+#: reference's largest workload (``benchmarks/cartpole_51x4_sweep.py:30``).
+CARTPOLE_POINTS = 51
+
+
+def build_cartpole_instance(num_points=CARTPOLE_POINTS):
+    """The 51^4 cart-pole verification instance in the port.
+
+    As ``benchmarks/cartpole_51x4_sweep.py:14-38`` builds it: the
+    notebook's cart-pole normalized with ``u_max = (m + M) 4 / x_max``; the
+    LQR gain and Riccati matrix ``P`` of its autodiff linearization
+    (``Q = 0.1 I``, ``R = 0.1``); a GP with ``RBF(1e-10, [0.4] * 5)``,
+    noise 1e-12 and the linearization ``[A, B]`` as prior mean on 128
+    inputs uniform in ``[-1, 1]^5`` from ``default_rng(0)`` with the
+    cart-pole's next states as targets; the saturated LQR policy; the
+    candidate ``x' (P / max|P|) x`` with the scalar ``L_v = 2 |P / max|P||_2``
+    and ``L_f = |A - B K|_2``; ``tau`` a thousandth of the smallest cell
+    edge of the ``num_points^4`` grid over ``[-1, 1]^4``; the initial set
+    at the 0.001 quantile of v. Returns ``(lyapunov, inst)``.
+    """
+    m, cart_mass, length, friction = 0.175, 1.732, 0.28, 0.01
+    x_max, theta_max = 0.5, np.deg2rad(30)
+    u_max = (m + cart_mass) * 4.0 / x_max
+    norms = ((x_max, theta_max, 2.0, np.deg2rad(30)), (u_max,))
+    system = st.CartPole(m, cart_mass, length, friction, 0.01,
+                         normalization=norms)
+    a, b = system.linearize()
+    k, p = st.utils.dlqr(a, b, 0.1 * np.eye(4), 0.1 * np.eye(1))
+    policy = st.Saturation(st.LinearSystem(-k), -1.0, 1.0)
+    p = p / np.abs(p).max()
+    v = st.QuadraticFunction(p)
+
+    rng = np.random.default_rng(0)
+    x_train = rng.uniform(-1, 1, size=(128, 5))
+    y_train = system(x_train[:, :4], x_train[:, 4:]).cpu().numpy()
+    gp = st.GaussianProcess(st.RBF(1e-10, [0.4] * 5, input_dim=5), x_train,
+                            y_train, noise_variance=1e-12,
+                            mean_function=st.LinearSystem([a, b]))
+    grid = st.GridWorld([[-1.0, 1.0]] * 4, num_points)
+    lv = float(2 * np.linalg.norm(p, 2))
+    lf = float(np.linalg.norm(a - b @ k, 2))
+    tau = float(np.min(grid.unit_maxes)) * 1e-3
+    values = v(grid.all_points).reshape(-1).cpu().numpy()
+    initial_set = np.where(values <= np.quantile(values, 0.001))[0]
+    lyap = st.Lyapunov(grid, v, gp, lf, lv, tau, policy,
+                       initial_set=initial_set)
+    return lyap, dict(system=system, a=a, b=b, k=k, p=p, x_train=x_train,
+                      y_train=y_train, lv=lv, lf=lf, tau=tau,
+                      initial_set=initial_set)
+
+
+#: The standard normals that draw the 1-D example's true system at its
+#: default seed: ``jax.random.normal(jax.random.PRNGKey(0), (1, 201),
+#: jnp.float32)`` (``examples/one_d_region_of_attraction_estimate.py:
+#: 72-75``), held here because the two packages' generators differ;
+#: ``tests/test_torch_gp_fit.py`` checks them against JAX's draw.
+ONE_D_NORMALS = (
+    1.6226422, 2.0252647, -0.43359444, -0.07861735, 0.1760909, -0.97208923,
+    -0.49529874, 0.4943786, 0.6643493, -0.9501635, 2.1795304, -1.9551506,
+    0.35857072, 0.15779513, 1.2770847, 1.5104648, 0.970656, 0.59960806,
+    0.024700705, -1.9164772, -1.8593491, 1.728144, 0.04719035, 0.814128,
+    0.13132767, 0.28284705, 1.2435943, 0.6902801, -0.80073744, -0.74099,
+    -1.5388287, 0.30269185, -0.020716045, 0.11328721, -0.2206547, 0.07052256,
+    0.8532958, -0.8217738, -0.014614211, -0.15046217, -0.9001352, -0.7590727,
+    0.33309513, 0.80924904, 0.042692553, -0.57767123, -0.41439894, -1.9412533,
+    1.3161184, 0.7542728, 0.16170931, -0.03483307, -1.3306409, 0.39362028,
+    0.48259583, 0.80382955, -0.6337168, 1.038756, -0.74159133, -0.4299588,
+    -0.22510043, -0.51966715, -1.6692165, 0.67535436, 0.22738722, -1.1800426,
+    -0.97673357, 1.1969604, -0.84127563, 0.6598078, 1.0680159, 0.31542128,
+    0.43766403, 1.1718564, 0.9077099, 1.2226242, -0.54639524, 0.85630435,
+    -0.007965775, 0.47343913, -1.1090349, 2.6423514, 0.88957626, 0.9952015,
+    0.2551972, 0.124961376, 1.164173, 0.19296366, -0.19099544, -0.43659472,
+    -1.1461989, 0.19760251, 1.1686655, -0.8733985, 0.8818086, -0.3441057,
+    -0.14614972, -0.91352165, 1.370097, -0.7800775, 0.36481506, 0.9761402,
+    -0.007172703, 0.21052206, 0.19035842, 0.38291267, -1.2656332, -1.4843545,
+    -0.114543624, 1.1037136, 0.19846702, 0.21388935, -0.6605348, -0.72722006,
+    0.40443972, 0.18965738, -0.6031794, 0.9450588, 1.0838778, -2.0560737,
+    -0.71382153, 0.59286827, 1.0507762, -1.4646238, 0.66001135, -0.30172178,
+    0.13313177, -0.33281323, 1.5700098, 0.5745121, 0.7234155, 0.6966845,
+    -0.66423434, -1.9669566, -2.4162543, 0.27330154, 1.1603173, 0.2655127,
+    0.6909093, -0.2560643, -2.0227401, -0.6231289, 0.2795317, -1.3503172,
+    0.10128845, 0.51268137, 0.2640195, -1.8291276, 1.4337775, 1.3188555,
+    -1.4953226, 0.93327594, 1.4092648, -0.16788375, -0.11862286, -0.2428249,
+    -0.96175927, -0.75636, 2.5728257, -1.0601792, 0.31232905, 0.3275118,
+    0.08283223, -1.0826886, -0.7722345, -0.63460463, 1.2264103, -1.487015,
+    -0.79286903, 0.5531185, -1.1855397, 0.9769094, -0.43845034, -0.329756,
+    0.33254716, -0.6527196, -1.2052122, -0.88630825, -2.1088374, -0.15503536,
+    -0.65793204, -0.663254, -0.03336205, -0.8959291, 0.0771168, -0.909823,
+    1.276052, -0.40167663, -0.99992526, 0.017341979, 0.40454188, -1.0713243,
+    1.0366626, -0.6684805, -0.07793187, 1.2080221, 2.0031455, -0.07060029,
+    0.33603913, 2.354045, -0.2431693,
+)
+
+
 #: Exploration settings of the example (``examples/inverted_pendulum.py:
 #: 170-175``).
 ACTION_VARIATION = np.array([[-0.02], [0.0], [0.02]])
@@ -803,8 +925,12 @@ def case_queries(n_q, like, seed):
 
 
 def program_library_sets():
-    """Every program tuple this script launches: the cases' and the
-    flagship's (which has the structure of the ``flagship`` case)."""
+    """Every program tuple this script launches: the cases', the
+    flagship's (which has the structure of the ``flagship`` case) and the
+    1-D example's (2-D inputs)."""
+    from safe_learning_tpu_torch.examples import \
+        one_d_region_of_attraction_estimate as one_d
+
     progs = case_programs()
     sets = [(name,) for name in progs] + list(STACKED_SETS.values())
     tuples = []
@@ -813,6 +939,9 @@ def program_library_sets():
                                torch.zeros(1, dtype=torch.float64))
         if programs not in tuples:
             tuples.append(programs)
+    one_d_program, _ = gp_kernel.compile_kernel_program(one_d.kernel(),
+                                                        input_dim=2)
+    tuples.append((one_d_program,))
     return tuples
 
 
@@ -868,23 +997,34 @@ def rounding_bounds(inputs, kind):
     return tol_mean, tol_var
 
 
-def compare(inputs, kind, count=None):
+def compare(inputs, kind, count=None, chunk=2 ** 20):
     """Kernel against plain on one input set, the kernel's loops bounded
-    by ``count`` (``None``: the capacity); returns the errors."""
+    by ``count`` (``None``: the capacity); returns the errors. The kernel
+    runs once on all the queries; the plain version and the bounds are
+    taken ``chunk`` queries at a time, which bounds their float64
+    intermediates."""
     mean_k, var_k = gp_kernel.gp_predict_cuda(*inputs, kind=kind,
                                               count=count)
-    mean_p, var_p = gp_kernel.gp_predict_plain(*inputs, kind=kind)
     torch.cuda.synchronize()
-    tol_mean, tol_var = rounding_bounds(inputs, kind)
-    err_mean = (mean_k.double() - mean_p.double()).abs()
-    err_var = (var_k.double() - var_p.double()).abs()
-    # A zero bound (all k underflowed) admits only a zero error.
-    tiny = torch.finfo(torch.float64).tiny
-    ratio = max(float((err_mean / tol_mean.clamp(min=tiny)).max()),
-                float((err_var / tol_var.clamp(min=tiny)).max()))
     if not (torch.isfinite(mean_k).all() and torch.isfinite(var_k).all()):
         raise AssertionError("kernel output is not finite")
-    return float(err_mean.max()), float(err_var.max()), ratio
+    # A zero bound (all k underflowed) admits only a zero error.
+    tiny = torch.finfo(torch.float64).tiny
+    em = ev = ratio = 0.0
+    for start in range(0, inputs[0].shape[0], chunk):
+        part = (inputs[0][start:start + chunk],) + tuple(inputs[1:])
+        mean_p, var_p = gp_kernel.gp_predict_plain(*part, kind=kind)
+        tol_mean, tol_var = rounding_bounds(part, kind)
+        err_mean = (mean_k[start:start + chunk].double()
+                    - mean_p.double()).abs()
+        err_var = (var_k[start:start + chunk].double()
+                   - var_p.double()).abs()
+        em = max(em, float(err_mean.max()))
+        ev = max(ev, float(err_var.max()))
+        ratio = max(ratio,
+                    float((err_mean / tol_mean.clamp(min=tiny)).max()),
+                    float((err_var / tol_var.clamp(min=tiny)).max()))
+    return em, ev, ratio
 
 
 def case_inputs(gp, n_q, seed):
@@ -1086,6 +1226,16 @@ def phase_program_cases():
                                  .format(route))
 
 
+#: ``(d, p, capacity, queries)`` of kernel 1's wide cases: the cart-pole
+#: sweep's inputs and outputs, and the ``D_MAX`` / ``P_MAX`` edge of
+#: ``csrc/gp_predict_common.cuh`` in the tiled and the streamed body.
+WIDE_CASES = ((5, 4, 128, 1000003), (16, 8, 128, 65537),
+              (16, 8, 2048, 65537))
+
+#: ``(count, capacity, d, p)`` of kernel 1's wide count cases.
+WIDE_COUNT_CASES = ((128, 128, 5, 4), (100, 128, 16, 8), (129, 256, 16, 8))
+
+
 def phase_kernel_cases():
     worst = 0.0
     case = 0
@@ -1110,6 +1260,22 @@ def phase_kernel_cases():
                             "kernel and plain disagree beyond the rounding "
                             "bound (err/bound {:.3f})".format(ratio))
                     worst = max(worst, ratio)
+        # Past the 4 dimensions k unrolls from registers: the cart-pole's
+        # d = 5, p = 4 (tiled), the D_MAX / P_MAX edge d = 16, p = 8
+        # (tiled and streamed).
+        for d, p, cap, n_q in WIDE_CASES:
+            case += 1
+            gp = case_gp("rbf", cap, p, 2.5, dtype, seed=case, d=d)
+            em, ev, ratio = compare(case_inputs(gp, n_q, case), "rbf")
+            print("case {:2d} {} rbf d={:2d} cap={:4d} p={} Q={:7d}: "
+                  "max|dmean|={:.3e} max|dvar|={:.3e} err/bound={:.3f}"
+                  .format(case, str(dtype)[6:], d, cap, p, n_q, em, ev,
+                          ratio))
+            if not ratio <= 1.0:
+                raise AssertionError(
+                    "kernel and plain disagree beyond the rounding bound at "
+                    "d={}, p={} (err/bound {:.3f})".format(d, p, ratio))
+            worst = max(worst, ratio)
     print("kernel against plain: {} cases, worst err/bound {:.3f} "
           "(bound: rounding_bounds)".format(case, worst))
 
@@ -1135,22 +1301,24 @@ def phase_kernel_count_cases():
     full capacity, within ``rounding_bounds``. At count 0 the outputs must
     be exact zeros."""
     worst, case = 0.0, 0
-    # d = 6 once per dtype: the dimensions past the 4 that k unrolls from
-    # registers.
+    # d = 6 once per dtype, and the wide count cases: the dimensions past
+    # the 4 that k unrolls from registers, and up to 8 outputs.
+    cases = ([(count, cap, 3, 2) for count, cap in COUNT_CASES]
+             + [(40, 64, 6, 2)] + list(WIDE_COUNT_CASES))
     for dtype in (torch.float32, torch.float64):
-        for ci, (count, cap) in enumerate(COUNT_CASES + ((40, 64),)):
+        for ci, (count, cap, d, p) in enumerate(cases):
             kind = gp_kernel.KINDS[ci % len(gp_kernel.KINDS)]
-            d = 6 if ci == len(COUNT_CASES) else 3
             case += 1
-            gp = case_gp(kind, cap, 2, 2.5, dtype, seed=300 + case, n=count,
+            gp = case_gp(kind, cap, p, 2.5, dtype, seed=300 + case, n=count,
                          d=d)
             n_q = count_queries(count)
             em, ev, ratio = compare(case_inputs(gp, n_q, 300 + case), kind,
                                     count=gp.count)
-            print("count case {:2d} {} {:8s} d={} count={:4d} cap={:4d} "
-                  "Q={:6d}: max|dmean|={:.3e} max|dvar|={:.3e} "
+            print("count case {:2d} {} {:8s} d={:2d} p={} count={:4d} "
+                  "cap={:4d} Q={:6d}: max|dmean|={:.3e} max|dvar|={:.3e} "
                   "err/bound={:.3f}".format(case, str(dtype)[6:], kind, d,
-                                            count, cap, n_q, em, ev, ratio))
+                                            p, count, cap, n_q, em, ev,
+                                            ratio))
             if not ratio <= 1.0 or (count == 0 and em + ev != 0.0):
                 raise AssertionError("kernel 1 at count {} disagrees with "
                                      "plain".format(count))
@@ -1194,7 +1362,7 @@ def phase_bench_path():
     print("kernel launches during the bench path: {}".format(launches))
     if launches["gp_predict"] < 1:
         raise AssertionError("the bench path never launched kernel 1")
-    return inst, lyap, launches
+    return lyap, launches
 
 
 def check_values(lyap):
@@ -1551,30 +1719,34 @@ def kernel_bound(n_q, d, count, p, n_out, k_ops, itemsize):
     return bytes_ms, "bytes", "hbm"
 
 
-def phase_times(card, inst, lyap):
-    """Kernel 1 against its plain version on the bench path's inputs."""
+def phase_times(card, lyap, label="bench"):
+    """Kernel 1 against its plain version on a sweep's inputs (the bench
+    path's, or the cart-pole's): ``(max_abs_err, ms, plain_ms, eager_ms,
+    bound_ms, bound_by, bound_kind)``."""
     points = lyap._device_points()
     # The kernel's inputs exactly as the sweep makes them.
-    gp = inst["gp"]
+    gp = lyap.dynamics
     ls = gp.kernel.lengthscales
     states = concatenate_inputs(points, lyap.policy(points))
     inputs = ((states / ls).contiguous(), (gp.X_buf / ls).contiguous(),
               gp.chol_inv, gp.alpha, gp._mask(),
               gp.kernel.variance * gp.scale ** 2)
     em, ev, ratio = compare(inputs, "rbf", count=gp.count)
-    print("bench-path inputs (Q={}, cap={}, count={}, p={}): max|dmean|="
+    print("{}-path inputs (Q={}, d={}, cap={}, count={}, p={}): max|dmean|="
           "{:.3e} max|dvar|={:.3e} err/bound={:.3f}".format(
-              states.shape[0], gp.capacity, gp.count, gp.output_dim, em, ev,
-              ratio))
+              label, states.shape[0], states.shape[1], gp.capacity, gp.count,
+              gp.output_dim, em, ev, ratio))
     if not ratio <= 1.0:
-        raise AssertionError("kernel disagrees on the bench-path inputs")
+        raise AssertionError("kernel disagrees on the {}-path inputs"
+                             .format(label))
     kernel_ms, plain_ms, eager_ms = time_against_plain(
-        "gp predict",
+        "gp predict ({})".format(label),
         lambda: gp_kernel.gp_predict_cuda(*inputs, kind="rbf",
                                           count=gp.count),
         lambda: gp_kernel.gp_predict_plain(*inputs, kind="rbf"), card,
-        "Q={}, cap {}, count {}".format(states.shape[0], gp.capacity,
-                                        gp.count))
+        "Q={}, d={}, cap {}, count {}, p={}".format(
+            states.shape[0], states.shape[1], gp.capacity, gp.count,
+            gp.output_dim))
     bound = kernel_bound(states.shape[0], states.shape[1], gp.count,
                          gp.output_dim, 1,
                          stationary_ops("rbf", states.shape[1]),
@@ -1582,9 +1754,11 @@ def phase_times(card, inst, lyap):
     return (max(em, ev), kernel_ms, plain_ms, eager_ms) + bound
 
 
-def phase_flagship_times(card, route, lyap):
-    """A flagship route's kernel against its plain version on the sweep's
-    own inputs."""
+def program_times(card, route, lyap, label):
+    """Kernel 3 (``route="stacked"``) or kernel 2 (``"general"``, on the
+    GP or the first member of a ``FunctionStack``) against its plain
+    version on a sweep's own inputs: the flagship's or the 1-D
+    example's."""
     points = lyap._device_points()
     states = concatenate_inputs(points, lyap.policy(points))
     if route == "stacked":
@@ -1597,7 +1771,7 @@ def phase_flagship_times(card, route, lyap):
                        gp_kernel.gp_predict_stacked_plain)
         arg = programs
     else:
-        gp = lyap.dynamics.functions[0]
+        gp = getattr(lyap.dynamics, "functions", (lyap.dynamics,))[0]
         program, params = gp_kernel.compile_kernel_program(
             gp.kernel, input_dim=gp.input_dim)
         programs = (program,)
@@ -1610,18 +1784,18 @@ def phase_flagship_times(card, route, lyap):
     # the CUDA graph that times the kernel, which capture refuses.
     inputs = inputs[:-1] + (torch.tensor(inputs[-1], dtype=states.dtype,
                                          device=states.device),)
-    em, ev, ratio = compare_program("general" if route == "fan_out"
-                                    else "stacked", inputs, programs,
+    em, ev, ratio = compare_program(route, inputs, programs,
                                     count=gp.count)
-    shape = "Q={}, cap {}, count {}, S={}".format(
-        states.shape[0], gp.capacity, gp.count, len(programs))
-    print("flagship {} inputs ({}): max|dmean|={:.3e} max|dvar|={:.3e} "
-          "err/bound={:.3f}".format(route, shape, em, ev, ratio))
+    shape = "Q={}, d={}, cap {}, count {}, S={}".format(
+        states.shape[0], states.shape[1], gp.capacity, gp.count,
+        len(programs))
+    print("{} inputs ({}): max|dmean|={:.3e} max|dvar|={:.3e} "
+          "err/bound={:.3f}".format(label, shape, em, ev, ratio))
     if not ratio <= 1.0:
-        raise AssertionError("kernel disagrees on the flagship inputs")
+        raise AssertionError("kernel disagrees on the {} inputs".format(
+            label))
     kernel_ms, plain_ms, eager_ms = time_against_plain(
-        "gp predict {}".format("stacked" if route == "stacked"
-                               else "general"),
+        "gp predict {} ({})".format(route, label),
         lambda: cuda(*inputs, arg, count=gp.count),
         lambda: plain(*inputs, arg), card, shape)
     bound = kernel_bound(states.shape[0], states.shape[1], gp.count, 1,
@@ -2983,12 +3157,336 @@ def adaptive_times(card, lyap, chunk_states):
                                 "adaptive refinement chunk"))
 
 
+# ---------------------------------------------------------------------------
+# The cart-pole at 51^4 and the 1-D region of attraction
+# ---------------------------------------------------------------------------
+def phase_cartpole_verification(card):
+    """The reference's largest verification, the 51^4 cart-pole grid
+    (``build_cartpole_instance``), through kernel 1 at d = 5, p = 4.
+
+    One sweep, then ``oracle_gate`` (gate 1, every decrease verdict of the
+    6,765,201 states against the float64 oracle outside the calibrated
+    band, the margin-guarded set inside the oracle's with gate 2), then a
+    sweep with the margin installed. Checks, each raising: each sweep
+    launched kernel 1 exactly once and no other kernel, no library was
+    built, the values are finite on ``cuda:0``. Prints the safe fraction,
+    ``c_max``, the oracle's wall time and the sweep's time (CUDA events,
+    median of 10 after warm-up) and checks/s. Returns ``(lyap,
+    launches)``, kernel 1's launches over the two sweeps.
+    """
+    builds = dict(build_reports)
+    start = time.perf_counter()
+    lyap, inst = build_cartpole_instance()
+    grid = lyap.discretization
+    print("cartpole 51^4: {} states, GP capacity {} with {} points over "
+          "(x, theta, v, omega, u), p = {}, tau {!r}, L_v {!r}, L_f {!r}, "
+          "threshold {!r}; built in {:.3f} s".format(
+              grid.nindex, lyap.dynamics.capacity, lyap.dynamics.count,
+              lyap.dynamics.output_dim, inst["tau"], inst["lv"], inst["lf"],
+              -inst["lv"] * (1 + inst["lf"]) * inst["tau"],
+              time.perf_counter() - start))
+    expected = {name: 0 for name in KERNELS}
+    sweeps = []
+    reset_launches()
+    lyap.update_safe_set()
+    sweeps.append(read_launches())
+    check_values(lyap)
+    print("cartpole 51^4: safe fraction {!r}, c_max {!r}".format(
+        float(lyap.safe_set.mean()), lyap.c_max))
+    initial = np.zeros(grid.nindex, dtype=bool)
+    initial[inst["initial_set"]] = True
+    with uncounted():
+        oracle_gate(lyap, "cartpole 51^4", initial=initial)
+    reset_launches()
+    lyap.update_safe_set()
+    sweeps.append(read_launches())
+    check_values(lyap)
+    for got in sweeps:
+        if got != dict(expected, gp_predict=1):
+            raise AssertionError("a cart-pole sweep launched {}, not kernel "
+                                 "1 once".format(got))
+    if dict(build_reports) != builds:
+        raise AssertionError("the cart-pole path built a library")
+    print("kernel launches of the cart-pole sweeps: {}; libraries built: 0"
+          .format(sweeps))
+    time_sweep("cartpole 51^4", lyap, card)
+    return lyap, len(sweeps)
+
+
+#: The JAX package's record of the cart-pole example at ``--full`` on the
+#: TPU (``examples/README.md:105``): the learned and the LQR ROA fractions.
+CARTPOLE_ROA_RECORD = {"learned": 0.991, "lqr": 0.974}
+
+#: States of the float64 check of the LQR closed loop's ROA.
+ROA_SUBSAMPLE = 65536
+
+#: The cart-pole example's seed on the card. Its joint training (policy
+#: step size 4) ends in a policy that balances or not depending on the
+#: minibatch stream: over iterations 300 to 400 the closed loop's final
+#: norm alternates between 1e-5 and 1 on the CPU, and on an H100 seeds 0
+#: and 1 ended at 0.287 and 0.232 and seed 2 at 1.4e-5 (PERF.md).
+CARTPOLE_SEED = 2
+
+
+def phase_cartpole_rl(card):
+    """``examples/reinforcement_learning_cartpole.py --full`` on the card
+    (``safe_learning_tpu_torch.examples.reinforcement_learning_cartpole.
+    run(full=True, seed=CARTPOLE_SEED)``): 400 joint iterations of 50 +
+    10 eager SGD steps, the closed loops from ``(0.2, 0.2, 0, 0)``, both
+    ROAs on the 51^4 grid over 2000 steps.
+
+    Checks, each raising: the example's assertions (learned final norm
+    below 0.1, learned ROA fraction above 0.005); no host wait inside the
+    rollouts (``analysis._simulate`` under ``no_host_waits``); no GP
+    kernel launched and no library built; the float32 LQR ROA against a
+    float64 rollout on the card of a seeded ``ROA_SUBSAMPLE``-state
+    subsample over the same horizon: at most 0.1 % disagree, and each one
+    that does ends, in float64, within a factor of 2 of ``tol``. Reports
+    both fractions beside the JAX package's record, the training's wall
+    time and ms a step, each ROA's wall time and state-steps/s, and the
+    peak device memory.
+    """
+    from safe_learning_tpu_torch import analysis
+    from safe_learning_tpu_torch.examples import \
+        reinforcement_learning_cartpole as example
+
+    if (torch.backends.cuda.matmul.allow_tf32
+            or torch.backends.cudnn.allow_tf32):
+        raise AssertionError("TF32 is on")
+    builds = dict(build_reports)
+    reset_launches()
+    with patched(analysis, "_simulate", no_host_waits):
+        result = example.run(full=True, seed=CARTPOLE_SEED)
+    launches = read_launches()
+    if any(launches.values()) or dict(build_reports) != builds:
+        raise AssertionError("the cart-pole RL path launched {} or built a "
+                             "library".format(launches))
+    grid, tol = result.grid, result.tol
+    print("cartpole RL: final state norm from (0.2, 0.2, 0, 0): learned "
+          "{!r}, LQR {!r}".format(result.final_new, result.final_lqr))
+    for name in ("learned", "lqr"):
+        print("cartpole RL: {} ROA fraction {!r} on {} states over {} steps "
+              "(the JAX package's record on the TPU: {}), {!r} s wall, "
+              "{!r} state-steps/s [{}]".format(
+                  name, result.fractions[name], grid.nindex, result.horizon,
+                  CARTPOLE_ROA_RECORD[name], result.roa_s[name],
+                  result.state_steps_per_s[name], card))
+    print("cartpole RL: joint actor-critic {!r} s wall for {} SGD steps, "
+          "{!r} ms a step; peak device memory {} bytes [{}]".format(
+              result.train_s, result.steps, result.step_ms,
+              result.peak_bytes, card))
+
+    rng = np.random.default_rng(0)
+    idx = np.sort(rng.choice(grid.nindex, ROA_SUBSAMPLE, replace=False))
+    system64 = float64_copy(result.system)
+    lqr64 = float64_copy(result.policy_lqr)
+    points = torch.as_tensor(grid.all_points[idx], dtype=torch.float64,
+                             device=st.config.device)
+    start = time.perf_counter()
+    end64, _ = analysis._simulate(lambda x: system64(x, lqr64(x)), points,
+                                  result.horizon)
+    dist64 = torch.linalg.norm(end64, dim=1).cpu().numpy()
+    roa64, roa32 = dist64 <= tol, result.roa["lqr"][idx]
+    differ = np.flatnonzero(roa32 != roa64)
+    print("cartpole RL: LQR ROA of {} sampled states in float64 on the card "
+          "({:.3f} s): fraction {!r} (float32 {!r}); {} verdicts differ"
+          .format(ROA_SUBSAMPLE, time.perf_counter() - start,
+                  float(roa64.mean()), float(roa32.mean()), len(differ)))
+    far = 0
+    for j in differ:
+        near = tol / 2 <= dist64[j] <= 2 * tol
+        far += not near
+        print("  state {} x={} float32 verdict {}, float64 end distance {!r}"
+              "{}".format(idx[j], grid.all_points[idx[j]].tolist(),
+                          bool(roa32[j]), float(dist64[j]),
+                          "" if near else " (NOT within a factor 2 of tol)"))
+    if len(differ) > 0.001 * ROA_SUBSAMPLE or far:
+        raise AssertionError("the float32 LQR ROA differs from the float64 "
+                             "rollout at {} of {} states ({} far from tol)"
+                             .format(len(differ), ROA_SUBSAMPLE, far))
+
+
+def one_d_normals(generator, number, n):
+    """``ONE_D_NORMALS`` in place of ``sample_gp_function``'s draw: the JAX
+    package's normals for ``PRNGKey(0)``."""
+    z = np.asarray(ONE_D_NORMALS, dtype=np.float32).astype(np.float64)
+    if (number, n) != (1, z.size):
+        raise ValueError("ONE_D_NORMALS holds (1, {}) normals, not {}"
+                         .format(z.size, (number, n)))
+    return z.reshape(1, -1)
+
+
+def one_d_reference():
+    """The 1-D example's loop on the CPU in the working dtype, on the same
+    normals: the card's run with kernel 2's plain twin in its place (the
+    grid's points and the initial set follow the working dtype, so a
+    float64 loop is another instance)."""
+    from safe_learning_tpu_torch.examples import \
+        one_d_region_of_attraction_estimate as example
+
+    device = st.config.device
+    st.config.device = "cpu"
+    try:
+        with patched(st.functions.gp, "_standard_normals",
+                     lambda fn: one_d_normals):
+            return example.run(full=True, seed=0)
+    finally:
+        st.config.device = device
+
+
+def phase_one_d_roa(card):
+    """``examples/one_d_region_of_attraction_estimate.py --full`` on the
+    card (``...examples.one_d_region_of_attraction_estimate.run(full=True,
+    seed=0)``), its true system drawn from the JAX package's normals
+    (``ONE_D_NORMALS``): 1001 states, 24 measurements, a data-free
+    composite GP at capacity 32, kernel 2 at counts 0 to 24.
+
+    Checks, each raising: kernel 2 carries every predict of the GP on the
+    card, once a predict (each sweep, each ``evaluate``), and nothing else
+    launches or is built; the initial safe fraction is between 0.198 and
+    0.201; the history reaches 1.000 by the 3rd measurement with ``c_max``
+    1.0000, the JAX package's record at this seed (``examples/README.md:
+    101``); the last certify passes ``oracle_gate``; the example's
+    assertion. The history and the measured states are held against the
+    same loop on the CPU (``one_d_reference``); where they part, the
+    first such update and the float64 GP's std at both choices are
+    printed. Then
+    ``fit_gp_hyperparameters`` of the final GP on the card, Adam for 150
+    steps and L-BFGS-B for 100 (``min_noise`` 1e-6 for both), each final
+    negative log likelihood within 1e-3 relative of the same fit on the
+    CPU in float64. Returns ``(lyap, launches)``.
+    """
+    from safe_learning_tpu_torch.examples import \
+        one_d_region_of_attraction_estimate as example
+
+    gp_mod = st.functions.gp
+    kernel = gp_kernel.gp_predict_general_cuda
+    builds = dict(build_reports)
+    predicts, sweeps, gps = [], [], []
+
+    def count_predicts(fn):
+        @functools.wraps(fn)
+        def predict(self, points, full_cov=False):
+            before = kernel.launches
+            out = fn(self, points, full_cov)
+            predicts.append((full_cov, out[0].device.type,
+                             kernel.launches - before))
+            return out
+        return predict
+
+    def count_sweeps(fn):
+        @functools.wraps(fn)
+        def sweep(self, *args, **kwargs):
+            before = kernel.launches
+            out = fn(self, *args, **kwargs)
+            sweeps.append(kernel.launches - before)
+            return out
+        return sweep
+
+    reset_launches()
+    with patched(gp_mod, "_standard_normals", lambda fn: one_d_normals), \
+            patched(st.GaussianProcess, "predict", count_predicts), \
+            patched(st.GaussianProcess, "add_data_point", recorded(
+                gps, lambda args, out: args[0])), \
+            patched(st.Lyapunov, "update_safe_set", count_sweeps):
+        result = example.run(full=True, seed=0)
+    launches = read_launches()
+    lyap = result.lyap
+    card_type = st.config.device.type
+    on_card = [n for full, dev, n in predicts
+               if not full and dev == card_type]
+    others = [n for full, dev, n in predicts if full or dev != card_type]
+    print("1-D ROA: {} GP predicts on the card, {} on the host (the "
+          "sampler's float64 island), {} sweeps; kernel launches {}".format(
+              len(on_card), len(others), len(sweeps), launches))
+    expected = {name: 0 for name in KERNELS}
+    if (any(n != 1 for n in on_card) or any(others)
+            or any(n != 1 for n in sweeps)
+            or len(sweeps) != 1 + result.n_updates
+            or launches != dict(expected, gp_predict_general=len(on_card))
+            or len(on_card) != 2 * result.n_updates + 1):
+        raise AssertionError("kernel 2 did not carry every predict once")
+    if dict(build_reports) != builds:
+        raise AssertionError("the 1-D path built a library")
+
+    history = result.fractions
+    print("1-D ROA: initial safe fraction {!r}; history {}; c_max {!r}; "
+          "{} updates in {!r} s wall [{}]".format(
+              result.initial_fraction, " ".join(
+                  "{:.3f}".format(f) for f in history), lyap.c_max,
+              result.n_updates, result.loop_s, card))
+    ref = one_d_reference()
+    parted = next((u for u in range(result.n_updates)
+                   if history[u] != ref.fractions[u]
+                   or not np.array_equal(result.measured[u],
+                                         ref.measured[u])), None)
+    if parted is None:
+        print("1-D ROA: the card's measured states and history equal those "
+              "of the same loop on the CPU")
+    else:
+        # The GP that chose update ``parted``'s measurement.
+        gp64 = st.oracle.lift64(gps[parted])
+        with st.oracle._oracle_env():
+            _, err = gp64.evaluate(torch.as_tensor(np.stack(
+                [result.measured[parted], ref.measured[parted]])))
+        print("1-D ROA: the card parts from the same loop on the CPU at "
+              "update {}: measured {} (fraction {!r}) against {} ({!r}); "
+              "the float64 GP's beta std there {}".format(
+                  parted + 1, result.measured[parted].tolist(),
+                  history[parted], ref.measured[parted].tolist(),
+                  ref.fractions[parted], err[:, 0].tolist()))
+    if not (0.198 <= result.initial_fraction <= 0.201
+            and 1.0 in history[:3]
+            and "{:.4f}".format(lyap.c_max) == "1.0000"):
+        raise AssertionError("the 1-D history parts from the record "
+                             "(0.199 -> 1.000 within 3 measurements, c_max "
+                             "1.0000)")
+    initial = np.abs(lyap.discretization.all_points[:, 0]) < 0.2
+    with uncounted():
+        oracle_gate(lyap, "1-D ROA last certify", initial=initial)
+        one_d_fits(card, lyap.dynamics)
+    return lyap, launches["gp_predict_general"]
+
+
+def one_d_fits(card, gp):
+    """``fit_gp_hyperparameters`` of the 1-D example's final GP on the card
+    in the working dtype and on the CPU in float64: Adam (150 steps) and
+    L-BFGS-B (100 iterations), ``min_noise`` 1e-6; the final negative log
+    likelihoods within 1e-3 relative."""
+    for method, steps in (("adam", 150), ("lbfgs", 100)):
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        fitted, history = st.fit_gp_hyperparameters(
+            gp, steps=steps, method=method, min_noise=1e-6)
+        torch.cuda.synchronize()
+        card_s = time.perf_counter() - start
+        with st.oracle._oracle_env():
+            start = time.perf_counter()
+            fitted64, history64 = st.fit_gp_hyperparameters(
+                st.oracle.lift64(gp), steps=steps, method=method,
+                min_noise=1e-6)
+            host_s = time.perf_counter() - start
+        rel = abs(history[-1] - history64[-1]) / abs(history64[-1])
+        print("1-D GP fit, {}: {} evaluations on the card ({!r} s), NLL "
+              "{!r} -> {!r}; float64 on the CPU {} evaluations ({!r} s), "
+              "{!r} -> {!r}; relative difference of the final NLL {!r} "
+              "(tolerance 1e-3); noise {!r} (float64 {!r}) [{}]".format(
+                  method, len(history), card_s, float(history[0]),
+                  float(history[-1]), len(history64), host_s,
+                  float(history64[0]), float(history64[-1]), rel,
+                  float(fitted.noise_variance),
+                  float(fitted64.noise_variance), card))
+        if not rel <= 1e-3:
+            raise AssertionError("the card's {} fit ends {} from the float64 "
+                                 "fit".format(method, rel))
+
+
 def main():
     card = phase_device()
     phase_build()
     phase_kernel_cases()
     phase_program_cases()
-    inst, bench_lyap, bench_launches = phase_bench_path()
+    bench_lyap, bench_launches = phase_bench_path()
     stacked_lyap, stacked_launches = phase_flagship_path("stacked")
     fan_lyap, fan_launches = phase_flagship_path("fan_out")
     # The host-bound end-to-end times come first: the sweeps and the
@@ -3001,20 +3499,30 @@ def main():
         phase_safe_learning(card)
     trainer, train_launches, minibatch = phase_training(card, safe_peak)
     adaptive = phase_adaptive(card)
+    cart_lyap, cart_launches = phase_cartpole_verification(card)
+    phase_cartpole_rl(card)
+    one_d_lyap, one_d_launches = phase_one_d_roa(card)
     phase_kernel_count_cases()
     phase_program_count_cases()
     # Per kernel and path: (launches, max_abs_err, ms, plain_ms, eager_ms,
-    # bound_ms, bound_by, bound_kind).
+    # bound_ms, bound_by, bound_kind). A kernel's headline numbers are its
+    # last path's: the cart-pole and 1-D rows ride along under "paths".
     paths = [
+        ("gp_predict", "cartpole_51x4", (cart_launches,)
+         + phase_times(card, cart_lyap, "cart-pole 51^4")),
         ("gp_predict", "bench", (bench_launches["gp_predict"],)
-         + phase_times(card, inst, bench_lyap)),
+         + phase_times(card, bench_lyap)),
         ("gp_predict_stacked", "flagship_stacked",
          (stacked_launches["gp_predict_stacked"],)
-         + phase_flagship_times(card, "stacked", stacked_lyap)),
+         + program_times(card, "stacked", stacked_lyap,
+                         "flagship stacked")),
+        ("gp_predict_general", "one_d_roa", (one_d_launches,)
+         + program_times(card, "general", one_d_lyap, "1-D ROA")),
         ("gp_predict_general", "flagship_fan_out",
          (fan_launches["gp_predict_general"],)
-         + phase_flagship_times(card, "fan_out", fan_lyap)),
+         + program_times(card, "general", fan_lyap, "flagship fan_out")),
     ]
+    del cart_lyap
     del stacked_lyap, fan_lyap
     train = (train_launches,) + training_times(card, trainer, minibatch)
     print("kernel 3 on the training path: {} launches, max abs err {!r}, "

@@ -10,7 +10,9 @@ Ported so far: grids, the function algebra with ``Saturation``,
 the ``Triangulation`` and ``PiecewiseConstant`` interpolants, Gaussian
 processes with stationary, linear and composite kernels,
 ``StackedGaussianProcess``, online GP updates (``add_data_point`` and the
-device append), the inverted pendulum, the fused and the adaptive
+device append), the log marginal likelihood, hyperparameter fitting and
+posterior sampling, the inverted pendulum, the cart-pole and the Van der
+Pol oscillator, the fused and the adaptive
 ``Lyapunov.update_safe_set`` sweeps and the policy-facing Lyapunov pieces
 (``safety_constraint``, ``v_decrease_bound``), safe exploration
 (``get_safe_sample``, ``get_safe_sample_batch``), dynamic programming
@@ -32,11 +34,13 @@ from .functions import (AddedFunction, ConstantFunction,
                         NeuralNetwork, PiecewiseConstant, QuadraticFunction,
                         RBFNetwork, Saturation, Triangulation,
                         UncertainFunction, as_deterministic)
-from .functions.gp import (ActiveDims, GaussianProcess, LinearKernel,
-                           Matern12, Matern32, Matern52, RBF,
-                           StackedGaussianProcess)
+from .functions.gp import (ActiveDims, GaussianProcess, GPRCached,
+                           GPSampledFunction, LinearKernel, Matern12,
+                           Matern32, Matern52, RBF, StackedGaussianProcess,
+                           StackedSampledFunction, fit_gp_hyperparameters,
+                           sample_gp_function)
 from .lyapunov import Lyapunov
-from .dynamics import InvertedPendulum
+from .dynamics import CartPole, InvertedPendulum, VanDerPol
 from .explore import (get_safe_sample, get_safe_sample_batch,
                       perturb_actions)
 from .rl import OptimizationError, PolicyIteration
@@ -53,9 +57,12 @@ __all__ = [
     "LyapunovNetwork", "MeanFunction", "MultipliedFunction",
     "NeuralNetwork", "PiecewiseConstant", "QuadraticFunction",
     "RBFNetwork", "Saturation", "Triangulation", "UncertainFunction",
-    "as_deterministic", "GaussianProcess", "StackedGaussianProcess",
+    "as_deterministic", "GaussianProcess", "GPRCached",
+    "StackedGaussianProcess", "GPSampledFunction", "StackedSampledFunction",
+    "fit_gp_hyperparameters", "sample_gp_function",
     "ActiveDims", "LinearKernel", "Matern12", "Matern32", "Matern52", "RBF",
-    "Lyapunov", "InvertedPendulum", "get_safe_sample",
+    "Lyapunov", "InvertedPendulum", "CartPole", "VanDerPol",
+    "get_safe_sample",
     "get_safe_sample_batch", "perturb_actions",
     "PolicyIteration", "OptimizationError", "compute_roa", "reward_rollout",
     "compute_closedloop_response", "gridify", "analysis", "convert",

@@ -14,7 +14,7 @@ from __future__ import annotations
 
 import numpy as np
 
-from .dynamics import InvertedPendulum
+from .dynamics import CartPole, InvertedPendulum, VanDerPol
 from .functions import gp as gp_mod
 from .functions.base import Saturation, as_tensor
 from .functions.linear import LinearSystem, QuadraticFunction
@@ -23,7 +23,8 @@ from .functions.simplex import PiecewiseConstant, Triangulation
 
 __all__ = ["linear_system", "quadratic_function", "stationary_kernel",
            "linear_kernel", "active_dims", "sum_kernel", "product_kernel",
-           "saturation", "inverted_pendulum", "gaussian_process",
+           "saturation", "inverted_pendulum", "cart_pole", "van_der_pol",
+           "gaussian_process",
            "stacked_gaussian_process", "neural_network",
            "lyapunov_network", "rbf_network", "triangulation",
            "piecewise_constant"]
@@ -131,6 +132,23 @@ def inverted_pendulum(mass, length, friction, dt, tx=None, tu=None):
     return InvertedPendulum(float(np.asarray(mass)), float(np.asarray(
         length)), float(np.asarray(friction)), float(dt),
         normalization=norm)
+
+
+def cart_pole(pendulum_mass, cart_mass, length, rot_friction, dt, tx=None,
+              tu=None):
+    """``CartPole`` from its parameters; ``tx`` and ``tu`` are the
+    normalization, or ``None``."""
+    norm = None if tx is None else (np.asarray(tx), np.asarray(tu))
+    return CartPole(*(float(np.asarray(p)) for p in (
+        pendulum_mass, cart_mass, length, rot_friction)), float(dt),
+        normalization=norm)
+
+
+def van_der_pol(damping, dt, tx=None):
+    """``VanDerPol`` from its parameters; ``tx`` is the state
+    normalization, or ``None``."""
+    return VanDerPol(float(np.asarray(damping)), float(dt),
+                     normalization=None if tx is None else np.asarray(tx))
 
 
 def gaussian_process(kernel, x, y, noise_variance, beta, scale, capacity,

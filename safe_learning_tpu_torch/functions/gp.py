@@ -23,10 +23,13 @@ package's:
   the next power of two past capacity;
 - ``_device_border_append`` grows the device factors by one observation
   in the working dtype with no host round trip, between the measurements
-  of ``explore.get_safe_sample_batch``.
-
-Not ported yet (ROADMAP queue 1): ``log_marginal_likelihood``,
-``fit_gp_hyperparameters`` and sampling (item 8).
+  of ``explore.get_safe_sample_batch``;
+- ``log_marginal_likelihood`` is differentiable through autograd, and
+  ``fit_gp_hyperparameters`` maximizes it over the kernel's positive
+  tensors and the noise (Adam, or scipy's L-BFGS-B);
+- ``sample_gp_function`` draws exact posterior samples in a float64 host
+  island, and a ``GPSampledFunction`` interpolates one consistently with
+  the posterior.
 """
 
 from __future__ import annotations
@@ -37,19 +40,30 @@ import numpy as np
 import torch
 
 from ..config import config
-from .base import UncertainFunction, as_tensor, dot
+from .base import (DeterministicFunction, UncertainFunction, as_tensor,
+                   concatenate_inputs, dot)
 
 __all__ = ["Kernel", "RBF", "Matern12", "Matern32", "Matern52",
            "LinearKernel", "ActiveDims", "SumKernel", "ProductKernel",
-           "STATIONARY_COVARIANCES", "GaussianProcess",
-           "StackedGaussianProcess", "coerce_stacked"]
+           "STATIONARY_COVARIANCES", "GaussianProcess", "GPRCached",
+           "StackedGaussianProcess", "coerce_stacked",
+           "fit_gp_hyperparameters", "GPSampledFunction",
+           "StackedSampledFunction", "sample_gp_function"]
 
 
 # ---------------------------------------------------------------------------
 # Kernels
 # ---------------------------------------------------------------------------
 class Kernel:
-    """Base class for covariance functions."""
+    """Base class for covariance functions.
+
+    ``_leaf_fields`` name a kernel's positive hyperparameter tensors and
+    ``_child_fields`` the kernels it holds, in the order of the JAX
+    package's pytree fields (``_kernel_leaves``).
+    """
+
+    _leaf_fields = ()
+    _child_fields = ()
 
     def __call__(self, x, z=None):
         """Full covariance matrix ``K(x, z)``, shape ``(len(x), len(z))``."""
@@ -78,6 +92,8 @@ def _sqdist(x, z):
 
 class _StationaryKernel(Kernel):
     """Shared scaffolding for stationary kernels with ARD lengthscales."""
+
+    _leaf_fields = ("variance", "lengthscales")
 
     def __init__(self, variance=1.0, lengthscales=1.0, input_dim=1):
         self.variance = as_tensor(np.asarray(variance, dtype=config.np_dtype))
@@ -155,6 +171,8 @@ _KIND_OF = {RBF: "rbf", Matern12: "matern12", Matern32: "matern32",
 class LinearKernel(Kernel):
     """Dot-product kernel ``K(x, z) = x diag(v) z^T`` (gpflow ``Linear``)."""
 
+    _leaf_fields = ("variances",)
+
     def __init__(self, variances=1.0, input_dim=1):
         v = np.atleast_1d(np.asarray(variances, dtype=config.np_dtype))
         self.variances = as_tensor(np.broadcast_to(v, (input_dim,)).copy())
@@ -174,6 +192,8 @@ class LinearKernel(Kernel):
 class ActiveDims(Kernel):
     """Restrict a kernel to a subset of input columns (gpflow
     ``active_dims``)."""
+
+    _child_fields = ("kernel",)
 
     def __init__(self, kernel, dims):
         self.kernel = kernel
@@ -201,6 +221,8 @@ class ActiveDims(Kernel):
 class SumKernel(Kernel):
     """Pointwise sum of two kernels (gpflow ``Add``)."""
 
+    _child_fields = ("k1", "k2")
+
     def __init__(self, k1, k2):
         self.k1, self.k2 = k1, k2
 
@@ -216,6 +238,8 @@ class SumKernel(Kernel):
 class ProductKernel(Kernel):
     """Pointwise product of two kernels (gpflow ``Prod``)."""
 
+    _child_fields = ("k1", "k2")
+
     def __init__(self, k1, k2):
         self.k1, self.k2 = k1, k2
 
@@ -226,6 +250,33 @@ class ProductKernel(Kernel):
     def diag(self, x):
         """Diagonal of ``K(x, x)``."""
         return self.k1.diag(x) * self.k2.diag(x)
+
+
+def _kernel_leaves(kernel):
+    """A kernel tree's positive hyperparameter tensors, in the order of
+    ``jax.tree_util.tree_flatten`` of the JAX package's kernel: a
+    stationary kernel's variance and lengthscales, a ``LinearKernel``'s
+    variances, with sums, products and ``ActiveDims`` recursed into."""
+    leaves = [getattr(kernel, name) for name in kernel._leaf_fields]
+    for name in kernel._child_fields:
+        leaves += _kernel_leaves(getattr(kernel, name))
+    return leaves
+
+
+def _with_kernel_leaves(kernel, leaves):
+    """A copy of a kernel tree with its :func:`_kernel_leaves` replaced by
+    ``leaves``, in the same order."""
+    leaves = iter(leaves)
+
+    def rebuild(node):
+        new = copy.copy(node)
+        for name in node._leaf_fields:
+            setattr(new, name, next(leaves))
+        for name in node._child_fields:
+            setattr(new, name, rebuild(getattr(node, name)))
+        return new
+
+    return rebuild(kernel)
 
 
 # ---------------------------------------------------------------------------
@@ -640,6 +691,20 @@ class GaussianProcess(UncertainFunction):
         mean, var = self.predict(points)
         return mean, self.beta * torch.sqrt(var)
 
+    def log_marginal_likelihood(self, kernel=None, noise_variance=None):
+        """Exact log marginal likelihood of the active data, summed over
+        the outputs (``safe_learning_tpu/functions/gp.py:508-526``).
+
+        Differentiable through autograd with respect to the tensors of
+        ``kernel`` and ``noise_variance`` (the GP's own by default).
+        """
+        kernel = self.kernel if kernel is None else kernel
+        noise = (self.noise_variance if noise_variance is None
+                 else noise_variance)
+        return _log_marginal_likelihood(kernel, noise, self.X_buf,
+                                        self.Y_buf, self.mean_function,
+                                        self.count)
+
     def add_data_point(self, x, y):
         """Append observations; returns a new GP.
 
@@ -678,6 +743,39 @@ class GaussianProcess(UncertainFunction):
             new.chol_inv = as_tensor(np.ascontiguousarray(host_new.chol_inv))
             new.alpha = as_tensor(np.ascontiguousarray(host_new.alpha))
         return new
+
+
+#: The reference's two GP names are one class here
+#: (``safe_learning_tpu/functions/gp.py:577-583``).
+GPRCached = GaussianProcess
+
+
+def _log_marginal_likelihood(kernel, noise_variance, x_buf, y_buf,
+                             mean_function, count):
+    """Masked exact GP log marginal likelihood, summed over outputs.
+
+    As ``safe_learning_tpu/functions/gp.py:586-613``: inactive buffer rows
+    contribute identity rows to the factor and nothing to the quadratic
+    form or the log determinant, so the result is the unpadded
+    ``-1/2 r' K^-1 r - 1/2 log|K| - n/2 log(2 pi)`` per output column.
+    """
+    cap = x_buf.shape[0]
+    dtype, device = x_buf.dtype, x_buf.device
+    mask = (torch.arange(cap, device=device) < count).to(dtype)
+    outer = mask[:, None] * mask[None, :]
+    eye = torch.eye(cap, dtype=dtype, device=device)
+    k = kernel(x_buf, x_buf) + noise_variance * eye
+    k = torch.where(outer > 0, k, eye)
+    chol = torch.linalg.cholesky(k)
+    prior = 0.0 if mean_function is None else mean_function(x_buf)
+    resid = (y_buf - prior) * mask[:, None]
+    alpha = torch.linalg.solve_triangular(chol, resid, upper=False)
+    quad = (alpha ** 2).sum()
+    # Identity rows have log diag 0, so the masked logdet is free.
+    logdet = 2.0 * torch.log(torch.diagonal(chol)).sum()
+    p = y_buf.shape[1]
+    return (-0.5 * quad - 0.5 * p * logdet
+            - 0.5 * p * float(count) * np.log(2.0 * np.pi))
 
 
 # ---------------------------------------------------------------------------
@@ -915,6 +1013,20 @@ class StackedGaussianProcess(UncertainFunction):
         mean, var = self.predict(points)
         return mean, self._betas.to(var.dtype) * torch.sqrt(var)
 
+    def log_marginal_likelihood(self, kernels=None, noise_variances=None):
+        """Sum of the per-output exact log marginal likelihoods
+        (``safe_learning_tpu/functions/gp.py:1142-1157``), differentiable
+        with respect to the kernels' tensors and the noise variances."""
+        kernels = self.kernels if kernels is None else kernels
+        noises = (self.noise_variances if noise_variances is None
+                  else torch.as_tensor(noise_variances))
+        total = 0.0
+        for s in range(self.num_fun):
+            total = total + _log_marginal_likelihood(
+                kernels[s], noises[s], self.X_buf, self.Y_buf[:, s:s + 1],
+                self.mean_functions[s], self.count)
+        return total
+
     def add_data_point(self, x, y):
         """Append measurements of every output; returns a new stack.
 
@@ -996,3 +1108,329 @@ def coerce_stacked(dynamics):
             all(isinstance(f, GaussianProcess) for f in dynamics.functions):
         return StackedGaussianProcess.from_gps(dynamics.functions)
     return dynamics
+
+
+# ---------------------------------------------------------------------------
+# Hyperparameter fitting
+# ---------------------------------------------------------------------------
+def fit_gp_hyperparameters(gp, steps=150, learning_rate=0.05,
+                           optimize_noise=True, min_noise=None,
+                           method="adam", bounds=None):
+    """Fit kernel hyperparameters by maximizing the log marginal likelihood.
+
+    Counterpart of ``safe_learning_tpu/functions/gp.py:1275-1476``: the
+    optimization runs in log space over every positive kernel tensor
+    (:func:`_kernel_leaves`) and, with ``optimize_noise``, over the noise
+    as ``min_noise + exp(.)``. ``method="adam"`` takes ``steps`` steps of
+    ``torch.optim.Adam`` (optax's defaults, the same update) on the GP's
+    device, each followed by the log-space box clip of ``bounds``;
+    ``method="lbfgs"`` runs scipy's L-BFGS-B for at most ``steps``
+    iterations on the host, driven by an autograd value and gradient,
+    with ``bounds`` on the kernel coordinates and the noise coordinate
+    pinned when it is not optimized. A :class:`StackedGaussianProcess` is
+    fitted member by member and re-batched, the histories padded with each
+    member's last value and summed.
+
+    Parameters
+    ----------
+    gp : GaussianProcess or StackedGaussianProcess
+    steps : int
+    learning_rate : float
+        Adam's step size (L-BFGS-B ignores it).
+    optimize_noise : bool
+    min_noise : float, optional
+        Lower bound of the fitted noise (1e-8 in float64, 1e-6 in
+        float32).
+    method : {"adam", "lbfgs"}
+    bounds : (lo, hi), optional
+        Box on every kernel tensor, in its original (not log) space.
+
+    Returns
+    -------
+    fitted : the GP with the fitted hyperparameters and a refreshed host
+        factorization
+    history : ndarray, the negative log marginal likelihood per Adam step
+        or L-BFGS-B evaluation
+    """
+    if method not in ("adam", "lbfgs"):
+        raise ValueError("method must be 'adam' or 'lbfgs', got "
+                         + repr(method))
+    if isinstance(gp, StackedGaussianProcess):
+        fitted_members, histories = [], []
+        for member in gp.unstack():
+            fitted_member, history = fit_gp_hyperparameters(
+                member, steps=steps, learning_rate=learning_rate,
+                optimize_noise=optimize_noise, min_noise=min_noise,
+                method=method, bounds=bounds)
+            fitted_members.append(fitted_member)
+            histories.append(history)
+        width = max(len(h) for h in histories)
+        histories = [np.concatenate([h, np.full(width - len(h),
+                                                h[-1] if len(h) else 0.0)])
+                     for h in histories]
+        return (StackedGaussianProcess.from_gps(fitted_members),
+                np.sum(histories, axis=0))
+
+    if min_noise is None:
+        min_noise = 1e-8 if config.dtype == torch.float64 else 1e-6
+    device = gp.X_buf.device
+    min_noise = torch.as_tensor(min_noise, dtype=config.dtype, device=device)
+    leaves = _kernel_leaves(gp.kernel)
+    start = [torch.log(torch.clamp(leaf, min=1e-12)).detach()
+             for leaf in leaves]
+    start.append(torch.log(torch.clamp(gp.noise_variance - min_noise,
+                                       min=1e-12)).detach())
+
+    def unpack(state):
+        """``(kernel, noise)`` of the log parameters."""
+        kernel = _with_kernel_leaves(gp.kernel,
+                                     [torch.exp(t) for t in state[:-1]])
+        noise = (min_noise + torch.exp(state[-1]) if optimize_noise
+                 else gp.noise_variance)
+        return kernel, noise
+
+    def nll(state):
+        """Negative log marginal likelihood of the log parameters."""
+        return -_log_marginal_likelihood(*unpack(state), gp.X_buf, gp.Y_buf,
+                                         gp.mean_function, gp.count)
+
+    if method == "lbfgs":
+        state, history = _fit_lbfgs(nll, start, steps, optimize_noise,
+                                    bounds)
+    else:
+        state, history = _fit_adam(nll, start, steps, learning_rate,
+                                   bounds)
+    kernel, noise = unpack(state)
+    fitted = copy.copy(gp)
+    fitted.kernel = kernel
+    fitted.noise_variance = noise.detach().to(config.dtype).clone()
+    fitted._host_cache, fitted.chol_inv, fitted.alpha = _cache_parts(
+        kernel, _host(gp.X_buf), _host(gp.Y_buf), gp.mean_function, gp.count,
+        float(fitted.noise_variance), gp.scale)
+    return fitted, history
+
+
+def _fit_adam(nll, start, steps, learning_rate, bounds):
+    """``steps`` Adam steps from the log parameters ``start``, the kernel
+    coordinates clipped to the log-space box after each. Returns the
+    final parameters (detached) and the loss before each step."""
+    state = [t.clone().requires_grad_(True) for t in start]
+    optimizer = torch.optim.Adam(state, lr=learning_rate, betas=(0.9, 0.999),
+                                 eps=1e-8)
+    losses = []
+    for _ in range(int(steps)):
+        optimizer.zero_grad()
+        loss = nll(state)
+        loss.backward()
+        optimizer.step()
+        if bounds is not None:
+            lo = float(np.log(max(float(bounds[0]), 1e-12)))
+            hi = float(np.log(float(bounds[1])))
+            with torch.no_grad():
+                for t in state[:-1]:
+                    t.clamp_(lo, hi)
+        losses.append(loss.detach())
+    history = (torch.stack(losses).cpu().numpy() if losses
+               else np.empty(0))
+    return [t.detach() for t in state], history
+
+
+def _fit_lbfgs(nll, start, steps, optimize_noise, bounds):
+    """scipy's L-BFGS-B over the flat log parameters, float64 on the
+    host, the value and gradient from autograd in the working dtype.
+    Returns the final parameters and the loss of every evaluation."""
+    import scipy.optimize
+
+    shapes = [t.shape for t in start]
+    sizes = [t.numel() for t in start]
+    like = start[0]
+
+    def to_vector(tensors):
+        return np.concatenate([
+            np.zeros(size) if t is None
+            else t.detach().cpu().double().numpy().ravel()
+            for t, size in zip(tensors, sizes)])
+
+    def from_vector(vec):
+        out, off = [], 0
+        for size, shape in zip(sizes, shapes):
+            out.append(torch.as_tensor(vec[off:off + size], dtype=like.dtype,
+                                       device=like.device).reshape(shape))
+            off += size
+        return out
+
+    history = []
+
+    def objective(vec):
+        state = [t.requires_grad_(True) for t in from_vector(vec)]
+        loss = nll(state)
+        grads = torch.autograd.grad(loss, state, allow_unused=True)
+        value = float(loss.detach())
+        history.append(value)
+        return value, to_vector(grads)
+
+    n_kernel = sum(sizes[:-1])
+    box = None
+    if bounds is not None:
+        lo = float(np.log(max(float(bounds[0]), 1e-12)))
+        hi = float(np.log(float(bounds[1])))
+        box = [(lo, hi)] * n_kernel + [(None, None)]
+    elif not optimize_noise:
+        box = [(None, None)] * (n_kernel + 1)
+    if not optimize_noise and box is not None:
+        x0_noise = float(start[-1])
+        box[-1] = (x0_noise, x0_noise)  # pin the noise coordinate
+    result = scipy.optimize.minimize(
+        objective, to_vector(start), jac=True, method="L-BFGS-B",
+        bounds=box, options={"maxiter": int(steps)})
+    return from_vector(result.x), np.asarray(history)
+
+
+# ---------------------------------------------------------------------------
+# Posterior function sampling
+# ---------------------------------------------------------------------------
+class GPSampledFunction(DeterministicFunction):
+    """A posterior sample of a GP, evaluable anywhere.
+
+    As ``safe_learning_tpu/functions/gp.py:1482-1540``, the sample is
+    interpolated with the posterior covariance,
+    ``f(x) = m_post(x) + Cov_post(x, D) Cov_post(D, D)^+ (s - m_post(D))``,
+    which reproduces the sampled values on the discretization ``D`` and
+    respects the GP's data everywhere. ``a_disc`` is ``L^-1 K(X, D)`` of
+    the GP's cache and ``alpha`` the sample's ``(len(D), 1)`` coefficients.
+    Calling the function returns noiseless values; ``noise_key`` (a
+    ``torch.Generator``) adds a noisy measurement's noise.
+    """
+
+    output_dim = 1
+
+    def __init__(self, gp, points, a_disc, alpha):
+        self.gp = gp
+        self.points = as_tensor(points)
+        self.a_disc = as_tensor(a_disc)
+        self.alpha = as_tensor(alpha)
+        self.input_dim = int(self.points.shape[1])
+
+    @property
+    def noise_variance(self):
+        """Observation-noise variance of the sampled GP."""
+        return self.gp.noise_variance
+
+    def __call__(self, *points, noise_key=None):
+        """Evaluate (see the class docstring)."""
+        values = self.evaluate(concatenate_inputs(*points))
+        if noise_key is not None:
+            values = values + torch.sqrt(self.noise_variance) * torch.randn(
+                values.shape, generator=noise_key, dtype=values.dtype,
+                device=noise_key.device).to(values.device)
+        return values
+
+    def evaluate(self, points):
+        """Evaluate the function at ``points``."""
+        gp = self.gp
+        points = torch.atleast_2d(as_tensor(points))
+        s2 = gp.scale ** 2
+        kx = s2 * gp.kernel(gp.X_buf, points) * gp._mask()[:, None]
+        a_x = dot(gp.chol_inv, kx)
+        mean = dot(a_x.T, gp.alpha) / gp.scale + gp._prior_mean(points)
+        cross = gp.kernel(points, self.points) - dot(a_x.T, self.a_disc) / s2
+        return mean + dot(cross, self.alpha)
+
+
+class StackedSampledFunction(DeterministicFunction):
+    """Per-output posterior samples of a stacked GP as one multi-output
+    function (``safe_learning_tpu/functions/gp.py:1543-1580``)."""
+
+    def __init__(self, members):
+        self.members = tuple(members)
+        self.input_dim = self.members[0].input_dim
+        self.output_dim = len(self.members)
+
+    def __call__(self, *points, noise_key=None):
+        """Evaluate (see the class docstring); the members draw their
+        noise from ``noise_key`` in turn."""
+        merged = concatenate_inputs(*points)
+        return torch.cat([m(merged, noise_key=noise_key)
+                          for m in self.members], dim=1)
+
+    def evaluate(self, points):
+        """Evaluate the function at ``points``."""
+        return torch.cat([m.evaluate(points) for m in self.members], dim=1)
+
+
+def _standard_normals(generator, number, n):
+    """The sampler's standard normals: ``(number, n)`` float32 draws from
+    ``generator``, as a float64 numpy array. The one source of the draws,
+    so that a caller can feed another generator's numbers."""
+    z = torch.randn((number, n), generator=generator, dtype=torch.float32,
+                    device=generator.device)
+    return z.cpu().numpy().astype(np.float64)
+
+
+def sample_gp_function(discretization, gp, key, number=1,
+                       return_function=True, jitter=0.0, cut_rel=None):
+    """Draw exact posterior samples of a GP on a discretization.
+
+    Counterpart of ``safe_learning_tpu/functions/gp.py:1583-1691``. The
+    draw is a float64 host island: the float64 copy of the GP
+    (``oracle.lift64``) predicts the full posterior covariance at the
+    float64 discretization (a grid's ``all_points_f64``), symmetrized;
+    its eigendecomposition is truncated at ``cut_rel`` (default 1e-6) of
+    the largest eigenvalue; float32 standard normals over the whole
+    discretization (:func:`_standard_normals` from the ``torch.Generator``
+    ``key``) are paired with the eigenpairs by absolute position, so an
+    eigenvalue crossing the cut changes only its own term. ``jitter`` is
+    added to the kept eigenvalues. A :class:`StackedGaussianProcess` is
+    sampled member by member from the same generator.
+
+    Returns ``number`` :class:`GPSampledFunction` (or
+    :class:`StackedSampledFunction`) objects, or with
+    ``return_function=False`` the samples as a ``(number, len(D))`` array
+    (``(number, len(D), num_fun)`` for a stack) in the working dtype.
+    """
+    from ..grids import GridWorld
+    from ..oracle import _oracle_env, lift64
+
+    if isinstance(discretization, GridWorld):
+        points64 = discretization.all_points_f64
+    elif torch.is_tensor(discretization):
+        points64 = discretization.detach().cpu().double().numpy()
+    else:
+        points64 = np.asarray(discretization, dtype=np.float64)
+
+    if isinstance(gp, StackedGaussianProcess):
+        per_out = [sample_gp_function(points64, member, key, number,
+                                      return_function, jitter, cut_rel)
+                   for member in gp.unstack()]
+        if not return_function:
+            return np.stack(per_out, axis=-1)
+        return [StackedSampledFunction([per_out[s][i]
+                                        for s in range(gp.num_fun)])
+                for i in range(number)]
+
+    with _oracle_env():
+        gp64 = lift64(gp)
+        mean, cov = gp64.predict(torch.as_tensor(points64), full_cov=True)
+        mean64 = mean.numpy()[:, 0]
+        cov64 = cov.numpy()
+    cov64 = 0.5 * (cov64 + cov64.T)
+    w, v = np.linalg.eigh(cov64)
+    if cut_rel is None:
+        cut_rel = 1e-6
+    w_max = max(float(w[-1]), 0.0)
+    keep = w > cut_rel * w_max
+    wr = w[keep] + float(jitter)
+    vr = v[:, keep]
+    z = _standard_normals(key, number, len(points64))[:, keep]
+    samples = mean64[None, :] + z @ (np.sqrt(wr)[:, None] * vr.T)
+    if not return_function:
+        return np.asarray(samples, dtype=config.np_dtype)
+
+    # alpha_i = C^+ (sample_i - mean) = vr (z_i / sqrt(wr)).
+    alphas = (z / np.sqrt(wr)) @ vr.T
+    points = as_tensor(points64.astype(config.np_dtype))
+    kx = gp.scale ** 2 * gp.kernel(gp.X_buf, points) * gp._mask()[:, None]
+    a_disc = dot(gp.chol_inv, kx)
+    return [GPSampledFunction(gp, points, a_disc,
+                              as_tensor(alphas[i][:, None]))
+            for i in range(number)]

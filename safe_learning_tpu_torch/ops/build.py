@@ -98,7 +98,8 @@ def load_libraries(jobs):
     try:
         for (name, _, _), (target, srcs) in zip(jobs, prepared):
             if os.path.exists(target):
-                build_reports[name] = (0.0, "cached " + target)
+                # A library built earlier in this process keeps its report.
+                build_reports.setdefault(name, (0.0, "cached " + target))
                 continue
             fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
             os.close(fd)

@@ -44,6 +44,23 @@ def test_kernel_matches_plain(on_cuda, kind, dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("d,p,count,cap", [(5, 4, 128, 128),
+                                           (16, 8, 129, 256)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_kernel_at_wide_inputs_and_outputs(on_cuda, d, p, count, cap,
+                                           dtype):
+    """Kernel 1 past the 4 dimensions it unrolls from registers: the
+    cart-pole's d = 5, p = 4 at count 128 (tiled body) and the
+    ``D_MAX``/``P_MAX`` edge d = 16, p = 8 at count 129 (streamed body),
+    within ``chip_smoke.rounding_bounds``."""
+    from chip_smoke import case_gp, case_inputs, compare
+
+    gp = case_gp("rbf", cap, p, 2.5, dtype, seed=d, n=count, d=d)
+    _, _, ratio = compare(case_inputs(gp, 4099, d), "rbf", count=gp.count)
+    assert ratio <= 1.0
+
+
+@pytest.mark.cuda
 def test_cuda_predict_goes_through_the_kernel(on_cuda):
     from chip_smoke import case_gp
 

@@ -1,5 +1,6 @@
-"""The inverted pendulum, the LQR solvers, ``Saturation`` and
-``FunctionStack`` against the JAX package."""
+"""The inverted pendulum, the cart-pole, the Van der Pol oscillator, the
+LQR solvers, ``Saturation`` and ``FunctionStack`` against the JAX
+package."""
 
 import numpy as np
 import pytest
@@ -127,3 +128,91 @@ def test_convert_inverted_pendulum():
         assert_allclose(to_numpy(pp(x)), np.asarray(jp(x)),
                         **TOL["float64"])
         assert pp.tx.dtype == torch.float64
+
+
+# The cart-pole of ``examples/reinforcement_learning_cartpole.py`` (notebook
+# cell 7) and the reverse-time Van der Pol oscillator.
+CART = dict(pendulum_mass=0.175, cart_mass=1.732, length=0.28,
+            rot_friction=0.01, dt=0.01)
+CART_NORMS = ((0.5, np.deg2rad(30), 2.0, np.deg2rad(30)),
+              ((0.175 + 1.732) * 2.0 ** 2 / 0.5,))
+VDP_NORMS = (1.5, 2.5)
+
+
+def _systems(name, normalized):
+    """The JAX and the port's system, in the current working dtype."""
+    if name == "cartpole":
+        norms = CART_NORMS if normalized else None
+        return (sl.CartPole(**CART, normalization=norms),
+                st.CartPole(**CART, normalization=norms))
+    norms = VDP_NORMS if normalized else None
+    return (sl.VanDerPol(damping=0.9, dt=0.01, normalization=norms),
+            st.VanDerPol(damping=0.9, dt=0.01, normalization=norms))
+
+
+@pytest.mark.parametrize("normalized", [True, False])
+@pytest.mark.parametrize("name", ["cartpole", "vanderpol"])
+def test_ode_and_evaluate_match_jax(name, normalized):
+    """The continuous ODE and ten inner Euler steps, float64 to 1e-12."""
+    rng = np.random.default_rng(4)
+    with working_dtype("float64"):
+        jsys, psys = _systems(name, normalized)
+        x = rng.uniform(-1, 1, size=(64, psys.state_dim))
+        u = rng.uniform(-1, 1, size=(64, psys.action_dim))
+        xu = np.hstack([x, u])
+        want_ode = np.asarray(jsys.ode(x, u))
+        got_ode = to_numpy(psys.ode(torch.as_tensor(x), torch.as_tensor(u)))
+        want = np.asarray(jsys(xu))
+        got = to_numpy(psys(xu))
+    assert got.shape == (64, psys.state_dim)
+    assert_allclose(got_ode, want_ode, rtol=1e-12, atol=1e-12)
+    assert_allclose(got, want, rtol=1e-12, atol=1e-12)
+
+
+@pytest.mark.parametrize("normalized", [True, False])
+@pytest.mark.parametrize("name", ["cartpole", "vanderpol"])
+def test_ode_linearize_matches_jax(name, normalized):
+    """The zero-order-hold linearization, to 1e-9; without an action it
+    is one matrix, as the JAX package returns."""
+    with working_dtype("float64"):
+        jsys, psys = _systems(name, normalized)
+        want, got = jsys.linearize(), psys.linearize()
+    if name == "vanderpol":
+        assert isinstance(got, np.ndarray) and got.shape == (2, 2)
+        want, got = (want,), (got,)
+    else:
+        assert got[1].shape == (4, 1)
+    for g, w in zip(got, want):
+        assert_allclose(g, np.asarray(w), rtol=1e-9, atol=1e-12)
+
+
+def test_van_der_pol_roa_matches_jax():
+    """The reverse-time Van der Pol's region of attraction on a 5x5 grid
+    over 2000 steps: the same points converge in both packages."""
+    with working_dtype("float64"):
+        jsys, psys = _systems("vanderpol", True)
+        jgrid = sl.GridWorld([[-1.0, 1.0]] * 2, 5)
+        pgrid = st.GridWorld([[-1.0, 1.0]] * 2, 5)
+        want = np.asarray(sl.compute_roa(jgrid, jsys, horizon=2000,
+                                         tol=0.1))
+        got = st.compute_roa(pgrid, psys, horizon=2000, tol=0.1)
+    assert want.any() and not want.all()
+    assert_array_equal(got, want)
+
+
+def test_convert_cart_pole_and_van_der_pol():
+    with working_dtype("float64"):
+        jcart, _ = _systems("cartpole", True)
+        jvdp, _ = _systems("vanderpol", True)
+        pcart = convert.cart_pole(
+            np.asarray(jcart.pendulum_mass), np.asarray(jcart.cart_mass),
+            np.asarray(jcart.length), np.asarray(jcart.rot_friction),
+            jcart.dt, np.asarray(jcart.tx), np.asarray(jcart.tu))
+        pvdp = convert.van_der_pol(np.asarray(jvdp.damping), jvdp.dt,
+                                   np.asarray(jvdp.tx))
+        rng = np.random.default_rng(5)
+        xu = rng.uniform(-1, 1, size=(8, 5))
+        assert_allclose(to_numpy(pcart(xu)), np.asarray(jcart(xu)),
+                        rtol=1e-12, atol=1e-12)
+        assert_allclose(to_numpy(pvdp(xu[:, :2])), np.asarray(jvdp(xu[:, :2])),
+                        rtol=1e-12, atol=1e-12)
