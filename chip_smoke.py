@@ -9,9 +9,10 @@ Phases, in order; any failure raises and the exit code is not 0:
 
 1. device: requires CUDA and compute capability 9.0, sets
    ``config.device = "cuda:0"`` and prints the card's name and power limit;
-2. build: compiles the stationary kernel (``csrc/gp_predict.cu``) and one
-   library per covariance program tuple (``csrc/gp_predict_program.cuh``)
-   for ``sm_90a``, one ``nvcc`` each, all at once, and prints each build's
+2. build: compiles the stationary kernel (``csrc/gp_predict.cu``), its
+   four variants (``csrc/gp_predict_variants.cu``) and one library per
+   covariance program tuple (``csrc/gp_predict_program.cuh``) for
+   ``sm_90a``, one ``nvcc`` each, all at once, and prints each build's
    time and the compiler's report;
 3. kernel 1 against plain: the stationary GP-predict kernel against its
    plain PyTorch version on the card, for every stationary kind,
@@ -130,8 +131,20 @@ Phases, in order; any failure raises and the exit code is not 0:
     cart-pole's and the bench's sweep, kernel 2 at the 1-D and the
     flagship fan-out sweep, kernel 3 at the flagship, a training ascent
     step, the safe-learning sweep and the adaptive path's coarse pass and
-    refinement chunk (count 181); then the loop's step times again, to
-    show how far the work before moved them;
+    refinement chunk (count 181); then kernel 1's four variants
+    (``phase_kernel_variants``, the pipelined, interleaved by 2 and 4,
+    folded and expanded-distance kernels of the port's benchmark modules):
+    (a) each against its plain version within its bound
+    (``rounding_bounds``, ``folded_bounds``, ``expanded_bounds``) in float32
+    and float64, the four kinds, capacities 8, 128 and 2048 and the
+    cart-pole's d = 5, p = 4; (b) at the bench's and the cart-pole's
+    kernel-1 inputs, their path, ``pipelined_predict.run`` and
+    ``distance_mxu_experiment.run`` (launches counted; each variant's max
+    |d| from kernel 1 and speed-up), then each against its plain version,
+    device times in turns with kernel 1's, eager and plain times; (c) the
+    expanded form's and kernel 1's errors against the float64 oracle; then
+    the loop's step times again, to show how far the work before moved
+    them;
 16. profiles, after every time: torch.profiler over the safe-learning and
     the bench sweeps (``profile_sweep``), over 20 pretraining and 20
     penalised ascent steps (``profile_training``) and over the adaptive
@@ -170,14 +183,20 @@ from safe_learning_tpu_torch.functions.base import concatenate_inputs
 from safe_learning_tpu_torch.lyapunov import (_decrease_bound, _fused_update,
                                               _negative_batch, _threshold,
                                               refinement_offsets)
+from safe_learning_tpu_torch.benchmarks import distance_mxu_experiment
+from safe_learning_tpu_torch.benchmarks import pipelined_predict
 from safe_learning_tpu_torch.ops import gp_kernel
 from safe_learning_tpu_torch.ops.build import build_reports
 
 KERNEL_CLASSES = {"rbf": st.RBF, "matern12": st.Matern12,
                   "matern32": st.Matern32, "matern52": st.Matern52}
 
+VARIANTS_SOURCE = "safe_learning_tpu_torch/csrc/gp_predict_variants.cu"
+
 #: Each kernel: its wrapper (whose ``launches`` the paths read), its
-#: source, and the Pallas body it replaces.
+#: source, and the Pallas body it replaces. The last four are kernel 1's
+#: variants, whose path is the port's benchmark modules
+#: (``phase_kernel_variants``).
 KERNELS = {
     "gp_predict": (gp_kernel.gp_predict_cuda,
                    "safe_learning_tpu_torch/csrc/gp_predict.cu",
@@ -190,6 +209,18 @@ KERNELS = {
                            "safe_learning_tpu_torch/csrc/"
                            "gp_predict_program.cuh",
                            "safe_learning_tpu/ops/gp_kernel.py:347"),
+    "pipelined_gp_predict": (pipelined_predict.pipelined_gp_predict_cuda,
+                             VARIANTS_SOURCE,
+                             "benchmarks/pipelined_predict.py:44"),
+    "interleaved_gp_predict": (pipelined_predict.interleaved_gp_predict_cuda,
+                               VARIANTS_SOURCE,
+                               "benchmarks/pipelined_predict.py:141"),
+    "folded_gp_predict": (pipelined_predict.folded_gp_predict_cuda,
+                          VARIANTS_SOURCE,
+                          "benchmarks/pipelined_predict.py:170"),
+    "fused_predict_mxu_dist": (
+        distance_mxu_experiment.fused_predict_mxu_dist_cuda, VARIANTS_SOURCE,
+        "benchmarks/distance_mxu_experiment.py:30"),
 }
 
 #: The flagship's grid: the reference's size
@@ -997,34 +1028,117 @@ def rounding_bounds(inputs, kind):
     return tol_mean, tol_var
 
 
-def compare(inputs, kind, count=None, chunk=2 ** 20):
-    """Kernel against plain on one input set, the kernel's loops bounded
-    by ``count`` (``None``: the capacity); returns the errors. The kernel
-    runs once on all the queries; the plain version and the bounds are
-    taken ``chunk`` queries at a time, which bounds their float64
-    intermediates."""
-    mean_k, var_k = gp_kernel.gp_predict_cuda(*inputs, kind=kind,
-                                              count=count)
-    torch.cuda.synchronize()
-    if not (torch.isfinite(mean_k).all() and torch.isfinite(var_k).all()):
-        raise AssertionError("kernel output is not finite")
-    # A zero bound (all k underflowed) admits only a zero error.
+def folded_bounds(inputs, kind):
+    """``rounding_bounds`` of the folded variant: its inputs ``(q, x,
+    chol_inv_scaled, alpha)`` and a bare ``k`` (unit scale and mask)."""
+    q, x, li, alpha = inputs
+    ones = torch.ones(x.shape[0], dtype=q.dtype, device=q.device)
+    return rounding_bounds((q, x, li, alpha, ones, ones[0]), kind)
+
+
+#: Per stationary kind: ``r*``, where ``|f'(r)|`` of the covariance as a
+#: function of ``r = sqrt(r^2)`` peaks, and ``|f'(r)|`` itself (with
+#: ``s = sqrt(3) r`` or ``sqrt(5) r`` for the Matern kinds). Every one is
+#: at most 1, and falls monotonically past ``r*``.
+COV_SLOPE = {
+    "rbf": (1.0, lambda r: r * torch.exp(-0.5 * r * r)),
+    "matern12": (0.0, lambda r: torch.exp(-r)),
+    "matern32": (3 ** -0.5, lambda r: 3 * r * torch.exp(-(3 ** 0.5) * r)),
+    "matern52": ((1 + 5 ** 0.5) / 2 / 5 ** 0.5,
+                 lambda r: 5 ** 0.5 / 3 * (5 ** 0.5 * r)
+                 * (1 + 5 ** 0.5 * r) * torch.exp(-(5 ** 0.5) * r)),
+}
+
+
+def expanded_bounds(inputs, kind):
+    """Elementwise bounds on ``|kernel - plain|`` of the expanded-distance
+    variant, both computing ``r^2 = max(xx - 2 x.q + qq, 0)``.
+
+    Each side's ``r^2`` lies within ``(d + 3) u S`` of the exact squared
+    distance, ``S = xx + 2 |x|.|q| + qq``: ``d`` roundings in each of the
+    three sums, two in the combination (Higham's forward bound for a dot
+    product, ``gamma_d``, plus one unit each), one to spare. So the two
+    sides differ by at most ``eps = 2 (d + 3) u S``; the clamp at 0 is a
+    projection and never adds to it. Through the covariance
+    ``f(sqrt(r^2))``: ``|dr| <= min(sqrt(eps), eps / (2 r_lo))`` with
+    ``r_lo = sqrt(max(r^2 - eps, 0))``, and ``|dk| <= |f'|max dr`` with
+    ``|f'|max`` the slope's largest value past ``r_lo`` (``COV_SLOPE``),
+    times the scale and the mask. Unlike the per-dimension differences,
+    this error is absolute: it does not shrink with ``k``. The rest is
+    ``rounding_bounds`` without its ``2 r^2`` term (that term is the
+    relative error of the differences' ``r^2``): ``16 u`` relative for
+    the covariance, the scale and the mask, ``cap u`` for each dot
+    product stage, counted twice.
+    """
+    q, x, li, alpha, mask, var_s2 = (t.double() for t in inputs)
+    u = torch.finfo(inputs[0].dtype).eps / 2
+    cap, d = x.shape
+    r2 = None
+    for i in range(d):
+        diff = x[:, i][:, None] - q[:, i][None, :]
+        r2 = diff * diff if r2 is None else r2 + diff * diff
+    big = ((x * x).sum(1)[:, None] + 2 * (x.abs() @ q.abs().T)
+           + (q * q).sum(1)[None, :])
+    eps = 2 * (d + 3) * u * big
+    del big
+    r_lo = (r2 - eps).clamp(min=0).sqrt()
     tiny = torch.finfo(torch.float64).tiny
-    em = ev = ratio = 0.0
+    dr = torch.minimum(eps.sqrt(), eps / (2 * r_lo).clamp(min=tiny))
+    r_star, slope = COV_SLOPE[kind]
+    dk = slope(r_lo.clamp(min=r_star)) * dr * var_s2 * mask[:, None]
+    del eps, r_lo, dr
+    k = st.functions.gp.STATIONARY_COVARIANCES[kind](r2) * var_s2 \
+        * mask[:, None]
+    del r2
+    w = li.abs() @ ((cap + 16) * k.abs() + dk / (2 * u))
+    del dk
+    a = (li @ k).abs()
+    del k
+    tol_mean = 2 * u * (w.T @ alpha.abs() + cap * (a.T @ alpha.abs()))
+    tol_var = 2 * u * (2 * (a * w).sum(0) + cap * (a * a).sum(0))
+    return tol_mean, tol_var
+
+
+def compare_outputs(outs, plain, bounds, inputs, chunk=2 ** 20):
+    """Kernel outputs against the plain version on one input set: for
+    each ``(mean, var)`` of ``outs`` (all computed from ``inputs``) the
+    largest errors and err/bound. ``plain(part)`` and ``bounds(part)`` take
+    the inputs with ``chunk`` queries at a time, which bounds their
+    float64 intermediates; a zero bound (all k underflowed) admits only a
+    zero error. Returns ``[(max|dmean|, max|dvar|, err/bound)]``."""
+    torch.cuda.synchronize()
+    for mean_k, var_k in outs:
+        if not (torch.isfinite(mean_k).all() and torch.isfinite(var_k).all()):
+            raise AssertionError("kernel output is not finite")
+    tiny = torch.finfo(torch.float64).tiny
+    worst = [[0.0, 0.0, 0.0] for _ in outs]
     for start in range(0, inputs[0].shape[0], chunk):
         part = (inputs[0][start:start + chunk],) + tuple(inputs[1:])
-        mean_p, var_p = gp_kernel.gp_predict_plain(*part, kind=kind)
-        tol_mean, tol_var = rounding_bounds(part, kind)
-        err_mean = (mean_k[start:start + chunk].double()
-                    - mean_p.double()).abs()
-        err_var = (var_k[start:start + chunk].double()
-                   - var_p.double()).abs()
-        em = max(em, float(err_mean.max()))
-        ev = max(ev, float(err_var.max()))
-        ratio = max(ratio,
-                    float((err_mean / tol_mean.clamp(min=tiny)).max()),
-                    float((err_var / tol_var.clamp(min=tiny)).max()))
-    return em, ev, ratio
+        mean_p, var_p = plain(part)
+        tol_mean, tol_var = bounds(part)
+        for w, (mean_k, var_k) in zip(worst, outs):
+            err_mean = (mean_k[start:start + chunk].double()
+                        - mean_p.double()).abs()
+            err_var = (var_k[start:start + chunk].double()
+                       - var_p.double()).abs()
+            w[0] = max(w[0], float(err_mean.max()))
+            w[1] = max(w[1], float(err_var.max()))
+            w[2] = max(w[2],
+                       float((err_mean / tol_mean.clamp(min=tiny)).max()),
+                       float((err_var / tol_var.clamp(min=tiny)).max()))
+    return [tuple(w) for w in worst]
+
+
+def compare(inputs, kind, count=None, chunk=2 ** 20):
+    """Kernel 1 against plain on one input set, the kernel's loops bounded
+    by ``count`` (``None``: the capacity); returns the errors. The kernel
+    runs once on all the queries; the plain version and the bounds are
+    taken ``chunk`` queries at a time (``compare_outputs``)."""
+    out = gp_kernel.gp_predict_cuda(*inputs, kind=kind, count=count)
+    (errors,) = compare_outputs(
+        [out], lambda part: gp_kernel.gp_predict_plain(*part, kind=kind),
+        lambda part: rounding_bounds(part, kind), inputs, chunk)
+    return errors
 
 
 def case_inputs(gp, n_q, seed):
@@ -1719,18 +1833,21 @@ def kernel_bound(n_q, d, count, p, n_out, k_ops, itemsize):
     return bytes_ms, "bytes", "hbm"
 
 
+def sweep_inputs(lyap):
+    """Kernel 1's inputs exactly as a sweep of ``lyap`` (a stationary
+    ``GaussianProcess``) makes them, and the GP."""
+    points = lyap._device_points()
+    gp = lyap.dynamics
+    states = concatenate_inputs(points, lyap.policy(points))
+    return pipelined_predict.kernel_inputs(gp, states), gp
+
+
 def phase_times(card, lyap, label="bench"):
     """Kernel 1 against its plain version on a sweep's inputs (the bench
     path's, or the cart-pole's): ``(max_abs_err, ms, plain_ms, eager_ms,
     bound_ms, bound_by, bound_kind)``."""
-    points = lyap._device_points()
-    # The kernel's inputs exactly as the sweep makes them.
-    gp = lyap.dynamics
-    ls = gp.kernel.lengthscales
-    states = concatenate_inputs(points, lyap.policy(points))
-    inputs = ((states / ls).contiguous(), (gp.X_buf / ls).contiguous(),
-              gp.chol_inv, gp.alpha, gp._mask(),
-              gp.kernel.variance * gp.scale ** 2)
+    inputs, gp = sweep_inputs(lyap)
+    states = inputs[0]
     em, ev, ratio = compare(inputs, "rbf", count=gp.count)
     print("{}-path inputs (Q={}, d={}, cap={}, count={}, p={}): max|dmean|="
           "{:.3e} max|dvar|={:.3e} err/bound={:.3f}".format(
@@ -1752,6 +1869,207 @@ def phase_times(card, lyap, label="bench"):
                          stationary_ops("rbf", states.shape[1]),
                          states.element_size())
     return (max(em, ev), kernel_ms, plain_ms, eager_ms) + bound
+
+
+# ---------------------------------------------------------------------------
+# Kernel 1's variants: the port's benchmark modules
+# ---------------------------------------------------------------------------
+#: The variants in ``pipelined_predict.run``'s order: the name ``run``
+#: reports, the kernel (``KERNELS``), the k form, the keywords of a call.
+VARIANTS = (("pipelined", "pipelined_gp_predict", "stationary", {}),
+            ("interleaved2", "interleaved_gp_predict", "stationary",
+             {"halves": 2}),
+            ("interleaved4", "interleaved_gp_predict", "stationary",
+             {"halves": 4}),
+            ("folded", "folded_gp_predict", "folded", {}),
+            ("expanded", "fused_predict_mxu_dist", "expanded", {}))
+FORMS = ("stationary", "folded", "expanded")
+
+
+def form_inputs(inputs, form):
+    """A k form's kernel arguments from kernel 1's: the folded form takes
+    ``(q, x, chol_inv_scaled, alpha)``, the fold made here."""
+    if form != "folded":
+        return inputs
+    q, x, li, alpha, mask, var_s2 = inputs
+    return (q, x, pipelined_predict.fold_chol_inv(li, mask, var_s2), alpha)
+
+
+def form_plain(form, kind):
+    """``(plain(part), bounds(part))`` of a k form: its plain version and
+    its rounding bound (``rounding_bounds``, ``folded_bounds``,
+    ``expanded_bounds``)."""
+    if form == "stationary":
+        return (lambda part: gp_kernel.gp_predict_plain(*part, kind=kind),
+                lambda part: rounding_bounds(part, kind))
+    if form == "folded":
+        return (lambda part: pipelined_predict.folded_gp_predict_plain(
+            *part, kind=kind), lambda part: folded_bounds(part, kind))
+    return (lambda part: distance_mxu_experiment.fused_predict_mxu_dist_plain(
+        *part, kind=kind), lambda part: expanded_bounds(part, kind))
+
+
+def kernel_calls(inputs, kind, count):
+    """``[(name, call)]``: kernel 1's wrapper and each variant's on
+    kernel 1's ``inputs`` (each k form's arguments made once, here)."""
+    args = {form: form_inputs(inputs, form) for form in FORMS}
+    calls = [("kernel1", functools.partial(
+        gp_kernel.gp_predict_cuda, *inputs, kind=kind, count=count))]
+    for name, kernel, form, kw in VARIANTS:
+        calls.append((name, functools.partial(
+            KERNELS[kernel][0], *args[form], kind=kind, count=count, **kw)))
+    return calls
+
+
+def check_variants(inputs, kind, count, chunk=2 ** 19):
+    """Every variant against its plain version on kernel 1's inputs, its
+    loops bounded by ``count``: ``{name: (max|dmean|, max|dvar|,
+    err/bound)}``."""
+    calls = dict(kernel_calls(inputs, kind, count))
+    results = {}
+    for form in FORMS:
+        names = [name for name, _, f, _ in VARIANTS if f == form]
+        outs = [calls[name]() for name in names]
+        plain, bounds = form_plain(form, kind)
+        errors = compare_outputs(outs, plain, bounds,
+                                 form_inputs(inputs, form), chunk)
+        results.update(zip(names, errors))
+        del outs
+    return results
+
+
+def variant_cases():
+    """Part (a) of ``phase_kernel_variants``: every variant against its
+    plain version within its bound, float32 and float64, the four kinds,
+    capacities 8, 128 (tiled) and 2048 (streamed) with a quarter of the
+    rows padding, and the cart-pole's d = 5, p = 4; the loops bounded by
+    the count in every other case, by the capacity in the rest. The query
+    counts are ragged and give every block of the persistent grid several
+    tiles (and groups of 4 tiles)."""
+    worst = {name: 0.0 for name, _, _, _ in VARIANTS}
+    case = 0
+    specs = [(kind, cap, 1 + (ki + ci) % 2, 3)
+             for ki, kind in enumerate(gp_kernel.KINDS)
+             for ci, cap in enumerate((8, 128, 2048))] + [("rbf", 128, 4, 5)]
+    for dtype in (torch.float32, torch.float64):
+        for kind, cap, p, d in specs:
+            case += 1
+            scale = (1.0, 2.5)[case % 2]
+            gp = case_gp(kind, cap, p, scale, dtype, seed=500 + case, d=d)
+            n_q = 65537 if cap > 128 else 100003
+            count = gp.count if case % 2 else None
+            errors = check_variants(case_inputs(gp, n_q, 500 + case), kind,
+                                    count)
+            print("variant case {:2d} {} {:8s} d={} cap={:4d} count={} p={} "
+                  "scale={} Q={:6d}: ".format(
+                      case, str(dtype)[6:], kind, d, cap, count, p, scale,
+                      n_q) + ", ".join(
+                          "{} {:.3e}/{:.3e} ({:.3f})".format(name, *err)
+                          for name, err in errors.items()))
+            for name, (_, _, ratio) in errors.items():
+                if not ratio <= 1.0:
+                    raise AssertionError(
+                        "variant {} and its plain version disagree beyond "
+                        "the rounding bound (err/bound {:.3f})".format(
+                            name, ratio))
+                worst[name] = max(worst[name], ratio)
+    print("variants against plain: {} cases each, worst err/bound {} "
+          "(bounds: rounding_bounds, folded_bounds, expanded_bounds)".format(
+              case, {k: round(v, 4) for k, v in worst.items()}))
+
+
+def variant_times(card, label, inputs, count):
+    """Part (b) and (c) of ``phase_kernel_variants`` on one instance's
+    kernel-1 inputs.
+
+    The variants' path: ``pipelined_predict.run`` and
+    ``distance_mxu_experiment.run``, as a user runs them, with every
+    counter set to 0 before and read after (each variant's max |d| from
+    kernel 1 and speed-up; kernel 1's and the expanded form's error
+    against the float64 oracle). Then, uncounted: each variant against its
+    plain version within its bound; device times (``graph_ms``) of kernel
+    1 and every variant in turns, two rounds; eager times; the plain
+    versions' device times. Returns the ``paths`` entries; a variant's
+    ``bound_ms`` is kernel 1's ``kernel_bound``, the same work.
+    """
+    n_q, d = inputs[0].shape
+    p = inputs[3].shape[1]
+    reset_launches()
+    bench = pipelined_predict.run(inputs, reps=3, count=count, batch=5)
+    oracle = distance_mxu_experiment.run(inputs, reps=3, count=count,
+                                         batch=5)
+    launches = read_launches()
+    shape = "Q={}, d={}, count={}, p={}".format(n_q, d, count, p)
+    for name, entry in bench.items():
+        print("variants path ({}, {}): {} {!r} ms (runs {!r}){} [{}]".format(
+            label, shape, name, entry["ms"], entry["runs"],
+            "" if name == "kernel1" else
+            ", speed-up {!r}, max|dmean| from kernel 1 {:.3e}, max|dvar| "
+            "{:.3e}".format(entry["speedup"], entry["max_abs_mean_diff"],
+                            entry["max_abs_var_diff"]), card))
+    for name, entry in oracle.items():
+        print("distance experiment ({}): {} {!r} ms per 1M predicts, "
+              "|mean err vs f64| {:.3e} (first 4096 queries) [{}]".format(
+                  label, name, entry["ms_per_1m"],
+                  entry["max_abs_err_vs_f64"], card))
+    with torch.no_grad(), uncounted():
+        errors = check_variants(inputs, "rbf", count)
+        calls = kernel_calls(inputs, "rbf", count)
+        runs = {name: [] for name, _ in calls}
+        for _ in range(2):
+            for name, fn in calls:
+                runs[name].append(graph_ms(fn, reps=5, batch=5))
+        eager = {name: cuda_ms(fn, reps=5, batch=5) for name, fn in calls}
+        plain_ms = {}
+        for form in FORMS:
+            plain, _ = form_plain(form, "rbf")
+            args = form_inputs(inputs, form)
+            plain_ms[form] = graph_ms(lambda: plain(args), reps=3, batch=2)
+    bound = kernel_bound(n_q, d, count, p, 1, stationary_ops("rbf", d),
+                         inputs[0].element_size())
+    k1_ms = statistics.mean(runs["kernel1"])
+    print("variants ({}, {}): kernel 1 {!r} ms (runs {!r}), eager {!r} ms, "
+          "plain {!r} ms; bound {!r} ms ({}) [{}]".format(
+              label, shape, k1_ms, runs["kernel1"], eager["kernel1"],
+              plain_ms["stationary"], bound[0], bound[1], card))
+    entries = []
+    for name, kernel, form, kw in VARIANTS:
+        ms = statistics.mean(runs[name])
+        em, ev, ratio = errors[name]
+        print("variant {} ({}): {!r} ms (runs {!r}), {:.3f} of kernel 1's "
+              "time, eager {!r} ms, plain {!r} ms, {:.1%} of bound; against "
+              "plain max|dmean| {:.3e} max|dvar| {:.3e} err/bound {:.3f}; "
+              "{} launches on the path [{}]".format(
+                  name, label, ms, runs[name], ms / k1_ms, eager[name],
+                  plain_ms[form], bound[0] / ms, em, ev, ratio,
+                  launches[kernel], card))
+        if not ratio <= 1.0:
+            raise AssertionError("variant {} disagrees with its plain version "
+                                 "on the {} inputs".format(name, label))
+        if launches[kernel] < 1:
+            raise AssertionError("the variants path never launched {}"
+                                 .format(kernel))
+        path = label + ("_halves{}".format(kw["halves"]) if kw else "")
+        entries.append((kernel, path, (launches[kernel], max(em, ev), ms,
+                                       plain_ms[form], eager[name]) + bound))
+    return entries
+
+
+def phase_kernel_variants(card, bench_lyap, cart_lyap):
+    """Kernel 1's four variants (``csrc/gp_predict_variants.cu``): (a)
+    ``variant_cases``; (b) and (c) ``variant_times`` at the bench sweep's
+    and the cart-pole sweep's kernel-1 inputs. Returns the ``paths``
+    entries of both instances."""
+    start = time.perf_counter()
+    variant_cases()
+    entries = []
+    for label, lyap in (("bench", bench_lyap), ("cartpole_51x4", cart_lyap)):
+        inputs, gp = sweep_inputs(lyap)
+        entries += variant_times(card, label, inputs, gp.count)
+        del inputs
+    print("kernel variants phase: {:.3f} s".format(
+        time.perf_counter() - start))
+    return entries
 
 
 def program_times(card, route, lyap, label):
@@ -3522,6 +3840,7 @@ def main():
          (fan_launches["gp_predict_general"],)
          + program_times(card, "general", fan_lyap, "flagship fan_out")),
     ]
+    paths += phase_kernel_variants(card, bench_lyap, cart_lyap)
     del cart_lyap
     del stacked_lyap, fan_lyap
     train = (train_launches,) + training_times(card, trainer, minibatch)

@@ -161,16 +161,19 @@ constexpr int N_TILED_MAX = 128;
 // Dynamic shared memory a block may use on the H100.
 constexpr size_t SMEM_MAX = 232448;
 
-// Shape of bucket NB: RT row tiles of WT rows; WG warps share a query
-// group, each taking the row tiles g and RT-1-g (H halves); TQ queries per
-// tile; SLOTS partial sums per query, one per (warp, half).
-template <int NB>
+// Shape of bucket NB in a block of NTH threads: RT row tiles of WT rows;
+// WG warps share a query group, each taking the row tiles g and RT-1-g (H
+// halves); TQ queries per tile; SLOTS partial sums per query, one per
+// (warp, half). Kernels 1-3 run NT threads; a narrower block gives a
+// narrower tile (the float64 variants of gp_predict_variants.cu).
+template <int NB, int NTH = NT>
 struct Tile {
   static_assert(NB % WT == 0 && NB <= N_TILED_MAX, "bucket");
   static constexpr int RT = NB / WT;
   static constexpr int WG = RT > 1 ? RT / 2 : 1;
   static constexpr int H = RT > 1 ? 2 : 1;
-  static constexpr int TQ = NW / WG * WC * TN;
+  static_assert(NTH % 32 == 0 && (NTH / 32) % WG == 0, "warps per tile");
+  static constexpr int TQ = NTH / 32 / WG * WC * TN;
   static constexpr int SLOTS = WG * H;
 };
 
@@ -208,12 +211,12 @@ struct TiledSmem {
 
 // Stage chol_inv[:n, :n] (row stride cap) transposed: ls[j][i] for j < n
 // and i < NB, zero for i >= n. Reads along a row are coalesced.
-template <typename T, int NB>
+template <typename T, int NB, int NTH = NT>
 __device__ __forceinline__ void stage_chol_inv(
     T* ls, const T* __restrict__ chol_inv, int cap, int n) {
   constexpr int LS = ls_stride<T>(NB);
   if (n == 0) return;
-  for (int idx = threadIdx.x; idx < NB * n; idx += NT) {
+  for (int idx = threadIdx.x; idx < NB * n; idx += NTH) {
     const int i = idx / n;
     const int j = idx - i * n;
     ls[j * LS + i] = i < n ? chol_inv[(int64_t)i * cap + j] : T(0);
@@ -232,10 +235,10 @@ __device__ __forceinline__ void stage_rows(T* xs, T* ms,
 
 // ks[j][ql] = kfn(j) for j < n, where ql is this thread's query in the
 // tile (threadIdx.x % TQ) and kfn evaluates k for that query.
-template <typename T, int NB, class KFn>
+template <typename T, int NB, int NTH = NT, class KFn>
 __device__ __forceinline__ void fill_k(T* ks, const KFn& kfn, int n) {
-  constexpr int TQ = Tile<NB>::TQ;
-  constexpr int JS = NT / TQ;  // threads per query
+  constexpr int TQ = Tile<NB, NTH>::TQ;
+  constexpr int JS = NTH / TQ;  // threads per query
   const int ql = threadIdx.x % TQ;
   // Unrolled so that several rows' covariances are in flight at once.
 #pragma unroll 4
@@ -272,16 +275,16 @@ __device__ __forceinline__ void reduce_rows(T (&part)[TN], T* dst, int lr) {
 // column at a time, then over the row lanes, and written to the tile's
 // partial sums red[slot][c][q] (c < p: mean, c == p: var), one slot per
 // warp and row tile.
-template <typename T, int NB>
+template <typename T, int NB, int NTH = NT>
 __device__ __forceinline__ void solve_tile(const T* ks, const T* ls,
                                            T* red,
                                            const T* __restrict__ alpha,
                                            int n, int p) {
   constexpr int LS = ls_stride<T>(NB);
-  constexpr int TQ = Tile<NB>::TQ;
-  constexpr int RT = Tile<NB>::RT;
-  constexpr int WG = Tile<NB>::WG;
-  constexpr int H = Tile<NB>::H;
+  constexpr int TQ = Tile<NB, NTH>::TQ;
+  constexpr int RT = Tile<NB, NTH>::RT;
+  constexpr int WG = Tile<NB, NTH>::WG;
+  constexpr int H = Tile<NB, NTH>::H;
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int lc = lane % WC;
@@ -349,14 +352,14 @@ __device__ __forceinline__ void solve_tile(const T* ks, const T* ls,
 // Sum the SLOTS partials of each query of the tile starting at q0 and
 // store output `out` of n_out: mean_out[(q * n_out + out) * p + c] and
 // var_out[q * n_out + out], consecutive threads on consecutive queries.
-template <typename T, int NB>
+template <typename T, int NB, int NTH = NT>
 __device__ __forceinline__ void store_tile(const T* red, int64_t q0,
                                            int64_t n_q, int p, int n_out,
                                            int out, T* __restrict__ mean_out,
                                            T* __restrict__ var_out) {
-  constexpr int TQ = Tile<NB>::TQ;
-  constexpr int SLOTS = Tile<NB>::SLOTS;
-  for (int idx = threadIdx.x; idx < TQ * (p + 1); idx += NT) {
+  constexpr int TQ = Tile<NB, NTH>::TQ;
+  constexpr int SLOTS = Tile<NB, NTH>::SLOTS;
+  for (int idx = threadIdx.x; idx < TQ * (p + 1); idx += NTH) {
     const int c = idx / TQ;
     const int ql = idx - c * TQ;
     const int64_t qi = q0 + ql;
@@ -387,13 +390,13 @@ struct GridCache {
   int64_t slots[N];
 };
 
-// Blocks of a persistent grid: one per resident slot on every SM, at most
-// one per query tile. A launch whose (device, size) is cached makes no CUDA
-// call but cudaGetDevice.
+// Blocks of a persistent grid of `threads`-thread blocks: one per resident
+// slot on every SM, at most one per query tile. A launch whose (device,
+// size) is cached makes no CUDA call but cudaGetDevice.
 template <class Kernel>
 inline cudaError_t persistent_grid(GridCache& cache, Kernel kernel,
                                    size_t smem, int64_t n_q, int tq,
-                                   int* grid) {
+                                   int* grid, int threads = NT) {
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
@@ -415,7 +418,7 @@ inline cudaError_t persistent_grid(GridCache& cache, Kernel kernel,
       err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
       if (err != cudaSuccess) return err;
       err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
-                                                          NT, smem);
+                                                          threads, smem);
       if (err != cudaSuccess) return err;
       if (per_sm < 1) return cudaErrorInvalidConfiguration;
       slots = (int64_t)sms * per_sm;

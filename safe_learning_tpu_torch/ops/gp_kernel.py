@@ -14,6 +14,12 @@ gp_kernel.py``:
   ``csrc/gp_predict_program.cuh``, instantiated for the program (or the S
   programs) by a source file this module renders.
 
+Kernel 1's four variants (``csrc/gp_predict_variants.cu``, the port of
+four Pallas design probes under ``benchmarks/``) are built and bound here
+(:func:`variants_library`) and launched through kernel 1's checks
+(:func:`launch_stationary`) by ``safe_learning_tpu_torch.benchmarks``; no
+path of the package routes through them.
+
 Every kernel is built with ``nvcc`` for ``sm_90a`` at first use
 (:mod:`.build`) and bound with ``ctypes``; the headers of the CUDA
 sources say what bounds each on the H100 and what the design does about
@@ -54,7 +60,8 @@ __all__ = ["KINDS", "fused_gp_predict", "gp_predict_plain",
            "gp_predict_stacked_plain", "gp_predict_general_cuda",
            "gp_predict_stacked_cuda", "fused_gp_predict_general",
            "fused_gp_predict_stacked", "render_program_source",
-           "program_library", "build_kernels"]
+           "program_library", "build_kernels", "variants_library",
+           "launch_stationary"]
 
 #: Stationary families, in the order of the kernel's ``kind`` switch.
 KINDS = ("rbf", "matern12", "matern32", "matern52")
@@ -173,6 +180,16 @@ def gp_predict_plain(points_scaled, x_scaled, chol_inv, alpha, mask,
     return torch.matmul(a.T, alpha), (a * a).sum(dim=0)
 
 
+def _limits(lib, fn):
+    """Bind ``fn(int *d_max, int *p_max)`` and keep its values as
+    ``lib.limits``."""
+    fn.argtypes = [ctypes.POINTER(ctypes.c_int)] * 2
+    fn.restype = ctypes.c_int
+    d_max, p_max = ctypes.c_int(), ctypes.c_int()
+    fn(ctypes.byref(d_max), ctypes.byref(p_max))
+    lib.limits = d_max.value, p_max.value
+
+
 @functools.lru_cache(maxsize=None)
 def kernel_library():
     """Build (first call only) and bind ``csrc/gp_predict.cu``."""
@@ -188,15 +205,92 @@ def kernel_library():
     lib.gp_predict_error_string.argtypes = [ctypes.c_int]
     lib.gp_predict_error_string.restype = ctypes.c_char_p
     lib.error_string = lib.gp_predict_error_string
-    lib.gp_predict_limits.argtypes = [ctypes.POINTER(ctypes.c_int)] * 2
-    lib.gp_predict_limits.restype = ctypes.c_int
+    _limits(lib, lib.gp_predict_limits)
     return lib
 
 
-def _kernel_limits(lib):
-    d_max, p_max = ctypes.c_int(), ctypes.c_int()
-    lib.gp_predict_limits(ctypes.byref(d_max), ctypes.byref(p_max))
-    return d_max.value, p_max.value
+@functools.lru_cache(maxsize=None)
+def variants_library():
+    """Build (first call only) and bind ``csrc/gp_predict_variants.cu``:
+    ``gp_pipelined``, ``gp_interleaved`` (after the item size, ``halves``),
+    ``gp_folded`` (no mask, no scale) and ``gp_expanded``."""
+    from .build import load_libraries
+
+    (lib,) = load_libraries([_VARIANTS_JOB])
+    tail = [ctypes.c_int64] + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 3
+    for fn, lead in ((lib.gp_pipelined, 6), (lib.gp_expanded, 6),
+                     (lib.gp_folded, 4)):
+        fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * lead + tail
+        fn.restype = ctypes.c_int
+    lib.gp_interleaved.argtypes = ([ctypes.c_int] * 2
+                                   + [ctypes.c_void_p] * 6 + tail)
+    lib.gp_interleaved.restype = ctypes.c_int
+    lib.gp_variant_error_string.argtypes = [ctypes.c_int]
+    lib.gp_variant_error_string.restype = ctypes.c_char_p
+    lib.error_string = lib.gp_variant_error_string
+    _limits(lib, lib.gp_variant_limits)
+    return lib
+
+
+def launch_stationary(entry, library, what, points_scaled, x_scaled,
+                      chol_inv, alpha, mask, kernel_variance_s2, kind,
+                      count):
+    """Check the arguments of kernel 1 or one of its variants, build its
+    library and launch it on the current stream without synchronising.
+
+    ``library()`` returns the bound library; ``entry(lib, dtype)`` returns
+    the C function and its leading integer arguments; ``what`` names it
+    in errors. ``mask`` and ``kernel_variance_s2`` are ``None`` for a
+    kernel that takes neither (the folded variant). Returns ``(mean_num,
+    var_num, launched)``; ``launched`` is False when there were no
+    queries.
+    """
+    if kind not in KINDS:
+        raise ValueError("unknown stationary kind {!r}".format(kind))
+    tensors = dict(points_scaled=points_scaled, x_scaled=x_scaled,
+                   chol_inv=chol_inv, alpha=alpha)
+    if mask is not None:
+        kernel_variance_s2 = _scalar_tensor(kernel_variance_s2,
+                                            points_scaled)
+        tensors.update(mask=mask, kernel_variance_s2=kernel_variance_s2)
+    dtype, device = _check_tensors(tensors)
+    n_q, d = points_scaled.shape
+    cap = x_scaled.shape[0]
+    p = alpha.shape[1]
+    if (x_scaled.shape != (cap, d) or chol_inv.shape != (cap, cap)
+            or alpha.shape != (cap, p)
+            or (mask is not None and (mask.shape != (cap,)
+                                      or kernel_variance_s2.numel() != 1))):
+        raise ValueError("inconsistent shapes: points {}, x {}, chol_inv "
+                         "{}, alpha {}, mask {}".format(
+                             tuple(points_scaled.shape),
+                             tuple(x_scaled.shape), tuple(chol_inv.shape),
+                             tuple(alpha.shape),
+                             None if mask is None else tuple(mask.shape)))
+    count = _active_rows(count, cap)
+    lib = library()
+    d_max, p_max = lib.limits
+    if d > d_max or p > p_max:
+        raise ValueError("the kernel takes d <= {} and p <= {}; got d={}, "
+                         "p={}".format(d_max, p_max, d, p))
+
+    mean_num = torch.empty((n_q, p), dtype=dtype, device=device)
+    var_num = torch.empty((n_q,), dtype=dtype, device=device)
+    if n_q == 0:
+        return mean_num, var_num, False
+    fn, lead = entry(lib, dtype)
+    pointers = [t.data_ptr() for t in tensors.values()]
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = fn(*lead, *pointers, n_q, d, cap, count, p, KINDS.index(kind),
+                 mean_num.data_ptr(), var_num.data_ptr(), stream)
+    _raise_on_error(err, lib, what)
+    return mean_num, var_num, True
+
+
+def _kernel1_entry(lib, dtype):
+    return (lib.gp_predict_f32 if dtype == torch.float32
+            else lib.gp_predict_f64), ()
 
 
 def gp_predict_cuda(points_scaled, x_scaled, chol_inv, alpha, mask,
@@ -212,44 +306,10 @@ def gp_predict_cuda(points_scaled, x_scaled, chol_inv, alpha, mask,
     on one device; ``kernel_variance_s2`` may also be a Python number.
     Launches on the current stream without synchronising.
     """
-    if kind not in KINDS:
-        raise ValueError("unknown stationary kind {!r}".format(kind))
-    kernel_variance_s2 = _scalar_tensor(kernel_variance_s2, points_scaled)
-    dtype, device = _check_tensors(dict(
-        points_scaled=points_scaled, x_scaled=x_scaled, chol_inv=chol_inv,
-        alpha=alpha, mask=mask, kernel_variance_s2=kernel_variance_s2))
-    n_q, d = points_scaled.shape
-    cap = x_scaled.shape[0]
-    p = alpha.shape[1]
-    if (x_scaled.shape != (cap, d) or chol_inv.shape != (cap, cap)
-            or alpha.shape != (cap, p) or mask.shape != (cap,)
-            or kernel_variance_s2.numel() != 1):
-        raise ValueError("inconsistent shapes: points {}, x {}, chol_inv "
-                         "{}, alpha {}, mask {}".format(
-                             tuple(points_scaled.shape),
-                             tuple(x_scaled.shape), tuple(chol_inv.shape),
-                             tuple(alpha.shape), tuple(mask.shape)))
-    count = _active_rows(count, cap)
-    lib = kernel_library()
-    d_max, p_max = _kernel_limits(lib)
-    if d > d_max or p > p_max:
-        raise ValueError("the kernel takes d <= {} and p <= {}; got d={}, "
-                         "p={}".format(d_max, p_max, d, p))
-
-    mean_num = torch.empty((n_q, p), dtype=dtype, device=device)
-    var_num = torch.empty((n_q,), dtype=dtype, device=device)
-    if n_q == 0:
-        return mean_num, var_num
-    fn = lib.gp_predict_f32 if dtype == torch.float32 else lib.gp_predict_f64
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = fn(points_scaled.data_ptr(), x_scaled.data_ptr(),
-                 chol_inv.data_ptr(), alpha.data_ptr(), mask.data_ptr(),
-                 kernel_variance_s2.data_ptr(), n_q, d, cap, count, p,
-                 KINDS.index(kind), mean_num.data_ptr(), var_num.data_ptr(),
-                 stream)
-    _raise_on_error(err, lib, "gp_predict")
-    gp_predict_cuda.launches += 1
+    mean_num, var_num, launched = launch_stationary(
+        _kernel1_entry, kernel_library, "gp_predict", points_scaled,
+        x_scaled, chol_inv, alpha, mask, kernel_variance_s2, kind, count)
+    gp_predict_cuda.launches += launched
     return mean_num, var_num
 
 
@@ -650,8 +710,15 @@ def render_program_source(programs):
     return "\n".join(lines)
 
 
-_STATIONARY_JOB = ("gp_predict", ["gp_predict.cu", "gp_predict_common.cuh"],
-                   None)
+_STATIONARY_JOB = ("gp_predict", ["gp_predict.cu", "gp_predict_stationary.cuh",
+                                   "gp_predict_common.cuh"], None)
+
+#: The four variants of kernel 1 (``csrc/gp_predict_variants.cu``), which
+#: the port's benchmark modules time beside it; no path routes through
+#: them.
+_VARIANTS_JOB = ("gp_predict_variants",
+                 ["gp_predict_variants.cu", "gp_predict_stationary.cuh",
+                  "gp_predict_common.cuh"], None)
 
 
 def _program_job(programs):
@@ -662,16 +729,17 @@ def _program_job(programs):
 
 
 def build_kernels(program_tuples=()):
-    """Build the stationary kernel and the library of each program tuple
-    at once (one ``nvcc`` each, all started together).
+    """Build the stationary kernel, its variants and the library of each
+    program tuple at once (one ``nvcc`` each, all started together).
 
-    Later calls of :func:`kernel_library` and :func:`program_library`
-    load what this built. Returns the build names, in order.
+    Later calls of :func:`kernel_library`, :func:`variants_library` and
+    :func:`program_library` load what this built. Returns the build names,
+    in order.
     """
     from .build import load_libraries
 
-    jobs = [_STATIONARY_JOB] + [_program_job(tuple(p))
-                                for p in program_tuples]
+    jobs = [_STATIONARY_JOB, _VARIANTS_JOB] + [_program_job(tuple(p))
+                                               for p in program_tuples]
     load_libraries(jobs)
     return [job[0] for job in jobs]
 

@@ -218,3 +218,44 @@ def port_bench_lyapunov(n_points):
                        inst["lv"], inst["tau"], inst["policy"],
                        initial_set=inst["initial_set"])
     return lyap, inst
+
+
+def variant_inputs(cap, n, d, p, seed, n_q=517):
+    """Kernel 1's inputs as numpy float64, from a numpy seed: ``n`` of
+    ``cap`` rows active (x zero, chol_inv the identity and the mask zero
+    past them), chol_inv the inverse Cholesky factor of an RBF Gram
+    matrix with noise 1e-2, and ``n_q`` queries, all divided by
+    lengthscales between 0.7 and 1.4. Returns ``(q, x, chol_inv, alpha,
+    mask, var_s2)``."""
+    rng = np.random.default_rng(seed)
+    ls = np.linspace(0.7, 1.4, d)
+    x = np.zeros((cap, d))
+    x[:n] = rng.uniform(-1.0, 1.0, (n, d)) / ls
+    q = rng.uniform(-1.2, 1.2, (n_q, d)) / ls
+    r2 = ((x[:n, None, :] - x[None, :n, :]) ** 2).sum(-1)
+    gram = np.exp(-0.5 * r2) + 1e-2 * np.eye(n)
+    chol_inv = np.eye(cap)
+    chol_inv[:n, :n] = np.linalg.inv(np.linalg.cholesky(gram))
+    alpha = np.zeros((cap, p))
+    alpha[:n] = rng.normal(size=(n, p))
+    mask = (np.arange(cap) < n).astype(float)
+    return q, x, chol_inv, alpha, mask, 1.3
+
+
+def variant_scales(q, x, chol_inv, alpha, mask, var_s2, kind):
+    """The absolute sums behind each output, in float64: ``w^T |alpha|``
+    for the means and ``sum w^2`` for the variances, ``w = |chol_inv|
+    |k|`` with k by per-dimension differences."""
+    from safe_learning_tpu_torch.functions.gp import STATIONARY_COVARIANCES
+
+    r2 = ((x[:, None, :] - q[None, :, :]) ** 2).sum(-1)
+    k = STATIONARY_COVARIANCES[kind](torch.as_tensor(r2)).numpy()
+    w = np.abs(chol_inv) @ np.abs(k * var_s2 * mask[:, None])
+    return w.T @ np.abs(alpha), (w * w).sum(0)
+
+
+def assert_within_scales(got, want, scales, tol):
+    """``|got - want| <= tol * scale`` elementwise for both outputs."""
+    for g, w, s in zip(got, want, scales):
+        err = np.abs(to_numpy(g).astype(float) - to_numpy(w).astype(float))
+        assert np.all(err <= tol * s), (err / s).max()

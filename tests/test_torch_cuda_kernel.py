@@ -398,3 +398,57 @@ def test_sample_batch_on_the_card_matches_the_cpu_plain_route(on_cuda):
     assert np.array_equal(safes, want_safes) and safes.all()
     assert np.allclose(ys, want_ys, rtol=0, atol=1e-9)
     assert np.allclose(bounds, want_bounds, rtol=0, atol=1e-9)
+
+
+VARIANT_NAMES = ("pipelined", "interleaved2", "interleaved4", "folded",
+                 "expanded")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", VARIANT_NAMES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_kernel_variant_matches_plain(on_cuda, name, dtype):
+    """Each of kernel 1's variants against its plain version at the
+    cart-pole's d = 5, p = 4 (count 96 of capacity 128, the tiled body)
+    and at capacity 256 (the streamed body), within
+    ``chip_smoke.rounding_bounds``, ``folded_bounds`` or
+    ``expanded_bounds``."""
+    from chip_smoke import case_gp, case_inputs, check_variants
+
+    for cap, d, p, n_q in ((128, 5, 4, 20011), (256, 3, 2, 4099)):
+        gp = case_gp("matern32", cap, p, 2.5, dtype, seed=cap, d=d)
+        errors = check_variants(case_inputs(gp, n_q, cap), "matern32",
+                                gp.count)
+        assert errors[name][2] <= 1.0
+
+
+@pytest.mark.cuda
+def test_kernel_variants_launch_their_kernels(on_cuda):
+    """A variant on CUDA tensors launches its kernel (its counter moves),
+    never the plain route, raises on inputs that require a gradient, and
+    the GP's own predict launches none of them."""
+    from chip_smoke import case_gp, case_inputs
+    from safe_learning_tpu_torch.benchmarks import (
+        distance_mxu_experiment as dm, pipelined_predict as pp)
+
+    gp = case_gp("rbf", 128, 2, 1.0, torch.float32, seed=1)
+    inputs = case_inputs(gp, 1001, 1)
+    wrappers = ((pp.pipelined_gp_predict, pp.pipelined_gp_predict_cuda, {}),
+                (pp.interleaved_gp_predict, pp.interleaved_gp_predict_cuda,
+                 {"halves": 4}),
+                (pp.folded_gp_predict, pp.folded_gp_predict_cuda, {}),
+                (dm.fused_predict_mxu_dist, dm.fused_predict_mxu_dist_cuda,
+                 {}))
+    plain_before = gp_kernel.gp_predict_cuda.launches
+    for fn, cuda_fn, kw in wrappers:
+        before = cuda_fn.launches
+        mean, var = fn(*inputs, kind="rbf", count=gp.count, **kw)
+        assert cuda_fn.launches == before + 1
+        assert mean.is_cuda and mean.shape == (1001, 2) and var.is_cuda
+        q = inputs[0].clone().requires_grad_(True)
+        with pytest.raises(RuntimeError, match="forward only"):
+            fn(q, *inputs[1:], kind="rbf", **kw)
+    counts = [cuda_fn.launches for _, cuda_fn, _ in wrappers]
+    gp(torch.zeros(5, 3, device=on_cuda))
+    assert gp_kernel.gp_predict_cuda.launches == plain_before + 1
+    assert [cuda_fn.launches for _, cuda_fn, _ in wrappers] == counts
