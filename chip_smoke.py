@@ -27,7 +27,9 @@ Phases, in order; any failure raises and the exit code is not 0:
    different ``ActiveDims``, ``Matern12 + Matern52 + Linear``),
    capacities 8 to 2048, 1 and 2 outputs (general), 1 to 3 stacked
    outputs, scale 1 and 2.5, ragged query counts up to about 10^6,
-   float32 and float64, each within a computed bound; one gradient each;
+   float32 and float64, each within a computed bound; the panel body at
+   capacities 256 and 512; one gradient each, and kernel 3's at the
+   adaptive example's capacity and count 181;
 5. bench path: ``bench.py``'s instance (1000x1000 grid, RBF GP with 128
    points and a linear prior mean, quadratic Lyapunov candidate) built
    through the port's public API; ``Lyapunov.update_safe_set`` and
@@ -95,7 +97,10 @@ Phases, in order; any failure raises and the exit code is not 0:
     float64 oracle with the refined calibration as the band; the first
     certify by the fan-out route (kernel 2) equal; the example's
     assertion. Per update: safe fraction, ``c_max``, largest N(x),
-    chunks, refined points, wall and CUDA-event times;
+    chunks, refined points, wall and CUDA-event times; above count 128
+    (the panel body) each certify's kernel-3 launches replayed on the
+    panel and on the streamed body; kernel 3's launches by part (sampler
+    steps, coarse passes, refinement chunks) and how many ran above 128;
 11. cart-pole verification (``phase_cartpole_verification``,
     ``build_cartpole_instance``): ``benchmarks/cartpole_51x4_sweep.py``'s
     instance, the reference's largest workload, a 51^4 = 6,765,201-state
@@ -121,17 +126,21 @@ Phases, in order; any failure raises and the exit code is not 0:
 14. count cases, kernel 1 and kernels 2 and 3 (``COUNT_CASES``: counts 0,
     1, 10, both sides of each bucket edge 16/32/64/128, 129 and 2048,
     below and at capacity; kernel 1 also at d = 6, and at d = 5, p = 4 and
-    d = 16, p = 8, ``WIDE_COUNT_CASES``): the kernels' loops bounded by
-    the count, against the plain versions at full capacity, exact zeros at
-    count 0;
+    d = 16, p = 8, ``WIDE_COUNT_CASES``; kernels 2 and 3 also the panel
+    body's ``panel_count_cases``: counts 129 to its largest count and one
+    past it, S = 1 to 3, p up to 8, d up to 16, each taking the body its
+    count selects): the kernels' loops bounded by the count, against the
+    plain versions at full capacity, exact zeros at count 0;
 15. kernel times: each kernel against its plain version on its path's
     own inputs, on the device alone (a CUDA graph of 10 calls,
     ``graph_ms``) and as a caller sees it (10 eager calls), and each
     kernel's bound at those inputs (``kernel_bound``): kernel 1 at the
     cart-pole's and the bench's sweep, kernel 2 at the 1-D and the
     flagship fan-out sweep, kernel 3 at the flagship, a training ascent
-    step, the safe-learning sweep and the adaptive path's coarse pass and
-    refinement chunk (count 181); then kernel 1's four variants
+    step, the safe-learning sweep and the adaptive path's sampler step,
+    refinement chunk and coarse pass (count 181, ``panel_times``: the
+    panel body in turns with the streamed body, the product alone as
+    ``library_ms``); then kernel 1's four variants
     (``phase_kernel_variants``, the pipelined, interleaved by 2 and 4,
     folded and expanded-distance kernels of the port's benchmark modules):
     (a) each against its plain version within its bound
@@ -888,10 +897,10 @@ def program_bounds(points, x, params, chol_inv, alpha, mask, s2, programs,
 
 
 def compare_program(route, inputs, programs, count=None):
-    """Kernel 2 (``route="general"``) or 3 (``"stacked"``) against its
-    plain version on one input set, the kernel's loops bounded by
-    ``count`` (``None``: the capacity); returns the errors and the worst
-    error-to-bound ratio."""
+    """Kernel 2 (``route="general"``) or 3 (``"stacked"``; ``"streamed"``:
+    kernel 3 on its streamed body) against its plain version on one input
+    set, the kernel's loops bounded by ``count`` (``None``: the capacity);
+    returns the errors and the worst error-to-bound ratio."""
     points, x, params, chol_inv, alpha, mask, s2 = inputs
     if route == "general":
         (program,) = programs
@@ -900,8 +909,9 @@ def compare_program(route, inputs, programs, count=None):
         mean_p, var_p = gp_kernel.gp_predict_general_plain(*inputs, program)
         li, al = chol_inv[None], alpha[None]
     else:
-        mean_k, var_k = gp_kernel.gp_predict_stacked_cuda(*inputs, programs,
-                                                          count=count)
+        cuda = (gp_kernel.gp_predict_stacked_streamed_cuda
+                if route == "streamed" else gp_kernel.gp_predict_stacked_cuda)
+        mean_k, var_k = cuda(*inputs, programs, count=count)
         mean_p, var_p = gp_kernel.gp_predict_stacked_plain(*inputs,
                                                            programs)
         li, al = chol_inv, alpha[:, :, None]
@@ -920,12 +930,14 @@ def compare_program(route, inputs, programs, count=None):
     return float(err_mean.max()), float(err_var.max()), ratio
 
 
-def program_case(route, names, cap, p, scale, dtype, seed, n=None):
+def program_case(route, names, cap, p, scale, dtype, seed, n=None, d=3):
     """Inputs of one kernel-2/3 case: a GP (general) or a stacked GP over
-    ``n`` (default ``cap - cap // 4``) random points."""
+    ``n`` (default ``cap - cap // 4``) random points in ``d`` dimensions
+    (above 3 only for programs that read their columns through
+    ``ActiveDims``, as ``product``)."""
     rng = np.random.default_rng(seed)
     n = cap - cap // 4 if n is None else n
-    x = rng.uniform(-1.0, 1.0, (n, 3))
+    x = rng.uniform(-1.0, 1.0, (n, d))
     width = p if route == "general" else len(names)
     y = np.column_stack([np.sin((j + 1) * x.sum(axis=1) + 0.3 * j)
                          for j in range(width)])
@@ -950,8 +962,9 @@ def program_case(route, names, cap, p, scale, dtype, seed, n=None):
 
 
 def case_queries(n_q, like, seed):
+    """``n_q`` queries in the dimensions of the training inputs ``like``."""
     rng = np.random.default_rng(seed)
-    return torch.as_tensor(rng.uniform(-1.2, 1.2, (n_q, 3)),
+    return torch.as_tensor(rng.uniform(-1.2, 1.2, (n_q, like.shape[1])),
                            dtype=like.dtype, device=like.device)
 
 
@@ -1209,13 +1222,19 @@ def phase_build():
         print("program library: {!r}".format(programs))
     for programs in (tuples[0], next(t for t in tuples if len(t) == 2)):
         lib = gp_kernel.program_library(programs)
-        print("dynamic shared memory per block, S={}, p=1, d=3: ".format(
-            len(programs)) + ", ".join(
-                "{} B at count {} ({})".format(
-                    lib.gp_program_smem_bytes(count, size, 1, 3), count,
-                    name)
-                for count in (10, 32, 64, 128, 129)
-                for size, name in ((4, "f32"), (8, "f64"))))
+        print("dynamic shared memory per block and body, S={}, p=1, d=3: "
+              .format(len(programs)) + ", ".join(
+                  "{} B at count {} ({}, {})".format(
+                      lib.gp_program_smem_bytes(count, size, 1, 3), count,
+                      name, gp_kernel.PROGRAM_BODIES[
+                          lib.gp_program_body(count, size, 1, 3)])
+                  for count in (10, 32, 64, 128, 129, 181, 256, 257, 512,
+                                513)
+                  for size, name in ((4, "f32"), (8, "f64"))))
+    print("panel body: counts 129 to {} in float32, to {} in float64; the "
+          "streamed body above".format(
+              *(gp_kernel.program_panel_max(tuples[0], dtype)
+                for dtype in (torch.float32, torch.float64))))
 
 
 #: ``(count, capacity)`` of the count cases: a GP holding ``count`` points
@@ -1233,13 +1252,51 @@ def count_queries(count):
     return 65537 if count > 128 else (1001, 100003)[count % 2]
 
 
+def panel_count_cases(n_panel):
+    """``(count, cap, route, names, p, d)`` of the panel body's count cases
+    in a dtype whose panel body ends at ``n_panel``: counts just above the
+    tiled body, the adaptive example's 181 (at its capacity), both sides
+    of 256 and of ``n_panel`` (the streamed body above it), and count 0 at
+    a panel-sized capacity. Each count runs the general kernel (the
+    ``product`` program, whose ``ActiveDims`` read 3 of up to 16 input
+    columns, p up to 8) and the stacked kernel (S = 1, 2 and 3 in turns)."""
+    counts = sorted({129, 136, 181, 192, 255, 256, 257, n_panel,
+                     n_panel + 1})
+    shapes = ((1, 3), (8, 16), (2, 5), (4, 16), (3, 3))
+    cases = []
+    for i, count in enumerate([0] + counts):
+        cap = (ADAPTIVE_CAPACITY if count in (129, 181)
+               else next(c for c in (256, 512, 1024) if c >= count))
+        p, d = shapes[i % len(shapes)]
+        cases.append((count, cap, "general", ("product",), p, d))
+        cases.append((count, cap, "stacked", STACKED_SETS[1 + i % 3], 1, 3))
+    return cases
+
+
+def panel_max(dtype):
+    """The largest count of the panel body in ``dtype`` (one number for
+    every program library), from the stacked flagship pair's library."""
+    programs, _ = compiled([case_programs()[name]
+                            for name in STACKED_SETS[2]],
+                           torch.zeros(1, dtype=torch.float64))
+    return gp_kernel.program_panel_max(programs, dtype)
+
+
+def expected_body(count, n_panel):
+    """The body kernels 2 and 3 take at ``count`` rows (blocks that fit)."""
+    return ("tiled" if count <= 128 else "panel" if count <= n_panel
+            else "streamed")
+
+
 def phase_program_count_cases():
     """Kernels 2 and 3 with the loops bounded by the GP's count, against
     their plain versions (full capacity) within ``program_bounds``: the
     general kernel on the ``product`` program with 2 outputs, the stacked
     kernel on two flagship programs (one ``sum3`` output at capacity
-    2048, as the GP routes allow), float32 and float64. At count 0 the
-    outputs must be exact zeros."""
+    2048, as the GP routes allow), float32 and float64; then the panel
+    body's cases (``panel_count_cases``), each printing the body it took,
+    which must be the one its count selects. At count 0 the outputs must
+    be exact zeros."""
     worst, case = 0.0, 0
     for dtype in (torch.float32, torch.float64):
         for count, cap in COUNT_CASES:
@@ -1262,6 +1319,28 @@ def phase_program_count_cases():
                     raise AssertionError("{} kernel at count {} disagrees "
                                          "with plain".format(route, count))
                 worst = max(worst, ratio)
+        n_panel = panel_max(dtype)
+        for count, cap, route, names, p, d in panel_count_cases(n_panel):
+            case += 1
+            inputs, programs = program_case(route, names, cap, p, 2.5, dtype,
+                                            seed=500 + case, n=count, d=d)
+            n_q = (4099, 20011)[case % 2]
+            points = case_queries(n_q, inputs[0], 500 + case)
+            em, ev, ratio = compare_program(route, (points,) + inputs,
+                                            programs, count=count)
+            body = gp_kernel.program_body(programs, count, dtype, p, d)
+            print("{} count case {:2d} {} count={:4d} cap={:4d} S={} p={} "
+                  "d={:2d} Q={:5d} body={}: max|dmean|={:.3e} max|dvar|="
+                  "{:.3e} err/bound={:.3f}".format(
+                      route, case, str(dtype)[6:], count, cap, len(programs),
+                      p, d, n_q, body, em, ev, ratio))
+            if body != expected_body(count, n_panel):
+                raise AssertionError("count {} took the {} body".format(
+                    count, body))
+            if not ratio <= 1.0 or (count == 0 and em + ev != 0.0):
+                raise AssertionError("{} kernel at count {} disagrees "
+                                     "with plain".format(route, count))
+            worst = max(worst, ratio)
     print("kernels 2 and 3 at counts below capacity: {} cases, worst "
           "err/bound {:.3f} (bound: program_bounds)".format(case, worst))
 
@@ -1313,14 +1392,39 @@ def phase_program_cases():
                     raise AssertionError("stacked kernel and plain disagree "
                                          "beyond the bound")
                 worst = max(worst, ratio)
+    # The panel body: capacities 256 and 512, three quarters full.
+    for dtype in (torch.float32, torch.float64):
+        for ci, cap in enumerate((256, 512)):
+            for route, names, p in (("general", ("sum3",), 1 + ci),
+                                    ("stacked", STACKED_SETS[2 + ci], 1)):
+                case += 1
+                inputs, programs = program_case(route, names, cap, p, 2.5,
+                                                dtype, seed=case)
+                points = case_queries(65537, inputs[0], case)
+                em, ev, ratio = compare_program(route, (points,) + inputs,
+                                                programs)
+                print("{} case {:2d} {} S={} cap={:4d} p={} Q=65537 body={}: "
+                      "max|dmean|={:.3e} max|dvar|={:.3e} err/bound={:.3f}"
+                      .format(route, case, str(dtype)[6:], len(programs), cap,
+                              p, gp_kernel.program_body(
+                                  programs, cap - cap // 4, dtype, p),
+                              em, ev, ratio))
+                if not ratio <= 1.0:
+                    raise AssertionError("{} kernel and plain disagree "
+                                         "beyond the bound".format(route))
+                worst = max(worst, ratio)
     print("kernels 2 and 3 against plain: {} cases, worst err/bound {:.3f} "
           "(bound: program_bounds)".format(case, worst))
 
-    # One gradient per kernel through its autograd rule.
-    for route, set_names, p in (("general", ("flagship",), 2),
-                                ("stacked", STACKED_SETS[3], 1)):
-        inputs, programs = program_case(route, set_names, 32, p, 2.5,
-                                        torch.float64, seed=99)
+    # One gradient per kernel through its autograd rule, and kernel 3's at
+    # the adaptive example's capacity and count (the panel body).
+    for route, set_names, p, cap, n in (
+            ("general", ("flagship",), 2, 32, None),
+            ("stacked", STACKED_SETS[3], 1, 32, None),
+            ("stacked", STACKED_SETS[2], 1, ADAPTIVE_CAPACITY,
+             ADAPTIVE_CAPACITY)):
+        inputs, programs = program_case(route, set_names, cap, p, 2.5,
+                                        torch.float64, seed=99, n=n)
         fused = (gp_kernel.fused_gp_predict_general if route == "general"
                  else gp_kernel.fused_gp_predict_stacked)
         plain = (gp_kernel.gp_predict_general_plain if route == "general"
@@ -1333,8 +1437,9 @@ def phase_program_cases():
             (mean_num.sum() + var_num.sum()).backward()
             grads.append(q.grad)
         gerr = float((grads[0] - grads[1]).abs().max())
-        print("{} gradient wrt queries, autograd rule vs plain: max abs "
-              "diff {:.3e} (tolerance 1e-12)".format(route, gerr))
+        print("{} gradient wrt queries at capacity {}, autograd rule vs "
+              "plain: max abs diff {:.3e} (tolerance 1e-12)".format(
+                  route, cap, gerr))
         if not gerr <= 1e-12:
             raise AssertionError("gradient through the {} kernel differs"
                                  .format(route))
@@ -2299,8 +2404,13 @@ def stacked_inputs(lyap, points=None):
     """Kernel 3's inputs at the sweep's own states: ``points`` (default:
     the grid) and the policy's actions there."""
     points = lyap._device_points() if points is None else points
-    states = concatenate_inputs(points, lyap.policy(points))
-    gp = lyap.dynamics
+    return gp_inputs(lyap.dynamics,
+                     concatenate_inputs(points, lyap.policy(points)))
+
+
+def gp_inputs(gp, states):
+    """Kernel 3's inputs for the stacked GP ``gp`` at state-action rows
+    ``states``, and its programs."""
     programs, params = gp._programs()
     # On the device, for the CUDA graph that times the kernel.
     s2 = torch.tensor(gp.scale ** 2, dtype=states.dtype,
@@ -3040,6 +3150,31 @@ def recorded(log, keep=lambda args, out: out):
     return wrap
 
 
+@contextlib.contextmanager
+def kernel3_calls(log):
+    """Every kernel-3 launch in the block appended to ``log`` as the
+    arguments of its ``_launch_program`` call (``programs, points, x,
+    params, chol_inv, alpha, mask, s2, count, mean_num, var_num``). The
+    wrapper, and so its launch counter, is untouched."""
+    def wrap(fn):
+        @functools.wraps(fn)
+        def record(*args):
+            log.append(args)
+            return fn(*args)
+        return record
+    with patched(gp_kernel, "_launch_program", wrap):
+        yield
+
+
+def replayed_ms(calls, entry):
+    """Device milliseconds of recorded kernel-3 launches replayed through
+    the library's ``entry`` (``"gp_program"``: the body each launch takes;
+    ``"gp_program_streamed"``: the streamed body), each the median of 3
+    after a warm-up."""
+    return sum(cuda_ms(lambda a=a: gp_kernel._launch_entry(entry, *a),
+                       reps=3, warmup=1) for a in calls)
+
+
 def sample_batch(lyap, inst, rng, apply=True, strict=True):
     """One update's ``get_safe_sample_batch`` with the example's settings
     (``examples/adaptive_safety_verification.py:176-178``, ``:207-210``),
@@ -3279,10 +3414,15 @@ def phase_adaptive(card, updates=ADAPTIVE_UPDATES):
 
     Prints per update the safe fraction, ``c_max`` and the largest N(x),
     the refinement chunks and refined points, the batch's and the
-    certify's wall ms and the coarse pass's and chunks' CUDA-event ms.
+    certify's wall ms and the coarse pass's and chunks' CUDA-event ms;
+    for each certify above count 128, the device time of its kernel-3
+    launches replayed on the body they take and on the streamed body.
     Returns a namespace: ``lyap``, ``inst``, ``launches`` (kernel 3's
-    over the run), ``chunk_states`` (the last refinement chunk's states)
-    and ``gp_before_last`` (the GP the last batch started from).
+    over the run), ``chunk_states`` (the last refinement chunk's states),
+    ``gp_before_last`` (the GP the last batch started from), ``kernel3``
+    (each kernel-3 launch's GP count by part: sampler steps, coarse
+    passes, refinement chunks) and ``step_rows`` (the last sampler step's
+    rows).
     """
     r = ADAPTIVE_REFINEMENT
     builds = dict(build_reports)
@@ -3320,7 +3460,9 @@ def phase_adaptive(card, updates=ADAPTIVE_UPDATES):
                 band = st.oracle.calibrate_certificate_margin(
                     lyap, refinement=r, set_margin=False)
         before = read_launches()
-        wall, coarse_ms, chunks_ms, chunk_states = timed_certify(lyap, r)
+        calls = []
+        with kernel3_calls(calls):
+            wall, coarse_ms, chunks_ms, chunk_states = timed_certify(lyap, r)
         got = {k: v - before[k] for k, v in read_launches().items()}
         counts = lyap.last_sweep_counts
         passes = counts["coarse_batches"] + counts["refinement_chunks"]
@@ -3328,12 +3470,31 @@ def phase_adaptive(card, updates=ADAPTIVE_UPDATES):
             raise AssertionError("the {} launched {}, not kernel 3 once in "
                                  "each of {} passes".format(label, got,
                                                             passes))
+        coarse = counts["coarse_batches"]
+        kernel3["coarse"] += [a[8] for a in calls[:coarse]]
+        kernel3["chunk"] += [a[8] for a in calls[coarse:]]
         check_values(lyap)
         if oracle:
             with uncounted():
                 check_certify(lyap, exempt, band, r, label)
+        count = lyap.dynamics.count
+        if count > 128:
+            # The same launches on the panel body and on the streamed body
+            # (the one every launch above count 128 took before it).
+            panel_ms = replayed_ms(calls, "gp_program")
+            streamed_ms = replayed_ms(calls, "gp_program_streamed")
+            print("{}: kernel 3 at count {}, {} launches ({} queries): "
+                  "{!r} ms of device time on the {} body, {!r} ms on the "
+                  "streamed body [{}]".format(
+                      label, count, len(calls),
+                      sum(a[1].shape[0] for a in calls), panel_ms,
+                      gp_kernel.program_body(calls[0][0], count,
+                                             calls[0][1].dtype),
+                      streamed_ms, card))
         return wall, coarse_ms, chunks_ms, chunk_states, got
 
+    # Each kernel-3 launch's GP count, by part of the path.
+    kernel3 = {"step": [], "coarse": [], "chunk": []}
     reset_launches()
     first = certify("first certify", oracle=True)
     for name, a, b in zip(("safe_set", "c_max", "_refinement"),
@@ -3365,10 +3526,14 @@ def phase_adaptive(card, updates=ADAPTIVE_UPDATES):
                 raise AssertionError("the plain twin's batch launched a "
                                      "kernel")
         before = read_launches()
+        steps_log = []
         torch.cuda.synchronize()
         start = time.perf_counter()
-        got, gps = sample_batch(lyap, inst, rng)
+        with kernel3_calls(steps_log):
+            got, gps = sample_batch(lyap, inst, rng)
         batch_ms = (time.perf_counter() - start) * 1e3
+        kernel3["step"] += [a[8] for a in steps_log]
+        step_rows = steps_log[-1][1]
         sampled = {k: v - before[k] for k, v in read_launches().items()}
         if sampled != dict(expected, gp_predict_stacked=ADAPTIVE_DATA):
             raise AssertionError("update {}: the batch launched {}".format(
@@ -3408,6 +3573,12 @@ def phase_adaptive(card, updates=ADAPTIVE_UPDATES):
     print("adaptive: {} of {} sampler steps chose the plain twin's pair; "
           "kernel launches over the run {}; GP count {}".format(
               matched, steps, launches, lyap.dynamics.count))
+    print("adaptive: kernel 3 launched by {}".format(", ".join(
+        "{} {} ({} above count 128)".format(len(counts), part,
+                                            sum(c > 128 for c in counts))
+        for part, counts in (("sampler steps", kernel3["step"]),
+                             ("coarse passes", kernel3["coarse"]),
+                             ("refinement chunks", kernel3["chunk"])))))
     if dict(build_reports) != builds:
         raise AssertionError("the adaptive path built a library")
     print("libraries built during the adaptive path: 0")
@@ -3415,7 +3586,8 @@ def phase_adaptive(card, updates=ADAPTIVE_UPDATES):
         raise AssertionError("no certify ran a refinement chunk")
     return types.SimpleNamespace(
         lyap=lyap, inst=inst, launches=launches["gp_predict_stacked"],
-        chunk_states=last_chunk, gp_before_last=gp0)
+        chunk_states=last_chunk, gp_before_last=gp0, kernel3=kernel3,
+        step_rows=step_rows)
 
 
 def profile_adaptive(card, run, reps=3):
@@ -3446,33 +3618,123 @@ def profile_adaptive(card, run, reps=3):
         profile_window("adaptive certify", certifies, reps, card)
 
 
-def adaptive_times(card, lyap, chunk_states):
+def product_ms(inputs, programs, count):
+    """The yardstick ``library_ms`` of kernel 3 above count 128: the
+    solve's product alone, ``torch.matmul(chol_inv[s, :n, :n], K_s)``
+    summed over the outputs, with ``K_s`` (the plain twin's k, scaled and
+    masked) computed beforehand, in the working dtype with TF32 off, on
+    the device alone (``graph_ms``). No PyTorch call computes the whole
+    posterior numerator; the port never calls this."""
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("TF32 is on for matmul")
+    states, x, params, chol_inv, _, mask, s2 = inputs
+    cache, chol, ks, outs = {}, [], [], []
+    for s, program in enumerate(programs):
+        k = gp_kernel._eval_program(program, params, x.T, states.T, cache)
+        ks.append((k * s2 * mask[:, None])[:count].contiguous())
+        chol.append(chol_inv[s, :count, :count].contiguous())
+        outs.append(torch.empty_like(ks[-1]))
+    del cache, k
+
+    def product():
+        for li, k, out in zip(chol, ks, outs):
+            torch.matmul(li, k, out=out)
+    return graph_ms(product)
+
+
+PRODUCT_CALL = ("torch.matmul(chol_inv[s, :n, :n], K_s) summed over s, K "
+                "precomputed: the solve's product alone, not the function")
+
+
+def panel_times(card, label, inputs, programs, count):
+    """Kernel 3 above count 128 on one input set of the adaptive path:
+    the body its launch takes (``program_body``: the panel body) and the
+    streamed body (``gp_predict_stacked_streamed_cuda``, the body before
+    the panel body existed), each against the plain twin within
+    ``program_bounds``; device times by CUDA graphs in turns (streamed,
+    panel, panel, streamed), each by 10 eager calls, the plain twin's,
+    the product alone (``product_ms``) and the bound. Returns the path's
+    entry for ``kernel_rows``."""
+    states = inputs[0]
+    body = gp_kernel.program_body(programs, count, states.dtype)
+    errors = {}
+    for route in ("stacked", "streamed"):
+        em, ev, ratio = compare_program(route, inputs, programs, count=count)
+        print("adaptive {} inputs (Q={}, count {}), {} body: max|dmean|="
+              "{:.3e} max|dvar|={:.3e} err/bound={:.3f}".format(
+                  label, states.shape[0], count,
+                  body if route == "stacked" else "streamed", em, ev, ratio))
+        if not ratio <= 1.0:
+            raise AssertionError("kernel 3 ({}) disagrees on the adaptive {} "
+                                 "inputs".format(route, label))
+        errors[route] = max(em, ev)
+
+    def panel():
+        gp_kernel.gp_predict_stacked_cuda(*inputs, programs, count=count)
+
+    def streamed():
+        gp_kernel.gp_predict_stacked_streamed_cuda(*inputs, programs,
+                                                   count=count)
+
+    streamed_runs = [graph_ms(streamed)]
+    panel_runs = [graph_ms(panel), graph_ms(panel)]
+    streamed_runs.append(graph_ms(streamed))
+    entry = dict(
+        max_abs_err=errors["stacked"], body=body,
+        ms=statistics.mean(panel_runs),
+        eager_ms=cuda_ms(panel, batch=10),
+        streamed_ms=statistics.mean(streamed_runs),
+        streamed_eager_ms=cuda_ms(streamed, batch=10),
+        plain_ms=graph_ms(
+            lambda: gp_kernel.gp_predict_stacked_plain(*inputs, programs)),
+        library_ms=product_ms(inputs, programs, count),
+        library_call=PRODUCT_CALL, queries=states.shape[0], count=count)
+    entry.update(zip(("bound_ms", "bound_by", "bound_kind"), kernel_bound(
+        states.shape[0], states.shape[1], count, 1, len(programs),
+        program_ops(programs), states.element_size())))
+    print("kernel 3 at the adaptive {} (Q={}, count {}, S={}): {} body "
+          "{!r} ms (runs {!r}), streamed body {!r} ms (runs {!r}); by 10 "
+          "eager calls {!r} and {!r} ms; plain {!r} ms; the product alone "
+          "{!r} ms; bound {!r} ms ({}): {:.1%} of it, streamed {:.1%} "
+          "[{}]".format(label, states.shape[0], count, len(programs), body,
+                        entry["ms"], panel_runs, entry["streamed_ms"],
+                        streamed_runs, entry["eager_ms"],
+                        entry["streamed_eager_ms"], entry["plain_ms"],
+                        entry["library_ms"], entry["bound_ms"],
+                        entry["bound_by"], entry["bound_ms"] / entry["ms"],
+                        entry["bound_ms"] / entry["streamed_ms"], card))
+    return entry
+
+
+def adaptive_times(card, run):
     """Kernel 3 on the adaptive path's inputs at the final GP (count 181):
-    a coarse pass over the grid and the last certify's last refinement
-    chunk (its states' sub-grids), each checked against the plain twin
-    within ``program_bounds`` and timed. Returns ``(max_abs_err,
-    coarse, chunk)``, each of the two ``safe_learning_times``' tuple."""
+    a sampler step's rows (the last batch's last step), the last certify's
+    last refinement chunk (its states' sub-grids) and a coarse pass over
+    the grid, each through ``panel_times``. Returns the three paths'
+    entries, with their launches over the run and how many of them ran
+    above count 128."""
+    lyap = run.lyap
+    count = lyap.dynamics.count
     points = lyap._device_points()
     offsets = refinement_offsets(lyap.discretization.unit_maxes,
                                  ADAPTIVE_REFINEMENT, points)
-    flat = sub_points(chunk_states, offsets)
-    worst = 0.0
-    for label, pts in (("coarse pass", points), ("refinement chunk", flat)):
-        inputs, programs = stacked_inputs(lyap, pts)
-        em, ev, ratio = compare_program("stacked", inputs, programs,
-                                        count=lyap.dynamics.count)
-        print("adaptive {} inputs (Q={}, cap {}, count {}): max|dmean|={:.3e}"
-              " max|dvar|={:.3e} err/bound={:.3f}".format(
-                  label, inputs[0].shape[0], lyap.dynamics.capacity,
-                  lyap.dynamics.count, em, ev, ratio))
-        if not ratio <= 1.0:
-            raise AssertionError("kernel 3 disagrees on the adaptive {} "
-                                 "inputs".format(label))
-        worst = max(worst, em, ev)
-    return (worst,
-            safe_learning_times(card, lyap, points, "adaptive coarse pass"),
-            safe_learning_times(card, lyap, flat,
-                                "adaptive refinement chunk"))
+    entries = []
+    for path, part, label, make in (
+            ("adaptive_sampler_step", "step", "sampler step",
+             lambda: gp_inputs(lyap.dynamics, run.step_rows)),
+            ("adaptive_refinement_chunk", "chunk", "refinement chunk",
+             lambda: stacked_inputs(lyap, sub_points(run.chunk_states,
+                                                     offsets))),
+            ("adaptive", "coarse", "coarse pass",
+             lambda: stacked_inputs(lyap, points))):
+        inputs, programs = make()
+        entry = panel_times(card, label, inputs, programs, count)
+        del inputs
+        counts = run.kernel3[part]
+        entry.update(launches=len(counts),
+                     launches_above_128=sum(c > 128 for c in counts))
+        entries.append((path, entry))
+    return entries
 
 
 # ---------------------------------------------------------------------------
@@ -3853,20 +4115,19 @@ def main():
           "{!r}, {!r} ms against plain {!r} ms (eager {!r} ms), bound {!r} "
           "ms ({}, {})".format(*safe))
     paths.append(("gp_predict_stacked", "safe_learning", safe))
-    err, coarse, chunk = adaptive_times(card, adaptive.lyap,
-                                        adaptive.chunk_states)
-    for label, numbers in (("refinement chunk", chunk),
-                           ("coarse pass", coarse)):
-        print("kernel 3 on the adaptive path's {}: {} launches on the path, "
-              "max abs err {!r}, {!r} ms against plain {!r} ms (eager {!r} "
-              "ms), bound {!r} ms ({}, {})".format(
-                  label, adaptive.launches, err, *numbers))
-    # The path's numbers are the coarse pass's (listed last); the chunk's
-    # ride along under "paths".
-    paths.append(("gp_predict_stacked", "adaptive_refinement_chunk",
-                  (adaptive.launches, err) + chunk))
-    paths.append(("gp_predict_stacked", "adaptive",
-                  (adaptive.launches, err) + coarse))
+    # Kernel 3's headline numbers are the coarse pass's (listed last); the
+    # sampler step's and the chunk's ride along under "paths".
+    for path, entry in adaptive_times(card, adaptive):
+        print("kernel 3 on the adaptive path ({}): {} launches ({} above "
+              "count 128), max abs err {!r}, {} body {!r} ms against the "
+              "streamed body {!r} ms and plain {!r} ms (eager {!r} ms), the "
+              "product alone {!r} ms, bound {!r} ms ({}, {})".format(
+                  path, entry["launches"], entry["launches_above_128"],
+                  entry["max_abs_err"], entry["body"], entry["ms"],
+                  entry["streamed_ms"], entry["plain_ms"], entry["eager_ms"],
+                  entry["library_ms"], entry["bound_ms"], entry["bound_by"],
+                  entry["bound_kind"]))
+        paths.append(("gp_predict_stacked", path, entry))
     loop_step_times(card, safe_lyap, safe_inst, "after the count cases and "
                     "the CUDA graphs")
     # Profiles come after every time: the profiler's tracing may slow the
@@ -3886,19 +4147,28 @@ def main():
 def kernel_rows(paths):
     """The ``kernels`` JSON rows: one per kernel, its numbers from the
     last path listed for it (kernel 3: the adaptive path's coarse pass),
-    and every
-    path's numbers under ``paths``. No single PyTorch call computes a GP
-    posterior numerator, so ``library_ms`` is null."""
+    and every path's numbers under ``paths`` (a path's numbers are a
+    tuple in ``keys``' order, or a dict that holds them and more: kernel
+    3's paths above count 128 add the body, the streamed body's times and
+    the product alone). No single PyTorch call computes a GP posterior
+    numerator, so the row's ``library_ms`` is null; a path's
+    ``library_ms``, where it has one, is the product alone, as its
+    ``library_call`` says."""
     keys = ("launches", "max_abs_err", "ms", "plain_ms", "eager_ms",
             "bound_ms", "bound_by", "bound_kind")
     rows = {}
     for name, path, numbers in paths:
-        entry = dict(zip(keys, numbers), path=path)
+        entry = (dict(numbers) if isinstance(numbers, dict)
+                 else dict(zip(keys, numbers)))
+        entry["path"] = path
         entry["share_of_bound"] = entry["bound_ms"] / entry["ms"]
         row = rows.setdefault(name, {
             "name": name, "route": "cuda", "source": KERNELS[name][1],
             "replaces": KERNELS[name][2], "library_ms": None, "paths": []})
-        row.update({k: entry[k] for k in keys + ("path",)})
+        row.update({k: entry[k] for k in keys + ("path", "body",
+                                                  "streamed_ms",
+                                                  "streamed_eager_ms")
+                    if k in entry})
         row["paths"].append(entry)
     return list(rows.values())
 

@@ -50,7 +50,21 @@
 // back to back: each evaluates its program into the k tile, solves,
 // reduces and stores; the parameters sit in registers (pr) for the whole
 // block, and each input column is read and differenced once per row.
-// Above count 128 the streamed body (solve_streamed) runs instead.
+//
+// Above count 128 the panel body runs (gp_program_panel; its design is in
+// gp_predict_common.cuh). Any safe-exploration loop passes 128 data
+// points after a few batches, and from then on every sweep, sampler step
+// and refinement chunk goes through it: the adaptive example reaches count
+// 181 with S = 2, where a query costs 2 x 16,471 solve FMAs, 362 program
+// evaluations and 2 x 181 x 2 reduction FMAs, against 28 bytes. It is
+// bound by FP32 FMAs fed from shared memory, at most about half the FP32
+// rate with its 4 x 4 register tile (gp_predict_common.cuh). A block walks
+// (query tile, output) items of a persistent grid: it evaluates the
+// output's program into the K tile once, streams that output's chol_inv
+// through the cp.async ring and reduces. The streamed body
+// (solve_streamed) runs above Panel<T>::N_MAX rows (512 in float32, 256
+// in float64) or where a panel block does not fit; gp_program_streamed_*
+// launch it at any count, for comparison.
 // Numerics follow the plain twin (ops/gp_kernel.py::_eval_program):
 // lengthscales enter as reciprocals multiplied into the differences, the
 // program's k is scaled by s2 * mask afterwards, the 1e-36 guards of the
@@ -58,6 +72,8 @@
 // No fast-math and no TF32.
 
 #pragma once
+
+#include <type_traits>
 
 #include "gp_predict_common.cuh"
 
@@ -141,7 +157,8 @@ gp_program_tiled(const Args<T> a, bool resident) {
   }
 }
 
-// Streamed body (n > N_TILED_MAX): output OUT, then the outputs after it.
+// Streamed body (n > Panel<T>::N_MAX, or gp_program_streamed_*): output
+// OUT, then the outputs after it.
 template <typename T, class Prog, int OUT>
 __device__ __forceinline__ void streamed_outputs(
     T* ks, T* ls, const Args<T>& a, const T (&qv)[D_MAX],
@@ -196,9 +213,85 @@ cudaError_t launch_streamed(const Args<T>& a, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
+// Output s's K tile: the output's program at the staged rows and this
+// thread's query (OUT runs through the outputs at compile time).
+template <typename T, class Prog, int OUT = 0>
+__device__ __forceinline__ void panel_fill(
+    int s, T* ks, const T* xs, const T* ms, int n, int d,
+    const T (&qv)[D_MAX], const T (&pr)[Prog::NUM_PARAMS], T s2) {
+  if (s == OUT) {
+    fill_k_rows<T, Panel<T>::TQ>(ks, [&](int j) {
+#ifdef GP_PANEL_ABLATE_K
+      return xs[j * d] * qv[0] * s2 * ms[j];
+#else
+      return Prog::template k<T, OUT>(xs + j * d, qv, pr) * s2 * ms[j];
+#endif
+    }, n);
+  } else if constexpr (OUT + 1 < Prog::NUM_OUT) {
+    panel_fill<T, Prog, OUT + 1>(s, ks, xs, ms, n, d, qv, pr, s2);
+  }
+}
+
+// Panel body (gp_predict_common.cuh): a persistent grid over (query tile,
+// output) items.
+template <typename T, class Prog>
+__global__ void __launch_bounds__(NT, Panel<T>::MIN_BLOCKS)
+gp_program_panel(const Args<T> a) {
+  using P = Panel<T>;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const PanelSmem<T> sm(smem_raw, a.n, a.p, a.d);
+  stage_rows(sm.xs, sm.ms, a.x, a.mask, a.n, a.d);
+  T pr[Prog::NUM_PARAMS];
+  load_params<T, Prog>(a.params, pr);
+  const T s2 = *a.s2;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int rt = warp % P::RTP;
+  const int qbase = warp / P::RTP * P::WTN + lane % WC * 4;
+  const int64_t items = (a.n_q + P::TQ - 1) / P::TQ * Prog::NUM_OUT;
+  for (int64_t it = blockIdx.x; it < items; it += gridDim.x) {
+    const int64_t q0 = it / Prog::NUM_OUT * P::TQ;
+    const int s = (int)(it % Prog::NUM_OUT);
+    const T* chol_inv = a.chol_inv + (int64_t)s * a.cap * a.cap;
+    // The first tiles' copies run while the block evaluates k.
+    PanelCursor<T> ic(a.n);
+    for (int i = 0; i < P::NSLOT - 1; ++i) {
+      if (ic.valid()) {
+        panel_fetch(sm.ring + i * P::PROWS * P::LSTR, chol_inv, a.cap, ic);
+        ic.next();
+      }
+      cp_async_commit();
+    }
+    __syncthreads();  // x and the mask staged (first item)
+    T qv[D_MAX];
+    load_row(a.q, q0 + threadIdx.x % P::TQ, a.n_q, a.d, qv);
+    panel_fill<T, Prog>(s, sm.ks, sm.xs, sm.ms, a.n, a.d, qv, pr, s2);
+    solve_panels(sm, ic, chol_inv, a.alpha + (int64_t)s * a.cap * a.p, a.cap,
+                 a.n, a.p, rt, lane / WC, qbase);
+    __syncthreads();  // partials written; K, the ring and red are free
+    store_slots<T, P::TQ, P::RTP, NT>(sm.red, q0, a.n_q, a.p, Prog::NUM_OUT,
+                                      s, a.mean_out, a.var_out);
+  }
+}
+
+template <typename T, class Prog>
+cudaError_t launch_panel(const Args<T>& a, cudaStream_t stream) {
+  static GridCache cache;
+  auto kernel = gp_program_panel<T, Prog>;
+  const size_t smem = panel_smem_bytes<T>(a.n, a.p, a.d);
+  const int64_t items =
+      (a.n_q + Panel<T>::TQ - 1) / Panel<T>::TQ * Prog::NUM_OUT;
+  int grid = 0;
+  const cudaError_t err =
+      persistent_grid(cache, kernel, smem, items, 1, &grid);
+  if (err != cudaSuccess) return err;
+  kernel<<<grid, NT, smem, stream>>>(a);
+  return cudaGetLastError();
+}
+
 // How many outputs' chol_inv a tiled block at bucket NB holds: all S
 // where they fit, else one (restaged per tile and output), else 0 (the
-// streamed body runs).
+// block does not fit).
 template <typename T, class Prog, int NB>
 int resident_outputs(int p, int d) {
   if (tiled_smem_bytes<T, NB>(Prog::NUM_OUT, p, d) <= SMEM_MAX) {
@@ -212,7 +305,6 @@ cudaError_t launch_tiled(const Args<T>& a, cudaStream_t stream) {
   static GridCache cache;
   auto kernel = gp_program_tiled<T, Prog, NB>;
   const int n_res = resident_outputs<T, Prog, NB>(a.p, a.d);
-  if (n_res == 0) return launch_streamed<T, Prog>(a, stream);
   const bool resident = n_res == Prog::NUM_OUT;
   const size_t smem = tiled_smem_bytes<T, NB>(n_res, a.p, a.d);
   int grid = 0;
@@ -223,11 +315,44 @@ cudaError_t launch_tiled(const Args<T>& a, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
+// f(std::integral_constant<int, NB>{}) at the tiled bucket NB >= count
+// (count <= N_TILED_MAX).
+template <class F>
+decltype(auto) with_bucket(int count, F&& f) {
+  if (count <= 16) return f(std::integral_constant<int, 16>{});
+  if (count <= 32) return f(std::integral_constant<int, 32>{});
+  if (count <= 64) return f(std::integral_constant<int, 64>{});
+  return f(std::integral_constant<int, N_TILED_MAX>{});
+}
+
+// The body a launch takes, from its shape alone: the tiled body up to
+// N_TILED_MAX rows where its block fits, else the panel body up to
+// Panel<T>::N_MAX rows where its block fits, else the streamed body.
+enum Body { BODY_TILED = 0, BODY_PANEL = 1, BODY_STREAMED = 2 };
+
 template <typename T, class Prog>
-int launch(const void* q, const void* x, const void* params,
-           const void* chol_inv, const void* alpha, const void* mask,
-           const void* s2, int64_t n_q, int d, int cap, int count, int p,
-           void* mean_out, void* var_out, void* stream) {
+Body body(int count, int p, int d) {
+  if (count <= N_TILED_MAX &&
+      with_bucket(count, [&](auto nb) {
+        return resident_outputs<T, Prog, decltype(nb)::value>(p, d);
+      }) > 0) {
+    return BODY_TILED;
+  }
+  if (count <= Panel<T>::N_MAX &&
+      panel_smem_bytes<T>(count, p, d) <= SMEM_MAX) {
+    return BODY_PANEL;
+  }
+  return BODY_STREAMED;
+}
+
+// The launch arguments, or cudaErrorInvalidValue for arguments the
+// library does not take.
+template <typename T, class Prog>
+cudaError_t make_args(const void* q, const void* x, const void* params,
+                      const void* chol_inv, const void* alpha,
+                      const void* mask, const void* s2, int64_t n_q, int d,
+                      int cap, int count, int p, void* mean_out,
+                      void* var_out, Args<T>* a) {
   static_assert(Prog::NUM_OUT >= 1 && Prog::NUM_OUT <= S_MAX,
                 "program library output count");
   static_assert(Prog::NUM_PARAMS >= 1 && Prog::NUM_PARAMS <= PARAMS_MAX,
@@ -235,42 +360,72 @@ int launch(const void* q, const void* x, const void* params,
   if (n_q <= 0 || d < Prog::MIN_D || d > D_MAX || p < 1 || p > P_MAX ||
       cap < 1 || count < 0 || count > cap ||
       (n_q + NTS - 1) / NTS > 0x7fffffffLL) {
-    return (int)cudaErrorInvalidValue;
+    return cudaErrorInvalidValue;
   }
-  const Args<T> a{static_cast<const T*>(q), static_cast<const T*>(x),
-                  static_cast<const T*>(params),
-                  static_cast<const T*>(chol_inv),
-                  static_cast<const T*>(alpha), static_cast<const T*>(mask),
-                  static_cast<const T*>(s2), n_q, d, cap, count, p,
-                  static_cast<T*>(mean_out), static_cast<T*>(var_out)};
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (count <= 16) return (int)launch_tiled<T, Prog, 16>(a, st);
-  if (count <= 32) return (int)launch_tiled<T, Prog, 32>(a, st);
-  if (count <= 64) return (int)launch_tiled<T, Prog, 64>(a, st);
-  if (count <= N_TILED_MAX) {
-    return (int)launch_tiled<T, Prog, N_TILED_MAX>(a, st);
-  }
-  return (int)launch_streamed<T, Prog>(a, st);
+  *a = Args<T>{static_cast<const T*>(q), static_cast<const T*>(x),
+               static_cast<const T*>(params),
+               static_cast<const T*>(chol_inv),
+               static_cast<const T*>(alpha), static_cast<const T*>(mask),
+               static_cast<const T*>(s2), n_q, d, cap, count, p,
+               static_cast<T*>(mean_out), static_cast<T*>(var_out)};
+  return cudaSuccess;
 }
 
-// Dynamic shared memory of one block at bucket NB (see launch_tiled).
-template <typename T, class Prog, int NB>
-long long bucket_smem_bytes(int p, int d) {
-  const int n_res = resident_outputs<T, Prog, NB>(p, d);
-  return n_res ? (long long)tiled_smem_bytes<T, NB>(n_res, p, d)
-               : (long long)streamed_smem_bytes<T>();
+template <typename T, class Prog>
+int launch(const void* q, const void* x, const void* params,
+           const void* chol_inv, const void* alpha, const void* mask,
+           const void* s2, int64_t n_q, int d, int cap, int count, int p,
+           void* mean_out, void* var_out, void* stream) {
+  Args<T> a;
+  const cudaError_t err =
+      make_args<T, Prog>(q, x, params, chol_inv, alpha, mask, s2, n_q, d,
+                         cap, count, p, mean_out, var_out, &a);
+  if (err != cudaSuccess) return (int)err;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (body<T, Prog>(count, p, d)) {
+    case BODY_TILED:
+      return with_bucket(count, [&](auto nb) {
+        return (int)launch_tiled<T, Prog, decltype(nb)::value>(a, st);
+      });
+    case BODY_PANEL:
+      return (int)launch_panel<T, Prog>(a, st);
+    default:
+      return (int)launch_streamed<T, Prog>(a, st);
+  }
+}
+
+// The streamed body at any count (the body above Panel<T>::N_MAX), for
+// comparisons with the body a launch takes; no path of the package
+// launches it below that count.
+template <typename T, class Prog>
+int launch_streamed_entry(const void* q, const void* x, const void* params,
+                          const void* chol_inv, const void* alpha,
+                          const void* mask, const void* s2, int64_t n_q,
+                          int d, int cap, int count, int p, void* mean_out,
+                          void* var_out, void* stream) {
+  Args<T> a;
+  const cudaError_t err =
+      make_args<T, Prog>(q, x, params, chol_inv, alpha, mask, s2, n_q, d,
+                         cap, count, p, mean_out, var_out, &a);
+  if (err != cudaSuccess) return (int)err;
+  return (int)launch_streamed<T, Prog>(a, static_cast<cudaStream_t>(stream));
 }
 
 // Dynamic shared memory of one block at a count (see launch).
 template <typename T, class Prog>
 long long smem_bytes(int count, int p, int d) {
-  if (count <= 16) return bucket_smem_bytes<T, Prog, 16>(p, d);
-  if (count <= 32) return bucket_smem_bytes<T, Prog, 32>(p, d);
-  if (count <= 64) return bucket_smem_bytes<T, Prog, 64>(p, d);
-  if (count <= N_TILED_MAX) {
-    return bucket_smem_bytes<T, Prog, N_TILED_MAX>(p, d);
+  switch (body<T, Prog>(count, p, d)) {
+    case BODY_TILED:
+      return with_bucket(count, [&](auto nb) {
+        constexpr int NB = decltype(nb)::value;
+        return (long long)tiled_smem_bytes<T, NB>(
+            resident_outputs<T, Prog, NB>(p, d), p, d);
+      });
+    case BODY_PANEL:
+      return (long long)panel_smem_bytes<T>(count, p, d);
+    default:
+      return (long long)streamed_smem_bytes<T>();
   }
-  return streamed_smem_bytes<T>();
 }
 
 }  // namespace gp_program
@@ -279,28 +434,30 @@ long long smem_bytes(int count, int p, int d) {
 // pointer is a device pointer except `stream` (a cudaStream_t); chol_inv
 // is [S][cap][cap], alpha [S][cap][p], mean_out [Q][S * p], var_out
 // [Q][S]; `count` is the number of active rows (0 <= count <= cap).
-// Returns a cudaError_t; 0 is success. gp_program_smem_bytes is the
-// dynamic shared memory of one block at a count, p and d.
+// Returns a cudaError_t; 0 is success. gp_program_streamed_* take the same
+// arguments and launch the streamed body whatever the count.
+// gp_program_smem_bytes is the dynamic shared memory of one block at a
+// count, p and d, gp_program_body the body a launch takes there (0 tiled,
+// 1 panel, 2 streamed) and gp_program_panel_max the largest count of the
+// panel body; they are introspection only.
+#define GP_PROGRAM_ENTRY(NAME, FN, T, PROG)                                 \
+  int NAME(const void* q, const void* x, const void* params,               \
+           const void* chol_inv, const void* alpha, const void* mask,      \
+           const void* s2, int64_t n_q, int d, int cap, int count, int p,  \
+           void* mean_out, void* var_out, void* stream) {                  \
+    return gp_program::FN<T, PROG>(q, x, params, chol_inv, alpha, mask,    \
+                                   s2, n_q, d, cap, count, p, mean_out,    \
+                                   var_out, stream);                       \
+  }
+
 #define GP_PROGRAM_EXPORTS(PROG)                                            \
   extern "C" {                                                              \
-  int gp_program_f32(const void* q, const void* x, const void* params,     \
-                     const void* chol_inv, const void* alpha,               \
-                     const void* mask, const void* s2, int64_t n_q, int d,  \
-                     int cap, int count, int p, void* mean_out,             \
-                     void* var_out, void* stream) {                         \
-    return gp_program::launch<float, PROG>(q, x, params, chol_inv, alpha,  \
-                                           mask, s2, n_q, d, cap, count, p, \
-                                           mean_out, var_out, stream);      \
-  }                                                                         \
-  int gp_program_f64(const void* q, const void* x, const void* params,     \
-                     const void* chol_inv, const void* alpha,               \
-                     const void* mask, const void* s2, int64_t n_q, int d,  \
-                     int cap, int count, int p, void* mean_out,             \
-                     void* var_out, void* stream) {                         \
-    return gp_program::launch<double, PROG>(q, x, params, chol_inv, alpha, \
-                                            mask, s2, n_q, d, cap, count,   \
-                                            p, mean_out, var_out, stream);  \
-  }                                                                         \
+  GP_PROGRAM_ENTRY(gp_program_f32, launch, float, PROG)                     \
+  GP_PROGRAM_ENTRY(gp_program_f64, launch, double, PROG)                    \
+  GP_PROGRAM_ENTRY(gp_program_streamed_f32, launch_streamed_entry, float,   \
+                   PROG)                                                    \
+  GP_PROGRAM_ENTRY(gp_program_streamed_f64, launch_streamed_entry, double,  \
+                   PROG)                                                    \
   const char* gp_program_error_string(int err) {                            \
     return cudaGetErrorString(static_cast<cudaError_t>(err));               \
   }                                                                         \
@@ -317,5 +474,13 @@ long long smem_bytes(int count, int p, int d) {
     return itemsize == 8                                                    \
                ? gp_program::smem_bytes<double, PROG>(count, p, d)          \
                : gp_program::smem_bytes<float, PROG>(count, p, d);          \
+  }                                                                         \
+  int gp_program_body(int count, int itemsize, int p, int d) {              \
+    return itemsize == 8 ? gp_program::body<double, PROG>(count, p, d)      \
+                         : gp_program::body<float, PROG>(count, p, d);      \
+  }                                                                         \
+  int gp_program_panel_max(int itemsize) {                                  \
+    return itemsize == 8 ? gp_common::Panel<double>::N_MAX                  \
+                         : gp_common::Panel<float>::N_MAX;                  \
   }                                                                         \
   }

@@ -23,7 +23,10 @@ path of the package routes through them.
 Every kernel is built with ``nvcc`` for ``sm_90a`` at first use
 (:mod:`.build`) and bound with ``ctypes``; the headers of the CUDA
 sources say what bounds each on the H100 and what the design does about
-that. For each entry point:
+that. Kernels 2 and 3 take one of three bodies, chosen by the library
+from the shape alone (:data:`PROGRAM_BODIES`; :func:`program_body` asks
+which): tiled up to 128 rows, the panel body above, the streamed body
+above :func:`program_panel_max`. For each entry point:
 
 - a ``*_plain`` function is the same math in plain PyTorch (per-dimension
   differences, as the Pallas bodies). The CPU tests use it,
@@ -61,7 +64,8 @@ __all__ = ["KINDS", "fused_gp_predict", "gp_predict_plain",
            "gp_predict_stacked_cuda", "fused_gp_predict_general",
            "fused_gp_predict_stacked", "render_program_source",
            "program_library", "build_kernels", "variants_library",
-           "launch_stationary"]
+           "launch_stationary", "PROGRAM_BODIES", "program_body",
+           "program_panel_max", "gp_predict_stacked_streamed_cuda"]
 
 #: Stationary families, in the order of the kernel's ``kind`` switch.
 KINDS = ("rbf", "matern12", "matern32", "matern52")
@@ -70,6 +74,11 @@ KINDS = ("rbf", "matern12", "matern32", "matern52")
 #: keeps the parameters in registers; ``csrc/gp_predict_program.cuh``).
 PROGRAM_OUTPUTS_MAX = 8
 PROGRAM_PARAMS_MAX = 64
+
+#: The bodies of kernels 2 and 3, in the order of ``gp_program_body``'s
+#: codes: up to 128 rows, up to the panel body's largest count
+#: (:func:`program_panel_max`), and above it.
+PROGRAM_BODIES = ("tiled", "panel", "streamed")
 
 
 # ---------------------------------------------------------------------------
@@ -753,7 +762,8 @@ def program_library(programs):
     args = ([ctypes.c_void_p] * 7
             + [ctypes.c_int64] + [ctypes.c_int] * 4
             + [ctypes.c_void_p] * 3)
-    for fn in (lib.gp_program_f32, lib.gp_program_f64):
+    for fn in (lib.gp_program_f32, lib.gp_program_f64,
+               lib.gp_program_streamed_f32, lib.gp_program_streamed_f64):
         fn.argtypes = args
         fn.restype = ctypes.c_int
     lib.gp_program_error_string.argtypes = [ctypes.c_int]
@@ -763,11 +773,32 @@ def program_library(programs):
     lib.gp_program_limits.restype = ctypes.c_int
     lib.gp_program_smem_bytes.argtypes = [ctypes.c_int] * 4
     lib.gp_program_smem_bytes.restype = ctypes.c_longlong
+    lib.gp_program_body.argtypes = [ctypes.c_int] * 4
+    lib.gp_program_body.restype = ctypes.c_int
+    lib.gp_program_panel_max.argtypes = [ctypes.c_int]
+    lib.gp_program_panel_max.restype = ctypes.c_int
     limits = [ctypes.c_int() for _ in range(5)]
     lib.gp_program_limits(*(ctypes.byref(v) for v in limits))
     lib.limits = dict(zip(("d_max", "p_max", "num_out", "num_params",
                            "min_d"), (v.value for v in limits)))
     return lib
+
+
+def program_body(programs, count, dtype, p=1, d=3):
+    """The body kernel 2 or 3 takes for a program tuple at ``count`` rows,
+    ``p`` outputs a program and ``d`` input dimensions: ``"tiled"``,
+    ``"panel"`` or ``"streamed"``. The library decides it from the shape
+    alone; this asks it (introspection only; builds the library on first
+    use)."""
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    lib = program_library(tuple(programs))
+    return PROGRAM_BODIES[lib.gp_program_body(int(count), itemsize, p, d)]
+
+
+def program_panel_max(programs, dtype):
+    """The largest count the panel body of a program library takes."""
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    return program_library(tuple(programs)).gp_program_panel_max(itemsize)
 
 
 def _launch_program(programs, points, x, params, chol_inv, alpha, mask, s2,
@@ -779,6 +810,14 @@ def _launch_program(programs, points, x, params, chol_inv, alpha, mask, s2,
     outputs are ``mean_num`` ``(Q, S*p)`` and ``var_num`` ``(Q*S,)`` in
     memory. ``count`` is the number of active rows (``None``: ``cap``).
     """
+    return _launch_entry("gp_program", programs, points, x, params,
+                         chol_inv, alpha, mask, s2, count, mean_num, var_num)
+
+
+def _launch_entry(entry, programs, points, x, params, chol_inv, alpha, mask,
+                  s2, count, mean_num, var_num):
+    """:func:`_launch_program` through the library's ``entry`` (its
+    ``_f32`` or ``_f64`` function)."""
     s2 = _scalar_tensor(s2, points)
     dtype, device = _check_tensors(dict(
         points=points, x=x, params=params, chol_inv=chol_inv, alpha=alpha,
@@ -806,15 +845,14 @@ def _launch_program(programs, points, x, params, chol_inv, alpha, mask, s2,
             lim["num_params"], params.shape[0]))
     if n_q == 0:
         return False
-    fn = (lib.gp_program_f32 if dtype == torch.float32
-          else lib.gp_program_f64)
+    fn = getattr(lib, entry + ("_f32" if dtype == torch.float32 else "_f64"))
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = fn(points.data_ptr(), x.data_ptr(), params.data_ptr(),
                  chol_inv.data_ptr(), alpha.data_ptr(), mask.data_ptr(),
                  s2.data_ptr(), n_q, d, cap, count, p, mean_num.data_ptr(),
                  var_num.data_ptr(), stream)
-    _raise_on_error(err, lib, "gp_program")
+    _raise_on_error(err, lib, entry)
     return True
 
 
@@ -867,6 +905,31 @@ def gp_predict_stacked_cuda(points, x, params, chol_inv, alpha_t, mask, s2,
 
 
 gp_predict_stacked_cuda.launches = 0
+
+
+def gp_predict_stacked_streamed_cuda(points, x, params, chol_inv, alpha_t,
+                                     mask, s2, programs, count=None):
+    """Kernel 3 on its streamed body whatever the count.
+
+    Same contract as :func:`gp_predict_stacked_cuda`. The streamed body is
+    the one a launch takes above the panel body's largest count
+    (:func:`program_panel_max`); this entry reaches it at any count so
+    that ``chip_smoke.py`` and the CUDA tests can hold the panel body
+    against it on the same inputs. No path of the package calls it.
+    """
+    n_q, n_out = points.shape[0], alpha_t.shape[0]
+    mean_num = torch.empty((n_q, n_out), dtype=points.dtype,
+                           device=points.device)
+    var_num = torch.empty((n_q, n_out), dtype=points.dtype,
+                          device=points.device)
+    if _launch_entry("gp_program_streamed", tuple(programs), points, x,
+                     params, chol_inv, alpha_t.reshape(n_out, -1, 1), mask,
+                     s2, count, mean_num, var_num):
+        gp_predict_stacked_streamed_cuda.launches += 1
+    return mean_num, var_num
+
+
+gp_predict_stacked_streamed_cuda.launches = 0
 
 
 class _FusedGeneral(torch.autograd.Function):

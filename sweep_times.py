@@ -12,8 +12,11 @@ checkout's kernels, then prints, each line led by LABEL:
 the bench, flagship (stacked and fan-out), safe-learning and 51^4
 cart-pole sweeps (``chip_smoke.time_sweep``: CUDA events, median of 10
 after warm-up), the safe-learning loop's two steps
-(``chip_smoke.loop_step_times``), and kernel 1 at the bench sweep's
-inputs by CUDA graphs and as eager calls. No oracle, no check.
+(``chip_smoke.loop_step_times``), kernel 1 at the bench sweep's
+inputs by CUDA graphs and as eager calls, and kernels 3 and 2 at the
+flagship's and kernel 3 at the safe-learning sweep's inputs (their tiled
+body; ``chip_smoke.program_times`` and ``safe_learning_times``: CUDA
+graphs beside the plain twin). No oracle, no check.
 
 Host-bound times move between processes, so compare two commits by
 running this from each checkout's root in turns on one card (parent,
@@ -54,13 +57,15 @@ def main(label):
     print("{} kernel 1 at the bench inputs: {!r} ms by CUDA graphs, {!r} "
           "ms eager [{}]".format(label, [cs.graph_ms(call) for _ in range(2)],
                                  [cs.cuda_ms(call) for _ in range(3)], card))
-    for route in ("stacked", "fan_out"):
+    for route, kernel in (("stacked", "stacked"), ("fan_out", "general")):
         lyap, _ = cs.build_flagship_instance(route=route)
         lyap.update_safe_set()
         cs.time_sweep(label + " flagship " + route, lyap, card)
+        cs.program_times(card, kernel, lyap, label + " flagship " + route)
     lyap, inst = cs.build_safe_learning_instance(seed=0)
     lyap.update_safe_set()
     cs.time_sweep(label + " safe-learning", lyap, card)
+    cs.safe_learning_times(card, lyap, label=label + " safe learning")
     cs.loop_step_times(card, lyap, inst, label)
     lyap, _ = cs.build_cartpole_instance()
     lyap.update_safe_set()

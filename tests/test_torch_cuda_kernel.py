@@ -344,19 +344,50 @@ def test_stacked_kernel_at_counts_below_capacity(on_cuda, count, cap,
         assert em == ev == 0.0
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("count", [1, 128, 129, 181])
-@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-def test_stacked_kernel_at_the_adaptive_capacity(on_cuda, count, dtype):
-    """Kernel 3 at the adaptive example's GP capacity, 181 (not a power
-    of two; ``S cap^2`` float32 values exceed one SM's shared memory), at
-    counts on both sides of the tiled body's last bucket edge and at
-    capacity, against the plain twin within ``chip_smoke.program_bounds``."""
-    from chip_smoke import (ADAPTIVE_CAPACITY, STACKED_SETS, case_queries,
-                            compare_program, program_case)
+#: Counts on both sides of the tiled body's last bucket edge, the panel
+#: body's counts (the adaptive example's 181 among them) and both sides of
+#: 256 and of the panel body's largest count in float32 (512; 256 in
+#: float64), above which the streamed body runs.
+PANEL_COUNTS = [1, 128, 129, 136, 181, 192, 255, 256, 257, 512, 513]
 
-    inputs, programs = program_case("stacked", STACKED_SETS[2],
-                                    ADAPTIVE_CAPACITY, 1, 1.0, dtype,
+
+def panel_capacity(count):
+    """The adaptive example's capacity, 181, up to it; else the next of
+    256, 512 and 1024."""
+    from chip_smoke import ADAPTIVE_CAPACITY
+
+    if count <= ADAPTIVE_CAPACITY:
+        return ADAPTIVE_CAPACITY
+    return next(c for c in (256, 512, 1024) if c >= count)
+
+
+def body_of(programs, count, dtype, p=1, d=3):
+    """The body a launch takes, and the one its count selects."""
+    from chip_smoke import expected_body
+
+    n_panel = gp_kernel.program_panel_max(programs, dtype)
+    return (gp_kernel.program_body(programs, count, dtype, p, d),
+            expected_body(count, n_panel))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("count", PANEL_COUNTS)
+@pytest.mark.parametrize("n_out", [1, 2, 3])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_stacked_kernel_at_the_adaptive_capacity(on_cuda, count, n_out,
+                                                 dtype):
+    """Kernel 3 at the adaptive example's GP capacity, 181 (not a power
+    of two; ``S cap^2`` float32 values exceed one SM's shared memory), and
+    above it: counts on both sides of the tiled body's last bucket edge,
+    through the panel body to the streamed body above its largest count,
+    1 to 3 outputs, against the plain twin within
+    ``chip_smoke.program_bounds``; each launch takes the body its count
+    selects."""
+    from chip_smoke import (STACKED_SETS, case_queries, compare_program,
+                            program_case)
+
+    inputs, programs = program_case("stacked", STACKED_SETS[n_out],
+                                    panel_capacity(count), 1, 1.0, dtype,
                                     seed=count, n=count)
     points = case_queries(4099, inputs[0], count)
     before = gp_kernel.gp_predict_stacked_cuda.launches
@@ -364,6 +395,117 @@ def test_stacked_kernel_at_the_adaptive_capacity(on_cuda, count, dtype):
                                   count=count)
     assert gp_kernel.gp_predict_stacked_cuda.launches == before + 1
     assert ratio <= 1.0
+    got, want = body_of(programs, count, dtype)
+    assert got == want
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("count", PANEL_COUNTS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_general_kernel_above_128_rows(on_cuda, count, dtype):
+    """Kernel 2 (the ``product`` program, whose ``ActiveDims`` read 3 of
+    the inputs' columns) at the panel body's counts, with p = 8 outputs
+    and d = 16 input dimensions (``P_MAX``, ``D_MAX``) at odd counts and
+    p = 2, d = 3 at even ones, against the plain twin within
+    ``chip_smoke.program_bounds``; each launch takes the body its count
+    selects."""
+    from chip_smoke import case_queries, compare_program, program_case
+
+    p, d = (8, 16) if count % 2 else (2, 3)
+    inputs, programs = program_case("general", ("product",),
+                                    panel_capacity(count), p, 2.5, dtype,
+                                    seed=count, n=count, d=d)
+    points = case_queries(1001, inputs[0], count)
+    before = gp_kernel.gp_predict_general_cuda.launches
+    _, _, ratio = compare_program("general", (points,) + inputs, programs,
+                                  count=count)
+    assert gp_kernel.gp_predict_general_cuda.launches == before + 1
+    assert ratio <= 1.0
+    got, want = body_of(programs, count, dtype, p, d)
+    assert got == want
+
+
+@pytest.mark.cuda
+def test_adaptive_shapes_take_the_panel_body(on_cuda):
+    """The body query: the adaptive example's stacked GP (S = 2, p = 1,
+    d = 3) takes the tiled body up to count 128 and the panel body from
+    129 to its capacity 181 in both dtypes; one past the panel body's
+    largest count takes the streamed body, which its own entry also
+    reaches at count 181 with the same results within the bound."""
+    from chip_smoke import (ADAPTIVE_CAPACITY, STACKED_SETS, case_queries,
+                            compare_program, program_case)
+
+    inputs, programs = program_case("stacked", STACKED_SETS[2],
+                                    ADAPTIVE_CAPACITY, 1, 1.0,
+                                    torch.float32, seed=5,
+                                    n=ADAPTIVE_CAPACITY)
+    for dtype in (torch.float32, torch.float64):
+        n_panel = gp_kernel.program_panel_max(programs, dtype)
+        assert n_panel >= 256
+        assert gp_kernel.program_body(programs, 128, dtype) == "tiled"
+        for count in range(129, ADAPTIVE_CAPACITY + 1):
+            assert gp_kernel.program_body(programs, count, dtype) == "panel"
+        assert gp_kernel.program_body(programs, n_panel, dtype) == "panel"
+        assert gp_kernel.program_body(programs, n_panel + 1,
+                                      dtype) == "streamed"
+    points = case_queries(2000, inputs[0], 5)
+    before = gp_kernel.gp_predict_stacked_streamed_cuda.launches
+    _, _, ratio = compare_program("streamed", (points,) + inputs, programs,
+                                  count=ADAPTIVE_CAPACITY)
+    assert gp_kernel.gp_predict_stacked_streamed_cuda.launches == before + 1
+    assert ratio <= 1.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("count", [129, 181])
+def test_stacked_gradient_at_the_adaptive_capacity(on_cuda, count):
+    """Kernel 3's autograd rule on the panel body: the adaptive example's
+    stacked GP structure (two flagship programs, linear prior means) at
+    capacity 181 with ``count`` points, float64, 2,000 rows, one launch a
+    predict; the GP's means, errors and the gradient of their sum with
+    respect to the rows against the plain route (``config.use_kernels =
+    False``) within 1e-9 relative (of the largest entry)."""
+    import numpy as np
+
+    from chip_smoke import ADAPTIVE_CAPACITY, flagship_kernel
+
+    rng = np.random.default_rng(count)
+    x = rng.uniform(-1, 1, (count, 3))
+    y = 0.1 * np.column_stack([np.sin(x.sum(1)), np.cos(x[:, 0])])
+    old = st.config.dtype
+    st.config.dtype = torch.float64
+    try:
+        gp = st.StackedGaussianProcess(
+            [flagship_kernel(np.array([0.3, 0.1, 0.5])),
+             flagship_kernel(np.array([0.2, 0.4, 0.1]))], x, y, 1e-4,
+            mean_functions=[st.LinearSystem([[1.0, 0.1, 0.0]]),
+                            st.LinearSystem([[0.2, 0.9, 0.3]])],
+            capacity=ADAPTIVE_CAPACITY)
+    finally:
+        st.config.dtype = old
+    rows = torch.as_tensor(rng.uniform(-1, 1, (2000, 3)),
+                           dtype=torch.float64, device=on_cuda)
+    programs, _ = gp._programs()
+    assert gp_kernel.program_body(programs, gp.count,
+                                  torch.float64) == "panel"
+
+    def route(use_kernels):
+        st.config.use_kernels = use_kernels
+        try:
+            q = rows.clone().requires_grad_(True)
+            before = gp_kernel.gp_predict_stacked_cuda.launches
+            outputs = gp(q)
+            launched = gp_kernel.gp_predict_stacked_cuda.launches - before
+            (grad,) = torch.autograd.grad(sum(t.sum() for t in outputs), q)
+        finally:
+            st.config.use_kernels = True
+        return launched, [t.detach() for t in outputs] + [grad]
+
+    (launched, got), (plain, want) = route(True), route(False)
+    assert (launched, plain) == (1, 0)
+    for g, w in zip(got, want):
+        assert torch.isfinite(g).all()
+        assert float((g - w).abs().max()) <= 1e-9 * float(w.abs().max())
 
 
 @pytest.mark.cuda
