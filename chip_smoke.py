@@ -93,8 +93,9 @@ Phases, in order; any failure raises and the exit code is not 0:
     kernel 3 once per sampler step, coarse pass and refinement chunk; no
     host wait inside the sampler's steps; each batch's pairs against the
     plain twin's; every device append's count precondition and its GP
-    against the float64 refresh; the first and last certify against the
-    float64 oracle with the refined calibration as the band; the first
+    against the float64 refresh; the first certify, the last and each
+    one above count 128 against the float64 oracle with the refined
+    calibration as the band; the first
     certify by the fan-out route (kernel 2) equal; the example's
     assertion. Per update: safe fraction, ``c_max``, largest N(x),
     chunks, refined points, wall and CUDA-event times; above count 128
@@ -3404,7 +3405,8 @@ def phase_adaptive(card, updates=ADAPTIVE_UPDATES):
     4. each device append keeps the kernels' count precondition, and the
        device-advanced GP predicts the chosen pairs as the float64
        refresh does within ``APPEND_TOL`` (``check_batch``);
-    5. the first and the last certify against the float64 oracle, with
+    5. the first certify, the last and every one above count 128 (the
+       panel body's) against the float64 oracle, with
        ``calibrate_certificate_margin(refinement=16)`` (not installed, as
        the example runs) as the band (``check_certify``);
     6. the first certify by the fan-out route (``route="fan_out"``,
@@ -3544,7 +3546,8 @@ def phase_adaptive(card, updates=ADAPTIVE_UPDATES):
         matched += same
         steps += ADAPTIVE_DATA
         wall, coarse_ms, chunks_ms, chunk_states, swept = certify(
-            "certify {}".format(update), oracle=update == updates)
+            "certify {}".format(update),
+            oracle=update == updates or lyap.dynamics.count > 128)
         history.append(float(lyap.safe_set.mean()))
         counts = lyap.last_sweep_counts
         print("update {}: safe fraction {:.4f}  c_max {!r}  max N(x) {}; {} "

@@ -123,11 +123,11 @@
 // alpha^T A and sum A^2 and adds them to its own partial-sum slot; after
 // the last panel the slots are summed and stored, consecutive threads on
 // consecutive queries. The shape was chosen on the card (H100 80GB HBM3,
-// 700 W) by benchmarks/panel_variants.py at n = 181: 8 x 4 and 4 x 8
-// tiles took 1.37-1.47x the 4 x 4 tile's time; 256-byte chunks in two
-// slots 0.955x that of 128-byte chunks in three; rows interleaved across
-// the row lanes and three blocks an SM gained 1-2 %. The GP_PANEL_*
-// switches below exist for those probes; the shipped build sets none.
+// 700 W) by timing builds of other shapes at n = 181 (PERF.md): 8 x 4 and
+// 4 x 8 tiles took 1.37-1.47x the 4 x 4 tile's time; 256-byte chunks in
+// two slots 0.955x that of 128-byte chunks in three; rows interleaved
+// across the row lanes and three blocks an SM gained 1-2 %, too little to
+// keep a second layout.
 //
 // The streamed body (solve_streamed; kernel 1 above 128 rows and its
 // variants, kernels 2 and 3 above Panel<T>::N_MAX): one query per thread,
@@ -527,34 +527,12 @@ inline cudaError_t persistent_grid(GridCache& cache, Kernel kernel,
 // the largest count it takes: a float32 block at n = 512, d = 16, p = 8
 // needs 209,920 B (one block, 8 warps an SM; two up to n = 256 at
 // d = 3), a float64 block at n = 256 202,752 B.
-#ifndef GP_PANEL_TM
-#define GP_PANEL_TM 4
-#endif
-#ifndef GP_PANEL_TN
-#define GP_PANEL_TN 4
-#endif
-#ifndef GP_PANEL_INTERLEAVE
-#define GP_PANEL_INTERLEAVE 0
-#endif
-#ifndef GP_PANEL_JC_BYTES
-#define GP_PANEL_JC_BYTES 256
-#endif
-#ifndef GP_PANEL_NSLOT
-#define GP_PANEL_NSLOT 2
-#endif
-#ifndef GP_PANEL_MIN_BLOCKS
-#define GP_PANEL_MIN_BLOCKS 2
-#endif
 template <typename T>
 struct Panel {
-  // The register tile; a build may set GP_PANEL_TM / GP_PANEL_TN (rows 4
-  // or 8, queries 4 or 8) to time another tile against this one.
-  static constexpr int TM = GP_PANEL_TM;
-  static constexpr int TN = GP_PANEL_TN;
-  // A thread's rows within its warp's WTM: lane row lr holds rows
-  // lr * LANE_ROW + r * ROW_STEP, r < TM.
-  static constexpr int LANE_ROW = GP_PANEL_INTERLEAVE ? 1 : TM;
-  static constexpr int ROW_STEP = GP_PANEL_INTERLEAVE ? WR : 1;
+  // The register tile: lane row lr holds rows lr * TM .. lr * TM + TM - 1
+  // of its warp's WTM.
+  static constexpr int TM = 4;
+  static constexpr int TN = 4;
   static constexpr int WTM = WR * TM;
   static constexpr int WTN = WC * TN;
   static constexpr int TQ = 64;
@@ -562,11 +540,10 @@ struct Panel {
   static constexpr int QG = TQ / WTN;
   static constexpr int RTP = NW / QG;
   static constexpr int PROWS = RTP * WTM;
-  static constexpr int JC =
-      (sizeof(T) == 4 ? GP_PANEL_JC_BYTES : 128) / (int)sizeof(T);
+  static constexpr int JC = (sizeof(T) == 4 ? 256 : 128) / (int)sizeof(T);
   static constexpr int LSTR = JC + 16 / (int)sizeof(T);
-  static constexpr int NSLOT = GP_PANEL_NSLOT;
-  static constexpr int MIN_BLOCKS = sizeof(T) == 4 ? GP_PANEL_MIN_BLOCKS : 1;
+  static constexpr int NSLOT = 2;
+  static constexpr int MIN_BLOCKS = sizeof(T) == 4 ? 2 : 1;
   static constexpr int ROUND = 64;
   static constexpr int N_MAX = sizeof(T) == 4 ? 512 : 256;
   static_assert((PROWS * JC) % NT == 0, "copies per thread");
@@ -689,7 +666,7 @@ __device__ __forceinline__ void fill_k_rows(T* ks, const KFn& kfn, int n) {
 }
 
 // acc += L^-1[rows, jc0 : jc0 + jn] K[jc0 : jc0 + jn, queries] for this
-// thread's TM rows (lp: its first row in the slot, the next ROW_STEP rows
+// thread's TM rows (lp: its first row in the slot, the next rows
 // on) and TN queries (kp: the K tile at row jc0, its first query), j
 // ascending, four j at a time. The values past jn up to the next multiple
 // of 4 are zeros in the slot.
@@ -704,7 +681,7 @@ __device__ __forceinline__ void panel_chunk(
     T l[TM][4];
 #pragma unroll
     for (int r = 0; r < TM; ++r) {
-      load_vec(l[r], lp + r * P::ROW_STEP * P::LSTR + j);
+      load_vec(l[r], lp + r * P::LSTR + j);
     }
 #pragma unroll
     for (int jj = 0; jj < 4; ++jj) {
@@ -743,7 +720,7 @@ __device__ __forceinline__ void panel_add(T (&part)[Panel<T>::TN], T* dst,
   }
 }
 
-// The end of a row panel: this thread's rows (row0 + r * ROW_STEP) into
+// The end of a row panel: this thread's rows (row0 + r, r < TM) into
 // alpha^T A and sum A^2, one column at a time, over the row lanes, then
 // stored (first panel) or added to the warp's partial sums red[c][q]
 // (c < p: mean, c == p: var). Rows at or past n hold exact zeros. Clears
@@ -767,7 +744,7 @@ __device__ __forceinline__ void panel_reduce(
     T a[TM];
 #pragma unroll
     for (int r = 0; r < TM; ++r) {
-      const int row = row0 + r * Panel<T>::ROW_STEP;
+      const int row = row0 + r;
       a[r] = row < n ? __ldg(alpha + (int64_t)row * p + o) : T(0);
     }
 #pragma unroll
@@ -819,16 +796,14 @@ __device__ __forceinline__ void solve_panels(
     cp_async_commit();  // one group a tile, empty past the last
     const int wr0 = cc.r0() + rt * P::WTM;
     const int jn = min(P::JC, min(n, wr0 + P::WTM) - cc.jc0());
-#ifndef GP_PANEL_ABLATE_SOLVE
     if (jn > 0) {
       panel_chunk(acc,
                   sm.ring + t % P::NSLOT * SLOT +
-                      (rt * P::WTM + lr * P::LANE_ROW) * P::LSTR,
+                      (rt * P::WTM + lr * P::TM) * P::LSTR,
                   sm.ks + cc.jc0() * P::TQ + qbase, jn);
     }
-#endif
     if (cc.last_chunk()) {
-      panel_reduce(acc, red, alpha, wr0 + lr * P::LANE_ROW, n, p, lr,
+      panel_reduce(acc, red, alpha, wr0 + lr * P::TM, n, p, lr,
                    cc.pi == 0);
     }
     cc.next();

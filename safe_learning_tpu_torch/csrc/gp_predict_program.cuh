@@ -221,11 +221,7 @@ __device__ __forceinline__ void panel_fill(
     const T (&qv)[D_MAX], const T (&pr)[Prog::NUM_PARAMS], T s2) {
   if (s == OUT) {
     fill_k_rows<T, Panel<T>::TQ>(ks, [&](int j) {
-#ifdef GP_PANEL_ABLATE_K
-      return xs[j * d] * qv[0] * s2 * ms[j];
-#else
       return Prog::template k<T, OUT>(xs + j * d, qv, pr) * s2 * ms[j];
-#endif
     }, n);
   } else if constexpr (OUT + 1 < Prog::NUM_OUT) {
     panel_fill<T, Prog, OUT + 1>(s, ks, xs, ms, n, d, qv, pr, s2);
