@@ -124,7 +124,38 @@ Phases, in order; any failure raises and the exit code is not 0:
     measurements, ``c_max`` 1.0000) against the same loop on the CPU, the
     last certify through ``oracle_gate``; then ``fit_gp_hyperparameters``
     on the card (Adam, L-BFGS-B) within 1e-3 of the float64 fit;
-14. count cases, kernel 1 and kernels 2 and 3 (``COUNT_CASES``: counts 0,
+14. streamed exactness (``phase_streamed_exactness``): ``bench.py``'s
+    instance at 1000x1000 with ``config.fused_sweep_limit`` lowered to
+    2^16, so ``update_safe_set`` streams 16 batches of states made on the
+    card: kernel 1 once a batch, the safe set and ``c_max`` equal to the
+    JAX package's sorted-prefix rule (a host stable sort over the sweep's
+    own values and verdicts), before and after the margins are
+    calibrated; no host wait once a batch; the fused sweep
+    of the same instance equal but for the states tied with ``v_bad``;
+15. the 10^8 sweep (``phase_giant_sweep``):
+    ``safe_learning_tpu_torch.benchmarks.giant_sweep_1e8.run``, the same
+    instance at 10001x10001 = 100,020,001 points in batches of 2^21:
+    kernel 1 within ``rounding_bounds`` at the first batch's inputs, then
+    the margin, two equal sweeps each launching kernel 1 once a batch (48),
+    0 of 400,000 sampled certified states failing the float64 oracle and
+    ``c_max`` at or below its level; seconds, checks/s, CUDA-event ms,
+    peak device memory;
+16. region tools (``phase_region_tools``): ``get_lyapunov_region`` on the
+    bench candidate at 1000x1000 by the native flood fill and by the
+    Python heap, equal, and over float64 values, equal but within float32
+    rounding of the stopping value; ``smallest_boundary_value`` against
+    float64;
+17. the 1-D example (``phase_one_d_example``): ``examples/one_d_example.py
+    --full`` through the port's script: kernel 2 once a GP predict, each
+    predict within ``program_bounds`` of kernel 2's plain version, the
+    record (0.050 -> 1.000, ``c_max`` 1.0000), a last certify through
+    ``oracle_gate``;
+18. the examples (``phase_examples``): ``basic_dynamic_programming`` and
+    ``lyapunov_function_learning`` at ``--full`` (the latter's checkpoint
+    round trip bit for bit), ``reinforcement_learning_pendulum`` at its
+    ``--full`` widths with the joint iterations cut (printed), each with
+    its assertions;
+19. count cases, kernel 1 and kernels 2 and 3 (``COUNT_CASES``: counts 0,
     1, 10, both sides of each bucket edge 16/32/64/128, 129 and 2048,
     below and at capacity; kernel 1 also at d = 6, and at d = 5, p = 4 and
     d = 16, p = 8, ``WIDE_COUNT_CASES``; kernels 2 and 3 also the panel
@@ -132,16 +163,18 @@ Phases, in order; any failure raises and the exit code is not 0:
     past it, S = 1 to 3, p up to 8, d up to 16, each taking the body its
     count selects): the kernels' loops bounded by the count, against the
     plain versions at full capacity, exact zeros at count 0;
-15. kernel times: each kernel against its plain version on its path's
+20. kernel times: each kernel against its plain version on its path's
     own inputs, on the device alone (a CUDA graph of 10 calls,
     ``graph_ms``) and as a caller sees it (10 eager calls), and each
-    kernel's bound at those inputs (``kernel_bound``): kernel 1 at the
-    cart-pole's and the bench's sweep, kernel 2 at the 1-D and the
-    flagship fan-out sweep, kernel 3 at the flagship, a training ascent
-    step, the safe-learning sweep and the adaptive path's sampler step,
-    refinement chunk and coarse pass (count 181, ``panel_times``: the
-    panel body in turns with the streamed body, the product alone as
-    ``library_ms``); then kernel 1's four variants
+    kernel's bound at those inputs (``kernel_bound``) and the solve's
+    product alone as ``library_ms`` (``stationary_product_ms``,
+    ``product_ms``): kernel 1 at the cart-pole's sweep, a batch of the
+    10^8 streamed sweep and the bench's sweep, kernel 2 at the 1-D ROA's,
+    the 1-D example's and the flagship fan-out sweep, kernel 3 at the
+    flagship, a training ascent step, the safe-learning sweep and the
+    adaptive path's sampler step, refinement chunk and coarse pass (count
+    181, ``panel_times``: the panel body in turns with the streamed
+    body); then kernel 1's four variants
     (``phase_kernel_variants``, the pipelined, interleaved by 2 and 4,
     folded and expanded-distance kernels of the port's benchmark modules):
     (a) each against its plain version within its bound
@@ -155,7 +188,7 @@ Phases, in order; any failure raises and the exit code is not 0:
     expanded form's and kernel 1's errors against the float64 oracle; then
     the loop's step times again, to show how far the work before moved
     them;
-16. profiles, after every time: torch.profiler over the safe-learning and
+21. profiles, after every time: torch.profiler over the safe-learning and
     the bench sweeps (``profile_sweep``), over 20 pretraining and 20
     penalised ascent steps (``profile_training``) and over the adaptive
     path's batches and certifies (``profile_adaptive``), the device's busy
@@ -163,7 +196,7 @@ Phases, in order; any failure raises and the exit code is not 0:
     fails if the host waits for the device inside its step loop
     (``torch.cuda.set_sync_debug_mode``).
 
-The end-to-end times (phases 7 to 13) come before the count cases and
+The end-to-end times (phases 7 to 18) come before the count cases and
 before any CUDA graph is captured.
 
 The second-to-last line is a JSON object describing each kernel
@@ -194,6 +227,7 @@ from safe_learning_tpu_torch.lyapunov import (_decrease_bound, _fused_update,
                                               _negative_batch, _threshold,
                                               refinement_offsets)
 from safe_learning_tpu_torch.benchmarks import distance_mxu_experiment
+from safe_learning_tpu_torch.benchmarks import giant_sweep_1e8
 from safe_learning_tpu_torch.benchmarks import pipelined_predict
 from safe_learning_tpu_torch.ops import gp_kernel
 from safe_learning_tpu_torch.ops.build import build_reports
@@ -971,10 +1005,11 @@ def case_queries(n_q, like, seed):
 
 def program_library_sets():
     """Every program tuple this script launches: the cases', the
-    flagship's (which has the structure of the ``flagship`` case) and the
-    1-D example's (2-D inputs)."""
+    flagship's (which has the structure of the ``flagship`` case), the
+    1-D ROA example's and the 1-D example's (2-D inputs)."""
     from safe_learning_tpu_torch.examples import \
         one_d_region_of_attraction_estimate as one_d
+    from safe_learning_tpu_torch.examples import one_d_example
 
     progs = case_programs()
     sets = [(name,) for name in progs] + list(STACKED_SETS.values())
@@ -987,6 +1022,9 @@ def program_library_sets():
     one_d_program, _ = gp_kernel.compile_kernel_program(one_d.kernel(),
                                                         input_dim=2)
     tuples.append((one_d_program,))
+    example_program, _ = gp_kernel.compile_kernel_program(
+        one_d_example.kernel(), input_dim=2)
+    tuples.append((example_program,))
     return tuples
 
 
@@ -1950,9 +1988,15 @@ def sweep_inputs(lyap):
 
 def phase_times(card, lyap, label="bench"):
     """Kernel 1 against its plain version on a sweep's inputs (the bench
-    path's, or the cart-pole's): ``(max_abs_err, ms, plain_ms, eager_ms,
-    bound_ms, bound_by, bound_kind)``."""
-    inputs, gp = sweep_inputs(lyap)
+    path's, or the cart-pole's): ``stationary_times``."""
+    return stationary_times(card, *sweep_inputs(lyap), label)
+
+
+def stationary_times(card, inputs, gp, label):
+    """Kernel 1 against its plain version on one path's inputs:
+    ``(max_abs_err, ms, plain_ms, eager_ms, bound_ms, bound_by,
+    bound_kind, library_ms)``, ``library_ms`` the product alone
+    (``stationary_product_ms``)."""
     states = inputs[0]
     em, ev, ratio = compare(inputs, "rbf", count=gp.count)
     print("{}-path inputs (Q={}, d={}, cap={}, count={}, p={}): max|dmean|="
@@ -1974,7 +2018,11 @@ def phase_times(card, lyap, label="bench"):
                          gp.output_dim, 1,
                          stationary_ops("rbf", states.shape[1]),
                          states.element_size())
-    return (max(em, ev), kernel_ms, plain_ms, eager_ms) + bound
+    library_ms = stationary_product_ms(inputs, "rbf", gp.count)
+    print("gp predict ({}): the product alone {!r} ms [{}]".format(
+        label, library_ms, card))
+    return (max(em, ev), kernel_ms, plain_ms, eager_ms) + bound + (
+        library_ms,)
 
 
 # ---------------------------------------------------------------------------
@@ -2225,7 +2273,11 @@ def program_times(card, route, lyap, label):
     bound = kernel_bound(states.shape[0], states.shape[1], gp.count, 1,
                          len(programs), program_ops(programs),
                          states.element_size())
-    return (max(em, ev), kernel_ms, plain_ms, eager_ms) + bound
+    library_ms = product_ms(inputs, programs, gp.count)
+    print("gp predict {} ({}): the product alone {!r} ms [{}]".format(
+        route, label, library_ms, card))
+    return (max(em, ev), kernel_ms, plain_ms, eager_ms) + bound + (
+        library_ms,)
 
 
 # ---------------------------------------------------------------------------
@@ -2551,7 +2603,7 @@ def loop_step_times(card, lyap, inst, when):
 def safe_learning_times(card, lyap, points=None, label="safe learning"):
     """Kernel 3 against its plain twin on a sweep's inputs (``points``, by
     default the grid): ``(kernel_ms, plain_ms, eager_ms, bound_ms,
-    bound_by, bound_kind)``."""
+    bound_by, bound_kind, library_ms)``."""
     inputs, programs = stacked_inputs(lyap, points)
     gp = lyap.dynamics
     states = inputs[0]
@@ -2564,7 +2616,8 @@ def safe_learning_times(card, lyap, points=None, label="safe learning"):
             states.shape[0], gp.capacity, gp.count, len(programs)))
     return (kernel_ms, plain_ms, eager_ms) + kernel_bound(
         states.shape[0], states.shape[1], gp.count, 1, len(programs),
-        program_ops(programs), states.element_size())
+        program_ops(programs), states.element_size()) + (
+            product_ms(inputs, programs, gp.count),)
 
 
 # ---------------------------------------------------------------------------
@@ -3019,7 +3072,7 @@ def training_times(card, trainer, minibatch):
     """Kernel 3 against its plain twin at an ascent step's inputs (the
     checked minibatch and the trained policy's actions, the final GP):
     ``(max_abs_err, kernel_ms, plain_ms, eager_ms, bound_ms, bound_by,
-    bound_kind)``."""
+    bound_kind, library_ms)``."""
     gp = trainer.rl.dynamics
     with torch.no_grad():
         states = concatenate_inputs(minibatch,
@@ -3045,7 +3098,8 @@ def training_times(card, trainer, minibatch):
         card, shape)
     return (max(em, ev),) + times + kernel_bound(
         states.shape[0], states.shape[1], gp.count, 1, len(programs),
-        program_ops(programs), states.element_size())
+        program_ops(programs), states.element_size()) + (
+            product_ms(inputs, programs, gp.count),)
 
 
 def profile_training(card, trainer, penalised, steps=20):
@@ -3622,15 +3676,18 @@ def profile_adaptive(card, run, reps=3):
 
 
 def product_ms(inputs, programs, count):
-    """The yardstick ``library_ms`` of kernel 3 above count 128: the
-    solve's product alone, ``torch.matmul(chol_inv[s, :n, :n], K_s)``
-    summed over the outputs, with ``K_s`` (the plain twin's k, scaled and
-    masked) computed beforehand, in the working dtype with TF32 off, on
-    the device alone (``graph_ms``). No PyTorch call computes the whole
-    posterior numerator; the port never calls this."""
+    """The yardstick ``library_ms`` of kernels 2 and 3: the solve's
+    product alone, ``torch.matmul(chol_inv[s, :n, :n], K_s)`` summed over
+    the outputs, with ``K_s`` (the plain twin's k, scaled and masked)
+    computed beforehand, in the working dtype with TF32 off, on the device
+    alone (``graph_ms``). No PyTorch call computes the whole posterior
+    numerator; the port never calls this. ``inputs`` are kernel 3's, or
+    kernel 2's (one ``chol_inv``)."""
     if torch.backends.cuda.matmul.allow_tf32:
         raise AssertionError("TF32 is on for matmul")
     states, x, params, chol_inv, _, mask, s2 = inputs
+    if chol_inv.dim() == 2:
+        chol_inv = chol_inv[None]
     cache, chol, ks, outs = {}, [], [], []
     for s, program in enumerate(programs):
         k = gp_kernel._eval_program(program, params, x.T, states.T, cache)
@@ -3645,8 +3702,9 @@ def product_ms(inputs, programs, count):
     return graph_ms(product)
 
 
-PRODUCT_CALL = ("torch.matmul(chol_inv[s, :n, :n], K_s) summed over s, K "
-                "precomputed: the solve's product alone, not the function")
+PRODUCT_CALL = ("torch.matmul(chol_inv[s, :n, :n], K_s) summed over the S "
+                "outputs (S = 1 for kernels 1 and 2), K precomputed: the "
+                "solve's product alone, not the function")
 
 
 def panel_times(card, label, inputs, programs, count):
@@ -4064,6 +4122,460 @@ def one_d_fits(card, gp):
                                  "fit".format(method, rel))
 
 
+# ---------------------------------------------------------------------------
+# The streamed sweep, the region tools and the remaining example scripts
+# ---------------------------------------------------------------------------
+#: ``config.fused_sweep_limit`` and ``gp_batch_size`` of the exactness run
+#: at 10^6 points: 16 batches.
+STREAM_LIMIT = 2 ** 16
+
+
+def sorted_prefix(values, passed, level_margin=0.0):
+    """The JAX package's rule for a streamed grid, on host arrays
+    (``safe_learning_tpu/lyapunov.py:1046-1258``): the stable value sort's
+    prefix before the first state that does not pass, trimmed below that
+    state's value by ``level_margin``. Returns ``(safe, c_max, first)``,
+    ``first`` the flat index of that state (``None`` when all pass)."""
+    order = np.argsort(values, kind="stable")
+    ok = passed[order]
+    stop = len(values) if ok.all() else int(np.argmin(ok))
+    max_index = stop - 1
+    if level_margin > 0.0 and 0 <= max_index < len(values) - 1:
+        max_index = min(max_index, int(np.searchsorted(
+            values[order], values[order[stop]] - level_margin,
+            side="left")) - 1)
+    safe = np.zeros(len(values), dtype=bool)
+    safe[order[:max_index + 1]] = True
+    c_max = float(values[order[max_index]]) if max_index >= 0 else -np.inf
+    return safe, c_max, (None if stop == len(values) else int(order[stop]))
+
+
+def streamed_passed(lyap, batch):
+    """Each state's verdict as the streamed sweep of ``lyap`` computes it
+    (the same states, made on the card, in the same batches), OR the
+    initial set: the host copy the rule reads."""
+    grid = lyap.discretization
+    margin = lyap.certificate_margin
+    parts = []
+    for start in range(0, grid.nindex, batch):
+        stop = min(start + batch, grid.nindex)
+        parts.append(_negative_batch(
+            lyap.policy, lyap.dynamics, lyap.lyapunov_function,
+            lyap._lipschitz_lyapunov, lyap._lipschitz_dynamics, lyap.tau,
+            grid.states_in_range(start, stop),
+            margin if np.ndim(margin) == 0 else margin[start:stop])[0]
+            .cpu().numpy())
+    passed = np.concatenate(parts)
+    if lyap.initial_safe_set is not None:
+        passed |= np.asarray(lyap.initial_safe_set)
+    return passed
+
+
+def host_waits(fn):
+    """Where ``fn()`` makes the host wait for the device: a
+    ``collections.Counter`` of the Python lines (``file:line``) that
+    ``torch.cuda.set_sync_debug_mode("warn")`` reports."""
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return collections.Counter(
+        "{}:{}".format(w.filename, w.lineno) for w in caught
+        if "synchroniz" in str(w.message))
+
+
+def check_streamed(lyap, batch, label):
+    """The streamed sweep that just ran on ``lyap`` against the sorted-prefix
+    rule over its own values and verdicts: safe set and ``c_max`` equal,
+    exactly. Returns the rule's first failing state."""
+    values = lyap.values.cpu().numpy()
+    with uncounted():
+        passed = streamed_passed(lyap, batch)
+    safe, c_max, first = sorted_prefix(values, passed, lyap.level_margin)
+    got = np.array(lyap.safe_set)
+    if lyap.initial_safe_set is not None:
+        safe |= np.asarray(lyap.initial_safe_set)
+    print("{}: {} safe states, c_max {!r}; the sorted-prefix rule over the "
+          "same values and verdicts: {} states, c_max {!r}, first failing "
+          "state {} (value {!r}); {} states differ".format(
+              label, int(got.sum()), lyap.c_max, int(safe.sum()), c_max,
+              first, None if first is None else float(values[first]),
+              int((got != safe).sum())))
+    if not (np.array_equal(got, safe) and lyap.c_max == c_max):
+        raise AssertionError("{}: the streamed sweep is not the sorted "
+                             "prefix".format(label))
+    return first
+
+
+def phase_streamed_exactness(card):
+    """The streamed sweep at 10^6 points, held exactly to the JAX
+    package's sorted prefix.
+
+    ``bench.py``'s instance at 1000x1000 with ``config.fused_sweep_limit``
+    and ``gp_batch_size`` lowered to 2^16 for the phase, so each sweep
+    streams in 16 batches: kernel 1 once a batch and no other kernel;
+    the safe set and ``c_max`` equal to the rule over the sweep's own
+    values and verdicts (``check_streamed``), before and after
+    ``calibrate_certificate_margin`` installs its margins; no Python line
+    makes the host wait for the device once a batch (``host_waits``).
+    After the first sweep, the fused sweep (the limits restored) on the
+    same instance: the two safe sets differ only at states tied in value
+    with the first failing state at lower indices, which the fused sweep
+    excludes; their number is printed."""
+    inst = build_bench_instance(1000)
+    old = st.config.fused_sweep_limit, st.config.gp_batch_size
+
+    def limits(streamed):
+        st.config.fused_sweep_limit, st.config.gp_batch_size = (
+            (STREAM_LIMIT, STREAM_LIMIT) if streamed else old)
+
+    limits(True)
+    try:
+        lyap = st.Lyapunov(inst["grid"], inst["v"], inst["gp"], inst["lf"],
+                           inst["lv"], inst["tau"], inst["policy"],
+                           initial_set=inst["initial_set"])
+        batches = -(-lyap.discretization.nindex // STREAM_LIMIT)
+        for label in ("10^6 streamed sweep", "10^6 streamed sweep, margins "
+                      "installed"):
+            if label.endswith("installed"):
+                with uncounted():
+                    margin = st.oracle.calibrate_certificate_margin(
+                        lyap, num_samples=4096)
+                print("margin {!r}, level_margin {!r}".format(
+                    margin, lyap.level_margin))
+            reset_launches()
+            torch.cuda.synchronize()
+            start = time.perf_counter()
+            lyap.update_safe_set()
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - start
+            launches = read_launches()
+            print("{}: {} batches of {}, {!r} s wall, launches {} [{}]"
+                  .format(label, lyap.last_sweep_counts["coarse_batches"],
+                          STREAM_LIMIT, seconds, launches, card))
+            if launches != dict({n: 0 for n in KERNELS},
+                                gp_predict=batches):
+                raise AssertionError("{}: kernel 1 not once a batch"
+                                     .format(label))
+            first = check_streamed(lyap, STREAM_LIMIT, label)
+            if label.endswith("installed"):
+                break
+            # The fused sweep of the same instance, the limits restored.
+            streamed = np.array(lyap.safe_set)
+            limits(False)
+            with uncounted():
+                lyap.update_safe_set()
+            limits(True)
+            fused = np.array(lyap.safe_set)
+            values = lyap.values.cpu().numpy()
+            differ = np.flatnonzero(streamed != fused)
+            v_bad = values[first] if first is not None else np.inf
+            print("the fused sweep of the same instance: {} safe states "
+                  "against the stream's {}; {} differ, tied with v_bad = {!r} "
+                  "below its index {} ({} states hold that value)".format(
+                      int(fused.sum()), int(streamed.sum()), len(differ),
+                      float(v_bad), first, int((values == v_bad).sum())))
+            if not (np.all(values[differ] == v_bad)
+                    and not fused[differ].any()
+                    and np.all(differ < (first or 0))):
+                raise AssertionError("the fused and streamed sweeps differ "
+                                     "beyond the ties at v_bad")
+        with uncounted():
+            waits = host_waits(lyap.update_safe_set)
+        print("host waits in a streamed sweep of {} batches: {}".format(
+            batches, dict(waits)))
+        if any(n >= batches for n in waits.values()):
+            raise AssertionError("the streamed sweep waits for the device "
+                                 "once a batch")
+    finally:
+        limits(False)
+
+
+def giant_batch_inputs(lyap, batch):
+    """Kernel 1's inputs at the 10^8 sweep's first batch: its states made
+    on the card, the policy's actions, the GP."""
+    states = lyap.discretization.states_in_range(0, batch)
+    gp = lyap.dynamics
+    return pipelined_predict.kernel_inputs(
+        gp, concatenate_inputs(states, lyap.policy(states))), gp
+
+
+def phase_giant_sweep(card):
+    """``safe_learning_tpu_torch.benchmarks.giant_sweep_1e8.run`` at its
+    sizes: ``bench.py``'s instance on 10001x10001 = 100,020,001 points,
+    streamed in batches of 2^21 (48 a sweep). Before the sweeps, kernel 1
+    at the first batch's inputs within ``rounding_bounds`` of its plain
+    version. Checks (the module's and these): kernel 1 launched once a
+    batch in each sweep and no other kernel; the two sweeps equal; no
+    certified state of the 400,000 sampled fails the float64 oracle and
+    ``level_ok``. Prints each stage, checks/s, the sweeps' CUDA-event ms
+    and the peak device memory. Returns ``(lyap, launches, out)``: kernel
+    1's launches over the run (the margin's calibration included) and the
+    module's results."""
+    giant = giant_sweep_1e8
+    builds = dict(build_reports)
+    grid = st.GridWorld([[-1.0, 1.0], [-1.0, 1.0]], giant.POINTS)
+    with uncounted():
+        gp = giant.bench_gp()
+        states = grid.states_in_range(0, giant.BATCH)
+        inputs = pipelined_predict.kernel_inputs(
+            gp, concatenate_inputs(states, torch.zeros_like(states[:, :1])))
+        em, ev, ratio = compare(inputs, "rbf", count=gp.count)
+    print("10^8 sweep, first batch (Q={}): kernel 1 max|dmean|={:.3e} "
+          "max|dvar|={:.3e} err/bound={:.3f}".format(
+              giant.BATCH, em, ev, ratio))
+    if not ratio <= 1.0:
+        raise AssertionError("kernel 1 disagrees at the 10^8 sweep's batch")
+    del inputs, states
+    reset_launches()
+    start = time.perf_counter()
+    out = giant.run(giant.POINTS, giant.BATCH, giant.ORACLE_SAMPLES)
+    seconds = time.perf_counter() - start
+    launches = read_launches()
+    per_sweep = -(-giant.POINTS ** 2 // giant.BATCH)
+    print("10^8 sweep: {!r} s for the phase; kernel launches {}; {} a sweep "
+          "in each of the two sweeps ({} batches); peak device memory {!r} "
+          "GB [{}]".format(seconds, launches,
+                           [s["launches"] for s in out["sweeps"]], per_sweep,
+                           out["peak_bytes"] / 1e9, card))
+    if (any(s["launches"] != per_sweep for s in out["sweeps"])
+            or set(n for n, c in launches.items() if c) != {"gp_predict"}):
+        raise AssertionError("the 10^8 sweep did not launch kernel 1 once a "
+                             "batch")
+    if dict(build_reports) != builds:
+        raise AssertionError("the 10^8 sweep built a library")
+    return out["lyap"], launches["gp_predict"], out
+
+
+def phase_region_tools(card, lyap):
+    """``get_lyapunov_region`` and ``smallest_boundary_value`` on the
+    1000x1000 bench candidate (``v = |x|^2`` of ``lyap``) from the node
+    nearest the origin: the native flood fill (``use_native=True``, built
+    with ``g++`` at first use) equal to the Python path; against the
+    native fill over float64 values computed on the host, every differing
+    state within 8 float32 ulps of the value at which the fill stops (the
+    boundary's minimum), where float32 rounding reorders the heap; the
+    boundary minimum equal to the float64 one to the working dtype's
+    rounding."""
+    from safe_learning_tpu_torch.lyapunov import (get_lyapunov_region,
+                                                  smallest_boundary_value)
+
+    grid = lyap.discretization
+    v = lyap.lyapunov_function
+    init = (grid.shape[0] // 2 - 1, grid.shape[1] // 2 - 1)
+    regions, times = {}, {}
+    for name, native in (("native", True), ("python", False)):
+        start = time.perf_counter()
+        regions[name] = get_lyapunov_region(v, grid, init,
+                                            use_native=native)
+        times[name] = time.perf_counter() - start
+    with st.oracle._oracle_env():
+        start = time.perf_counter()
+        regions["float64"] = get_lyapunov_region(st.oracle.lift64(v), grid,
+                                                 init, use_native=True)
+        times["float64"] = time.perf_counter() - start
+        low64 = smallest_boundary_value(st.oracle.lift64(v), grid)
+    low = smallest_boundary_value(v, grid)
+    print("region tools on {}: get_lyapunov_region from {}: {} states "
+          "(native, {!r} s), {} (Python, {!r} s), {} (float64 on the host, "
+          "native, {!r} s); smallest_boundary_value {!r} (float64 {!r}) "
+          "[{}]".format(grid.shape, init, int(regions["native"].sum()),
+                        times["native"], int(regions["python"].sum()),
+                        times["python"], int(regions["float64"].sum()),
+                        times["float64"], low, low64, card))
+    if not np.array_equal(regions["native"], regions["python"]):
+        raise AssertionError("the native and the Python regions differ")
+    # The float64 values order the heap differently only where rounding
+    # moves a state across the value at which the fill stops (the first
+    # boundary node it pops, the boundary's minimum for this bowl).
+    differ = np.flatnonzero(regions["native"] != regions["float64"])
+    v64 = st.oracle._oracle_values(lyap, grid.points_at(differ))
+    near = np.abs(v64 - low64) <= 8 * np.finfo(np.float32).eps * abs(low64)
+    print("region tools: the float32 and float64 regions differ at {} "
+          "states, {} of them within 8 float32 ulps of the stopping value "
+          "{!r}".format(len(differ), int(near.sum()), low64))
+    if not near.all():
+        raise AssertionError("the float32 region differs from the float64 "
+                             "one away from the stopping value")
+    if not regions["native"].any() or regions["native"][0, :].any():
+        raise AssertionError("the region is empty or reaches the boundary")
+    if not abs(low - low64) <= 4 * np.finfo(np.float32).eps * abs(low64):
+        raise AssertionError("smallest_boundary_value {} against float64 {}"
+                             .format(low, low64))
+
+
+def phase_one_d_example(card):
+    """``examples/one_d_example.py --full`` through the port's script
+    (``...examples.one_d_example.run(full=True)``): 1000 states, 101
+    actions, 20 updates, the composite GP (``Matern32 x Linear`` over
+    ``(x, u)``) at capacity 32 and counts 0 to 20: kernel 2.
+
+    Checks, each raising: every GP predict on the card launched kernel 2
+    exactly once and nothing else launched or was built; each of those
+    predicts (its inputs rebuilt from the GP and the queries, recorded
+    as it ran) within ``program_bounds`` of kernel 2's plain version; the
+    JAX package's record (``examples/README.md:61``: 0.050 -> 1.000 over
+    20 measurements, ``c_max`` 1.0000) and the example's assertions; a
+    fresh last certify through ``oracle_gate``. Returns ``(lyap,
+    launches)``."""
+    from safe_learning_tpu_torch.examples import one_d_example as example
+
+    kernel = gp_kernel.gp_predict_general_cuda
+    builds = dict(build_reports)
+    predicts = []
+
+    def count_predicts(fn):
+        @functools.wraps(fn)
+        def predict(self, points, full_cov=False):
+            before = kernel.launches
+            out = fn(self, points, full_cov)
+            predicts.append((self, torch.atleast_2d(
+                st.functions.base.as_tensor(points)).detach(),
+                             full_cov, out[0].device.type,
+                             kernel.launches - before))
+            return out
+        return predict
+
+    reset_launches()
+    with patched(st.GaussianProcess, "predict", count_predicts):
+        result = example.run(full=True, seed=0)
+    launches = read_launches()
+    on_card = [p for p in predicts if not p[2] and p[3] == "cuda"]
+    print("1-D example: {} GP predicts on the card, {} elsewhere; kernel "
+          "launches {}; initial fraction {!r}; history {}; c_max {!r}; "
+          "closed loop from {!r} to |x| {!r}; policy optimization {!r} s, "
+          "{} updates {!r} s [{}]".format(
+              len(on_card), len(predicts) - len(on_card), launches,
+              result.initial_fraction, " ".join(
+                  "{:.3f}".format(f) for f in result.fractions),
+              result.c_max, result.x0, result.final, result.policy_s,
+              result.n_updates, result.loop_s, card))
+    if (any(p[4] != 1 for p in on_card)
+            or launches != dict({n: 0 for n in KERNELS},
+                                gp_predict_general=len(on_card))):
+        raise AssertionError("kernel 2 did not carry every predict once")
+    if dict(build_reports) != builds:
+        raise AssertionError("the 1-D example built a library")
+    worst = 0.0
+    with uncounted():
+        for gp, points, _, _, _ in on_card:
+            inputs, programs = general_inputs(gp, points.to(gp.X_buf))
+            _, _, ratio = compare_program("general", inputs, programs,
+                                          count=gp.count)
+            worst = max(worst, ratio)
+    print("1-D example: each of the {} predicts against kernel 2's plain "
+          "version: worst err/bound {:.3f}".format(len(on_card), worst))
+    if not worst <= 1.0:
+        raise AssertionError("kernel 2 disagrees on a 1-D example predict")
+    history = result.fractions
+    if not ("{:.3f}".format(result.initial_fraction) == "0.050"
+            and "{:.3f}".format(history[-1]) == "1.000"
+            and "{:.4f}".format(result.c_max) == "1.0000"):
+        raise AssertionError("the 1-D example parts from the record (0.050 "
+                             "-> 1.000, c_max 1.0000)")
+    lyap = result.lyap
+    with uncounted():
+        lyap.update_safe_set()
+        initial = np.asarray(lyap.initial_safe_set)
+        oracle_gate(lyap, "1-D example last certify", initial=initial)
+    return lyap, launches["gp_predict_general"]
+
+
+def general_inputs(gp, states):
+    """Kernel 2's inputs for the GP ``gp`` at state-action rows ``states``
+    (``s2`` on the device, for CUDA graphs), and its program as a
+    1-tuple."""
+    program, params = gp_kernel.compile_kernel_program(
+        gp.kernel, input_dim=gp.input_dim)
+    s2 = torch.tensor(gp.scale ** 2, dtype=states.dtype,
+                      device=states.device)
+    return (states, gp.X_buf, gp_kernel.program_params(params, states),
+            gp.chol_inv, gp.alpha, gp._mask(), s2), (program,)
+
+
+#: Joint actor-critic iterations of the pendulum example in this script
+#: (the example's --full: 400); its seed: the quick run of the CPU tests
+#: stabilizes at seed 1, not at 0.
+PENDULUM_JOINT_ITERS = 100
+PENDULUM_SEED = 1
+
+
+def phase_examples(card):
+    """Three example scripts at their ``--full`` widths, each with its own
+    assertions: ``basic_dynamic_programming`` (30x30, reaches the goal)
+    and ``lyapunov_function_learning`` (251^2, its checkpoint round trip
+    restoring the network bit for bit, the network's safe set growing
+    beyond the LQR quadratic's) at full depth, and
+    ``reinforcement_learning_pendulum`` (101^2 ROAs, 600 steps) with its
+    joint iterations cut from 400 to ``PENDULUM_JOINT_ITERS``. No kernel
+    launches (none of them has a GP)."""
+    from safe_learning_tpu_torch.examples import (
+        basic_dynamic_programming, lyapunov_function_learning,
+        reinforcement_learning_pendulum)
+
+    reset_launches()
+    start = time.perf_counter()
+    dp = basic_dynamic_programming.run(full=True)
+    dp_s = time.perf_counter() - start
+    print("basic_dynamic_programming --full: {} outer iterations, value "
+          "change {!r}, policy change {!r}; the goal in {} steps; policy "
+          "iteration {!r} s, the script {!r} s [{}]".format(
+              dp.info["iterations"], dp.info["value_change"],
+              dp.info["policy_change"], len(dp.trajectory), dp.policy_s,
+              dp_s, card))
+    start = time.perf_counter()
+    lfl = lyapunov_function_learning.run(full=True)
+    lfl_s = time.perf_counter() - start
+    print("lyapunov_function_learning --full: NN {:.1%} of the true ROA "
+          "against LQR {:.1%} and SOS {:.1%}; fractions {}; c_max {}; true "
+          "ROA {!r} s, pre-training {!r} s, classification {!r} s, the "
+          "script {!r} s [{}]".format(
+              lfl.nn_vs_roa, lfl.lqr_vs_roa, lfl.sos_vs_roa, " ".join(
+                  "{:.3f}".format(f) for f in lfl.frac_history),
+              " ".join("{:.4g}".format(c) for c in lfl.c_history),
+              lfl.roa_s, lfl.pretrain_s, lfl.train_s, lfl_s, card))
+    print("reinforcement_learning_pendulum: --full widths, joint "
+          "actor-critic iterations cut from 400 to {} ({} SGD steps of "
+          "44,500), seed {}".format(
+              PENDULUM_JOINT_ITERS, 500 + 110 * PENDULUM_JOINT_ITERS,
+              PENDULUM_SEED))
+    start = time.perf_counter()
+    rl = reinforcement_learning_pendulum.run(
+        full=True, seed=PENDULUM_SEED, joint_iters=PENDULUM_JOINT_ITERS)
+    rl_s = time.perf_counter() - start
+    print("reinforcement_learning_pendulum (cut): learned ROA {!r} against "
+          "LQR {!r}; final norm {!r}; TD fit error {!r}; {} steps at {!r} "
+          "ms; ROAs {!r} s; the script {!r} s [{}]".format(
+              rl.fractions["learned"], rl.fractions["lqr"], rl.final_norm,
+              rl.value_err, rl.steps, rl.step_ms, rl.roa_s, rl_s, card))
+    if any(read_launches().values()):
+        raise AssertionError("an example without a GP launched a kernel")
+
+
+def stationary_product_ms(inputs, kind, count):
+    """The yardstick ``library_ms`` of kernel 1: the solve's product alone,
+    ``torch.matmul(chol_inv[:n, :n], K)``, ``K`` (``n x Q``, scaled and
+    masked) computed beforehand, TF32 off, on the device alone
+    (``graph_ms``)."""
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("TF32 is on for matmul")
+    q, x, chol_inv, _, mask, var_s2 = inputs
+    r2 = None
+    for i in range(q.shape[1]):
+        diff = x[:count, i][:, None] - q[:, i][None, :]
+        r2 = diff * diff if r2 is None else r2 + diff * diff
+    del diff
+    k = (st.functions.gp.STATIONARY_COVARIANCES[kind](r2) * var_s2
+         * mask[:count, None]).contiguous()
+    del r2
+    li = chol_inv[:count, :count].contiguous()
+    out = torch.empty_like(k)
+    return graph_ms(lambda: torch.matmul(li, k, out=out))
+
+
 def main():
     card = phase_device()
     phase_build()
@@ -4085,6 +4597,11 @@ def main():
     cart_lyap, cart_launches = phase_cartpole_verification(card)
     phase_cartpole_rl(card)
     one_d_lyap, one_d_launches = phase_one_d_roa(card)
+    phase_streamed_exactness(card)
+    giant_lyap, giant_launches, _ = phase_giant_sweep(card)
+    phase_region_tools(card, bench_lyap)
+    one_d_ex_lyap, one_d_ex_launches = phase_one_d_example(card)
+    phase_examples(card)
     phase_kernel_count_cases()
     phase_program_count_cases()
     # Per kernel and path: (launches, max_abs_err, ms, plain_ms, eager_ms,
@@ -4093,6 +4610,10 @@ def main():
     paths = [
         ("gp_predict", "cartpole_51x4", (cart_launches,)
          + phase_times(card, cart_lyap, "cart-pole 51^4")),
+        ("gp_predict", "streamed_sweep_1e8", (giant_launches,)
+         + stationary_times(card, *giant_batch_inputs(
+             giant_lyap, giant_sweep_1e8.BATCH),
+             "10^8 streamed sweep batch")),
         ("gp_predict", "bench", (bench_launches["gp_predict"],)
          + phase_times(card, bench_lyap)),
         ("gp_predict_stacked", "flagship_stacked",
@@ -4101,12 +4622,14 @@ def main():
                          "flagship stacked")),
         ("gp_predict_general", "one_d_roa", (one_d_launches,)
          + program_times(card, "general", one_d_lyap, "1-D ROA")),
+        ("gp_predict_general", "one_d_example", (one_d_ex_launches,)
+         + program_times(card, "general", one_d_ex_lyap, "1-D example")),
         ("gp_predict_general", "flagship_fan_out",
          (fan_launches["gp_predict_general"],)
          + program_times(card, "general", fan_lyap, "flagship fan_out")),
     ]
     paths += phase_kernel_variants(card, bench_lyap, cart_lyap)
-    del cart_lyap
+    del cart_lyap, giant_lyap
     del stacked_lyap, fan_lyap
     train = (train_launches,) + training_times(card, trainer, minibatch)
     print("kernel 3 on the training path: {} launches, max abs err {!r}, "
@@ -4155,16 +4678,19 @@ def kernel_rows(paths):
     3's paths above count 128 add the body, the streamed body's times and
     the product alone). No single PyTorch call computes a GP posterior
     numerator, so the row's ``library_ms`` is null; a path's
-    ``library_ms``, where it has one, is the product alone, as its
-    ``library_call`` says."""
+    ``library_ms`` (every path of kernels 1 to 3) is the product alone, as
+    its ``library_call`` says, and null for kernels 4 to 7."""
     keys = ("launches", "max_abs_err", "ms", "plain_ms", "eager_ms",
             "bound_ms", "bound_by", "bound_kind")
     rows = {}
     for name, path, numbers in paths:
         entry = (dict(numbers) if isinstance(numbers, dict)
-                 else dict(zip(keys, numbers)))
+                 else dict(zip(keys + ("library_ms",), numbers)))
         entry["path"] = path
         entry["share_of_bound"] = entry["bound_ms"] / entry["ms"]
+        entry.setdefault("library_ms", None)
+        if entry["library_ms"] is not None:
+            entry.setdefault("library_call", PRODUCT_CALL)
         row = rows.setdefault(name, {
             "name": name, "route": "cuda", "source": KERNELS[name][1],
             "replaces": KERNELS[name][2], "library_ms": None, "paths": []})

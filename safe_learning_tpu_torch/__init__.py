@@ -12,8 +12,10 @@ processes with stationary, linear and composite kernels,
 ``StackedGaussianProcess``, online GP updates (``add_data_point`` and the
 device append), the log marginal likelihood, hyperparameter fitting and
 posterior sampling, the inverted pendulum, the cart-pole and the Van der
-Pol oscillator, the fused and the adaptive
-``Lyapunov.update_safe_set`` sweeps and the policy-facing Lyapunov pieces
+Pol oscillator, the fused, the streamed and the adaptive
+``Lyapunov.update_safe_set`` sweeps, ``smallest_boundary_value`` and
+``get_lyapunov_region`` (a C++ flood fill, ``native/``), checkpoints,
+and the policy-facing Lyapunov pieces
 (``safety_constraint``, ``v_decrease_bound``), safe exploration
 (``get_safe_sample``, ``get_safe_sample_batch``), dynamic programming
 (``PolicyIteration``: the exact PWL value solve, policy ascent with the
@@ -39,14 +41,15 @@ from .functions.gp import (ActiveDims, GaussianProcess, GPRCached,
                            Matern32, Matern52, RBF, StackedGaussianProcess,
                            StackedSampledFunction, fit_gp_hyperparameters,
                            sample_gp_function)
-from .lyapunov import Lyapunov
+from .lyapunov import (Lyapunov, get_lyapunov_region,
+                       smallest_boundary_value)
 from .dynamics import CartPole, InvertedPendulum, VanDerPol
 from .explore import (get_safe_sample, get_safe_sample_batch,
                       perturb_actions)
 from .rl import OptimizationError, PolicyIteration
 from .analysis import (compute_closedloop_response, compute_roa, gridify,
                        reward_rollout)
-from . import analysis, convert, oracle, rl, utils
+from . import analysis, checkpoints, convert, oracle, rl, utils
 
 __version__ = "0.1.0"
 
@@ -65,6 +68,7 @@ __all__ = [
     "get_safe_sample",
     "get_safe_sample_batch", "perturb_actions",
     "PolicyIteration", "OptimizationError", "compute_roa", "reward_rollout",
-    "compute_closedloop_response", "gridify", "analysis", "convert",
-    "oracle", "rl", "utils",
+    "compute_closedloop_response", "gridify", "analysis", "checkpoints",
+    "convert", "oracle", "rl", "utils", "smallest_boundary_value",
+    "get_lyapunov_region",
 ]

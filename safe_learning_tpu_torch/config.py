@@ -41,8 +41,8 @@ class Configuration:
     gp_batch_size : int
         Grid points per batch when a sweep is streamed.
     fused_sweep_limit : int
-        Largest grid verified as one fused pass (larger grids stream,
-        which the port does not do yet).
+        Largest grid verified as one fused pass; larger non-adaptive grids
+        stream in batches of ``gp_batch_size`` states.
     certificate_margin, level_margin : float
         Default conservatism margins for the decrease and level
         comparisons (see ``safe_learning_tpu/config.py:65-79``).

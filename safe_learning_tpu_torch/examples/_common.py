@@ -2,8 +2,10 @@
 
 Counterpart of ``examples/_common.py``: the command line every script
 takes (``--full`` for the reference's sizes, ``--plot`` to save figures,
-``--seed``), a wall-clock ``Timer`` and the joint actor-critic training of
-the reinforcement-learning examples (``make_actor_critic``).
+``--seed``), a wall-clock ``Timer``, the joint actor-critic training of
+the reinforcement-learning examples (``make_actor_critic``) and the
+``--plot`` refusal of the scripts whose figures need the unported
+``plotting`` module (``no_plot``).
 """
 
 from __future__ import annotations
@@ -30,6 +32,14 @@ def example_args(description, extra=None, argv=None):
     if extra is not None:
         extra(parser)
     return parser.parse_args(argv)
+
+
+def no_plot(name):
+    """Raise for ``--plot`` of a script whose figure needs the JAX
+    package's ``plotting`` module, which is not ported."""
+    raise NotImplementedError(
+        "{}'s --plot needs plotting.py, ROADMAP queue 1 item 22 (not "
+        "ported)".format(name))
 
 
 def save_plot(name):
@@ -86,14 +96,15 @@ def _clip(grads, max_norm=1.0):
     return [g * scale for g in grads]
 
 
-def _sgd(loss_fn, params, learning_rate):
-    """One plain SGD step on a parameter tree with the gradient clipped to
-    a global norm of 1; returns detached parameters."""
+def _sgd(loss_fn, params, learning_rate, clip=True):
+    """One plain SGD step on a parameter tree, the gradient clipped to a
+    global norm of 1 unless ``clip`` is False; returns detached
+    parameters."""
     leaves = _tree_map(lambda w: w.detach().requires_grad_(True), params)
     flat = _tree_leaves(leaves)
     with torch.enable_grad():
-        grads = torch.autograd.grad(loss_fn(leaves), flat)
-    step = dict(zip(map(id, flat), _clip(list(grads))))
+        grads = list(torch.autograd.grad(loss_fn(leaves), flat))
+    step = dict(zip(map(id, flat), _clip(grads) if clip else grads))
     with torch.no_grad():
         return _tree_map(lambda w: w - learning_rate * step[id(w)], leaves)
 

@@ -4,7 +4,9 @@ Counterpart of ``safe_learning_tpu/grids.py``. The grid's metadata is
 static (tuples of limits and point counts); ``all_points`` is built on the
 host with the same numpy code as the JAX package, so the two packages'
 grids are bitwise equal. The index maps run in torch on the device of
-their input.
+their input, and :meth:`GridWorld.states_in_range` makes the states of a
+range of flat indices on the device, equal to those rows of
+``all_points`` bit for bit, with no copy of points from the host.
 """
 
 from __future__ import annotations
@@ -141,6 +143,46 @@ class GridWorld:
                 for (low, up), n in zip(self._limits, self._num_points)]
         mesh = np.meshgrid(*axes, indexing="ij")
         return np.column_stack([col.ravel() for col in mesh])
+
+    def points_at(self, indices):
+        """Rows ``indices`` of :attr:`all_points` (host numpy array),
+        gathered from :attr:`discrete_points` without building the whole
+        grid."""
+        ijk = np.unravel_index(np.asarray(indices, dtype=np.int64),
+                               self.shape)
+        return np.column_stack([axis[i] for axis, i in
+                                zip(self.discrete_points, ijk)])
+
+    def _device_axes(self, device):
+        """:attr:`discrete_points` as tensors on ``device``, copied there
+        once per device and working dtype."""
+        key = (torch.device(device), config.np_dtype)
+        cache = self.__dict__.setdefault("_device_axes_cache", {})
+        if key not in cache:
+            cache[key] = [torch.as_tensor(axis, device=key[0])
+                          for axis in self.discrete_points]
+        return cache[key]
+
+    def states_in_range(self, start, stop, device=None):
+        """States of the flat indices ``[start, stop)``, shape
+        ``(stop - start, ndim)``, made on ``device`` (default
+        ``config.device``) in the working dtype.
+
+        They equal the rows of :attr:`all_points` bit for bit: each flat
+        index is split into per-axis indices in int64 (a float32 index is
+        not exact above 2^24) and each coordinate is gathered from its
+        axis's :attr:`discrete_points`. Only the axes are copied to the
+        device, once.
+        """
+        device = config.device if device is None else device
+        axes = self._device_axes(device)
+        flat = torch.arange(int(start), int(stop), dtype=torch.int64,
+                            device=axes[0].device)
+        columns = []
+        for axis, stride, size in zip(axes, row_major_strides(self.shape),
+                                      self._num_points):
+            columns.append(axis[(flat // int(stride)) % size])
+        return torch.stack(columns, dim=1)
 
     def _check_dimensions(self, states):
         if states.shape[-1] != self.ndim:

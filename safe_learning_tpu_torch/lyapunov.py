@@ -1,13 +1,21 @@
 """Lyapunov stability verification on discretized state spaces.
 
 Counterpart of ``safe_learning_tpu/lyapunov.py``: the fused whole-grid
-sweep and the adaptive sorted sweep.
+sweep, the streamed sweep, the adaptive sorted sweep, and the region tools
+``smallest_boundary_value`` and ``get_lyapunov_region``.
 
 - The fused sweep: the decrease condition for every grid point (policy,
   dynamics, possibly a GP posterior, Lyapunov values, Lipschitz
   threshold) runs on ``config.device`` in one pass, and the certified
   level ``c_max`` comes from O(n) reductions, ``max{v < min v(failing)}``,
   not from a sorted scan.
+- The streamed sweep (non-adaptive grids above ``max(batch_size,
+  config.fused_sweep_limit)``): one pass over batches of flat
+  indices whose states are made on the device
+  (:meth:`GridWorld.states_in_range`), keeping the lexicographic minimum
+  of ``(value, flat index)`` over the failing states. That is the first
+  failing state of the JAX package's stable value sort, so the certified
+  set is its sorted prefix, ties at ``v_bad`` included, without a sort.
 - The adaptive sweep (``Lyapunov(adaptive=True)``): the grid is sorted by
   value on the device, the coarse check runs over it in one pass (or in
   ``batch_size`` batches), and the failing states after the first failure
@@ -21,8 +29,8 @@ The JAX package's deliberate departures from the TF reference
 - if no state verifies, ``c_max`` is ``-inf``;
 - with ``can_shrink=False`` previously safe states are always kept;
 - the fused sweep excludes states tied with the smallest failing value;
-  the sorted sweep keeps those that sort before it (a stable sort, as the
-  JAX package's host ``argsort``);
+  the streamed and the sorted sweeps keep those that sort before it (a
+  stable sort, as the JAX package's host ``argsort``);
 - the refined check evaluates the dynamics at the sub-grid points, with
   per-sub-point thresholds, always at the maximum refinement ``R``.
 
@@ -30,13 +38,14 @@ A ``Triangulation`` candidate defined on the verification grid gives its
 vertex values directly, as the JAX package reads them
 (``safe_learning_tpu/lyapunov.py:667-683``).
 
-Not ported yet (ROADMAP queue 1): the streamed sweep of non-adaptive
-grids above ``config.fused_sweep_limit`` (item 12c), the extended and
-hybrid sweeps (item 18), and meshes (item 23).
+Not ported yet (ROADMAP queue 1): the extended and hybrid sweeps (item
+18) and meshes (item 23).
 """
 
 from __future__ import annotations
 
+import heapq
+import itertools
 import warnings
 
 import numpy as np
@@ -48,7 +57,8 @@ from .functions.simplex import Triangulation
 from .grids import GridWorld
 from .utils import tracked_mask
 
-__all__ = ["Lyapunov"]
+__all__ = ["Lyapunov", "smallest_boundary_value",
+           "get_lyapunov_region"]
 
 #: Refined points per chunk of the adaptive sweep's refinement walk (one
 #: dynamics evaluation, and one GP kernel launch, a chunk). The result
@@ -482,18 +492,33 @@ class Lyapunov:
         return None
 
     def update_values(self, batch_size=None):
-        """Re-evaluate ``v`` on the whole grid (kept on the device)."""
+        """Re-evaluate ``v`` on the whole grid (kept on the device).
+
+        One pass over the grid up to ``config.fused_sweep_limit``;
+        larger grids, or any ``batch_size``, stream: batches of
+        ``batch_size`` (default ``config.gp_batch_size``) states made on
+        the device, written into one device buffer.
+        """
         direct = self._direct_grid_values()
         if direct is not None:
             self.values = direct
             return
-        if (batch_size is not None
-                or self.discretization.nindex > self._fused_limit(None)):
-            raise NotImplementedError(
-                "the streamed sweep is ROADMAP queue 1 item 12c "
-                "(lyapunov.py, part 2)")
-        self.values = _values_batch(self.lyapunov_function,
-                                    self._device_points())
+        grid = self.discretization
+        nindex = grid.nindex
+        if batch_size is None and nindex <= self._fused_limit(None):
+            self.values = _values_batch(self.lyapunov_function,
+                                        self._device_points())
+            return
+        batch = batch_size or max(int(config.gp_batch_size), 1)
+        values = None
+        for start in range(0, nindex, batch):
+            stop = min(start + batch, nindex)
+            v = _values_batch(self.lyapunov_function,
+                              grid.states_in_range(start, stop))
+            if values is None:
+                values = torch.empty(nindex, dtype=v.dtype, device=v.device)
+            values[start:stop] = v
+        self.values = values
 
     def update_safe_set(self, can_shrink=True, max_refinement=1,
                         safety_factor=1.0, parallel_iterations=None,
@@ -508,8 +533,10 @@ class Lyapunov:
         ``config.fused_sweep_limit``), then the refinement walk at
         ``max_refinement``. ``parallel_iterations`` and ``safety_factor``
         are accepted for API compatibility and have no effect (a
-        non-default value warns). Non-adaptive grids above
-        ``config.fused_sweep_limit`` and ``extended`` sweeps are not
+        non-default value warns). A non-adaptive grid above ``max(batch,
+        config.fused_sweep_limit)``, ``batch`` being ``batch_size`` or
+        ``config.gp_batch_size``, runs the streamed sweep
+        (:meth:`_update_safe_set_streamed`). ``extended`` sweeps are not
         ported yet and raise ``NotImplementedError``.
         """
         if safety_factor != 1.0 or parallel_iterations is not None:
@@ -531,9 +558,8 @@ class Lyapunov:
                                            batch_size)
             return
         if self.discretization.nindex > self._fused_limit(batch_size):
-            raise NotImplementedError(
-                "the streamed sweep is ROADMAP queue 1 item 12c "
-                "(lyapunov.py, part 2)")
+            self._update_safe_set_streamed(can_shrink, batch_size)
+            return
         self._update_safe_set_fused(can_shrink)
 
     def _exempt_and_previous(self, can_shrink):
@@ -565,6 +591,79 @@ class Lyapunov:
             refinement[initial] = np.maximum(refinement[initial], 1)
         self.safe_set = safe
         self._refinement = refinement
+
+    def _update_safe_set_streamed(self, can_shrink, batch_size):
+        """The streamed sweep: one pass over batches of flat indices.
+
+        ``safe_learning_tpu/lyapunov.py:1035-1275`` without the adaptive,
+        mesh, extended and hybrid branches, and without its host
+        ``argsort``:
+
+        1. ``values`` is refreshed batch by batch into one device buffer
+           (:meth:`update_values`);
+        2. each batch of ``batch_size`` (default ``config.gp_batch_size``)
+           states, made on the device, runs the decrease check
+           (:func:`_negative_batch`); a state that neither passes nor is
+           exempt fails. The pass keeps, on the device, the smallest
+           ``(value, flat index)`` over failing states in lexicographic
+           order, ``(v_bad, i_bad)``: the first failing state of the JAX
+           package's stable value sort. The host waits for the device
+           nowhere inside the loop;
+        3. the certified set is that sort's prefix before ``(v_bad,
+           i_bad)``: ``v < v_bad``, and ``v == v_bad`` at indices below
+           ``i_bad``; with a ``level_margin`` it is ``v < v_bad -
+           level_margin`` (the JAX package's trim). ``c_max`` is the
+           largest value in it, ``-inf`` when it is empty. States with a
+           NaN value are never certified.
+
+        A per-point ``certificate_margin`` is sliced per batch. The last
+        sweep's batches are in ``last_sweep_counts``.
+        """
+        grid = self.discretization
+        nindex = grid.nindex
+        batch = batch_size or max(int(config.gp_batch_size), 1)
+        initial, prev_safe, exempt = self._exempt_and_previous(can_shrink)
+        self.update_values(batch_size=batch)
+        values = self.values
+        device = values.device
+        exempt_dev = torch.as_tensor(exempt, device=device)
+        margin = self.certificate_margin
+        inf = torch.full((), float("inf"), dtype=values.dtype, device=device)
+        v_bad = inf
+        i_bad = torch.full((), nindex, dtype=torch.int64, device=device)
+        batches = 0
+        for start in range(0, nindex, batch):
+            stop = min(start + batch, nindex)
+            negative = _negative_batch(
+                self.policy, self.dynamics, self.lyapunov_function,
+                self._lipschitz_lyapunov, self._lipschitz_dynamics, self.tau,
+                grid.states_in_range(start, stop, device),
+                margin if np.ndim(margin) == 0 else margin[start:stop])[0]
+            v = values[start:stop]
+            failing = ~(negative | exempt_dev[start:stop]) & ~torch.isnan(v)
+            v_min = torch.where(failing, v, inf).min()
+            first = (failing & (v == v_min)).to(torch.uint8).argmax()
+            i_min = torch.where(failing.any(), first + start, nindex)
+            better = (v_min < v_bad) | ((v_min == v_bad) & (i_min < i_bad))
+            v_bad = torch.where(better, v_min, v_bad)
+            i_bad = torch.where(better, i_min, i_bad)
+            batches += 1
+        self.last_sweep_counts = dict(coarse_batches=batches,
+                                      refinement_chunks=0, refined_points=0,
+                                      rescued_states=0)
+
+        level_margin = self.level_margin
+        if level_margin > 0.0:
+            safe_dev = values < v_bad - level_margin
+        else:
+            safe_dev = values < v_bad
+            head = int(i_bad)
+            safe_dev[:head] |= values[:head] == v_bad
+        c_max = torch.where(safe_dev, values, -inf).max()
+        safe = safe_dev.cpu().numpy()
+        self.c_max = float(c_max) if safe.any() else -np.inf
+        self._store(safe, np.where(safe, 1, 0), can_shrink, initial,
+                    prev_safe)
 
     def _update_safe_set_adaptive(self, can_shrink, max_refinement,
                                   batch_size):
@@ -717,3 +816,95 @@ class Lyapunov:
         self.c_max = float(c_max)
         self._store(safe, np.where(safe, 1, 0), can_shrink, initial,
                     prev_safe)
+
+
+def smallest_boundary_value(fun, discretization):
+    """Smallest value of ``fun`` on the boundary of the discretization.
+
+    ``safe_learning_tpu/lyapunov.py:1366-1379``: the points of each pair
+    of opposite faces are evaluated on ``config.device``, and the minima
+    are taken on the host.
+    """
+    fun = as_deterministic(fun)
+    min_value = np.inf
+    for i in range(discretization.ndim):
+        axes = list(discretization.discrete_points)
+        axes[i] = axes[i][[0, -1]]
+        mesh = np.meshgrid(*axes, indexing="ij")
+        points = np.column_stack([col.ravel() for col in mesh])
+        smallest = float(fun(as_tensor(points)).min())
+        min_value = min(min_value, smallest)
+    return min_value
+
+
+def get_lyapunov_region(lyapunov, discretization, init_node,
+                        use_native=None):
+    """Region on which a function grows monotonically away from a node.
+
+    ``safe_learning_tpu/lyapunov.py:1382-1448``: a flood fill from
+    ``init_node`` (a grid multi-index) over the grid's neighbours in
+    increasing-value order, with a heap, that stops at the domain boundary
+    or at the first value below the last one expanded; the nodes expanded
+    form the region. The values are evaluated on ``config.device`` at
+    states made there (:meth:`GridWorld.states_in_range`); the heap runs on
+    the host, in the package's C++ flood fill (:mod:`.native`) or in
+    Python. ``use_native``: ``None`` takes the C++ one when it builds,
+    ``True`` raises when it cannot, ``False`` takes Python. Returns a
+    boolean array of the grid's shape.
+    """
+    fun = as_deterministic(lyapunov)
+    states = discretization.states_in_range(0, discretization.nindex)
+    values = fun(states).detach().cpu().numpy()
+    lyapunov_values = values.reshape(discretization.shape)
+
+    if use_native is None or use_native:
+        from .native import flood_fill
+
+        flat_init = int(np.ravel_multi_index(tuple(init_node),
+                                             discretization.shape))
+        native = flood_fill(lyapunov_values, discretization.shape,
+                            flat_init)
+        if native is not None:
+            return native
+        if use_native:
+            raise RuntimeError("the native flood fill did not build")
+
+    init_node = tuple(init_node)
+    init_value = lyapunov_values[init_node]
+    ndim = discretization.ndim
+    num_points = np.asarray(discretization.shape)
+
+    neighbor_offsets = np.array(
+        list(itertools.product(*[(0, -1, 1)] * ndim))[1:])
+
+    visited = np.zeros(discretization.shape, dtype=bool)
+    visited[init_node] = True
+
+    tiebreaker = itertools.count()
+    last_value = init_value
+    priority_queue = [(init_value, next(tiebreaker), np.asarray(init_node))]
+
+    while priority_queue:
+        value, _, node = heapq.heappop(priority_queue)
+        if np.any(node == 0) or np.any(node == num_points - 1):
+            visited[tuple(node)] = False
+            break
+        if value < last_value:
+            break
+        last_value = value
+
+        neighbors = node + neighbor_offsets
+        keys = tuple(neighbors.T)
+        is_new = ~visited[keys]
+        neighbors = neighbors[is_new]
+        if neighbors.size:
+            keys = tuple(neighbors.T)
+            visited[keys] = True
+            for val, neighbor in zip(lyapunov_values[keys], neighbors):
+                heapq.heappush(priority_queue,
+                               (val, next(tiebreaker), neighbor))
+
+    for _, _, node in priority_queue:
+        visited[tuple(node)] = False
+
+    return visited

@@ -218,7 +218,8 @@ def calibrate_certificate_margin(lyapunov, num_samples=4096, safety=2.0,
     grid = lyapunov.discretization
     if grid.nindex > num_samples:
         idx = rng.choice(grid.nindex, size=num_samples, replace=False)
-        pts = grid.all_points[np.sort(idx)]
+        # The rows of ``all_points``, without building the whole grid.
+        pts = grid.points_at(np.sort(idx))
     else:
         pts = grid.all_points
     refinement = int(refinement)

@@ -123,10 +123,20 @@ def test_unported_paths_raise():
         old = st.config.fused_sweep_limit, st.config.gp_batch_size
         st.config.fused_sweep_limit, st.config.gp_batch_size = 4, 4
         try:
-            with pytest.raises(NotImplementedError, match="streamed"):
-                lyap.update_safe_set()
+            # Above the fused limit the grid streams (no longer raises):
+            # the stable value sort's prefix before the first failing
+            # state, in 3 batches of 4.
+            lyap.update_safe_set()
+            assert lyap.last_sweep_counts["coarse_batches"] == 3
         finally:
             st.config.fused_sweep_limit, st.config.gp_batch_size = old
+        values = to_numpy(lyap.values)
+        order = np.argsort(values, kind="stable")
+        passed = lyap.safety_constraint(lyap.policy)[order]
+        stop = len(order) if passed.all() else int(np.argmin(passed))
+        expected = np.zeros(len(order), dtype=bool)
+        expected[order[:stop]] = True
+        assert_array_equal(lyap.safe_set, expected)
         with pytest.warns(RuntimeWarning, match="no effect"):
             lyap.update_safe_set(safety_factor=2.0)
 
