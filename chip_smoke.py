@@ -155,7 +155,23 @@ Phases, in order; any failure raises and the exit code is not 0:
     round trip bit for bit), ``reinforcement_learning_pendulum`` at its
     ``--full`` widths with the joint iterations cut (printed), each with
     its assertions;
-19. count cases, kernel 1 and kernels 2 and 3 (``COUNT_CASES``: counts 0,
+19. derived margins (``phase_derived_margins``, ``errorbounds``): first
+    ``transcendental_ulps``, the worst relative error of torch's float32
+    exp, sin, cos, tanh and sigmoid on the card against float64, at most
+    ``config.fp_error_factor`` units of 2^-24; then on the bench instance
+    the per-point and the scalar derived margin (their wall times), the
+    float32 margin through kernel 1 within the per-point bound of the
+    float64 oracle's at all 10^6 states, the sweeps with either installed
+    inside the oracle's set and at or below its level, the derived margin
+    beside the measured one, and ``get_safe_sample`` on the per-candidate
+    path, its candidates' float32 future values within their margins of
+    float64 and the chosen row passing the exact level test; on the
+    adaptive instance at count 181 (kernel 3's panel body)
+    ``analytic_certificate_margin(refinement=16, per_point=True)`` and a
+    certify at ``max_refinement=16``, 400,000 seeded refined sub-points
+    within their state's bound of the float64 oracle, ``check_certify``
+    with no band;
+20. count cases, kernel 1 and kernels 2 and 3 (``COUNT_CASES``: counts 0,
     1, 10, both sides of each bucket edge 16/32/64/128, 129 and 2048,
     below and at capacity; kernel 1 also at d = 6, and at d = 5, p = 4 and
     d = 16, p = 8, ``WIDE_COUNT_CASES``; kernels 2 and 3 also the panel
@@ -163,7 +179,7 @@ Phases, in order; any failure raises and the exit code is not 0:
     past it, S = 1 to 3, p up to 8, d up to 16, each taking the body its
     count selects): the kernels' loops bounded by the count, against the
     plain versions at full capacity, exact zeros at count 0;
-20. kernel times: each kernel against its plain version on its path's
+21. kernel times: each kernel against its plain version on its path's
     own inputs, on the device alone (a CUDA graph of 10 calls,
     ``graph_ms``) and as a caller sees it (10 eager calls), and each
     kernel's bound at those inputs (``kernel_bound``) and the solve's
@@ -184,11 +200,12 @@ Phases, in order; any failure raises and the exit code is not 0:
     kernel-1 inputs, their path, ``pipelined_predict.run`` and
     ``distance_mxu_experiment.run`` (launches counted; each variant's max
     |d| from kernel 1 and speed-up), then each against its plain version,
-    device times in turns with kernel 1's, eager and plain times; (c) the
+    device times in turns with kernel 1's, eager and plain times, and
+    the solve's product alone at those inputs as their ``library_ms``; (c) the
     expanded form's and kernel 1's errors against the float64 oracle; then
     the loop's step times again, to show how far the work before moved
     them;
-21. profiles, after every time: torch.profiler over the safe-learning and
+22. profiles, after every time: torch.profiler over the safe-learning and
     the bench sweeps (``profile_sweep``), over 20 pretraining and 20
     penalised ascent steps (``profile_training``) and over the adaptive
     path's batches and certifies (``profile_adaptive``), the device's busy
@@ -2179,13 +2196,17 @@ def variant_times(card, label, inputs, count):
             plain, _ = form_plain(form, "rbf")
             args = form_inputs(inputs, form)
             plain_ms[form] = graph_ms(lambda: plain(args), reps=3, batch=2)
+        # Every variant computes kernel 1's function at kernel 1's inputs:
+        # the same yardstick, the solve's product alone.
+        library_ms = stationary_product_ms(inputs, "rbf", count)
     bound = kernel_bound(n_q, d, count, p, 1, stationary_ops("rbf", d),
                          inputs[0].element_size())
     k1_ms = statistics.mean(runs["kernel1"])
     print("variants ({}, {}): kernel 1 {!r} ms (runs {!r}), eager {!r} ms, "
-          "plain {!r} ms; bound {!r} ms ({}) [{}]".format(
-              label, shape, k1_ms, runs["kernel1"], eager["kernel1"],
-              plain_ms["stationary"], bound[0], bound[1], card))
+          "plain {!r} ms; bound {!r} ms ({}); the product alone {!r} ms "
+          "[{}]".format(label, shape, k1_ms, runs["kernel1"],
+                        eager["kernel1"], plain_ms["stationary"], bound[0],
+                        bound[1], library_ms, card))
     entries = []
     for name, kernel, form, kw in VARIANTS:
         ms = statistics.mean(runs[name])
@@ -2205,7 +2226,8 @@ def variant_times(card, label, inputs, count):
                                  .format(kernel))
         path = label + ("_halves{}".format(kw["halves"]) if kw else "")
         entries.append((kernel, path, (launches[kernel], max(em, ev), ms,
-                                       plain_ms[form], eager[name]) + bound))
+                                       plain_ms[form], eager[name]) + bound
+                        + (library_ms,)))
     return entries
 
 
@@ -3344,7 +3366,8 @@ def pair_scores(lyap, gp, pairs):
 def refined_margins(lyap, idx, r, states_per_chunk=4096):
     """Float32 margins ``decrease - threshold`` at every point of the
     ``R^d`` sub-grids of grid states ``idx`` at ``tau / R``, as the
-    refinement walk computes them: a host ``(len(idx), R^d)`` array."""
+    refinement walk computes them: a float64 host ``(len(idx), R^d)``
+    array (``float32_margins``)."""
     points = lyap._device_points()
     offsets = refinement_offsets(lyap.discretization.unit_maxes, r, points)
     out = []
@@ -3352,13 +3375,8 @@ def refined_margins(lyap, idx, r, states_per_chunk=4096):
         flat = sub_points(grid_states(points, idx[start:start +
                                                   states_per_chunk]),
                           offsets)
-        decrease = _decrease_bound(
-            lyap.lyapunov_function, lyap._lipschitz_lyapunov, flat,
-            lyap.dynamics(flat, lyap.policy(flat)))
-        threshold = _threshold(lyap._lipschitz_lyapunov,
-                               lyap._lipschitz_dynamics, flat, lyap.tau / r)
-        out.append((decrease - threshold).reshape(-1, offsets.shape[0])
-                   .cpu().numpy())
+        out.append(float32_margins(lyap, flat, lyap.tau / r)
+                   .reshape(-1, offsets.shape[0]))
     return np.concatenate(out) if out else np.zeros((0, offsets.shape[0]))
 
 
@@ -4576,6 +4594,308 @@ def stationary_product_ms(inputs, kind, count):
     return graph_ms(lambda: torch.matmul(li, k, out=out))
 
 
+#: The float32 functions torch runs on the port's float32 path (the
+#: policy's and the candidate's activations, the ODE dynamics, the plain
+#: GP route's covariances), each over the range it is checked on: exp over
+#: its normal outputs, sin and cos far beyond the first reduction steps,
+#: tanh and sigmoid across their saturation.
+TRANSCENDENTALS = (("exp", torch.exp, -87.0, 88.0),
+                   ("sin", torch.sin, -1.0e4, 1.0e4),
+                   ("cos", torch.cos, -1.0e4, 1.0e4),
+                   ("tanh", torch.tanh, -20.0, 20.0),
+                   ("sigmoid", torch.sigmoid, -80.0, 80.0))
+TRANSCENDENTAL_SAMPLES = 2 ** 24
+
+#: Grid states per device pass of the derived margins' bound sweep.
+DERIVE_BATCH = 2 ** 18
+#: Refined sub-points of the adaptive instance held to the derived bound
+#: against the float64 oracle (as the 10^8 phase samples its oracle).
+DERIVED_SUBPOINT_SAMPLE = 400_000
+
+
+def transcendental_ulps(card):
+    """The worst relative error of each of ``TRANSCENDENTALS`` in float32 on
+    the card against its float64 value at the same float32 arguments, in
+    units of ``u = 2^-24``, over ``TRANSCENDENTAL_SAMPLES`` evenly spaced
+    arguments of its range and as many in ``[-4, 4]``.
+
+    ``config.fp_error_factor`` charges one ``u`` per function; it must be
+    at least each measured worst error (a fast-math build, with ``__expf``
+    and ``__sinf``, would show tens of units at large arguments). Returns
+    ``{name: worst}``.
+    """
+    u32 = 2.0 ** -24
+    worst = {}
+    for name, fn, lo, hi in TRANSCENDENTALS:
+        x = torch.cat([
+            torch.linspace(lo, hi, TRANSCENDENTAL_SAMPLES, device="cuda"),
+            torch.linspace(-4.0, 4.0, TRANSCENDENTAL_SAMPLES,
+                           device="cuda")])
+        y64 = fn(x.double())
+        rel = (fn(x).double() - y64).abs() / y64.abs()
+        worst[name] = float(rel[y64 != 0].max()) / u32
+    factor = st.config.fp_error_factor
+    print("float32 transcendentals on the card, worst relative error in "
+          "units of 2^-24 against float64 ({} + {} arguments each): {}; "
+          "config.fp_error_factor {!r} [{}]".format(
+              TRANSCENDENTAL_SAMPLES, TRANSCENDENTAL_SAMPLES,
+              ", ".join("{} {:.3f}".format(k, v) for k, v in worst.items()),
+              factor, card))
+    over = {k: v for k, v in worst.items() if v > factor}
+    if over:
+        raise AssertionError("fp_error_factor {} is below the measured error "
+                             "of {}".format(factor, over))
+    return worst
+
+
+def synchronised_s(fn):
+    """``(fn(), seconds)``, the wall time between two synchronisations."""
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - start
+
+
+def float32_margins(lyap, states, tau):
+    """``decrease - threshold`` of the working-dtype sweep at the device
+    ``states`` against ``tau`` (the dynamics through the kernels), as a
+    float64 host array."""
+    decrease = _decrease_bound(
+        lyap.lyapunov_function, lyap._lipschitz_lyapunov, states,
+        lyap.dynamics(states, lyap.policy(states)))
+    threshold = _threshold(lyap._lipschitz_lyapunov,
+                           lyap._lipschitz_dynamics, states, tau)
+    return (decrease - threshold).double().reshape(-1).cpu().numpy()
+
+
+def contained(lyap, oracle_safe, label):
+    """The certified set lies inside the float64 oracle's."""
+    outside = int((np.asarray(lyap.safe_set) & ~oracle_safe).sum())
+    if outside:
+        raise AssertionError("{}: {} certified states lie outside the f64 "
+                             "oracle's safe set".format(label, outside))
+
+
+def exploration_check(lyap, card, unit):
+    """``get_safe_sample`` with a per-point margin installed takes the
+    per-candidate path; every candidate's float32 future value is within
+    its derived margin of the float64 one, and the chosen row's float32
+    and float64 future values both lie below ``c_max`` minus its
+    margin."""
+    rows = []
+    with patched(explore_mod, "_per_candidate_margin",
+                 recorded(rows, lambda args, out: (args[1], out))):
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            (pair, bound), seconds = synchronised_s(
+                lambda: st.get_safe_sample(
+                    lyap, perturbations=np.linspace(-0.1, 0.1, 5)[:, None],
+                    limits=[[-1.0, 1.0]], num_samples=1000,
+                    rng=np.random.default_rng(0)))
+    fallbacks = [str(w.message) for w in caught]
+    if len(rows) != 1 or rows[0][1] is None or fallbacks:
+        raise AssertionError("get_safe_sample did not take the per-candidate "
+                             "path ({} derivations, {})".format(
+                                 len(rows), fallbacks))
+    candidates, margins = rows[0]
+    with uncounted():
+        _, _, f32 = explore_mod._future_values(
+            lyap.dynamics, lyap.lyapunov_function, lyap._lipschitz_lyapunov,
+            st.functions.base.as_tensor(candidates))
+        f32 = f32.double().cpu().numpy()
+    lifted = [st.oracle.lift64(f) for f in (
+        lyap.dynamics, lyap.lyapunov_function, lyap._lipschitz_lyapunov)]
+    with st.oracle._oracle_env():
+        _, _, f64 = explore_mod._future_values(
+            *lifted, torch.as_tensor(candidates, dtype=torch.float64))
+        f64 = f64.numpy()
+    err = np.abs(f32 - f64)
+    best = int(np.flatnonzero((candidates == pair).all(axis=1))[0])
+    print("exploration on bench: get_safe_sample {!r} s with the per-point "
+          "margin installed (unit {!r}), per-candidate margins over {} rows "
+          "({!r} to {!r}), |f32 - f64| future values up to {!r}, largest "
+          "share of its margin {!r}; chosen row {} (summed error {!r}): "
+          "float32 future {!r}, float64 future {!r}, c_max {!r}, its margin "
+          "{!r}, c_max - margin {!r} [{}]".format(
+              seconds, unit, len(candidates), float(margins.min()),
+              float(margins.max()), float(err.max()),
+              float((err / margins).max()), pair[0].tolist(), bound,
+              float(f32[best]), float(f64[best]), lyap.c_max,
+              float(margins[best]), lyap.c_max - float(margins[best]),
+              card))
+    if not (err <= margins).all():
+        raise AssertionError("a candidate's float32 future value is farther "
+                             "than its derived margin from the float64 one")
+    # The model gives f64 < f32 + margin < c_max; the chosen row here also
+    # keeps its float64 value below c_max - margin.
+    if not (f32[best] < lyap.c_max - margins[best]
+            and f64[best] < lyap.c_max - margins[best]):
+        raise AssertionError("the chosen row fails the exact level test")
+
+
+def phase_derived_margins(card, adaptive):
+    """``errorbounds`` on the card at full width (``DERIVE_BATCH`` states a
+    device pass), after ``transcendental_ulps``.
+
+    bench (``build_bench_instance(1000)``, kernel 1): the per-point and
+    the scalar derived margin; at all 10^6 states the float32 margin
+    through kernel 1 lies within the per-point bound of the float64
+    oracle's (the largest share printed); the sweeps with the derived
+    scalar and per-point margins installed certify inside the oracle's set
+    at a level at or below its; the derived margin beside
+    ``calibrate_certificate_margin``'s. Exploration (``exploration_check``)
+    at the level the measured margin certifies, with the per-point derived
+    margin installed.
+
+    adaptive (``phase_adaptive``'s instance at count 181, kernel 3's panel
+    body): ``analytic_certificate_margin(refinement=16, per_point=True)``
+    and ``update_safe_set(max_refinement=16)``; ``DERIVED_SUBPOINT_SAMPLE``
+    seeded refined sub-points within their state's bound of the float64
+    oracle at the bound sweep's own coordinates; ``check_certify`` with no
+    band. Kernel 1 and kernel 3 must each launch on their part of the path
+    (counts set to 0 before, read after; the checks' launches uncounted).
+    """
+    start = time.perf_counter()
+    transcendental_ulps(card)
+    eb = st.errorbounds
+    unit = eb._unit_roundoff()
+
+    inst = build_bench_instance(1000)
+    lyap = st.Lyapunov(inst["grid"], inst["v"], inst["gp"], inst["lf"],
+                       inst["lv"], inst["tau"], inst["policy"],
+                       initial_set=inst["initial_set"])
+    grid = lyap.discretization
+    reset_launches()
+    bound, per_point_s = synchronised_s(
+        lambda: eb.analytic_certificate_margin(
+            lyap, batch_size=DERIVE_BATCH, per_point=True, set_margin=False))
+    margin, scalar_s = synchronised_s(
+        lambda: eb.analytic_certificate_margin(lyap,
+                                               batch_size=DERIVE_BATCH))
+    lyap.update_safe_set()
+    derived = (float(lyap.safe_set.mean()), lyap.c_max)
+    with uncounted():
+        m64 = st.oracle.oracle_margins(lyap, grid.all_points)
+        oracle_safe, c_ref = st.oracle.oracle_safe_set(lyap, margins=m64)
+        contained(lyap, oracle_safe, "bench, derived scalar margin")
+        gate_2(lyap.c_max, c_ref)
+        m32 = float32_margins(lyap, lyap._device_points(), lyap.tau)
+    lyap.certificate_margin = bound
+    lyap._certificate_margin_unit = unit
+    lyap.update_safe_set()
+    launches = read_launches()
+    per_point = (float(lyap.safe_set.mean()), lyap.c_max)
+    contained(lyap, oracle_safe, "bench, derived per-point margin")
+    gate_2(lyap.c_max, c_ref)
+    if launches["gp_predict"] < 1:
+        raise AssertionError("the derived-margin sweeps never launched "
+                             "kernel 1")
+    err = np.abs(m32 - m64)
+    share = err / bound
+    with uncounted():
+        measured = st.oracle.calibrate_certificate_margin(lyap)
+        lyap.update_safe_set()
+    contained(lyap, oracle_safe, "bench, measured margin")
+    print("derived margins on bench (10^6 states, kernel 1): per-point "
+          "bound {!r} s, scalar {!r} s (batches of {}); scalar margin {!r} "
+          "(per-point {!r} to {!r}, median {!r}) against the measured "
+          "{!r}: {!r}x; |f32 - f64| margins up to {!r}, largest share of "
+          "the per-point bound {!r} (state {}), {} states over it; safe "
+          "fraction: derived scalar {!r} (c_max {!r}), derived per-point "
+          "{!r} (c_max {!r}), measured {!r} (c_max {!r}), f64 oracle {!r} "
+          "(c_max {!r}); kernel launches {} [{}]".format(
+              per_point_s, scalar_s, DERIVE_BATCH, margin,
+              float(bound.min()), float(bound.max()),
+              float(np.median(bound)), measured, margin / measured,
+              float(err.max()), float(share.max()), int(share.argmax()),
+              int((err > bound).sum()), derived[0], derived[1],
+              per_point[0], per_point[1], float(lyap.safe_set.mean()),
+              lyap.c_max, float(oracle_safe.mean()), c_ref, launches, card))
+    if not (err <= bound).all():
+        raise AssertionError("kernel 1's float32 error exceeds the derived "
+                             "per-point bound at {} states".format(
+                                 int((err > bound).sum())))
+    # The derived margin certifies about the exempt set alone here, where
+    # every candidate's derived margin exceeds c_max: the exploration runs
+    # at the measured margin's level, the per-point margin installed.
+    lyap.certificate_margin = bound
+    lyap._certificate_margin_unit = unit
+    exploration_check(lyap, card, unit)
+    del lyap, m32, m64, err, share
+
+    r = ADAPTIVE_REFINEMENT
+    base = adaptive.lyap
+    lyap = st.Lyapunov(base.discretization, base.lyapunov_function,
+                       base.dynamics, base._lipschitz_dynamics,
+                       base._lipschitz_lyapunov, base.tau, base.policy,
+                       initial_set=np.flatnonzero(adaptive.inst["initial"]),
+                       adaptive=True)
+    grid = lyap.discretization
+    reset_launches()
+    bound, derive_s = synchronised_s(
+        lambda: eb.analytic_certificate_margin(
+            lyap, batch_size=DERIVE_BATCH, refinement=r, per_point=True))
+    _, certify_s = synchronised_s(
+        lambda: lyap.update_safe_set(max_refinement=r))
+    launches = read_launches()
+    if launches["gp_predict_stacked"] < 1:
+        raise AssertionError("the adaptive certify never launched kernel 3")
+    with uncounted():
+        band = st.oracle.calibrate_certificate_margin(lyap, refinement=r,
+                                                      set_margin=False)
+        rng = np.random.default_rng(0)
+        idx = rng.integers(0, grid.nindex, DERIVED_SUBPOINT_SAMPLE)
+        sub = rng.integers(0, r ** grid.ndim, DERIVED_SUBPOINT_SAMPLE)
+        points = lyap._device_points()
+        offsets = refinement_offsets(grid.unit_maxes, r, points)
+        states = (points[torch.as_tensor(idx, device=points.device)]
+                  + offsets[torch.as_tensor(sub, device=points.device)])
+        m32 = np.concatenate([
+            float32_margins(lyap, states[i:i + 2 ** 18], lyap.tau / r)
+            for i in range(0, len(idx), 2 ** 18)])
+        # The bound sweep's own sub-point: the float32 sum of the state and
+        # its float64 offset rounded to float32.
+        steps = (np.arange(r) + 0.5) / r - 0.5
+        unit64 = np.asarray(grid.unit_maxes, np.float64)
+        off64 = np.stack(np.meshgrid(*[steps] * grid.ndim, indexing="ij"),
+                         axis=-1).reshape(-1, grid.ndim) * unit64
+        model = (grid.points_at(idx).astype(np.float32)
+                 + off64[sub].astype(np.float32))
+        moved = int((model != states.cpu().numpy()).any(axis=1).sum())
+        oracle_start = time.perf_counter()
+        m64 = st.oracle.oracle_margins(lyap, model, tau=lyap.tau / r)
+        oracle_s = time.perf_counter() - oracle_start
+        err = np.abs(m32 - m64)
+        share = err / bound[idx]
+        check_certify(lyap, adaptive.inst["initial"], 0.0, r,
+                      "adaptive, derived per-point margin")
+    print("derived margins on adaptive ({} states, refinement {}, count "
+          "{}, kernel 3's panel body): per-point bound {!r} s (batches of "
+          "{}, {} passes), certify {!r} s; margin {!r} to {!r} "
+          "(median {!r}) against the measured {!r}: {!r}x; {} sampled "
+          "refined sub-points ({} where the sweep's coordinate differs "
+          "from the bound sweep's), |f32 - f64| up to {!r}, largest share "
+          "of the bound {!r}, {} over it; f64 oracle {!r} s; safe fraction "
+          "{!r} (c_max {!r}, max N(x) {}) against the example's {!r}; "
+          "kernel launches {} [{}]".format(
+              grid.nindex, r, lyap.dynamics.count, derive_s, DERIVE_BATCH,
+              r ** grid.ndim + 1, certify_s, float(bound.min()),
+              float(bound.max()),
+              float(np.median(bound)), band, float(bound.max()) / band,
+              len(idx), moved, float(err.max()), float(share.max()),
+              int((err > bound[idx]).sum()), oracle_s,
+              float(lyap.safe_set.mean()), lyap.c_max,
+              int(lyap._refinement.max()), float(base.safe_set.mean()),
+              launches, card))
+    if not (err <= bound[idx]).all():
+        raise AssertionError("kernel 3's float32 error exceeds the derived "
+                             "bound at {} refined sub-points".format(
+                                 int((err > bound[idx]).sum())))
+    print("derived margins phase: {:.3f} s".format(
+        time.perf_counter() - start))
+
+
 def main():
     card = phase_device()
     phase_build()
@@ -4602,6 +4922,7 @@ def main():
     phase_region_tools(card, bench_lyap)
     one_d_ex_lyap, one_d_ex_launches = phase_one_d_example(card)
     phase_examples(card)
+    phase_derived_margins(card, adaptive)
     phase_kernel_count_cases()
     phase_program_count_cases()
     # Per kernel and path: (launches, max_abs_err, ms, plain_ms, eager_ms,
@@ -4677,9 +4998,9 @@ def kernel_rows(paths):
     tuple in ``keys``' order, or a dict that holds them and more: kernel
     3's paths above count 128 add the body, the streamed body's times and
     the product alone). No single PyTorch call computes a GP posterior
-    numerator, so the row's ``library_ms`` is null; a path's
-    ``library_ms`` (every path of kernels 1 to 3) is the product alone, as
-    its ``library_call`` says, and null for kernels 4 to 7."""
+    numerator, so the row's ``library_ms`` is null; every path's
+    ``library_ms`` is the product alone, as its ``library_call`` says
+    (kernels 4 to 7 compute kernel 1's function at kernel 1's inputs)."""
     keys = ("launches", "max_abs_err", "ms", "plain_ms", "eager_ms",
             "bound_ms", "bound_by", "bound_kind")
     rows = {}

@@ -22,7 +22,10 @@ and the policy-facing Lyapunov pieces
 Lyapunov Lagrangian, ``policy_iteration`` and
 ``discrete_policy_optimization``), the closed-loop analysis tools
 (``compute_roa``, ``reward_rollout``), all of ``utils``, the float64
-oracle and the margin calibration, refined sweeps included. The
+oracle and the margin calibration, refined sweeps included, and the
+derived margins of ``errorbounds`` (``analytic_certificate_margin``,
+``analytic_exploration_margin``, with per-point and per-candidate forms),
+their rounding unit re-derived for the H100's float32 path. The
 port runs on ``cuda:0`` unless the caller sets ``config.device = "cpu"``;
 nothing falls back to the CPU when CUDA is missing.
 """
@@ -49,7 +52,8 @@ from .explore import (get_safe_sample, get_safe_sample_batch,
 from .rl import OptimizationError, PolicyIteration
 from .analysis import (compute_closedloop_response, compute_roa, gridify,
                        reward_rollout)
-from . import analysis, checkpoints, convert, oracle, rl, utils
+from . import (analysis, checkpoints, convert, errorbounds, oracle, rl,
+               utils)
 
 __version__ = "0.1.0"
 
@@ -69,6 +73,6 @@ __all__ = [
     "get_safe_sample_batch", "perturb_actions",
     "PolicyIteration", "OptimizationError", "compute_roa", "reward_rollout",
     "compute_closedloop_response", "gridify", "analysis", "checkpoints",
-    "convert", "oracle", "rl", "utils", "smallest_boundary_value",
-    "get_lyapunov_region",
+    "convert", "errorbounds", "oracle", "rl", "utils",
+    "smallest_boundary_value", "get_lyapunov_region",
 ]

@@ -54,6 +54,10 @@ class Configuration:
         Largest GP data capacity routed through the kernels (a stack of S
         GPs when ``S * capacity**2 <= kernel_max_capacity**2``); larger
         GPs take the plain matmul chain.
+    fp_error_factor : float
+        The unit roundoff of the derived margins (``errorbounds``) is
+        ``fp_error_factor * eps / 2`` of the working dtype: one unit must
+        cover the worst single operation the rounding model charges once.
     """
 
     def __init__(self):
@@ -65,6 +69,26 @@ class Configuration:
         self.level_margin = 0.0
         self.use_kernels = True
         self.kernel_max_capacity = 2048
+        # The rounding model of ``errorbounds`` charges one unit u per
+        # operation, transcendentals included, so u must cover the worst
+        # single operation on the port's float32 path on the H100:
+        # - +, -, *, /, sqrt and FMA are IEEE round-to-nearest (nvcc's
+        #   defaults -prec-div=true -prec-sqrt=true, no fast-math in
+        #   ``ops/build.py`` nor in torch's CUDA kernels): 1 x eps/2;
+        # - dot products (the kernels' tiled and 64-row-panel solves,
+        #   cuBLAS with TF32 off) sum in their own order; gamma_n holds
+        #   for any order, at the same unit;
+        # - expf, sinf, cosf and tanhf (the kernels' covariances, torch's
+        #   exp/sin/cos/tanh): at most 2 ulp by the CUDA Math API's
+        #   table, 2 ulp <= 2 * 2^-23 |y| = 4 x eps/2;
+        # - torch's CUDA sigmoid is 1 / (1 + exp(-x)): exp, an add and a
+        #   divide, at most (1 + u) / ((1 - 4u)(1 - u)) - 1 = 6u + O(u^2)
+        #   relative, the largest charge, hence 6 (the O(u^2) rest is
+        #   absorbed by ``_finalize_margin``'s own-rounding factor).
+        # ``chip_smoke.py``'s ``transcendental_ulps`` measures each
+        # function's worst relative error on the card and fails if one
+        # exceeds this factor.
+        self.fp_error_factor = 6.0
 
     @property
     def dtype(self):

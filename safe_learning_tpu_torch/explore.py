@@ -18,10 +18,6 @@ Departures from the JAX package, on purpose:
 - no power-of-two padding of the safe states or the candidates: it
   exists there so that XLA does not retrace, and a padded row (a copy of
   the last one) cannot win the argmax before its original;
-- the per-candidate rounding margins (``explore.py:265-279``,
-  ``:378-406``) need ``errorbounds`` (ROADMAP queue 1 item 17); the step
-  uses :func:`_margin_of`, the collapse the JAX package itself takes when
-  that derivation refuses (ROADMAP queue 3);
 - a batch step scores its candidates and its backup rows in one GP
   predict (the JAX package predicts twice), and its noise key is a
   ``torch.Generator``;
@@ -36,6 +32,7 @@ import numpy as np
 import torch
 
 from .config import config
+from .errorbounds import analytic_exploration_margin
 from .functions.base import as_tensor
 from .functions.gp import _device_border_append
 from .lyapunov import _as_column_batch, _eval_lipschitz
@@ -69,20 +66,28 @@ def perturb_actions(states, actions, perturbations, limits=None):
     return state_actions
 
 
-def _score_candidates(dynamics, lyapunov_function, lipschitz_lyapunov,
-                      c_max, state_actions, margin=0.0):
-    """GP predict, confidence-weighted future value and level test.
+def _future_values(dynamics, lyapunov_function, lipschitz_lyapunov,
+                   state_actions):
+    """GP predict and confidence-weighted future value.
 
-    Returns ``(mean, bound, safe)``: the mean next states, the summed
-    predictive error (the informativeness), and whether
-    ``v(mean) + sum_j |L_v_j| sigma_j < c_max - margin``. The error is
-    the per-dimension product, as in the decrease bound.
+    Returns ``(mean, bound, future)``: the mean next states, the summed
+    predictive error (the informativeness) and ``v(mean) + sum_j |L_v_j|
+    sigma_j``, the error taken per dimension, as in the decrease bound.
     """
     mean, std = dynamics(state_actions)
     bound = std.sum(dim=1)
     lv = _as_column_batch(_eval_lipschitz(lipschitz_lyapunov, mean))
     lv = abs(lv) if isinstance(lv, float) else lv.abs()
     future = lyapunov_function(mean).reshape(-1) + (lv * std).sum(dim=1)
+    return mean, bound, future
+
+
+def _score_candidates(dynamics, lyapunov_function, lipschitz_lyapunov,
+                      c_max, state_actions, margin=0.0):
+    """:func:`_future_values` and the level test: ``(mean, bound, safe)``
+    with ``safe`` whether ``future < c_max - margin``."""
+    mean, bound, future = _future_values(dynamics, lyapunov_function,
+                                         lipschitz_lyapunov, state_actions)
     return mean, bound, future < c_max - margin
 
 
@@ -155,6 +160,13 @@ def get_safe_sample(lyapunov, perturbations=None, limits=None,
     bound : float
         The summed predictive error at the chosen pair.
 
+    Beside a per-grid-point ``certificate_margin``, and with no dedicated
+    ``exploration_margin``, each candidate is held to its own derived
+    margin (:func:`_per_candidate_margin`) on the host-built rows
+    (:func:`_host_candidates`); when that derivation refuses, the margin
+    collapses to the grid-wide largest one (:func:`_margin_of`), as in
+    the JAX package (``safe_learning_tpu/explore.py:265-299``).
+
     When no candidate is safe, the step warns (``RuntimeWarning``) and
     falls back to the backup policy: the unperturbed policy actions at
     the sampled states, the one with the largest predictive error.
@@ -178,20 +190,30 @@ def get_safe_sample(lyapunov, perturbations=None, limits=None,
         pick = rng.choice(len(safe_states), num_samples, replace=True)
         safe_states = safe_states[pick]
     safe_states_dev = as_tensor(safe_states)
+    action_dim = np.atleast_2d(
+        actions if perturbations is None else perturbations).shape[1]
 
-    if perturbations is None:
-        actions = np.atleast_2d(actions)
-        action_dim = actions.shape[1]
-        candidates = _action_candidates(safe_states_dev, as_tensor(actions))
+    margin_vec = None
+    if (getattr(lyapunov, "exploration_margin", None) is None
+            and np.ndim(getattr(lyapunov, "certificate_margin", None))):
+        host_rows = _host_candidates(lyapunov, safe_states, safe_states_dev,
+                                     perturbations, actions, limits)
+        margin_vec = _per_candidate_margin(lyapunov, host_rows)
+    if margin_vec is not None:
+        candidates, margin = as_tensor(host_rows), as_tensor(margin_vec)
+    elif perturbations is None:
+        candidates = _action_candidates(
+            safe_states_dev, as_tensor(np.atleast_2d(actions)))
+        margin = _margin_of(lyapunov)
     else:
-        perturbations = np.atleast_2d(perturbations)
-        action_dim = perturbations.shape[1]
         candidates = _perturb_candidates(
-            lyapunov.policy, safe_states_dev, as_tensor(perturbations),
+            lyapunov.policy, safe_states_dev,
+            as_tensor(np.atleast_2d(perturbations)),
             None if limits is None else as_tensor(np.atleast_2d(limits)))
+        margin = _margin_of(lyapunov)
     safe_set_dev = None if positive else _device_safe_set(lyapunov)
     row, bound, safe = _select_best(lyapunov, candidates, safe_set_dev,
-                                    _margin_of(lyapunov))
+                                    margin)
     if bool(safe):
         return (row.cpu().numpy().astype(config.np_dtype)[None],
                 float(bound))
@@ -357,6 +379,49 @@ def _sample_steps(lyapunov, gp, true_dynamics, states, perturbations,
                                bound.index_select(0, pick),
                                any_safe.to(sa.dtype).reshape(1)]))
     return torch.stack(rows)
+
+
+def _host_candidates(lyapunov, safe_states, safe_states_dev, perturbations,
+                     actions, limits):
+    """The candidate rows as a host matrix, as the JAX package builds them
+    for its per-candidate margins (``safe_learning_tpu/explore.py:
+    355-375``): every safe state with every action, or the policy's
+    actions plus every perturbation through :func:`perturb_actions`
+    (clipped and deduplicated with ``limits``)."""
+    if perturbations is None:
+        acts = np.atleast_2d(np.asarray(actions, dtype=config.np_dtype))
+        n, na = len(safe_states), len(acts)
+        return np.concatenate([np.repeat(safe_states, na, axis=0),
+                               np.tile(acts, (n, 1))], axis=1)
+    pol_acts = lyapunov.policy(safe_states_dev).cpu().numpy().astype(
+        config.np_dtype)
+    return perturb_actions(
+        safe_states, pol_acts,
+        np.atleast_2d(perturbations).astype(config.np_dtype), limits=limits)
+
+
+def _per_candidate_margin(lyapunov, candidates):
+    """``(N,)`` margins of the exploration level test over the candidate
+    rows, or None when the derivation does not apply.
+
+    ``errorbounds.analytic_exploration_margin(per_candidate=True)`` at the
+    working dtype's unit: the rows are the model's inputs, so there is no
+    construction term. None (the caller then collapses the sweep's margin,
+    :func:`_margin_of`) for a sweep margin derived at a finer unit, and
+    when the derivation raises ``NotImplementedError``, ``RuntimeError``
+    or ``AttributeError``: no model for the instance, TF32 allowed, a
+    duck-typed object (``safe_learning_tpu/explore.py:378-406``).
+    """
+    unit = getattr(lyapunov, "_certificate_margin_unit", None)
+    consumer_unit = float(np.finfo(config.np_dtype).eps) / 2.0
+    if unit is not None and unit < consumer_unit:
+        return None
+    try:
+        return analytic_exploration_margin(
+            lyapunov, candidates=candidates, set_margin=False,
+            per_candidate=True)
+    except (NotImplementedError, RuntimeError, AttributeError):
+        return None
 
 
 def _margin_of(lyapunov):

@@ -216,6 +216,12 @@ class ConstantFunction(DeterministicFunction):
         """Evaluate the function at ``points``."""
         return self.constant
 
+    def is_scalar(self):
+        """Whether the constant holds one number."""
+        if torch.is_tensor(self.constant):
+            return self.constant.numel() == 1
+        return np.size(self.constant) == 1
+
 
 def _as_function(fun):
     if isinstance(fun, Function):
@@ -245,6 +251,24 @@ class MultipliedFunction(Function):
     def evaluate(self, points):
         """Evaluate the function at ``points``."""
         return self.fun1.evaluate(points) * self.fun2.evaluate(points)
+
+    def split_scalar_factor(self, error_prefix):
+        """Split into ``(scalar_constant, inner_function)`` or raise.
+
+        The derived margins (``errorbounds``) support a product only when
+        exactly one factor is a scalar :class:`ConstantFunction`, such as
+        ``-value_function`` (``safe_learning_tpu/functions/base.py:
+        319-337``). Raises ``NotImplementedError``, its message starting
+        with ``error_prefix``, otherwise.
+        """
+        f1, f2 = self.fun1, self.fun2
+        if isinstance(f1, ConstantFunction) and f1.is_scalar():
+            return f1, f2
+        if isinstance(f2, ConstantFunction) and f2.is_scalar():
+            return f2, f1
+        raise NotImplementedError(
+            error_prefix + " supports MultipliedFunction candidates "
+            "only with one scalar-constant factor")
 
 
 class Saturation(DeterministicFunction):

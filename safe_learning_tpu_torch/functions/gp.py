@@ -511,6 +511,9 @@ def _device_border_append(gp, x_new, y_new):
             x_new, mask, i, s2, target)
         new._host_cache = None
     new.chol_inv, new.alpha = chol_inv, alpha
+    # Its factors are working-dtype arithmetic, not rounded float64 ones:
+    # ``errorbounds`` refuses to derive a margin on it.
+    new._device_appended = True
     return new
 
 
@@ -727,6 +730,8 @@ class GaussianProcess(UncertainFunction):
         new.X_buf = _append_rows(self.X_buf, x, n)
         new.Y_buf = _append_rows(self.Y_buf, y, n)
         new.count = n + n_new
+        # The factors below are float64 host ones again.
+        new._device_appended = False
         host = self._host_cache
         host_new = None
         if host is not None and host.count == n:
@@ -1049,6 +1054,8 @@ class StackedGaussianProcess(UncertainFunction):
         new.X_buf = _append_rows(self.X_buf, x, n)
         new.Y_buf = _append_rows(self.Y_buf, y, n)
         new.count = n + n_new
+        # The factors below are float64 host ones again.
+        new._device_appended = False
         hosts = self._host_caches
         hosts_new = None
         if hosts is not None and all(h.count == n for h in hosts):

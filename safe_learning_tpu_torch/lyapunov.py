@@ -313,9 +313,15 @@ class Lyapunov:
         self.tau = float(tau)
         self.certificate_margin = certificate_margin
         self._level_margin = None
-        #: Unit roundoff the installed margin was derived at (None: an
-        #: empirical or manual margin).
+        #: Unit roundoff each installed margin was derived at (None: an
+        #: empirical or manual margin); set by ``errorbounds``.
         self._certificate_margin_unit = None
+        self._exploration_margin_unit = None
+        #: Dedicated margin of the exploration level test ``v_future <
+        #: c_max - margin``, installed by ``errorbounds.
+        #: analytic_exploration_margin``; ``explore._margin_of`` prefers it
+        #: over ``certificate_margin``.
+        self.exploration_margin = None
 
         self._lipschitz_dynamics = _as_lipschitz(lipschitz_dynamics)
         self._lipschitz_lyapunov = _as_lipschitz(lipschitz_lyapunov)
