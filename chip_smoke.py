@@ -141,17 +141,33 @@ Phases, in order; any failure raises and the exit code is not 0:
     0 of 400,000 sampled certified states failing the float64 oracle and
     ``c_max`` at or below its level; seconds, checks/s, CUDA-event ms,
     peak device memory;
-16. region tools (``phase_region_tools``): ``get_lyapunov_region`` on the
+16. the sharded sweeps (``phase_sharded``, ``parallel``): the port's
+    dryrun module (``python -m safe_learning_tpu_torch.parallel.dryrun``)
+    over 2 gloo ranks and over 1 NCCL rank on ``cuda:0``, each to its OK
+    line (the five phases of ``scripts/multiprocess_dryrun.py``, 1-4 bit
+    for bit the single-process run), every rank on the card with kernels
+    1 and 3 launched; at the same time full width over 2 gloo ranks
+    sharing the card (``sharded_worker``, this script with
+    ``--sharded-worker``): the bench
+    sweep, the 10^8 streamed sweep (24 batches a rank) and one adaptive
+    certify at count 181 and refinement 16 (restored from a checkpoint of
+    phase 10's state), each bit for bit the single-process result and
+    each rank launching its kernel; the bench on one process's meshes of
+    1, 2 and 4 entries of ``cuda:0``, equal, and ``benchmarks/
+    mesh_scaling.py``; each rank's wall, CUDA-event ms, GP-kernel device
+    ms under the profiler, launches and peak memory and the all-reduce
+    latency;
+17. region tools (``phase_region_tools``): ``get_lyapunov_region`` on the
     bench candidate at 1000x1000 by the native flood fill and by the
     Python heap, equal, and over float64 values, equal but within float32
     rounding of the stopping value; ``smallest_boundary_value`` against
     float64;
-17. the 1-D example (``phase_one_d_example``): ``examples/one_d_example.py
+18. the 1-D example (``phase_one_d_example``): ``examples/one_d_example.py
     --full`` through the port's script: kernel 2 once a GP predict, each
     predict within ``program_bounds`` of kernel 2's plain version, the
     record (0.050 -> 1.000, ``c_max`` 1.0000), a last certify through
     ``oracle_gate``;
-18. the examples (``phase_examples``): ``basic_dynamic_programming`` (its
+19. the examples (``phase_examples``): ``basic_dynamic_programming`` (its
     command line, with ``--plot`` into a temporary directory only where
     matplotlib is installed, and then the PNG must exist; the H100
     machine's installation has none, so there the plot is not drawn and
@@ -159,7 +175,7 @@ Phases, in order; any failure raises and the exit code is not 0:
     (the latter's checkpoint round trip bit for bit),
     ``reinforcement_learning_pendulum`` at its ``--full`` widths with the
     joint iterations cut (printed), each with its assertions;
-19. derived margins (``phase_derived_margins``, ``errorbounds``): first
+20. derived margins (``phase_derived_margins``, ``errorbounds``): first
     ``transcendental_ulps``, the worst relative error of torch's float32
     exp, sin, cos, tanh and sigmoid on the card against float64, at most
     ``config.fp_error_factor`` units of 2^-24; then on the bench instance
@@ -175,12 +191,12 @@ Phases, in order; any failure raises and the exit code is not 0:
     certify at ``max_refinement=16``, 400,000 seeded refined sub-points
     within their state's bound of the float64 oracle, ``check_certify``
     with no band;
-20. the rigor ladder (``phase_rigor``, ``ops.extended_verify``): first
+21. the rigor ladder (``phase_rigor``, ``ops.extended_verify``): first
     ``transcendental_ulps`` in float64, torch's exp, sin, cos, tanh and
     sigmoid on the card within ``FP_ERROR_FACTOR64`` units of 2^-53 of
     ``numpy.longdouble``; on the bench instance (kernel 1 in float64)
     ``extended_certificate_margin``, the float64 check within it of phase
-    19's float64 oracle at all 10^6 states, ``update_safe_set(extended=
+    20's float64 oracle at all 10^6 states, ``update_safe_set(extended=
     True)`` and ``extended="hybrid"`` in turns, both inside the oracle's
     set and equal bit for bit (the band fraction, each sweep's time beside
     the float32 sweep's), ``get_safe_sample(extended=True)`` with its row's
@@ -192,7 +208,7 @@ Phases, in order; any failure raises and the exit code is not 0:
     ``--extended`` and ``--hybrid`` (kernel 2 in float64) and
     ``lyapunov_function_learning --full --extended``, each with its
     assertions;
-21. the pendulum's rigor run (``phase_pendulum_rigor``):
+22. the pendulum's rigor run (``phase_pendulum_rigor``):
     ``examples/inverted_pendulum.py --full --hybrid`` through the port's
     module (the 2001x1501 grid, the ``[2, 32, 32, 1]`` network, the
     stacked GP at capacity 64), its depth cut (``PENDULUM_RIGOR_*``):
@@ -201,14 +217,14 @@ Phases, in order; any failure raises and the exit code is not 0:
     float64 oracle's at all 3,003,501 states; the margin and band tier of
     each certify; kernel 3 in float64 only inside the float64 checks and
     in float32 elsewhere (``rigor_launches``);
-22. the adaptive example's fan-out route (``phase_adaptive_sequential``):
+23. the adaptive example's fan-out route (``phase_adaptive_sequential``):
     ``examples/adaptive_safety_verification.py --full --sequential``
     through the port's module, its updates cut to
     ``ADAPTIVE_SEQUENTIAL_UPDATES`` (GP count 136): the first certify equal
     to phase 10's stacked one, kernel 2 alone, its panel body above count
     128, each certify there against the float64 oracle outside the
     calibrated band (``check_certify``), the example's assertion;
-23. count cases, kernel 1 and kernels 2 and 3 (``COUNT_CASES``: counts 0,
+24. count cases, kernel 1 and kernels 2 and 3 (``COUNT_CASES``: counts 0,
     1, 10, both sides of each bucket edge 16/32/64/128, 129 and 2048,
     below and at capacity; kernel 1 also at d = 6, and at d = 5, p = 4 and
     d = 16, p = 8, ``WIDE_COUNT_CASES``; kernels 2 and 3 also the panel
@@ -216,9 +232,11 @@ Phases, in order; any failure raises and the exit code is not 0:
     past it, S = 1 to 3, p up to 8, d up to 16, each taking the body its
     count selects): the kernels' loops bounded by the count, against the
     plain versions at full capacity, exact zeros at count 0;
-24. kernel times: each kernel against its plain version on its path's
+25. kernel times: each kernel against its plain version on its path's
     own inputs, on the device alone (a CUDA graph of 10 calls,
-    ``graph_ms``) and as a caller sees it (10 eager calls), and each
+    ``graph_ms``; of 2 calls for a plain version, ``PLAIN_GRAPH``, whose
+    change from 10 replays of 10 calls ``plain_method_check`` reads at the
+    bench) and as a caller sees it (10 eager calls), and each
     kernel's bound at those inputs (``kernel_bound``) and the solve's
     product alone as ``library_ms`` (``stationary_product_ms``,
     ``product_ms``): kernel 1 at the cart-pole's sweep, a batch of the
@@ -231,7 +249,11 @@ Phases, in order; any failure raises and the exit code is not 0:
     bench, the adaptive coarse pass and last refinement chunk, the 1-D
     ROA, the pendulum's rigor sweep at S = 2; ``kernel_bound`` at the FP64
     peak), under the rows' ``paths``; kernel 2's panel body at the
-    fan-out route's coarse pass (count 136);
+    fan-out route's coarse pass (count 136); kernels 1 and 3 at one rank's
+    inputs of phase 16's sharded paths (``sharded_paths``: the bench's
+    first shard, a batch of the 10^8 sweep's second rank, the adaptive
+    coarse pass's first shard), under ``paths`` with every rank's
+    launches;
     then kernel 1's four variants
     (``phase_kernel_variants``, the pipelined, interleaved by 2 and 4,
     folded and expanded-distance kernels of the port's benchmark modules):
@@ -247,7 +269,7 @@ Phases, in order; any failure raises and the exit code is not 0:
     expanded form's and kernel 1's errors against the float64 oracle; then
     the loop's step times again, to show how far the work before moved
     them;
-25. profiles, after every time: ``profiling.trace`` over the safe-learning and
+26. profiles, after every time: ``profiling.trace`` over the safe-learning and
     the bench sweeps (``profile_sweep``), over 20 pretraining and 20
     penalised ascent steps (``profile_training``) and over the adaptive
     path's batches and certifies (``profile_adaptive``), the device's busy
@@ -255,7 +277,7 @@ Phases, in order; any failure raises and the exit code is not 0:
     fails if the host waits for the device inside its step loop
     (``torch.cuda.set_sync_debug_mode``).
 
-The end-to-end times (phases 7 to 18, the sweeps of 20, 21 and 22) come
+The end-to-end times (phases 7 to 19, the sweeps of 21, 22 and 23) come
 before the count cases and before any CUDA graph is captured.
 
 The second-to-last line is a JSON object describing each kernel
@@ -267,6 +289,7 @@ import collections
 import contextlib
 import copy
 import functools
+import hashlib
 import importlib.util
 import json
 import os
@@ -719,7 +742,7 @@ def case_queries(n_q, like, seed):
 def program_library_sets():
     """Every program tuple this script launches: the cases', the
     flagship's (which has the structure of the ``flagship`` case), the
-    1-D ROA example's and the 1-D example's (2-D inputs)."""
+    1-D ROA example's, the 1-D example's (2-D inputs) and the dryrun's."""
     from safe_learning_tpu_torch.examples import \
         one_d_region_of_attraction_estimate as one_d
     from safe_learning_tpu_torch.examples import one_d_example
@@ -738,6 +761,11 @@ def program_library_sets():
     example_program, _ = gp_kernel.compile_kernel_program(
         one_d_example.kernel(), input_dim=2)
     tuples.append((example_program,))
+    from safe_learning_tpu_torch.parallel import dryrun
+
+    # The dryrun's stacked GP (and benchmarks/mesh_scaling.py's, the same
+    # two RBF programs), launched by phase_sharded's child processes.
+    tuples += [p for p in dryrun.program_tuples() if p not in tuples]
     return tuples
 
 
@@ -1614,14 +1642,39 @@ def graph_ms(fn, reps=10, batch=10):
     return ms
 
 
+#: ``graph_ms``' replays and calls a graph for a plain version, as the
+#: variants' plain versions are timed: its calls take 3-80 ms, and 100 a
+#: run cost more than a minute of the script's time over the paths.
+#: ``plain_method_check`` reads both methods on one path.
+PLAIN_GRAPH = dict(reps=3, batch=2)
+
+
+def plain_method_check(card, lyap):
+    """Kernel 1's plain version at the bench inputs timed both ways, in
+    turns (10 replays of 10 calls, ``PLAIN_GRAPH``, ``PLAIN_GRAPH``, 10 of
+    10): what ``PLAIN_GRAPH`` changes in a ``plain_ms``."""
+    inputs, _ = sweep_inputs(lyap)
+
+    def plain():
+        return gp_kernel.gp_predict_plain(*inputs, kind="rbf")
+
+    full = [graph_ms(plain)]
+    short = [graph_ms(plain, **PLAIN_GRAPH), graph_ms(plain, **PLAIN_GRAPH)]
+    full.append(graph_ms(plain))
+    print("plain_ms method, kernel 1's plain version at the bench inputs: "
+          "10 replays of 10 calls {!r} ms, PLAIN_GRAPH {!r} ms [{}]".format(
+              full, short, card))
+
+
 def time_against_plain(name, kernel, plain, card, shape):
-    """Kernel against plain on the device (``graph_ms``), in turns
-    (plain, kernel, kernel, plain); then the kernel as a caller sees it,
-    10 eager calls back to back (``cuda_ms``), host work included.
-    Returns ``(kernel_ms, plain_ms, eager_ms)``."""
-    plain_runs = [graph_ms(plain)]
+    """Kernel against plain on the device (``graph_ms``; the plain version
+    at ``PLAIN_GRAPH``), in turns (plain, kernel, kernel, plain); then the
+    kernel as a caller sees it, 10 eager calls back to back
+    (``cuda_ms``), host work included. Returns ``(kernel_ms, plain_ms,
+    eager_ms)``."""
+    plain_runs = [graph_ms(plain, **PLAIN_GRAPH)]
     kernel_runs = [graph_ms(kernel), graph_ms(kernel)]
-    plain_runs.append(graph_ms(plain))
+    plain_runs.append(graph_ms(plain, **PLAIN_GRAPH))
     eager_ms = cuda_ms(kernel, batch=10)
     kernel_ms = statistics.mean(kernel_runs)
     plain_ms = statistics.mean(plain_runs)
@@ -1913,7 +1966,7 @@ def variant_times(card, label, inputs, count):
         for form in FORMS:
             plain, _ = form_plain(form, "rbf")
             args = form_inputs(inputs, form)
-            plain_ms[form] = graph_ms(lambda: plain(args), reps=3, batch=2)
+            plain_ms[form] = graph_ms(lambda: plain(args), **PLAIN_GRAPH)
         # Every variant computes kernel 1's function at kernel 1's inputs:
         # the same yardstick, the solve's product alone.
         library_ms = stationary_product_ms(inputs, "rbf", count)
@@ -3485,7 +3538,8 @@ def panel_times(card, label, inputs, programs, count):
         streamed_ms=statistics.mean(streamed_runs),
         streamed_eager_ms=cuda_ms(streamed, batch=10),
         plain_ms=graph_ms(
-            lambda: gp_kernel.gp_predict_stacked_plain(*inputs, programs)),
+            lambda: gp_kernel.gp_predict_stacked_plain(*inputs, programs),
+            **PLAIN_GRAPH),
         library_ms=product_ms(inputs, programs, count),
         library_call=PRODUCT_CALL, queries=states.shape[0], count=count)
     entry.update(zip(("bound_ms", "bound_by", "bound_kind"), kernel_bound(
@@ -4086,6 +4140,414 @@ def phase_giant_sweep(card):
     if dict(build_reports) != builds:
         raise AssertionError("the 10^8 sweep built a library")
     return out["lyap"], launches["gp_predict"], out
+
+
+# ---------------------------------------------------------------------------
+# The sharded sweeps: the dryrun's ranks, full width over two ranks, and the
+# single-process mesh
+# ---------------------------------------------------------------------------
+#: Ranks of the full-width sharded runs; they share the one card (gloo).
+SHARDED_RANKS = 2
+
+#: Seconds each child process of ``phase_sharded`` may take, start-up
+#: included; also the collectives' timeout in the full-width ranks.
+SHARDED_TIMEOUT_S = 300
+
+#: Entries of the single-process meshes over ``cuda:0``.
+MESH_ENTRIES = (1, 2, 4)
+
+
+def sha1(arr):
+    """A hash of an array's bytes (tensors through the host)."""
+    if torch.is_tensor(arr):
+        arr = arr.detach().cpu().numpy()
+    return hashlib.sha1(np.ascontiguousarray(arr).tobytes()).hexdigest()
+
+
+def sweep_record(lyap, sweep, warm=True):
+    """Run ``sweep()`` (after one untimed run with ``warm``): its wall
+    seconds, CUDA-event ms and kernel launches, and what every rank must
+    hold after it (the safe set's hash and size, ``c_max``, and up to
+    2^24 states the refinement levels' hash)."""
+    if warm:
+        sweep()
+    events = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    reset_launches()
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    events[0].record()
+    sweep()
+    events[1].record()
+    torch.cuda.synchronize()
+    return dict(seconds=time.perf_counter() - start,
+                device_ms=events[0].elapsed_time(events[1]),
+                launches=read_launches(), safe=sha1(np.asarray(
+                    lyap.safe_set)), safe_sum=int(np.sum(lyap.safe_set)),
+                c_max=float(lyap.c_max),
+                refinement=(sha1(lyap._refinement)
+                            if lyap.discretization.nindex <= 2 ** 24
+                            else None))
+
+
+def kernel_device_ms(sweep):
+    """``(GP kernel ms, device busy ms)`` of one ``sweep()`` under
+    ``profiling.trace``: the device time of the GP kernels' launches
+    (``PROFILE_GROUPS``' first group) and of every device operation."""
+    from torch.autograd import DeviceType
+
+    with tempfile.TemporaryDirectory() as log_dir:
+        with profiling.trace(log_dir) as prof:
+            sweep()
+            torch.cuda.synchronize()
+    kernel = busy = 0.0
+    for ev in prof.key_averages():
+        if ev.device_type != DeviceType.CUDA:
+            continue
+        us = getattr(ev, "self_device_time_total", None)
+        ms = (ev.self_cuda_time_total if us is None else us) / 1e3
+        busy += ms
+        if any(f in ev.key.lower() for f in PROFILE_GROUPS[0][1]):
+            kernel += ms
+    return kernel, busy
+
+
+def restored_adaptive(path):
+    """The adaptive example's instance with the state saved at ``path``
+    (``checkpoints.lyapunov_state``: the GP at count 181 refactorized from
+    its data, as every rank restores it)."""
+    lyap, _ = build_adaptive_instance()
+    target = st.checkpoints.lyapunov_state(lyap)
+    state = st.checkpoints.restore_checkpoint(path, target)
+    return st.checkpoints.restore_lyapunov_state(lyap, state)
+
+
+def sharded_worker(argv):
+    """One rank of ``phase_sharded``'s full-width runs
+    (``chip_smoke.py --sharded-worker SPEC RANK WORLD ADDRESS``): join the
+    gloo group on ``cuda:0`` and, over the global mesh, sweep the bench
+    instance (the fused sweep, kernel 1), the 10^8 instance (the streamed
+    sweep, kernel 1 once a batch of this rank's run of batches) and the
+    adaptive instance restored from the checkpoint at count 181 (a
+    certify at refinement 16, kernel 3's panel body), each with the
+    margins the single-process path had (the bench and the certify timed
+    at their second run), then one more under the profiler
+    (``kernel_device_ms``); then the all-reduce latency. Prints one JSON
+    line."""
+    from safe_learning_tpu_torch.parallel import distributed
+
+    spec_path, rank, world, address = argv
+    with open(spec_path) as f:
+        spec = json.load(f)
+    if not torch.cuda.is_available():
+        raise SystemExit("sharded worker: no CUDA device")
+    distributed.initialize_distributed(address, int(world), int(rank),
+                                       backend="gloo", device="cuda:0",
+                                       timeout=SHARDED_TIMEOUT_S)
+    try:
+        mesh = distributed.make_global_mesh()
+        out = dict(rank=int(rank), device=str(st.config.device),
+                   mesh=[str(d) for d in mesh.devices.flat])
+        inst = build_bench_instance(1000)
+        lyap = st.Lyapunov(inst["grid"], inst["v"], inst["gp"], inst["lf"],
+                           inst["lv"], inst["tau"], inst["policy"],
+                           initial_set=inst["initial_set"])
+        lyap.certificate_margin, lyap.level_margin = spec["bench_margins"]
+        lyap.mesh = mesh
+        out["bench"] = sweep_record(lyap, lyap.update_safe_set)
+        out["bench"]["kernel_ms"], out["bench"]["busy_ms"] = \
+            kernel_device_ms(lyap.update_safe_set)
+        del lyap, inst
+
+        giant = giant_sweep_1e8
+        inst = giant.bench_instance(giant.POINTS, giant.BATCH)
+        lyap = st.Lyapunov(inst["grid"], inst["v"], inst["gp"], inst["lf"],
+                           inst["lv"], inst["tau"], inst["policy"],
+                           initial_set=inst["initial_set"])
+        lyap.certificate_margin, lyap.level_margin = spec["giant_margins"]
+        lyap.mesh = mesh
+        sweep = functools.partial(lyap.update_safe_set,
+                                  batch_size=giant.BATCH)
+        out["streamed"] = sweep_record(lyap, sweep, warm=False)
+        out["streamed"]["bad"] = list(lyap.last_stream_bad)
+        out["streamed"]["kernel_ms"], out["streamed"]["busy_ms"] = \
+            kernel_device_ms(sweep)
+        del lyap, inst
+
+        lyap = restored_adaptive(spec["adaptive_checkpoint"])
+        lyap.mesh = mesh
+        sweep = functools.partial(lyap.update_safe_set,
+                                  max_refinement=ADAPTIVE_REFINEMENT)
+        out["adaptive"] = sweep_record(lyap, sweep)
+        out["adaptive"]["count"] = int(lyap.dynamics.count)
+        out["adaptive"]["kernel_ms"], out["adaptive"]["busy_ms"] = \
+            kernel_device_ms(sweep)
+        del lyap
+        out["allreduce_s"] = distributed.allreduce_latency()
+        out["peak_bytes"] = torch.cuda.max_memory_allocated()
+        print(json.dumps(out), flush=True)
+    finally:
+        distributed.shutdown_distributed()
+
+
+#: The dryrun module's runs on the card: ``(backend, ranks)``. NCCL refuses
+#: two ranks on one card, so it runs one.
+DRYRUNS = (("gloo", 2), ("nccl", 1))
+
+
+def dryrun_commands():
+    """The command of each ``DRYRUNS`` run, on ``cuda:0``."""
+    return [[sys.executable, "-m", "safe_learning_tpu_torch.parallel.dryrun",
+             "--nprocs", str(n), "--backend", backend, "--device", "cuda:0",
+             "--timeout", str(SHARDED_TIMEOUT_S)] for backend, n in DRYRUNS]
+
+
+def check_dryruns(card, results):
+    """Each ``DRYRUNS`` run to its OK line (``results``: ``run_ranks``'
+    output of ``dryrun_commands``), every rank on the card with kernels 1
+    and 3 launched. Prints each rank's phase seconds, launches, all-reduce
+    latency and peak memory; returns each run's rank records."""
+    records = {}
+    for (backend, n), (code, out, err) in zip(DRYRUNS, results):
+        lines = out.strip().splitlines()
+        if code != 0 or not lines or not lines[-1].startswith(
+                "multiprocess dryrun OK: {} ranks".format(n)):
+            print(out[-4000:])
+            print(err[-4000:], file=sys.stderr)
+            raise AssertionError("the dryrun over {} {} rank(s) failed (exit "
+                                 "{})".format(n, backend, code))
+        ranks = [json.loads(line) for line in lines[-1 - n:-1]]
+        for rec in ranks:
+            launched = collections.Counter()
+            for counts in rec["launches"].values():
+                launched.update(counts)
+            print("dryrun, {} rank {} of {}: device {}, phase seconds {}, "
+                  "kernel launches {}, all-reduce {!r} s, peak device "
+                  "memory {!r} GB [{}]".format(
+                      backend, rec["rank"], n, rec["device"], rec["seconds"],
+                      rec["launches"], rec["allreduce_s"],
+                      rec["peak_bytes"] / 1e9, card))
+            if (rec["device"] != "cuda:0" or rec["backend"] != backend
+                    or launched["gp_predict"] < 1
+                    or launched["gp_predict_stacked"] < 1):
+                raise AssertionError("dryrun rank {} ({}): not on the card "
+                                     "or kernels 1 and 3 not launched"
+                                     .format(rec["rank"], backend))
+        print(lines[-1])
+        records[backend] = ranks
+    return records
+
+
+def phase_sharded(card, bench_lyap, giant_lyap, adaptive):
+    """The sharded sweeps on the card (``parallel``).
+
+    1. ``python -m safe_learning_tpu_torch.parallel.dryrun`` over 2 gloo
+       ranks and over 1 NCCL rank on ``cuda:0`` (``DRYRUNS``,
+       ``check_dryruns``);
+    2. at the same time, full width over ``SHARDED_RANKS`` gloo ranks
+       sharing the card (``sharded_worker``): the bench sweep (kernel 1 on each rank's
+       half), bit for bit ``bench_lyap``'s safe set and ``c_max``; the
+       10^8 streamed sweep, 24 batches a rank, with ``(v_bad, i_bad)``,
+       ``c_max``, the safe set and its size ``giant_lyap``'s; one certify
+       of the adaptive instance at count 181 and refinement 16 (kernel 3's
+       panel body), restored on every rank from a checkpoint of phase 10's
+       state, equal to the same certify without a mesh in this process.
+       Every rank on the card launches its kernel: kernel 1, or kernel 3
+       for the certify;
+    3. the bench sweep on ``make_mesh(devices=["cuda:0"] * k)`` for each
+       ``MESH_ENTRIES``, each bit for bit the sweep without a mesh, and
+       ``benchmarks/mesh_scaling.py``'s sweep over 1, 2 and 4 shards.
+
+    Prints each path's wall time, each rank's CUDA-event ms, launches and
+    peak memory, and the all-reduce latency, beside the card. Two ranks
+    share one card: the times say nothing of scaling across cards.
+    Returns a namespace: the per-rank launches by path, the restored
+    adaptive instance and the dryruns' records.
+    """
+    from safe_learning_tpu_torch.benchmarks import mesh_scaling
+    from safe_learning_tpu_torch.parallel import distributed, make_mesh
+
+    bench_ref = dict(safe=sha1(np.asarray(bench_lyap.safe_set)),
+                     c_max=float(bench_lyap.c_max))
+    giant_ref = dict(safe=sha1(np.asarray(giant_lyap.safe_set)),
+                     safe_sum=int(np.sum(giant_lyap.safe_set)),
+                     c_max=float(giant_lyap.c_max),
+                     bad=list(giant_lyap.last_stream_bad))
+    for lyap in (bench_lyap, giant_lyap):
+        if np.ndim(lyap.certificate_margin):
+            raise AssertionError("phase_sharded passes scalar margins")
+    with tempfile.TemporaryDirectory() as tmp:
+        path = st.checkpoints.save_checkpoint(
+            os.path.join(tmp, "adaptive"),
+            st.checkpoints.lyapunov_state(adaptive.lyap))
+        spec = os.path.join(tmp, "spec.json")
+        with open(spec, "w") as f:
+            json.dump(dict(
+                bench_margins=[bench_lyap.certificate_margin,
+                               bench_lyap.level_margin],
+                giant_margins=[giant_lyap.certificate_margin,
+                               giant_lyap.level_margin],
+                adaptive_checkpoint=path), f)
+        address = "localhost:{}".format(distributed.free_port())
+
+        def reference():
+            # The same certify without a mesh, restored as the ranks
+            # restore it, while they run.
+            restored = restored_adaptive(path)
+            with uncounted():
+                return restored, sweep_record(restored, lambda: (
+                    restored.update_safe_set(
+                        max_refinement=ADAPTIVE_REFINEMENT)), warm=False)
+
+        # The dryruns and the full-width ranks at once: the ranks' times
+        # are taken beside the dryruns' processes.
+        start = time.perf_counter()
+        runs, (restored, adaptive_ref) = distributed.run_ranks(
+            dryrun_commands() + [
+                [sys.executable, os.path.abspath(__file__),
+                 "--sharded-worker", spec, str(r), str(SHARDED_RANKS),
+                 address] for r in range(SHARDED_RANKS)],
+            SHARDED_TIMEOUT_S, meanwhile=reference)
+        wall = time.perf_counter() - start
+    dryruns = check_dryruns(card, runs[:len(DRYRUNS)])
+    ranks = []
+    for rank, (code, out, err) in enumerate(runs[len(DRYRUNS):]):
+        if code != 0:
+            print(err[-4000:], file=sys.stderr)
+            raise AssertionError("sharded rank {} failed (exit {})".format(
+                rank, code))
+        ranks.append(json.loads(out.strip().splitlines()[-1]))
+    refs = {"bench": bench_ref, "streamed": giant_ref,
+            "adaptive": adaptive_ref}
+    kernel = {"bench": "gp_predict", "streamed": "gp_predict",
+              "adaptive": "gp_predict_stacked"}
+    print("sharded: {!r} s wall for the dryruns' and the {} full-width "
+          "ranks' processes, all at once [{}]".format(wall, SHARDED_RANKS,
+                                                      card))
+    print("adaptive certify without a mesh (restored, count {}; beside the "
+          "ranks' start-up): {!r} s, {!r} ms of CUDA events, {} safe, c_max "
+          "{!r} [{}]".format(
+              restored.dynamics.count, adaptive_ref["seconds"],
+              adaptive_ref["device_ms"], adaptive_ref["safe_sum"],
+              adaptive_ref["c_max"], card))
+    for rec in ranks:
+        if rec["device"] != "cuda:0" or rec["mesh"] != ["cuda:0"] * len(
+                ranks):
+            raise AssertionError("rank {} is not on the card: {}".format(
+                rec["rank"], rec["device"]))
+        for path, ref in refs.items():
+            got = rec[path]
+            print("sharded {} rank {}: {!r} s, {!r} ms of CUDA events, "
+                  "its GP kernel's launches {!r} ms and every device "
+                  "operation {!r} ms of device time (a profiled sweep), "
+                  "launches {}, {} safe, c_max {!r}{} [{}]".format(
+                      path, rec["rank"], got["seconds"], got["device_ms"],
+                      got["kernel_ms"], got["busy_ms"],
+                      {k: v for k, v in got["launches"].items() if v},
+                      got["safe_sum"], got["c_max"],
+                      ", (v_bad, i_bad) {}".format(got["bad"])
+                      if "bad" in got else "", card))
+            same = all(got[k] == ref[k] for k in ref
+                       if k in ("safe", "c_max", "bad", "safe_sum",
+                                "refinement"))
+            if not same:
+                raise AssertionError("sharded {} on rank {} differs from "
+                                     "the single-process sweep: {} against "
+                                     "{}".format(path, rec["rank"], got,
+                                                 ref))
+            if got["launches"][kernel[path]] < 1:
+                raise AssertionError("sharded {} on rank {} never launched "
+                                     "{}".format(path, rec["rank"],
+                                                 kernel[path]))
+        print("rank {}: all-reduce {!r} s (gloo), peak device memory {!r} "
+              "GB [{}]".format(rec["rank"], rec["allreduce_s"],
+                               rec["peak_bytes"] / 1e9, card))
+    per_batch = [r["streamed"]["launches"]["gp_predict"] for r in ranks]
+    if sum(per_batch) != -(-giant_sweep_1e8.POINTS ** 2
+                           // giant_sweep_1e8.BATCH):
+        raise AssertionError("the sharded 10^8 sweep did not launch kernel "
+                             "1 once a batch: {}".format(per_batch))
+
+    # 3. The single-process mesh over cuda:0, and the scaling benchmark.
+    ref_safe, ref_c = np.array(bench_lyap.safe_set), bench_lyap.c_max
+    with uncounted():
+        rec = sweep_record(bench_lyap, bench_lyap.update_safe_set)
+    print("bench without a mesh: update_safe_set {!r} s, {!r} ms of CUDA "
+          "events [{}]".format(rec["seconds"], rec["device_ms"], card))
+    for entries in MESH_ENTRIES:
+        bench_lyap.mesh = make_mesh(devices=["cuda:0"] * entries)
+        try:
+            with uncounted():
+                rec = sweep_record(bench_lyap, bench_lyap.update_safe_set)
+        finally:
+            bench_lyap.mesh = None
+        print("bench on a mesh of {} x cuda:0: update_safe_set {!r} s, "
+              "{!r} ms of CUDA events, kernel-1 launches {} [{}]".format(
+                  entries, rec["seconds"], rec["device_ms"],
+                  rec["launches"]["gp_predict"], card))
+        if not (np.array_equal(bench_lyap.safe_set, ref_safe)
+                and bench_lyap.c_max == ref_c
+                and rec["launches"]["gp_predict"] == entries):
+            raise AssertionError("the bench sweep over {} mesh entries "
+                                 "differs".format(entries))
+    with uncounted():
+        mesh_scaling.run(max_shards=max(MESH_ENTRIES), iters=5)
+    return types.SimpleNamespace(
+        launches={path: [r[path]["launches"][kernel[path]] for r in ranks]
+                  for path in refs},
+        adaptive=restored, dryruns=dryruns)
+
+
+def shard_rows(n, rank, ranks=SHARDED_RANKS):
+    """The ``(start, stop)`` of ``rank``'s shard of ``n`` rows."""
+    from safe_learning_tpu_torch.parallel.mesh import split_rows
+
+    return split_rows(n, ranks)[rank]
+
+
+def sharded_paths(card, bench_lyap, giant_lyap, sharded):
+    """The sharded paths of the ``kernels`` line: each kernel against its
+    plain version at one rank's inputs (the bench's first shard, the 10^8
+    sweep's first batch of the second rank, the adaptive certify's coarse
+    pass over its first shard), with the ranks' launches from
+    ``phase_sharded`` (their sum, and per rank)."""
+    keys = ("max_abs_err", "ms", "plain_ms", "eager_ms", "bound_ms",
+            "bound_by", "bound_kind", "library_ms")
+    grid = bench_lyap.discretization
+    lo, hi = shard_rows(grid.nindex, 0)
+    states = grid.states_in_range(lo, hi)
+    bench_inputs = pipelined_predict.kernel_inputs(
+        bench_lyap.dynamics, concatenate_inputs(states,
+                                                bench_lyap.policy(states)))
+    giant = giant_sweep_1e8
+    batches = -(-giant.POINTS ** 2 // giant.BATCH)
+    start = shard_rows(batches, 1)[0] * giant.BATCH
+    states = giant_lyap.discretization.states_in_range(start,
+                                                       start + giant.BATCH)
+    giant_inputs = pipelined_predict.kernel_inputs(
+        giant_lyap.dynamics, concatenate_inputs(states,
+                                                giant_lyap.policy(states)))
+    paths = []
+    for path, label, inputs, gp in (
+            ("bench_sharded_2", "bench, shard 1 of 2", bench_inputs,
+             bench_lyap.dynamics),
+            ("streamed_1e8_sharded_2", "10^8 sweep, rank 2's first batch",
+             giant_inputs, giant_lyap.dynamics)):
+        entry = dict(zip(keys, stationary_times(card, inputs, gp, label)))
+        launches = sharded.launches["bench" if path.startswith("bench")
+                                    else "streamed"]
+        entry.update(launches=sum(launches), rank_launches=launches)
+        paths.append(("gp_predict", path, entry))
+    lyap = sharded.adaptive
+    order = torch.sort(lyap.values, stable=True).indices
+    lo, hi = shard_rows(lyap.discretization.nindex, 0)
+    points = lyap.discretization.states_at(order[lo:hi])
+    inputs, programs = stacked_inputs(lyap, points)
+    entry = panel_times(card, "coarse pass, shard 1 of 2", inputs, programs,
+                        lyap.dynamics.count)
+    entry.update(launches=sum(sharded.launches["adaptive"]),
+                 rank_launches=sharded.launches["adaptive"])
+    paths.append(("gp_predict_stacked", "adaptive_certify_sharded_2", entry))
+    return paths
 
 
 def phase_region_tools(card, lyap):
@@ -5362,39 +5824,70 @@ def phase_adaptive_sequential(card, stacked_first):
     return ("gp_predict_general", "adaptive_sequential", len(counts), timed)
 
 
+@contextlib.contextmanager
+def phase_clock(seconds, name):
+    """Record the wall seconds of the block under ``name`` and print
+    them."""
+    start = time.perf_counter()
+    yield
+    seconds[name] = time.perf_counter() - start
+    print("phase {}: {!r} s".format(name, seconds[name]), flush=True)
+
+
 def main():
+    seconds = {}
+
+    def clocked(name, fn, *args):
+        with phase_clock(seconds, name):
+            return fn(*args)
+
     card = phase_device()
-    phase_build()
-    phase_kernel_cases()
-    phase_program_cases()
-    bench_lyap, bench_launches = phase_bench_path()
-    stacked_lyap, stacked_launches = phase_flagship_path("stacked")
-    fan_lyap, fan_launches = phase_flagship_path("fan_out")
+    clocked("build", phase_build)
+    clocked("kernel cases", phase_kernel_cases)
+    clocked("program cases", phase_program_cases)
+    bench_lyap, bench_launches = clocked("bench", phase_bench_path)
+    stacked_lyap, stacked_launches = clocked(
+        "flagship stacked", phase_flagship_path, "stacked")
+    fan_lyap, fan_launches = clocked("flagship fan_out",
+                                     phase_flagship_path, "fan_out")
     # The host-bound end-to-end times come first: the sweeps and the
     # loop's steps, before the count cases and before any CUDA graph is
     # captured for the kernel timings.
-    time_sweep("bench", bench_lyap, card)
-    time_sweep("flagship stacked", stacked_lyap, card)
-    time_sweep("flagship fan_out", fan_lyap, card)
-    safe_lyap, safe_inst, safe_launches, safe_err, safe_peak = \
-        phase_safe_learning(card)
-    trainer, train_launches, minibatch = phase_training(card, safe_peak)
-    adaptive = phase_adaptive(card)
-    cart_lyap, cart_launches = phase_cartpole_verification(card)
-    phase_cartpole_rl(card)
-    one_d_lyap, one_d_launches = phase_one_d_roa(card)
-    phase_streamed_exactness(card)
-    giant_lyap, giant_launches, _ = phase_giant_sweep(card)
-    phase_region_tools(card, bench_lyap)
-    one_d_ex_lyap, one_d_ex_launches = phase_one_d_example(card)
-    phase_examples(card)
-    bench_oracle, adaptive_derived = phase_derived_margins(card, adaptive)
-    rigor_paths = phase_rigor(card, bench_oracle, adaptive, adaptive_derived)
+    with phase_clock(seconds, "sweep times"):
+        time_sweep("bench", bench_lyap, card)
+        time_sweep("flagship stacked", stacked_lyap, card)
+        time_sweep("flagship fan_out", fan_lyap, card)
+    safe_lyap, safe_inst, safe_launches, safe_err, safe_peak = clocked(
+        "safe learning", phase_safe_learning, card)
+    trainer, train_launches, minibatch = clocked(
+        "training", phase_training, card, safe_peak)
+    adaptive = clocked("adaptive", phase_adaptive, card)
+    cart_lyap, cart_launches = clocked(
+        "cart-pole verification", phase_cartpole_verification, card)
+    clocked("cart-pole RL", phase_cartpole_rl, card)
+    one_d_lyap, one_d_launches = clocked("1-D ROA", phase_one_d_roa, card)
+    clocked("streamed exactness", phase_streamed_exactness, card)
+    giant_lyap, giant_launches, _ = clocked("10^8 sweep", phase_giant_sweep,
+                                            card)
+    sharded = clocked("sharded", phase_sharded, card, bench_lyap,
+                      giant_lyap, adaptive)
+    clocked("region tools", phase_region_tools, card, bench_lyap)
+    one_d_ex_lyap, one_d_ex_launches = clocked(
+        "1-D example", phase_one_d_example, card)
+    clocked("examples", phase_examples, card)
+    bench_oracle, adaptive_derived = clocked(
+        "derived margins", phase_derived_margins, card, adaptive)
+    rigor_paths = clocked("rigor", phase_rigor, card, bench_oracle,
+                          adaptive, adaptive_derived)
     del bench_oracle
-    rigor_paths.append(phase_pendulum_rigor(card, safe_peak))
-    sequential = phase_adaptive_sequential(card, adaptive.first)
-    phase_kernel_count_cases()
-    phase_program_count_cases()
+    rigor_paths.append(clocked("pendulum rigor", phase_pendulum_rigor, card,
+                               safe_peak))
+    sequential = clocked("adaptive sequential", phase_adaptive_sequential,
+                         card, adaptive.first)
+    with phase_clock(seconds, "count cases"):
+        phase_kernel_count_cases()
+        phase_program_count_cases()
+    kernel_start = time.perf_counter()
     # Per kernel and path: (launches, max_abs_err, ms, plain_ms, eager_ms,
     # bound_ms, bound_by, bound_kind). A kernel's headline numbers are its
     # last path's: the cart-pole and 1-D rows ride along under "paths".
@@ -5405,6 +5898,12 @@ def main():
          + stationary_times(card, *giant_batch_inputs(
              giant_lyap, giant_sweep_1e8.BATCH),
              "10^8 streamed sweep batch")),
+    ]
+    # The sharded paths ride under "paths" before each kernel's headline
+    # path (the bench's, the adaptive coarse pass's).
+    sharded_rows = sharded_paths(card, bench_lyap, giant_lyap, sharded)
+    paths += [row for row in sharded_rows if row[0] == "gp_predict"]
+    paths += [
         ("gp_predict", "bench", (bench_launches["gp_predict"],)
          + phase_times(card, bench_lyap)),
         ("gp_predict_stacked", "flagship_stacked",
@@ -5433,6 +5932,7 @@ def main():
           "{!r}, {!r} ms against plain {!r} ms (eager {!r} ms), bound {!r} "
           "ms ({}, {})".format(*safe))
     paths.append(("gp_predict_stacked", "safe_learning", safe))
+    paths += [row for row in sharded_rows if row[0] != "gp_predict"]
     # Kernel 3's headline numbers are the coarse pass's (listed last); the
     # sampler step's and the chunk's ride along under "paths".
     for path, entry in adaptive_times(card, adaptive):
@@ -5459,13 +5959,18 @@ def main():
         paths.append((name, path, entry))
     loop_step_times(card, safe_lyap, safe_inst, "after the count cases and "
                     "the CUDA graphs")
+    plain_method_check(card, bench_lyap)
+    seconds["kernel times"] = time.perf_counter() - kernel_start
+    print("phase kernel times: {!r} s".format(seconds["kernel times"]))
     # Profiles come after every time: the profiler's tracing may slow the
     # host's dispatch of what runs after it.
-    profile_sweep("safe-learning", safe_lyap, card)
-    profile_sweep("bench", bench_lyap, card)
-    profile_training(card, trainer, penalised=False)
-    profile_training(card, trainer, penalised=True)
-    profile_adaptive(card, adaptive)
+    with phase_clock(seconds, "profiles"):
+        profile_sweep("safe-learning", safe_lyap, card)
+        profile_sweep("bench", bench_lyap, card)
+        profile_training(card, trainer, penalised=False)
+        profile_training(card, trainer, penalised=True)
+        profile_adaptive(card, adaptive)
+    print(json.dumps({"phase_seconds": seconds}))
     print(card)
     print(json.dumps({"kernels": kernel_rows(paths)}))
     print(json.dumps({"ok": True, "device": {
@@ -5517,4 +6022,7 @@ def kernel_rows(paths):
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    if sys.argv[1:2] == ["--sharded-worker"]:
+        sharded_worker(sys.argv[2:])
+    else:
+        sys.exit(main())

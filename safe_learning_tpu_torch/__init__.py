@@ -27,8 +27,9 @@ derived margins of ``errorbounds`` (``analytic_certificate_margin``,
 ``analytic_exploration_margin``, with per-point and per-candidate forms),
 their rounding unit re-derived for the H100's float32 path, the rigor
 modes as float64 checks on the card (``ops.extended_verify``),
-``plotting`` and ``profiling``, and a module for every example script
-(``examples``). The port runs on ``cuda:0`` unless the caller sets ``config.device = "cpu"``;
+``plotting`` and ``profiling``, a module for every example script
+(``examples``), and the grid-sharded sweeps over meshes and
+``torch.distributed`` ranks (``parallel``). The port runs on ``cuda:0`` unless the caller sets ``config.device = "cpu"``;
 nothing falls back to the CPU when CUDA is missing.
 """
 
@@ -54,8 +55,8 @@ from .explore import (get_safe_sample, get_safe_sample_batch,
 from .rl import OptimizationError, PolicyIteration
 from .analysis import (compute_closedloop_response, compute_roa, gridify,
                        reward_rollout)
-from . import (analysis, checkpoints, convert, errorbounds, oracle, plotting,
-               profiling, rl, utils)
+from . import (analysis, checkpoints, convert, errorbounds, oracle, parallel,
+               plotting, profiling, rl, utils)
 
 __version__ = "0.1.0"
 
@@ -75,7 +76,8 @@ __all__ = [
     "get_safe_sample_batch", "perturb_actions",
     "PolicyIteration", "OptimizationError", "compute_roa", "reward_rollout",
     "compute_closedloop_response", "gridify", "analysis", "checkpoints",
-    "convert", "errorbounds", "oracle", "plotting", "profiling", "rl",
+    "convert", "errorbounds", "oracle", "parallel", "plotting",
+    "profiling", "rl",
     "utils",
     "smallest_boundary_value", "get_lyapunov_region",
 ]

@@ -1,6 +1,6 @@
 """Benchmarks of the port's kernels on the card.
 
-Counterparts of three scripts of the JAX package's ``benchmarks/`` folder,
+Counterparts of four scripts of the JAX package's ``benchmarks/`` folder,
 which stays the JAX reference's and is not ported as a folder:
 
 - :mod:`.pipelined_predict` (``benchmarks/pipelined_predict.py``): kernel
@@ -12,7 +12,10 @@ which stays the JAX reference's and is not ported as a folder:
   oracle;
 - :mod:`.giant_sweep_1e8` (``benchmarks/giant_sweep_1e8.py``): the
   streamed sweep of ``bench.py``'s instance at 10001 x 10001 points
-  through kernel 1, checked against a float64 oracle subsample.
+  through kernel 1, checked against a float64 oracle subsample;
+- :mod:`.mesh_scaling` (``benchmarks/mesh_scaling.py``): the fused sweep
+  over meshes of 1 to 8 shards of one device, each equal to the sweep
+  without a mesh.
 
 The variants are hand-written CUDA kernels (``csrc/gp_predict_variants.
 cu``). No path of the package routes through them.

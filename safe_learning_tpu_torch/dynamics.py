@@ -4,7 +4,8 @@ Counterpart of ``safe_learning_tpu/dynamics.py``: an ODE integrated with a
 fixed number of inner Euler steps over a whole batch of states at once,
 with optional state and action normalization, and the exact
 zero-order-hold linearization from the ODE's Jacobian
-(``torch.func.jacrev``) and ``scipy.signal.cont2discrete``.
+(``torch.autograd.functional.jacobian``) and
+``scipy.signal.cont2discrete``.
 """
 
 from __future__ import annotations
@@ -72,8 +73,8 @@ class _OdeDynamics(DeterministicFunction):
     def linearize(self):
         """Discrete-time zero-order-hold linearization around the origin.
 
-        The exact Jacobian of :meth:`ode` (``torch.func.jacrev``, in the
-        working dtype on the CPU) through ``scipy.signal.cont2discrete``,
+        The exact Jacobian of :meth:`ode` (``torch.autograd.functional.
+        jacobian``, in the working dtype on the CPU) through ``scipy.signal.cont2discrete``,
         as ``safe_learning_tpu/dynamics.py:65-102`` does with
         ``jax.jacobian``. Returns ``(A, B)`` as numpy arrays in the
         working dtype, or ``A`` alone for a system without an action.
@@ -85,10 +86,14 @@ class _OdeDynamics(DeterministicFunction):
         def ode_flat(x, u):
             return host.ode(x[None, :], u[None, :])[0]
 
-        a = torch.func.jacrev(ode_flat, argnums=0)(x0, u0).numpy()
+        # Reverse-mode autograd: torch.func's first call imports the
+        # compiler stack, seconds in every new process.
         if self.action_dim:
-            b = torch.func.jacrev(ode_flat, argnums=1)(x0, u0).numpy()
+            a, b = (j.numpy() for j in torch.autograd.functional.jacobian(
+                ode_flat, (x0, u0)))
         else:
+            a = torch.autograd.functional.jacobian(
+                lambda x: ode_flat(x, u0), x0).numpy()
             b = np.zeros((self.state_dim, 1))
 
         norm = host._norm_arrays()

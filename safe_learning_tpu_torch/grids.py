@@ -187,9 +187,16 @@ class GridWorld:
         device, once.
         """
         device = config.device if device is None else device
-        axes = self._device_axes(device)
-        flat = torch.arange(int(start), int(stop), dtype=torch.int64,
-                            device=axes[0].device)
+        return self.states_at(torch.arange(int(start), int(stop),
+                                           dtype=torch.int64,
+                                           device=torch.device(device)))
+
+    def states_at(self, flat):
+        """States of the flat indices ``flat`` (an int64 tensor), shape
+        ``(len(flat), ndim)``, made on its device in the working dtype,
+        equal to those rows of :attr:`all_points` bit for bit (as
+        :meth:`states_in_range`)."""
+        axes = self._device_axes(flat.device)
         columns = []
         for axis, stride, size in zip(axes, row_major_strides(self.shape),
                                       self._num_points):

@@ -46,13 +46,24 @@ sweep without refinement. The hybrid mode checks in float32 first and
 re-checks in float64 only the states within the band of their derived
 margins (:class:`_DecreaseCheck`).
 
-Not ported yet (ROADMAP queue 1): meshes (item 23).
+Each sweep also runs over a mesh (``Lyapunov(mesh=...)``, ``parallel``):
+the grid's rows are split into contiguous ranges, one per entry of this
+process, and across processes each rank runs its own (``parallel.
+distributed``). The host logic is replicated on every rank and the device
+work sharded: the fused sweep combines its two reductions (``v_bad``, then
+``c_max``) over the shards; the streamed sweep gives each entry a
+contiguous run of its batches and combines the lexicographic minimum
+``(v_bad, i_bad)``; the sorted sweep sorts the gathered values on every
+rank and splits each coarse batch and refinement chunk over the entries.
+Every rank ends with the same ``safe_set``, ``c_max``, ``values`` and
+refinement levels, bit for bit those of the sweep without a mesh.
 """
 
 from __future__ import annotations
 
 import heapq
 import itertools
+import math
 import warnings
 
 import numpy as np
@@ -62,6 +73,9 @@ from .config import config
 from .functions.base import Function, as_deterministic, as_tensor
 from .functions.simplex import Triangulation
 from .grids import GridWorld
+from .parallel.distributed import (gather_rows, global_grid_points,
+                                   put_global, reduce_scalars)
+from .parallel.mesh import Mesh, ShardedArray, grid_sharding, split_rows
 from .utils import tracked_mask
 
 __all__ = ["Lyapunov", "smallest_boundary_value",
@@ -240,6 +254,27 @@ def _fused_update(policy, dynamics, lyapunov_function, lipschitz_lyapunov,
 
     Returns ``(safe_set, c_max, values, any_safe)`` as tensors.
     """
+    values, eligible = _fused_eligible(
+        policy, dynamics, lyapunov_function, lipschitz_lyapunov,
+        lipschitz_dynamics, tau, points, exempt, margin, values_direct)
+    inf = torch.tensor(float("inf"), dtype=values.dtype,
+                       device=values.device)
+    v_bad = torch.where(eligible, inf, values).min()
+    # level_margin guards the value comparison as margin guards the
+    # decrease comparison (see oracle.calibrate_certificate_margin).
+    safe_set = values < v_bad - level_margin
+    any_safe = safe_set.any()
+    c_max = torch.where(any_safe,
+                        torch.where(safe_set, values, -inf).max(), -inf)
+    return safe_set, c_max, values, any_safe
+
+
+def _fused_eligible(policy, dynamics, lyapunov_function, lipschitz_lyapunov,
+                    lipschitz_dynamics, tau, points, exempt, margin=0.0,
+                    values_direct=None):
+    """The per-point part of :func:`_fused_update`: ``(values, eligible)``,
+    the candidate's values and whether each point passes the decrease
+    check or is exempt."""
     if values_direct is not None:
         values = values_direct.reshape(-1)
     else:
@@ -253,18 +288,67 @@ def _fused_update(policy, dynamics, lyapunov_function, lipschitz_lyapunov,
                            tau)
     negative = (decrease < threshold
                 - _margin_operand(margin, decrease)).squeeze(1)
-    eligible = negative | exempt
+    return values, negative | exempt
 
-    inf = torch.tensor(float("inf"), dtype=values.dtype,
-                       device=values.device)
-    v_bad = torch.where(eligible, inf, values).min()
-    # level_margin guards the value comparison as margin guards the
-    # decrease comparison (see oracle.calibrate_certificate_margin).
-    safe_set = values < v_bad - level_margin
-    any_safe = safe_set.any()
-    c_max = torch.where(any_safe,
-                        torch.where(safe_set, values, -inf).max(), -inf)
-    return safe_set, c_max, values, any_safe
+
+def _sharded_fused_update(policy, dynamics, lyapunov_function,
+                          lipschitz_lyapunov, lipschitz_dynamics, tau, points,
+                          exempt, margin=0.0, level_margin=0.0,
+                          values_direct=None):
+    """:func:`_fused_update` over a mesh: ``points`` and ``exempt`` are
+    :class:`~.parallel.mesh.ShardedArray`\\ s of the grid's rows; a
+    per-point ``margin`` and ``values_direct`` are whole-grid and sliced.
+
+    Each shard runs the per-point work (:func:`_fused_eligible`) on its
+    device; then two reductions over the shards and the mesh's processes:
+    ``v_bad``, the smallest value of a failing state (NaN when a value is,
+    as a minimum over the whole grid), and, once each shard has cut at
+    ``v_bad - level_margin``, the largest safe value and whether any state
+    is safe. The per-point outputs stay on their shards.
+
+    Returns ``(safe_set, c_max, values, any_safe)``: sharded arrays of the
+    safe mask and the values, ``c_max`` and ``any_safe`` as numbers.
+    """
+    mesh = points.mesh
+    local = []
+    for pos, (lo, hi), pts in points.local():
+        values, eligible = _fused_eligible(
+            policy, dynamics, lyapunov_function, lipschitz_lyapunov,
+            lipschitz_dynamics, tau, pts, exempt.shards[pos],
+            margin if np.ndim(margin) == 0 else margin[lo:hi],
+            None if values_direct is None
+            else values_direct.reshape(-1)[lo:hi])
+        inf = torch.tensor(float("inf"), dtype=values.dtype,
+                           device=values.device)
+        local.append((pos, values, torch.where(eligible, inf, values).min()))
+    # One host read for the shards' minima, one for their maxima (the
+    # shards of one process share config.device).
+    mins = (torch.stack([m for _, _, m in local]).double().tolist()
+            if local else [])
+    nan = any(np.isnan(m) for m in mins)
+    v_bad, nan = reduce_scalars(
+        [np.inf if nan or not mins else min(mins), -float(nan)], "min", mesh)
+    if nan < 0:
+        v_bad = np.nan
+    safe = [None] * mesh.size
+    vals = [None] * mesh.size
+    tops = []
+    for pos, values, _ in local:
+        cut = torch.tensor(v_bad, dtype=values.dtype, device=values.device)
+        safe[pos] = values < cut - level_margin
+        vals[pos] = values
+        tops.append(torch.stack([
+            torch.where(safe[pos], values, -float("inf")).max().double(),
+            safe[pos].any().double()]))
+    c_max, any_safe = (torch.stack(tops).max(dim=0).values.tolist()
+                       if tops else (-np.inf, 0.0))
+    c_max, any_safe = reduce_scalars([c_max, any_safe], "max", mesh)
+    n = points.shape[0]
+    return (ShardedArray(safe, grid_sharding(mesh, 1), (n,), torch.bool),
+            c_max,
+            ShardedArray(vals, grid_sharding(mesh, 1), (n,), next(
+                (v.dtype for v in vals if v is not None), points.dtype)),
+            bool(any_safe))
 
 
 def _f64(value, like):
@@ -372,8 +456,12 @@ class Lyapunov:
         States known to be safe a priori.
     adaptive : bool, optional
         Enable adaptive refinement in :meth:`update_safe_set`.
-    mesh : optional
-        Must be None: meshes are not ported yet.
+    mesh : parallel.Mesh, optional
+        Shard every sweep over the mesh's entries (``parallel.make_mesh``
+        in one process, ``parallel.distributed.make_global_mesh`` over
+        ranks); this process's entries must be ``config.device``. The
+        results are those of the sweep without a mesh, bit for bit. It
+        may be set later as ``lyapunov.mesh``.
     certificate_margin : float, optional
         Absolute conservatism margin of the decrease check; ``None`` reads
         ``config.certificate_margin`` at each sweep.
@@ -385,11 +473,8 @@ class Lyapunov:
                  certificate_margin=None):
         if not isinstance(discretization, GridWorld):
             raise TypeError("discretization must be a GridWorld")
-        if mesh is not None:
-            raise NotImplementedError(
-                "meshes are ROADMAP queue 1 item 23 (parallel)")
         self.discretization = discretization
-        self.mesh = None
+        self.mesh = mesh
         self.adaptive = bool(adaptive)
         #: The last adaptive sweep's work: coarse batches, refinement
         #: chunks and refined states (diagnostics; ``None`` before one).
@@ -448,6 +533,19 @@ class Lyapunov:
         self.update_values()
 
     # ------------------------------------------------------------------
+    @property
+    def mesh(self):
+        """The :class:`~.parallel.mesh.Mesh` the sweeps shard over, or
+        ``None``."""
+        return self._mesh
+
+    @mesh.setter
+    def mesh(self, value):
+        if value is not None and not isinstance(value, Mesh):
+            raise TypeError("mesh must be a parallel.Mesh or None, got {}"
+                            .format(type(value).__name__))
+        self._mesh = value
+
     @property
     def safe_set(self):
         """Boolean mask of certified-safe grid states (host
@@ -706,6 +804,54 @@ class Lyapunov:
             self._points_dev = pts
         return pts
 
+    def _sharded_points(self):
+        """This process's rows of the grid over :attr:`mesh`, made on the
+        entries' devices (``parallel.distributed.global_grid_points``),
+        cached per mesh, device and dtype."""
+        self.mesh.check_local_devices(config.device)
+        cached = getattr(self, "_points_sharded", None)
+        key = (config.device, config.dtype)
+        if cached is None or cached[0] is not self.mesh or cached[1] != key:
+            cached = (self.mesh, key,
+                      global_grid_points(self.discretization, self.mesh))
+            self._points_sharded = cached
+        return cached[2]
+
+    def _map_rows(self, n, fn, dtype=torch.bool):
+        """``fn(lo, hi)``, a device tensor of the rows ``[lo, hi)`` of a
+        batch of ``n``: one call without a mesh; over :attr:`mesh` one
+        call per entry of this process on its range of ``split_rows(n,
+        mesh.size)``, the ranges gathered onto ``config.device`` on every
+        process."""
+        mesh = self.mesh
+        if mesh is None:
+            return fn(0, n)
+        ranges = split_rows(n, mesh.size)
+        shards = [fn(lo, hi) if mesh.is_local(i) and hi > lo else None
+                  for i, (lo, hi) in enumerate(ranges)]
+        return gather_rows(mesh, ranges, shards, (n,), dtype, config.device)
+
+    def _batch_ranges(self, batch):
+        """Each mesh entry's ``(start, stop)`` over the grid's batches of
+        ``batch`` states: a contiguous run of whole batches (``split_rows``
+        of the batch count), so that every batch is the one the sweep
+        without a mesh runs; ``[(0, nindex)]`` without a mesh."""
+        nindex = self.discretization.nindex
+        parts = 1 if self.mesh is None else self.mesh.size
+        return [(min(b0 * batch, nindex), min(b1 * batch, nindex))
+                for b0, b1 in split_rows(-(-nindex // batch), parts)]
+
+    def _batch_groups(self, batch):
+        """``(position, start, stop)`` of :meth:`_batch_ranges` for this
+        process's entries that hold a batch (which must be on
+        ``config.device``); ``[(0, 0, nindex)]`` without a mesh."""
+        if self.mesh is None:
+            return [(0, 0, self.discretization.nindex)]
+        self.mesh.check_local_devices(config.device)
+        return [(i, lo, hi)
+                for i, (lo, hi) in enumerate(self._batch_ranges(batch))
+                if self.mesh.is_local(i) and hi > lo]
+
     def _fused_limit(self, batch_size):
         batch = batch_size or max(int(config.gp_batch_size), 1)
         return max(batch, int(config.fused_sweep_limit))
@@ -726,7 +872,9 @@ class Lyapunov:
         One pass over the grid up to ``config.fused_sweep_limit``;
         larger grids, or any ``batch_size``, stream: batches of
         ``batch_size`` (default ``config.gp_batch_size``) states made on
-        the device, written into one device buffer.
+        the device, written into one device buffer. Over a mesh each entry
+        of this process evaluates its rows (:meth:`_sharded_points`, or its
+        run of batches) and every process gathers the whole vector.
         """
         direct = self._direct_grid_values()
         if direct is not None:
@@ -735,19 +883,43 @@ class Lyapunov:
         grid = self.discretization
         nindex = grid.nindex
         if batch_size is None and nindex <= self._fused_limit(None):
-            self.values = _values_batch(self.lyapunov_function,
-                                        self._device_points())
+            if self.mesh is None:
+                self.values = _values_batch(self.lyapunov_function,
+                                            self._device_points())
+                return
+            points = self._sharded_points()
+            shards = [None] * self.mesh.size
+            for pos, _, pts in points.local():
+                shards[pos] = _values_batch(self.lyapunov_function, pts)
+            self.values = gather_rows(self.mesh, points.ranges, shards,
+                                      (nindex,), self._values_dtype(shards),
+                                      config.device)
             return
         batch = batch_size or max(int(config.gp_batch_size), 1)
-        values = None
-        for start in range(0, nindex, batch):
-            stop = min(start + batch, nindex)
-            v = _values_batch(self.lyapunov_function,
-                              grid.states_in_range(start, stop))
-            if values is None:
-                values = torch.empty(nindex, dtype=v.dtype, device=v.device)
-            values[start:stop] = v
-        self.values = values
+        shards = [None] * (1 if self.mesh is None else self.mesh.size)
+        for pos, lo, hi in self._batch_groups(batch):
+            values = None
+            for start in range(lo, hi, batch):
+                stop = min(start + batch, hi)
+                v = _values_batch(self.lyapunov_function,
+                                  grid.states_in_range(start, stop))
+                if values is None:
+                    values = torch.empty(hi - lo, dtype=v.dtype,
+                                         device=v.device)
+                values[start - lo:stop - lo] = v
+            shards[pos] = values
+        if self.mesh is None:
+            self.values = shards[0]
+            return
+        self.values = gather_rows(
+            self.mesh, self._batch_ranges(batch), shards, (nindex,),
+            self._values_dtype(shards), config.device)
+
+    @staticmethod
+    def _values_dtype(shards):
+        """The dtype of the value shards of this process (the working
+        dtype on a process without rows)."""
+        return next((s.dtype for s in shards if s is not None), config.dtype)
 
     def update_safe_set(self, can_shrink=True, max_refinement=1,
                         safety_factor=1.0, parallel_iterations=None,
@@ -765,7 +937,8 @@ class Lyapunov:
         non-default value warns). A non-adaptive grid above ``max(batch,
         config.fused_sweep_limit)``, ``batch`` being ``batch_size`` or
         ``config.gp_batch_size``, runs the streamed sweep
-        (:meth:`_update_safe_set_streamed`).
+        (:meth:`_update_safe_set_streamed`). Each shards over
+        :attr:`mesh` when one is set.
 
         ``extended=True`` checks the decrease in float64 on the card
         (``ops.extended_verify.ExtendedSweep``), so that the installed
@@ -781,7 +954,7 @@ class Lyapunov:
         threshold`` clears the band of the derived float32 margin
         (``hybrid_band_margin``, or an installed :attr:`hybrid_band_margin`)
         plus twice the extended one, and only the band is checked in
-        float64 (:class:`_DecreaseCheck`); its share is
+        float64 (:class:`_DecreaseCheck`); its share over every shard is
         :attr:`last_band_fraction`.
         """
         if safety_factor != 1.0 or parallel_iterations is not None:
@@ -804,8 +977,9 @@ class Lyapunov:
         else:
             self._update_safe_set_fused(can_shrink)
         if extended == "hybrid":
-            self.last_band_fraction = check.band_states / max(check.checked,
-                                                              1)
+            band, checked = reduce_scalars(
+                [check.band_states, check.checked], "sum", self.mesh)
+            self.last_band_fraction = band / max(checked, 1)
 
     def _exempt_and_previous(self, can_shrink):
         """``(initial, prev_safe, exempt)`` host masks: the initial set
@@ -841,8 +1015,7 @@ class Lyapunov:
         """The streamed sweep: one pass over batches of flat indices.
 
         ``safe_learning_tpu/lyapunov.py:1035-1275`` without the adaptive,
-        mesh, extended and hybrid branches, and without its host
-        ``argsort``:
+        extended and hybrid branches, and without its host ``argsort``:
 
         1. ``values`` is refreshed batch by batch into one device buffer
            (:meth:`update_values`);
@@ -861,9 +1034,17 @@ class Lyapunov:
            largest value in it, ``-inf`` when it is empty. States with a
            NaN value are never certified.
 
+        Over a mesh each entry of this process takes a contiguous run of
+        the batches (:meth:`_batch_groups`; :meth:`update_values` gives the
+        values of the same runs, gathered) and keeps its own ``(v_bad,
+        i_bad)``; the entries and processes combine them in two
+        reductions (the smallest value, then the smallest index among
+        those holding it), cut their rows, and gather the safe mask.
+
         A per-point ``certificate_margin`` is sliced per batch. ``check``
         is the sweep's :class:`_DecreaseCheck`. The last sweep's batches
-        are in ``last_sweep_counts``.
+        are in ``last_sweep_counts`` (this process's, over a mesh), its
+        first failing state ``(v_bad, i_bad)`` in ``last_stream_bad``.
         """
         grid = self.discretization
         nindex = grid.nindex
@@ -875,38 +1056,71 @@ class Lyapunov:
         exempt_dev = torch.as_tensor(exempt, device=device)
         margin = self.certificate_margin
         inf = torch.full((), float("inf"), dtype=values.dtype, device=device)
-        v_bad = inf
-        i_bad = torch.full((), nindex, dtype=torch.int64, device=device)
         batches = 0
-        for start in range(0, nindex, batch):
-            stop = min(start + batch, nindex)
-            negative = check.negative(
-                grid.states_in_range(start, stop, device),
-                margin if np.ndim(margin) == 0 else margin[start:stop],
-                slice(start, stop))
-            v = values[start:stop]
-            failing = ~(negative | exempt_dev[start:stop]) & ~torch.isnan(v)
-            v_min = torch.where(failing, v, inf).min()
-            first = (failing & (v == v_min)).to(torch.uint8).argmax()
-            i_min = torch.where(failing.any(), first + start, nindex)
-            better = (v_min < v_bad) | ((v_min == v_bad) & (i_min < i_bad))
-            v_bad = torch.where(better, v_min, v_bad)
-            i_bad = torch.where(better, i_min, i_bad)
-            batches += 1
+        scans = []
+        for pos, lo, hi in self._batch_groups(batch):
+            v_bad = inf
+            i_bad = torch.full((), nindex, dtype=torch.int64, device=device)
+            for start in range(lo, hi, batch):
+                stop = min(start + batch, hi)
+                negative = check.negative(
+                    grid.states_in_range(start, stop, device),
+                    margin if np.ndim(margin) == 0 else margin[start:stop],
+                    slice(start, stop))
+                v = values[start:stop]
+                failing = ~(negative | exempt_dev[start:stop]) \
+                    & ~torch.isnan(v)
+                v_min = torch.where(failing, v, inf).min()
+                first = (failing & (v == v_min)).to(torch.uint8).argmax()
+                i_min = torch.where(failing.any(), first + start, nindex)
+                better = (v_min < v_bad) | ((v_min == v_bad)
+                                            & (i_min < i_bad))
+                v_bad = torch.where(better, v_min, v_bad)
+                i_bad = torch.where(better, i_min, i_bad)
+                batches += 1
+            scans.append((pos, lo, hi, v_bad, i_bad))
         self.last_sweep_counts = dict(coarse_batches=batches,
                                       refinement_chunks=0, refined_points=0,
                                       rescued_states=0)
+        self._streamed_cut(scans, batch, can_shrink, initial, prev_safe)
 
+    def _streamed_cut(self, scans, batch, can_shrink, initial, prev_safe):
+        """The streamed sweep's cut: ``scans`` holds each local entry's
+        ``(position, start, stop, v_bad, i_bad)`` (one, over the whole
+        grid, without a mesh). The first failing state is the
+        lexicographic minimum over the entries and processes (the smallest
+        ``v_bad``, then the smallest ``i_bad`` among those holding it);
+        each entry cuts its rows, and the safe mask is gathered on the
+        host."""
+        mesh = self.mesh
+        nindex = self.discretization.nindex
+        values = self.values
+        local = [(float(v), int(i)) for *_, v, i in scans]
+        v_loc, i_loc = min(local) if local else (np.inf, nindex)
+        v_bad = reduce_scalars([v_loc], "min", mesh)[0]
+        i_bad = int(reduce_scalars([i_loc if v_loc == v_bad else nindex],
+                                   "min", mesh)[0])
+        self.last_stream_bad = (v_bad, i_bad)
         level_margin = self.level_margin
-        if level_margin > 0.0:
-            safe_dev = values < v_bad - level_margin
-        else:
-            safe_dev = values < v_bad
-            head = int(i_bad)
-            safe_dev[:head] |= values[:head] == v_bad
-        c_max = torch.where(safe_dev, values, -inf).max()
-        safe = safe_dev.cpu().numpy()
-        self.c_max = float(c_max) if safe.any() else -np.inf
+        cut = torch.tensor(v_bad, dtype=values.dtype, device=values.device)
+        safe = [None] * (1 if mesh is None else mesh.size)
+        c_max, any_safe = -np.inf, 0.0
+        for pos, lo, hi, _, _ in scans:
+            v = values[lo:hi]
+            if level_margin > 0.0:
+                s = v < cut - level_margin
+            else:
+                s = v < cut
+                head = min(max(i_bad - lo, 0), hi - lo)
+                s[:head] |= v[:head] == cut
+            safe[pos] = s
+            c_max = max(c_max, float(torch.where(s, v,
+                                                 -float("inf")).max()))
+            any_safe = max(any_safe, float(s.any()))
+        c_max, any_safe = reduce_scalars([c_max, any_safe], "max", mesh)
+        safe = gather_rows(mesh, self._batch_ranges(batch), safe, (nindex,),
+                           torch.bool, "cpu").numpy()
+        self.c_max = c_max if any_safe else -np.inf
         self._store(safe, np.where(safe, 1, 0), can_shrink, initial,
                     prev_safe)
 
@@ -914,8 +1128,8 @@ class Lyapunov:
                                 check):
         """The sorted sweep with adaptive refinement, on the device.
 
-        ``safe_learning_tpu/lyapunov.py:1040-1275`` without the mesh,
-        extended and hybrid branches:
+        ``safe_learning_tpu/lyapunov.py:1040-1275`` without the extended
+        and hybrid branches:
 
         1. ``values`` is refreshed and sorted by value with a stable sort
            (ties keep grid order, as the JAX package's host ``argsort``);
@@ -936,11 +1150,29 @@ class Lyapunov:
         per-point ``certificate_margin`` rides along in value order.
         ``check`` is the sweep's :class:`_DecreaseCheck`; an extended
         sweep of a non-adaptive grid runs here at ``max_refinement=1``.
+
+        Over a mesh every process holds the gathered values and sorts them
+        alike; each coarse batch and refinement chunk, rounded up to a
+        multiple of ``lcm(256, mesh.size)`` (JAX ``:996-1003``,
+        ``:1170-1173``), is split over the entries (:meth:`_map_rows`),
+        which make their states from the flat indices on the device
+        (:meth:`GridWorld.states_at`), and the verdicts are gathered before
+        the walk reads them.
         """
         grid = self.discretization
         nindex = grid.nindex
-        points = self._device_points()
-        device = points.device
+        mesh = self.mesh
+        if mesh is None:
+            points = self._device_points()
+            device = points.device
+
+            def states_at(idx):
+                return points[idx]
+        else:
+            mesh.check_local_devices(config.device)
+            device = config.device
+            states_at = grid.states_at
+        like = torch.empty(0, dtype=config.dtype, device=device)
         r = max(int(max_refinement), 1)
         initial, prev_safe, exempt = self._exempt_and_previous(can_shrink)
 
@@ -959,15 +1191,25 @@ class Lyapunov:
         def margin_at(index):
             return margin if isinstance(margin, float) else margin[index]
 
+        def rounded(size):
+            if mesh is None:
+                return size
+            unit = math.lcm(256, mesh.size)
+            return -(-size // unit) * unit
+
         # 2. The coarse check, batch by batch, into one sorted mask.
         batch = batch_size or max(int(config.gp_batch_size),
                                   min(nindex, self._fused_limit(None)))
+        if mesh is not None:
+            batch = rounded(min(batch, nindex))
         passed = torch.empty(nindex, dtype=torch.bool, device=device)
         batches = 0
         for start in range(0, nindex, batch):
             idx = order[start:start + batch]
-            passed[start:start + len(idx)] = check.negative(
-                points[idx], margin_at(slice(start, start + len(idx))), idx)
+            passed[start:start + len(idx)] = self._map_rows(
+                len(idx), lambda lo, hi: check.negative(
+                    states_at(idx[lo:hi]),
+                    margin_at(slice(start + lo, start + hi)), idx[lo:hi]))
             batches += 1
         passed |= exempt_sorted
 
@@ -977,12 +1219,14 @@ class Lyapunov:
         stop = nindex if n_fail == 0 else None
         chunks = refined_points = rescued = 0
         if n_fail and r > 1:
-            offsets = refinement_offsets(grid.unit_maxes, r, points)
-            chunk = max(1, REFINED_POINTS_PER_CHUNK // offsets.shape[0])
+            offsets = refinement_offsets(grid.unit_maxes, r, like)
+            chunk = rounded(max(1, REFINED_POINTS_PER_CHUNK
+                                // offsets.shape[0]))
             for start in range(0, n_fail, chunk):
                 pos = failing[start:start + chunk]
-                ok = check.refined(points[order[pos]], offsets, r,
-                                   margin_at(pos))
+                ok = self._map_rows(len(pos), lambda lo, hi: check.refined(
+                    states_at(order[pos[lo:hi]]), offsets, r,
+                    margin_at(pos[lo:hi])))
                 chunks += 1
                 refined_points += len(pos) * offsets.shape[0]
                 # One read a chunk: whether every state passed, the first
@@ -1029,8 +1273,13 @@ class Lyapunov:
         self._store(safe, refinement, can_shrink, initial, prev_safe)
 
     def _update_safe_set_fused(self, can_shrink):
-        """Whole-grid single-pass path."""
+        """Whole-grid single-pass path (over :attr:`mesh` when one is set:
+        :meth:`_update_safe_set_fused_sharded`)."""
         initial, prev_safe, exempt = self._exempt_and_previous(can_shrink)
+        if self.mesh is not None:
+            self._update_safe_set_fused_sharded(can_shrink, initial,
+                                                prev_safe, exempt)
+            return
         points = self._device_points()
         # With can_shrink the exempt mask is just the initial set; keep
         # its device copy until that mask changes.
@@ -1060,6 +1309,38 @@ class Lyapunov:
         self._store(safe, np.where(safe, 1, 0), can_shrink, initial,
                     prev_safe)
 
+    def _update_safe_set_fused_sharded(self, can_shrink, initial, prev_safe,
+                                       exempt):
+        """The fused path over :attr:`mesh`: :func:`_sharded_fused_update`
+        on this process's rows, the safe mask and the values gathered onto
+        every process. The exempt mask's shards are cached as the path
+        without a mesh caches its copy, keyed on the mesh too (which the
+        key holds)."""
+        mesh = self.mesh
+        points = self._sharded_points()
+        key = (id(self.initial_safe_set), self._initial_set_version,
+               getattr(self.initial_safe_set, "mutations", None),
+               config.device, mesh)
+        cached = getattr(self, "_exempt_sharded", None)
+        exempt_sh = (cached[1] if can_shrink and cached is not None
+                     and cached[0] == key else None)
+        if exempt_sh is None:
+            exempt_sh = put_global(exempt, grid_sharding(mesh, 1))
+            if can_shrink:
+                self._exempt_sharded = (key, exempt_sh)
+
+        safe_sh, c_max, values, any_safe = _sharded_fused_update(
+            self.policy, self.dynamics, self.lyapunov_function,
+            self._lipschitz_lyapunov, self._lipschitz_dynamics, self.tau,
+            points, exempt_sh, self.certificate_margin, self.level_margin,
+            self._direct_grid_values())
+        direct = self._direct_grid_values()
+        self.values = (direct if direct is not None
+                       else values.gather(config.device))
+        safe = safe_sh.numpy()
+        self.c_max = c_max if any_safe else -np.inf
+        self._store(safe, np.where(safe, 1, 0), can_shrink, initial,
+                    prev_safe)
 
 def smallest_boundary_value(fun, discretization):
     """Smallest value of ``fun`` on the boundary of the discretization.

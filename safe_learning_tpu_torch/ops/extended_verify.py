@@ -49,6 +49,13 @@ The GP kernels of the float64 copy run in float64 on the card: kernel 1
 float64 panel body (``ops.gp_kernel.program_panel_max``, read from the
 built library); above it the sweep raises rather than take the streamed
 body.
+
+Over a mesh (``Lyapunov(mesh=...)``, ``parallel``) the sweeps split
+their batches and refinement chunks over the entries and ranks, and each
+rank checks its rows with its own :class:`ExtendedSweep` on its
+``config.device``: every check is per state, so the verdicts, and the
+hybrid's band filter, are those of the sweep without a mesh; the hybrid's
+band counts are summed over the ranks (``Lyapunov.last_band_fraction``).
 """
 
 from __future__ import annotations

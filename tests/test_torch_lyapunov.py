@@ -115,7 +115,8 @@ def test_unported_paths_raise():
         grid = st.GridWorld([[-1, 1]], 9)
         args = (grid, _quad_v(), st.LinearSystem(np.array([[0.5, 0.0]])),
                 0.4, 0.3, 0.1, st.LambdaFunction(lambda x: 0.0 * x))
-        with pytest.raises(NotImplementedError, match="item 23"):
+        # Meshes are ported: anything but a parallel.Mesh is refused.
+        with pytest.raises(TypeError, match="parallel.Mesh"):
             st.Lyapunov(*args, mesh=object())
         lyap = st.Lyapunov(*args)
         # The rigor mode (ported) refuses the callable policy.
