@@ -13,7 +13,10 @@ Phases, in order; any failure raises and the exit code is not 0:
    four variants (``csrc/gp_predict_variants.cu``) and one library per
    covariance program tuple (``csrc/gp_predict_program.cuh``) for
    ``sm_90a``, one ``nvcc`` each, all at once, and prints each build's
-   time and the compiler's report;
+   time and the compiler's report; ``sass_check`` reads ``cuobjdump
+   --dump-sass`` of kernels 1-3's libraries: every float64 tiled and
+   panel kernel holds ``DMMA`` (the product on the FP64 tensor cores), no
+   float32 kernel and no float64 streamed kernel does;
 3. kernel 1 against plain: the stationary GP-predict kernel against its
    plain PyTorch version on the card, for every stationary kind,
    capacities 8, 128 and 2048 with a partly filled mask, 1 and 2 outputs,
@@ -194,7 +197,11 @@ Phases, in order; any failure raises and the exit code is not 0:
 21. the rigor ladder (``phase_rigor``, ``ops.extended_verify``): first
     ``transcendental_ulps`` in float64, torch's exp, sin, cos, tanh and
     sigmoid on the card within ``FP_ERROR_FACTOR64`` units of 2^-53 of
-    ``numpy.longdouble``; on the bench instance (kernel 1 in float64)
+    ``numpy.longdouble``; the float64 kernels' error against
+    ``numpy.longdouble`` on 10,000 seeded queries at the bench's and the
+    last refinement chunk's inputs within the bound the float64 margins
+    assume (``longdouble_check``, ``U_EFF`` a rounding); on the bench
+    instance (kernel 1 in float64)
     ``extended_certificate_margin``, the float64 check within it of phase
     20's float64 oracle at all 10^6 states, ``update_safe_set(extended=
     True)`` and ``extended="hybrid"`` in turns, both inside the oracle's
@@ -231,7 +238,13 @@ Phases, in order; any failure raises and the exit code is not 0:
     body's ``panel_count_cases``: counts 129 to its largest count and one
     past it, S = 1 to 3, p up to 8, d up to 16, each taking the body its
     count selects): the kernels' loops bounded by the count, against the
-    plain versions at full capacity, exact zeros at count 0;
+    plain versions at full capacity, exact zeros at count 0; then the
+    float64 DMMA bodies at their edges (``phase_dmma_cases``:
+    ``DMMA_COUNTS``, 1 to 256 across every k step, row tile and bucket,
+    p 1 to 8, S 1 to 3), far queries with subnormal k within
+    ``underflow_bounds``, and ``position_check``: each query's float64
+    outputs bit for bit the same at each of ``position_shifts`` in its
+    query tile, reversed and alone;
 25. kernel times: each kernel against its plain version on its path's
     own inputs, on the device alone (a CUDA graph of 10 calls,
     ``graph_ms``; of 2 calls for a plain version, ``PLAIN_GRAPH``, whose
@@ -248,7 +261,8 @@ Phases, in order; any failure raises and the exit code is not 0:
     body); kernels 1 to 3 in float64 at the rigor paths' inputs (the
     bench, the adaptive coarse pass and last refinement chunk, the 1-D
     ROA, the pendulum's rigor sweep at S = 2; ``kernel_bound`` at the FP64
-    peak), under the rows' ``paths``; kernel 2's panel body at the
+    peak; ``"design": "dmma"``), under the rows' ``paths``; kernel 2's
+    panel body at the
     fan-out route's coarse pass (count 136); kernels 1 and 3 at one rank's
     inputs of phase 16's sharded paths (``sharded_paths``: the bench's
     first shard, a batch of the 10^8 sweep's second rank, the adaptive
@@ -283,16 +297,26 @@ before the count cases and before any CUDA graph is captured.
 The second-to-last line is a JSON object describing each kernel
 (``kernel_rows``: launches, error, times, bound and its kind, per path);
 the last line is ``{"ok": true, "device": {...}}``.
+
+``python3 chip_smoke.py --rigor-certify`` runs phase 21's adaptive
+certify alone and prints its times as one JSON line
+(``rigor_certify_times``); with ``python3 -P`` and ``PYTHONPATH`` set to
+another checkout it times that checkout's package, so two commits can be
+timed in turns on the same card.
 """
 
 import collections
+import concurrent.futures
 import contextlib
 import copy
 import functools
 import hashlib
 import importlib.util
 import json
+import multiprocessing
 import os
+import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -1015,6 +1039,61 @@ def phase_build():
           "streamed body above".format(
               *(gp_kernel.program_panel_max(tuples[0], dtype)
                 for dtype in (torch.float32, torch.float64))))
+    sass_check(tuples)
+
+
+#: A kernel function of kernels 1-3 in ``cuobjdump``'s listing: the body
+#: and the template's value type (``d`` float64, ``f`` float32) as mangled.
+SASS_KERNEL = re.compile(
+    r"gp_(?:predict|program)_(tiled|panel|streamed)(?:_dmma)?I([df])")
+
+
+def sass_check(tuples):
+    """``cuobjdump --dump-sass`` of kernels 1-3's libraries (the stationary
+    one and each program tuple's): every float64 tiled and panel kernel
+    contains ``DMMA`` (the product on the FP64 tensor cores), no float32
+    kernel does, and the float64 streamed kernels (the CUDA-core body kept
+    above the panel body) do not. A missing ``cuobjdump`` fails."""
+    from safe_learning_tpu_torch.ops.build import _nvcc
+
+    tool = shutil.which("cuobjdump") or os.path.join(
+        os.path.dirname(_nvcc()), "cuobjdump")
+    if not os.path.exists(tool):
+        raise AssertionError("cuobjdump not found beside nvcc ({})".format(
+            tool))
+    libs = [gp_kernel.kernel_library()] + [gp_kernel.program_library(
+        tuple(p)) for p in tuples]
+    # One cuobjdump a library, all at once.
+    procs = [subprocess.Popen([tool, "--dump-sass", lib._name],
+                              stdout=subprocess.PIPE, text=True)
+             for lib in libs]
+    found = collections.Counter()
+    for lib, proc in zip(libs, procs):
+        sass = proc.communicate()[0]
+        if proc.returncode != 0:
+            raise AssertionError("cuobjdump failed on {}".format(lib._name))
+        for part in sass.split("Function : ")[1:]:
+            name = part.split("\n", 1)[0].strip()
+            m = SASS_KERNEL.search(name)
+            if m is None:
+                continue
+            body, t = m.groups()
+            dmma = part.count("DMMA")
+            want = t == "d" and body != "streamed"
+            found[body, t, dmma > 0] += 1
+            if (dmma > 0) != want:
+                raise AssertionError("{} has {} DMMA instructions ({})"
+                                     .format(name, dmma, os.path.basename(
+                                         lib._name)))
+    print("SASS of kernels 1-3 ({} libraries, cuobjdump --dump-sass): {}"
+          .format(len(libs), ", ".join(
+              "{} {} {}: {}".format(body, {"d": "f64", "f": "f32"}[t],
+                                    "DMMA" if has else "no DMMA", n)
+              for (body, t, has), n in sorted(found.items()))))
+    for body in ("tiled", "panel"):
+        if not found[body, "d", True]:
+            raise AssertionError("no float64 {} kernel found in the SASS"
+                                 .format(body))
 
 
 #: ``(count, capacity)`` of the count cases: a GP holding ``count`` points
@@ -1066,6 +1145,192 @@ def expected_body(count, n_panel):
     """The body kernels 2 and 3 take at ``count`` rows (blocks that fit)."""
     return ("tiled" if count <= 128 else "panel" if count <= n_panel
             else "streamed")
+
+
+#: The float64 DMMA bodies' edges (``csrc/gp_predict_common.cuh``): every
+#: k step (mma depth 4 to 16), 16-row tile and bucket edge of the tiled
+#: body (1 to 128) and the panel body's row tiles (129 to 256).
+DMMA_COUNTS = (1, 4, 5, 8, 9, 10, 16, 17, 24, 32, 64, 127, 128, 129, 136,
+               181, 255, 256)
+
+
+def dmma_count_cases():
+    """``(count, cap, p, d, n_out)`` of the float64 count cases at
+    ``DMMA_COUNTS``: p cycles through 1 to 8, the stacked outputs S
+    through 1 to 3, d is 3 or 5, and the capacity is the count's or the
+    next of 16, 64, 181 and 256 above it."""
+    cases = []
+    for i, count in enumerate(DMMA_COUNTS):
+        larger = [c for c in (16, 64, 181, 256) if c > count]
+        cap = count if i % 3 == 0 or not larger else larger[0]
+        cases.append((count, cap, 1 + i % 8, (3, 5)[i % 2], 1 + i % 3))
+    return cases
+
+
+#: The query tile of the float64 DMMA bodies by the largest count they
+#: take at p <= 2, d = 3 (``TileD``, ``PanelD`` of
+#: ``csrc/gp_predict_common.cuh``): the tiled buckets, chol_inv resident to
+#: 192 rows, the streaming panel body to 256. A query's shift within a
+#: launch runs 1 to the tile - 1.
+DMMA_QUERY_TILE = ((16, 256), (32, 256), (64, 128), (128, 32), (192, 16),
+                   (256, 64))
+
+
+def dmma_query_tile(count):
+    """The query tile a float64 launch at ``count`` rows runs on."""
+    return next(tile for top, tile in DMMA_QUERY_TILE if count <= top)
+
+
+def position_shifts(tile):
+    """Shifts of ``position_check`` in this script: every one up to 32 (a
+    query's lane, its 8-query mma tile and its fill thread), then each
+    multiple of 32 (its mma warp) and ``tile - 1``. The ``cuda`` tests
+    take every shift from 1 to ``tile - 1``."""
+    return sorted(set(range(1, min(tile, 33))) | set(range(32, tile, 32))
+                  | {tile - 1})
+
+
+def position_check(fn, queries, tile, shifts=None):
+    """Bit equality of each query's float64 outputs wherever it lies in a
+    launch: ``fn(q)`` returns the outputs, rows by query; the queries as
+    one batch against the same queries after ``shifts`` others (by
+    default 1 to ``tile - 1``), reversed, and as batches of one (every
+    97th query). Returns the launches made."""
+    def key(outs):
+        return [o.contiguous().view(torch.int64) for o in outs]
+
+    ref = key(fn(queries))
+    launches = 1
+    fill = queries.flip(0) * 0.5 + 0.25
+    for shift in range(1, tile) if shifts is None else shifts:
+        out = key(fn(torch.cat([fill[:shift], queries]).contiguous()))
+        launches += 1
+        if not all(torch.equal(o[shift:], r) for o, r in zip(out, ref)):
+            raise AssertionError("a query's outputs change with its shift "
+                                 "{} in the launch".format(shift))
+    out = key(fn(queries.flip(0).contiguous()))
+    launches += 1
+    if not all(torch.equal(o.flip(0), r) for o, r in zip(out, ref)):
+        raise AssertionError("a query's outputs change with the launch's "
+                             "order")
+    for i in range(0, queries.shape[0], 97):
+        out = key(fn(queries[i:i + 1].contiguous()))
+        launches += 1
+        if not all(torch.equal(o, r[i:i + 1]) for o, r in zip(out, ref)):
+            raise AssertionError("query {}'s outputs change in a batch of "
+                                 "one".format(i))
+    return launches
+
+
+def underflow_bounds(inputs, kind):
+    """``rounding_bounds`` with gradual underflow, for far queries whose k
+    is subnormal (r^2 past about 1,416 in float64): a product or FMA may
+    err by half the smallest subnormal ``s`` beyond its relative rounding,
+    and exp below the normal range by one subnormal ulp, so k carries
+    ``2 s`` more, ``a = L^-1 k`` ``|L^-1| 2 s`` plus ``cap s``, the mean
+    and the variance ``cap s`` more, counted twice (kernel and plain)."""
+    tol_mean, tol_var = rounding_bounds(inputs, kind)
+    q, x, li, alpha, mask, var_s2 = (t.double() for t in inputs)
+    dtype = torch.finfo(inputs[0].dtype)
+    sub = dtype.tiny * dtype.eps
+    cap = x.shape[0]
+    r2 = None
+    for i in range(q.shape[1]):
+        diff = x[:, i][:, None] - q[:, i][None, :]
+        r2 = diff * diff if r2 is None else r2 + diff * diff
+    k = st.functions.gp.STATIONARY_COVARIANCES[kind](r2) * var_s2 \
+        * mask[:, None]
+    a = (li @ k).abs()
+    da = (li.abs().sum(1) * 2 * sub + cap * sub)[:, None]
+    tol_mean = tol_mean + 2 * (da.T @ alpha.abs() + cap * sub)
+    tol_var = tol_var + 2 * (2 * (a * da).sum(0) + cap * sub)
+    return tol_mean, tol_var
+
+
+def phase_dmma_cases():
+    """The float64 DMMA bodies at their edges (``dmma_count_cases``):
+    kernel 1 up to 128 rows, kernel 2 (``product`` program, p and d as the
+    case gives) and kernel 3 (S outputs) at every count, each against its
+    plain version within its bound, the query count not a multiple of the
+    query tile; far queries with subnormal k through kernel 1 within
+    ``underflow_bounds``; then ``position_check`` on kernel 1 (counts 10
+    and 128), kernel 2 (136) and kernel 3 (17, 181 with chol_inv resident
+    and 250 streamed)."""
+    worst, case = 0.0, 0
+    for count, cap, p, d, n_out in dmma_count_cases():
+        n_q = 4099 if count % 2 else 20011
+        runs = []
+        if count <= 128:
+            kind = gp_kernel.KINDS[case % len(gp_kernel.KINDS)]
+            gp = case_gp(kind, cap, p, 2.5, torch.float64, seed=900 + case,
+                         n=count, d=d)
+            runs.append(("kernel 1 " + kind, compare(
+                case_inputs(gp, n_q, 900 + case), kind, count=count)))
+        for route, names, pp, dd in (("general", ("product",), p, d),
+                                     ("stacked", STACKED_SETS[n_out], 1, 3)):
+            inputs, programs = program_case(route, names, cap, pp, 2.5,
+                                            torch.float64, seed=900 + case,
+                                            n=count, d=dd)
+            points = case_queries(n_q, inputs[0], 900 + case)
+            runs.append(("{} S={}".format(route, len(programs)),
+                         compare_program(route, (points,) + inputs, programs,
+                                         count=count)))
+        for label, (em, ev, ratio) in runs:
+            case += 1
+            print("float64 DMMA case {:2d} {} count={:3d} cap={:3d} p={} d={} "
+                  "Q={}: max|dmean|={:.3e} max|dvar|={:.3e} err/bound={:.3f}"
+                  .format(case, label, count, cap, p, d, n_q, em, ev, ratio))
+            if not ratio <= 1.0:
+                raise AssertionError("float64 {} at count {} disagrees with "
+                                     "plain".format(label, count))
+            worst = max(worst, ratio)
+    # Far queries: k below the normal range, then zero.
+    gp = case_gp("rbf", 128, 2, 2.5, torch.float64, seed=950, n=100)
+    inputs = case_inputs(gp, 3001, 950)
+    far = torch.linspace(37.0, 40.0, 3001, dtype=torch.float64,
+                         device=inputs[0].device)[:, None] / 3 ** 0.5
+    far = (far + inputs[0] * 0.01).contiguous()
+    out = gp_kernel.gp_predict_cuda(far, *inputs[1:], kind="rbf",
+                                    count=gp.count)
+    (errors,) = compare_outputs(
+        [out], lambda part: gp_kernel.gp_predict_plain(*part, kind="rbf"),
+        lambda part: underflow_bounds(part, "rbf"), (far,) + inputs[1:])
+    print("float64 DMMA far queries (r^2 about 1,370 to 1,600, k subnormal "
+          "or 0): {} of 3001 means nonzero, smallest |mean| {!r}; max|dmean|"
+          "={:.3e} max|dvar|={:.3e} err/bound={:.3f} (underflow_bounds)"
+          .format(int((out[0] != 0).any(1).sum()),
+                  float(out[0].abs()[out[0] != 0].min()), *errors))
+    if not errors[2] <= 1.0:
+        raise AssertionError("float64 kernel 1 disagrees at far queries")
+    launches = 0
+    for count in (10, 128):
+        gp = case_gp("matern32", 128, 2, 2.5, torch.float64, seed=960 + count,
+                     n=count)
+        inputs = case_inputs(gp, 1000, 960)
+        launches += position_check(
+            lambda q: gp_kernel.gp_predict_cuda(
+                q, *inputs[1:], kind="matern32", count=count),
+            inputs[0], dmma_query_tile(count),
+            position_shifts(dmma_query_tile(count)))
+    for route, names, count, cap in (
+            ("general", ("product",), 136, 181),
+            ("stacked", STACKED_SETS[1], 17, 32),
+            ("stacked", STACKED_SETS[2], 181, 181),
+            ("stacked", STACKED_SETS[2], 250, 256)):
+        inputs, programs = program_case(route, names, cap, 2, 2.5,
+                                        torch.float64, seed=970, n=count)
+        cuda = (gp_kernel.gp_predict_general_cuda if route == "general"
+                else gp_kernel.gp_predict_stacked_cuda)
+        arg = programs[0] if route == "general" else programs
+        launches += position_check(
+            lambda q: cuda(q, *inputs, arg, count=count),
+            case_queries(1000, inputs[0], 970), dmma_query_tile(count),
+            position_shifts(dmma_query_tile(count)))
+    print("float64 DMMA bodies: {} count cases, worst err/bound {:.3f}; far "
+          "queries; every query's outputs bit for bit the same at each "
+          "position_shifts in its query tile, reversed and alone ({} "
+          "launches)".format(
+              case, worst, launches))
 
 
 def phase_program_count_cases():
@@ -4824,16 +5089,19 @@ LONGDOUBLE = {"exp": np.exp, "sin": np.sin, "cos": np.cos, "tanh": np.tanh,
 
 def relative_error(name, fn, x, y):
     """The largest ``|y - f(x)| / |f(x)|`` over ``f(x) != 0``, with ``f``
-    in float64 on the card for float32 ``x`` and in ``numpy.longdouble``
-    on the host for float64 ``x``."""
-    if x.dtype == torch.float32:
-        ref = fn(x.double())
-        rel = (y.double() - ref).abs() / ref.abs()
-        return float(rel[ref != 0].max())
-    ref = LONGDOUBLE[name](x.cpu().numpy().astype(np.longdouble))
+    in float64 on the card (float32 ``x``)."""
+    ref = fn(x.double())
+    rel = (y.double() - ref).abs() / ref.abs()
+    return float(rel[ref != 0].max())
+
+
+def longdouble_error(task):
+    """``relative_error`` of float64 arrays ``task = (name, x, y)`` against
+    ``LONGDOUBLE[name]`` in ``numpy.longdouble`` on the host."""
+    name, x, y = task
+    ref = LONGDOUBLE[name](x.astype(np.longdouble))
     keep = ref != 0
-    rel = (np.abs(y.cpu().numpy().astype(np.longdouble) - ref)[keep]
-           / np.abs(ref[keep]))
+    rel = np.abs(y.astype(np.longdouble) - ref)[keep] / np.abs(ref[keep])
     return float(rel.max())
 
 
@@ -4862,7 +5130,7 @@ def transcendental_ulps(card, dtype, chunk=2 ** 22):
     else:
         reference = "float64"
         factor = ("config.fp_error_factor", st.config.fp_error_factor)
-    worst = {}
+    worst, tasks = {}, []
     for name, fn, lo, hi in TRANSCENDENTALS[dtype]:
         x = torch.cat([
             torch.linspace(lo, hi, TRANSCENDENTAL_SAMPLES, device="cuda",
@@ -4870,9 +5138,23 @@ def transcendental_ulps(card, dtype, chunk=2 ** 22):
             torch.linspace(-4.0, 4.0, TRANSCENDENTAL_SAMPLES, device="cuda",
                            dtype=dtype)])
         y = fn(x)
-        worst[name] = max(relative_error(name, fn, x[i:i + chunk],
-                                         y[i:i + chunk])
-                          for i in range(0, len(x), chunk)) / unit
+        if dtype == torch.float32:
+            worst[name] = max(relative_error(name, fn, x[i:i + chunk],
+                                             y[i:i + chunk])
+                              for i in range(0, len(x), chunk)) / unit
+        else:
+            x, y = x.cpu().numpy(), y.cpu().numpy()
+            tasks += [(name, x[i:i + chunk], y[i:i + chunk])
+                      for i in range(0, len(x), chunk)]
+    if tasks:
+        # numpy's longdouble functions hold the GIL: worker processes,
+        # forked (they run numpy alone, never CUDA).
+        with concurrent.futures.ProcessPoolExecutor(
+                min(8, os.cpu_count() or 1),
+                mp_context=multiprocessing.get_context("fork")) as pool:
+            for (name, _, _), err in zip(tasks, pool.map(longdouble_error,
+                                                         tasks)):
+                worst[name] = max(worst.get(name, 0.0), err / unit)
     print("{} transcendentals on the card, worst relative error in units of "
           "2^-{} against {} ({} + {} arguments each): {}; {} {!r} "
           "[{}]".format(str(dtype).split(".")[-1],
@@ -4885,6 +5167,186 @@ def transcendental_ulps(card, dtype, chunk=2 ** 22):
     if over:
         raise AssertionError("{} {} is below the measured error of {}".format(
             factor[0], factor[1], over))
+    return worst
+
+
+#: Seeded queries of ``longdouble_check`` at each input set.
+LONGDOUBLE_QUERIES = 10_000
+
+#: The covariances of ``STATIONARY_COVARIANCES`` in ``numpy.longdouble``.
+_LD_COV = {
+    "rbf": lambda r2: np.exp(-0.5 * r2),
+    "matern12": lambda r2: np.exp(-np.sqrt(r2 + 1e-36)),
+    "matern32": lambda r2: _ld_matern(np.sqrt(3 * r2 + 1e-36), 0.0),
+    "matern52": lambda r2: _ld_matern(np.sqrt(5 * r2 + 1e-36), 1.0 / 3),
+}
+
+
+def _ld_matern(r, c2):
+    return (1 + r + c2 * r * r) * np.exp(-r)
+
+
+def _ld_program(program, params, x, q):
+    """A covariance program's ``(cap, Q)`` k in ``numpy.longdouble`` (``x``
+    ``(cap, d)``, ``q`` ``(Q, d)``), as ``gp_kernel._eval_program``."""
+    op = program[0]
+    if op == "stationary":
+        _, fam, sel, ls_off, var_off = program
+        r2 = 0
+        for j, dim in enumerate(sel):
+            diff = (x[:, dim][:, None] - q[:, dim][None, :]) * params[
+                ls_off + j]
+            r2 = r2 + diff * diff
+        return params[var_off] * _LD_COV[fam](r2)
+    if op == "linear":
+        _, sel, v_off = program
+        return sum(params[v_off + j]
+                   * (x[:, dim][:, None] * q[:, dim][None, :])
+                   for j, dim in enumerate(sel))
+    left = _ld_program(program[1], params, x, q)
+    right = _ld_program(program[2], params, x, q)
+    return left + right if op == "sum" else left * right
+
+
+def _ld_lower_product(li, k, block=32):
+    """``li @ k`` for a lower-triangular ``li`` in ``numpy.longdouble``,
+    by row blocks over the columns at or below the block's last row, on 8
+    threads over 1024-column slices of ``k`` (numpy's matmul releases the
+    GIL)."""
+    out = np.empty((li.shape[0], k.shape[1]), dtype=np.longdouble)
+
+    def columns(c0):
+        c1 = min(k.shape[1], c0 + 1024)
+        for r0 in range(0, li.shape[0], block):
+            r1 = min(li.shape[0], r0 + block)
+            out[r0:r1, c0:c1] = li[r0:r1, :r1] @ k[:r1, c0:c1]
+
+    with concurrent.futures.ThreadPoolExecutor(8) as pool:
+        list(pool.map(columns, range(0, k.shape[1], 1024)))
+    return out
+
+
+def longdouble_queries(queries):
+    """Row indices of ``longdouble_check``'s seeded queries."""
+    rng = np.random.default_rng(LONGDOUBLE_QUERIES)
+    return np.sort(rng.choice(queries.shape[0],
+                              min(LONGDOUBLE_QUERIES, queries.shape[0]),
+                              replace=False))
+
+
+def longdouble_ratios(outs, inputs, count, kind=None, programs=None):
+    """The errors of float64 predict outputs ``outs = (mean, var)`` against
+    ``numpy.longdouble``, over the bound the float64 margins assume: every
+    operation rounds by at most ``extended_verify.U_EFF`` (``u``), and the
+    solve chain of ``errorbounds._gp_terms`` carries it, with ``n =
+    count`` and ``g = n u / (1 - n u)``:
+
+        r = |L| (|k| + 2 dk),  da = |L| dk + (g + u) r,
+        a_tot = |a| + 2 da,
+        |d mean| <= da^T |alpha| + (g + 2u) a_tot^T |alpha|,
+        |d var|  <= sum(2 a_tot da + g a_tot^2) + u sum(a^2),
+
+    where ``dk`` is k's own error at ``u``: ``(16 + 2 r^2) u |k|`` for
+    kernel 1 (``kind``; ``rounding_bounds``' count), ``_eval_bounded``'s
+    plus the scale and the mask for kernels 2 and 3 (``programs``: one
+    ``chol_inv`` and ``alpha`` column per program). ``inputs`` are the
+    kernel's, at the queries of ``outs``. ``longdouble`` keeps at least 60
+    bits (``transcendental_ulps``), so its own rounding is 2^-7 of one
+    unit at most. Returns ``[(max |d mean|, max |d var|, mean ratio, var
+    ratio)]``, one per output."""
+    u = extended_verify.U_EFF
+    n = count
+    g = n * u / (1 - n * u)
+
+    def ld(t):
+        return t.detach().cpu().numpy().astype(np.longdouble)
+
+    def f64(t):
+        return t.detach().double().cpu().numpy()
+
+    q, x = inputs[0], inputs[1]
+    xl, ql = ld(x[:n]), ld(q)
+    mean_k, var_k = outs
+    if kind is not None:
+        _, _, li, alpha, mask, s2 = inputs
+        mean_k, var_k = f64(mean_k)[:, None, :], f64(var_k)[:, None]
+        r2 = sum((xl[:, c][:, None] - ql[:, c][None, :]) ** 2
+                 for c in range(x.shape[1]))
+        k = _LD_COV[kind](r2) * ld(mask[:n])[:, None] * np.longdouble(
+            float(s2))
+        ks = [k]
+        dks = [(16 + 2 * r2.astype(np.float64)) * u
+               * np.abs(k.astype(np.float64))]
+        lis, alphas = [li], [alpha]
+    else:
+        _, _, params, li, alpha, mask, s2 = inputs
+        lis = [li] if li.dim() == 2 else list(li)
+        alphas = ([alpha] if li.dim() == 2
+                  else [alpha[s][:, None] for s in range(len(programs))])
+        mean_k = f64(mean_k).reshape(q.shape[0], len(lis), -1)
+        var_k = f64(var_k).reshape(q.shape[0], len(lis))
+        scale = ld(mask[:n])[:, None] * np.longdouble(float(s2))
+        ks, dks = [], []
+        for program in programs:
+            ks.append(_ld_program(program, ld(params), xl, ql) * scale)
+            _, kabs, err = _eval_bounded(program, params.double().cpu(),
+                                         x[:n].double().cpu().T,
+                                         q.double().cpu().T, u)
+            dks.append(u * (err + 2 * kabs).numpy() * float(s2)
+                       * f64(mask[:n])[:, None])
+    tiny = np.finfo(np.float64).tiny
+    result = []
+    for s, (li, alpha, k, dk) in enumerate(zip(lis, alphas, ks, dks)):
+        a = _ld_lower_product(ld(li[:n, :n]), k)
+        mean_ld = (a.T @ ld(alpha[:n])).astype(np.float64)
+        var_ld = (a * a).sum(axis=0).astype(np.float64)
+        l_abs, al_abs = np.abs(f64(li[:n, :n])), np.abs(f64(alpha[:n]))
+        a64 = np.abs(a.astype(np.float64))
+        da = l_abs @ dk + (g + u) * (l_abs @ (np.abs(k.astype(np.float64))
+                                              + 2 * dk))
+        a_tot = a64 + 2 * da
+        b_mean = da.T @ al_abs + (g + 2 * u) * (a_tot.T @ al_abs)
+        b_var = ((2 * a_tot * da + g * a_tot ** 2).sum(0)
+                 + u * (a64 ** 2).sum(0))
+        e_mean = np.abs(mean_k[:, s, :] - mean_ld)
+        e_var = np.abs(var_k[:, s] - var_ld)
+        result.append((float(e_mean.max()), float(e_var.max()),
+                       float((e_mean / np.maximum(b_mean, tiny)).max()),
+                       float((e_var / np.maximum(b_var, tiny)).max())))
+    return result
+
+
+def longdouble_check(card, label, inputs, count, kind=None, programs=None):
+    """``longdouble_ratios`` of the float64 kernel on the card (kernel 1
+    with ``kind``, kernel 2 or 3 with ``programs``) at
+    ``LONGDOUBLE_QUERIES`` seeded queries of one path's inputs; prints
+    each output's errors and shares and fails if one exceeds 1."""
+    idx = longdouble_queries(inputs[0])
+    q = inputs[0][torch.as_tensor(idx, device=inputs[0].device)]
+    inputs = (q.contiguous(),) + tuple(inputs[1:])
+    if kind is not None:
+        outs = gp_kernel.gp_predict_cuda(*inputs, kind=kind, count=count)
+    elif inputs[3].dim() == 2:
+        outs = gp_kernel.gp_predict_general_cuda(*inputs, programs[0],
+                                                 count=count)
+    else:
+        outs = gp_kernel.gp_predict_stacked_cuda(*inputs, programs,
+                                                 count=count)
+    torch.cuda.synchronize()
+    results = longdouble_ratios(outs, inputs, count, kind, programs)
+    for s, (em, ev, rm, rv) in enumerate(results):
+        print("float64 kernel against numpy.longdouble, {} output {} ({} "
+              "queries, count {}): max |d mean| {!r}, max |d var| {!r}; "
+              "share of the U_EFF bound: mean {!r}, var {!r} [{}]".format(
+                  label, s, len(idx), count, em, ev, rm, rv, card))
+    worst = max(max(rm, rv) for _, _, rm, rv in results)
+    print("float64 kernel against numpy.longdouble, {}: largest error over "
+          "the U_EFF bound {!r} (must be <= 1) [{}]".format(label, worst,
+                                                            card))
+    if not worst <= 1.0:
+        raise AssertionError("the float64 kernel's error at the {} inputs "
+                             "exceeds the bound the float64 margins assume "
+                             "(ratio {!r})".format(label, worst))
     return worst
 
 
@@ -5259,6 +5721,35 @@ def rigor_sweeps(lyap, label, card, oracle_safe, r=1, reps=3):
         runs["hybrid"])
 
 
+def rigor_certify_times():
+    """``chip_smoke.py --rigor-certify``: phase 21's adaptive certify
+    alone, to time two trees' kernels in turns (``python -P chip_smoke.py
+    --rigor-certify`` with ``PYTHONPATH`` naming the tree whose package
+    runs): the adaptive example at ``--full`` (count 181), a fresh
+    ``Lyapunov`` as ``phase_rigor`` builds it, its per-state extended
+    margin, then ``rigor_sweeps`` (3 of each mode, in turns, hybrid =
+    extended checked). Prints one JSON line: the package's directory,
+    the card, each mode's median and runs in wall seconds, the safe
+    states and ``c_max``."""
+    card = phase_device()
+    r = ADAPTIVE_REFINEMENT
+    base = adaptive_safety_verification.run(full=True).lyap
+    lyap = st.Lyapunov(base.discretization, base.lyapunov_function,
+                       base.dynamics, base._lipschitz_dynamics,
+                       base._lipschitz_lyapunov, base.tau, base.policy,
+                       initial_set=np.flatnonzero(base.initial_safe_set),
+                       adaptive=True)
+    extended_verify.extended_certificate_margin(
+        lyap, refinement=r, per_point=True, batch_size=DERIVE_BATCH)
+    ext, _, ext_s, hyb_s = rigor_sweeps(lyap, "adaptive", card, None, r=r,
+                                        reps=3)
+    print(json.dumps({"package": os.path.dirname(st.__file__),
+                      "card": card, "count": int(lyap.dynamics.count),
+                      "extended_s": ext_s, "hybrid_s": hyb_s,
+                      "safe": int(ext["safe"].sum()),
+                      "c_max": float(ext["c_max"])}))
+
+
 def extended_sample_check(lyap, card):
     """``get_safe_sample(extended=True)`` on the certified bench: the
     margin derived at ``U_EFF`` over exactly its candidate rows, float64
@@ -5319,6 +5810,9 @@ def in_float64(fn):
         entry = (dict(numbers) if isinstance(numbers, dict)
                  else dict(zip(keys, numbers)))
         entry["dtype"] = "float64"
+        # Kernels 1-3 in float64 run the product on DMMA (tiled and panel
+        # bodies, gp_predict_common.cuh); ``sass_check`` shows it.
+        entry["design"] = "dmma"
         return entry
     return run
 
@@ -5415,6 +5909,11 @@ def phase_rigor(card, bench, adaptive, adaptive_derived):
     lyap.update_safe_set(extended=True)
     extended_sample_check(lyap, card)
     bench_view = float64_view(sweep, points)
+    with st.oracle._oracle_env(st.config.device):
+        inputs, gp = sweep_inputs(bench_view)
+        longdouble_check(card, "bench (kernel 1)", inputs, gp.count,
+                         kind="rbf")
+        del inputs, gp
     paths.append(("gp_predict", "bench_extended_float64",
                   ext["launches"]["gp_predict"],
                   in_float64(lambda: phase_times(card, bench_view,
@@ -5498,6 +5997,11 @@ def phase_rigor(card, bench, adaptive, adaptive_derived):
     if not ext["chunks"] or any(n < 1 for _, n in ext["chunks"]):
         raise AssertionError("every float64 refinement chunk must launch "
                              "kernel 3")
+    with st.oracle._oracle_env(st.config.device):
+        inputs, programs = stacked_inputs(adaptive_view, chunk_points)
+        longdouble_check(card, "adaptive refinement chunk (kernel 3)",
+                         inputs, count, programs=programs)
+        del inputs
     paths.append(("gp_predict_stacked", "adaptive_extended_float64",
                   ext["launches"]["gp_predict_stacked"] - chunk_launches,
                   in_float64(lambda: panel_times(
@@ -5887,6 +6391,7 @@ def main():
     with phase_clock(seconds, "count cases"):
         phase_kernel_count_cases()
         phase_program_count_cases()
+        phase_dmma_cases()
     kernel_start = time.perf_counter()
     # Per kernel and path: (launches, max_abs_err, ms, plain_ms, eager_ms,
     # bound_ms, bound_by, bound_kind). A kernel's headline numbers are its
@@ -6024,5 +6529,7 @@ def kernel_rows(paths):
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--sharded-worker"]:
         sharded_worker(sys.argv[2:])
+    elif sys.argv[1:2] == ["--rigor-certify"]:
+        rigor_certify_times()
     else:
         sys.exit(main())

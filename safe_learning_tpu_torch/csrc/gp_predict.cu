@@ -26,6 +26,10 @@
 // dimensions from registers and runs on from memory past them. Above
 // n = 128 the streamed body recomputes k in chunks, so any count up to
 // kernel_max_capacity = 2048 runs in a fixed amount of shared memory.
+// In float64 (the extended check of the bench) the tiled body runs the
+// product on the FP64 tensor cores (gp_predict_common.cuh's DMMA bodies):
+// the float64 exp of the k fill on the CUDA cores is then the larger
+// share, and two blocks an SM overlap one's fill with the other's solve.
 //
 // Padded rows count..cap of chol_inv are the identity with x = 0 there;
 // the mask zeroes their k, hence their a: the loops stop at the count and
@@ -71,6 +75,48 @@ gp_predict_tiled(const T* __restrict__ q, const T* __restrict__ x,
     __syncthreads();  // partials written; k may be overwritten
     store_tile<T, NB>(sm.red, q0, n_q, p, 1, 0, mean_out, var_out);
   }
+}
+
+// The float64 tiled body, bucket NB >= n: the product on DMMA
+// (gp_predict_common.cuh's DMMA bodies).
+template <typename T, int KIND, int NB>
+__global__ void __launch_bounds__((tiled_threads<T, NB>()),
+                                  (tiled_blocks<T, NB>()))
+gp_predict_tiled_dmma(const T* __restrict__ q, const T* __restrict__ x,
+                      const T* __restrict__ chol_inv,
+                      const T* __restrict__ alpha,
+                      const T* __restrict__ mask,
+                      const T* __restrict__ var_s2_ptr, int64_t n_q, int d,
+                      int cap, int n, int p, T* __restrict__ mean_out,
+                      T* __restrict__ var_out) {
+  static_assert(sizeof(T) == 8, "the DMMA body is float64");
+  using TL = TileD<NB>;
+  constexpr int TQ = TL::TQ;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const TiledSmemD<NB> sm(smem_raw, 1, p, d);
+  stage_chol_inv_dmma<NB, TL::NTH>(sm.ls, chol_inv, cap, n);
+  stage_rows<T, TL::NTH>(sm.xs, sm.ms, x, mask, n, d);
+  __syncthreads();  // chol_inv, x and the mask staged
+  const T var_s2 = *var_s2_ptr;
+  auto q0_of = [&](int64_t u) { return (blockIdx.x + u * gridDim.x) * TQ; };
+  dmma_tiles<NB>(
+      block_items((n_q + TQ - 1) / TQ),
+      [&](int64_t u, int b) {
+        const int64_t qi = q0_of(u) + fill_tid<NB>() % TQ;
+        T qv[D_MAX];
+        load_row(q, qi, n_q, d, qv);
+        const T* qrow = query_row(q, qi, n_q, d);
+        fill_tile_dmma<NB>(sm.ks(b), [&](int j) {
+          return stationary_k<T, KIND>(sm.xs, sm.ms, qv, qrow, d, var_s2, j);
+        }, n);
+      },
+      [&](int64_t, int b) {
+        solve_tile_dmma<NB>(sm.ks(b), sm.ls, sm.red(b), alpha, n, p);
+      },
+      [&](int64_t u, int b) {
+        store_slots<T, TQ, TL::WG, TL::NTH>(sm.red(b), q0_of(u), n_q, p, 1,
+                                            0, mean_out, var_out);
+      });
 }
 
 // Streamed body, n > N_TILED_MAX: one query per thread.
@@ -134,16 +180,24 @@ cudaError_t launch_streamed(const Args<T>& a) {
 template <typename T, int KIND, int NB>
 cudaError_t launch_tiled(const Args<T>& a) {
   static GridCache cache;
-  auto kernel = gp_predict_tiled<T, KIND, NB>;
+  // Float64 takes the DMMA body.
+  auto kernel = [] {
+    if constexpr (sizeof(T) == 8) {
+      return gp_predict_tiled_dmma<T, KIND, NB>;
+    } else {
+      return gp_predict_tiled<T, KIND, NB>;
+    }
+  }();
   const size_t smem = tiled_smem_bytes<T, NB>(1, a.p, a.d);
-  // Too many outputs or dimensions for a resident chol_inv (float64 at
-  // bucket 128): the streamed body takes it.
+  // A block that does not fit (none at D_MAX and P_MAX since the float64
+  // tiled body packs chol_inv) would take the streamed body.
   if (smem > SMEM_MAX) return launch_streamed<T, KIND>(a);
+  constexpr int threads = tiled_threads<T, NB>();
   int grid = 0;
-  const cudaError_t err =
-      persistent_grid(cache, kernel, smem, a.n_q, Tile<NB>::TQ, &grid);
+  const cudaError_t err = persistent_grid(cache, kernel, smem, a.n_q,
+                                          tiled_tq<T, NB>(), &grid, threads);
   if (err != cudaSuccess) return err;
-  kernel<<<grid, NT, smem, a.stream>>>(a.q, a.x, a.chol_inv, a.alpha,
+  kernel<<<grid, threads, smem, a.stream>>>(a.q, a.x, a.chol_inv, a.alpha,
                                        a.mask, a.var_s2, a.n_q, a.d, a.cap,
                                        a.n, a.p, a.mean_out, a.var_out);
   return cudaGetLastError();

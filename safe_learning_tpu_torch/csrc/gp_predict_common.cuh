@@ -33,10 +33,20 @@
 // CUDA cores (67 TFLOP/s; TF32 is not allowed on this path) and by the
 // shared-memory loads that feed the FMAs, never by device memory. At small
 // counts the n evaluations of k per query and output outweigh the solve.
+// In float64 (the rigor paths: the extended and hybrid checks) the product
+// L^-1 K runs on the FP64 tensor cores (DMMA, mma.sync m16n8k16, 67
+// TFLOP/s, twice the CUDA cores' FP64 rate) in the tiled and panel bodies
+// (the DMMA bodies below). What bounds it then is the k fill on the CUDA
+// cores: a float64 exp or sqrt is tens of FP64 instructions, so at the
+// adaptive example's n = 181 the 362 evaluations a query cost about as
+// much time as its 2 x 19,968 product FMAs on DMMA (16-row tiles, k steps
+// of 16); next come the shared-memory loads that feed the mma fragments
+// (0.5 to 0.75 bytes an FMA) and, where chol_inv is streamed, its reads
+// from L2.
 //
 // Three bodies, chosen by shape alone (count, dtype, p, d): the tiled body
 // up to N_TILED_MAX = 128 rows, the panel body above it up to
-// Panel<T>::N_MAX (512 rows in float32, 256 in float64; kernels 2 and 3),
+// panel_max<T>() (512 rows in float32, 256 in float64; kernels 2 and 3),
 // and the streamed body above that (and for kernel 1 above 128 rows).
 //
 // The tiled body (n <= 128, solve_tile and its helpers):
@@ -69,7 +79,7 @@
 //   - float32 tiles short in rows (NB <= 64) keep three blocks on an SM,
 //     so that one block's k evaluation overlaps another's solve.
 //
-// The panel body (128 < n <= Panel<T>::N_MAX, or a tiled block that does
+// The panel body (128 < n <= panel_max<T>(), or a tiled block that does
 // not fit; panel_fetch, panel_chunk, panel_reduce and the kernel
 // gp_program_panel of gp_predict_program.cuh) is the streamed body
 // redesigned for this card. It answers the six causes that held the
@@ -87,10 +97,9 @@
 //      n = 181, p = 1, d = 3): two blocks, 16 warps an SM;
 //   4. chol_inv tiles were restaged with plain loads behind two barriers:
 //      here chol_inv streams through a ring of NSLOT = 2 shared-memory
-//      slots of PROWS x JC values (a 64-row panel, 256 bytes of columns in
-//      float32, 128 in float64) filled by cp.async, the next tile in
-//      flight while the block solves this one (64 j steps), one barrier a
-//      tile. Tiles past the
+//      slots of PROWS x JC values (a 64-row panel, 256 bytes of columns)
+//      filled by cp.async, the next tile in flight while the block solves
+//      this one (64 j steps), one barrier a tile. Tiles past the
 //      diagonal are never copied; elements above it, or past the count,
 //      are zero-filled by the copy (src-size 0), so nothing reads them.
 //      chol_inv rows are cap values apart, which for cap = 181 is not 16
@@ -130,20 +139,70 @@
 // keep a second layout.
 //
 // The streamed body (solve_streamed; kernel 1 above 128 rows and its
-// variants, kernels 2 and 3 above Panel<T>::N_MAX): one query per thread,
+// variants, kernels 2 and 3 above panel_max<T>()): one query per thread,
 // the chol_inv row tile staged transposed, and k recomputed in chunks of
 // CB columns, so any count up to kernel_max_capacity = 2048 runs in a
 // fixed amount of shared memory.
 //
-// Precision: FP32 (or FP64) FMAs on the CUDA cores, no fast-math, library
-// expf/exp. A's sums keep the ascending-j order; the reductions' order
-// differs from the plain twin's and stays inside the computed bounds.
+// The DMMA bodies (float64 kernels 1-3; dmma, solve_tile_dmma,
+// dmma_tiles, solve_panels_dmma). The float32 bodies above, and kernels
+// 4-7 in both dtypes, keep the CUDA-core solve; so does the float64
+// streamed body.
+//   - A = L^-1 K in 16 x 8 x 16 mma tiles (m16n8k16, the fastest depth on
+//     the card): a warp owns 16-row tiles of A (rows on the mma's M,
+//     queries on N, j on K). A k step loads one A fragment (16 rows x 16 j
+//     of chol_inv) and one B fragment per 8 queries from shared memory;
+//     both arrays are swizzled (swz) rather than padded, so every fragment
+//     load is two 128-byte wavefronts;
+//   - the tiled body keeps Tile's warp pairs (row tiles g and RT-1-g, the
+//     same work for every warp) and stages chol_inv packed by row tile,
+//     only the columns up to each tile's last row (dmma_tri: 72 KB at
+//     NB = 128 against 128 KB square, 160 KB at 192);
+//   - overlap of the k fill with the product (TileD, dmma_tiles): up to
+//     bucket 128 two blocks share an SM (111 KB each at the bench's
+//     shape, a 32-query K tile at 128), each filling then solving, so one
+//     block's fill runs beside the other's solve. Bucket 192 serves
+//     kernels 2 and 3 from 129 to 192 rows (the adaptive example's 181)
+//     with chol_inv resident (160 KB), which leaves room for one block:
+//     it is warp-specialised, 6 mma warps solving one 16-query tile from
+//     one K buffer while 10 fill warps evaluate the next tile into the
+//     other, one barrier a tile. Streaming chol_inv from L2 for every
+//     query tile instead cost more than the product (PERF.md);
+//   - the k loop is not unrolled: at the 128 registers that two blocks
+//     (or 16 warps) an SM allow, unrolling it spilled and ran 8-10 %
+//     slower;
+//   - above 192 rows, or where that block does not fit, the panel body
+//     gives each warp whole 16-row tiles for the TQ = 64 queries of an
+//     item, longest first onto the least loaded warp (lpt_tiles, from n
+//     alone), and each warp streams its tiles' chol_inv through its own
+//     cp.async ring of 16 x 16 slots, synchronised by __syncwarp alone;
+//   - the triangular skip stops a tile's k loop at min(n, its last row +
+//     1) rounded up to 16: K rows and chol_inv columns from n to there are
+//     zero-filled, so the last step adds exact zeros;
+//   - epilogue from fragments: each lane squares or weights its
+//     accumulators, sums its rows, and reduce_tiles sums the 8 lanes of a
+//     query column by halving exchanges into the same partial-sum slots
+//     as the CUDA-core bodies.
+// Every query sees the same operations wherever it lies in a launch: the
+// k loop starts at j = 0 in the same steps for every query, and each
+// query's sums run the same tree. So a query's outputs are bit for bit
+// the same in any launch, which the hybrid sweep (equal to the extended
+// one) and the sharded sweeps rely on.
+//
+// Precision: FP32 FMAs on the CUDA cores in float32; in float64 FP64 FMAs
+// on the CUDA cores for k and the reductions and IEEE float64 mma on the
+// tensor cores for the product, whose summation order within an mma is the
+// hardware's; no fast-math, library expf/exp. The CUDA-core bodies keep
+// A's ascending-j order; the reductions' order differs from the plain
+// twin's; both stay inside the computed bounds (rounding_bounds, the
+// float64 margins' U_EFF model, chip_smoke.py).
 
 #pragma once
 
 #include <cstdint>
 #include <cuda_runtime.h>
 #include <mutex>
+#include <type_traits>
 
 namespace gp_common {
 
@@ -255,13 +314,23 @@ __host__ __device__ constexpr int ls_stride(int nb) {
 // Dynamic shared memory of one tiled block: chol_inv of n_res outputs,
 // the [NB][TQ] k tile, the [SLOTS][p + 1][TQ] partial sums, and the
 // active rows of x ([NB][d]) and of the mask.
+template <int NB>
+__host__ __device__ constexpr size_t dmma_tiled_smem_bytes(int n_res, int p,
+                                                           int d);
+
 template <typename T, int NB>
 __host__ __device__ constexpr size_t tiled_smem_bytes(int n_res, int p,
                                                       int d) {
-  return sizeof(T) *
-         ((size_t)n_res * NB * ls_stride<T>(NB) + (size_t)NB * Tile<NB>::TQ +
-          (size_t)Tile<NB>::SLOTS * (p + 1) * Tile<NB>::TQ +
-          (size_t)NB * (d + 1));
+  // Float64 runs the DMMA body and its layout.
+  if constexpr (sizeof(T) == 8) {
+    return dmma_tiled_smem_bytes<NB>(n_res, p, d);
+  } else {
+    return sizeof(T) *
+           ((size_t)n_res * NB * ls_stride<T>(NB) +
+            (size_t)NB * Tile<NB>::TQ +
+            (size_t)Tile<NB>::SLOTS * (p + 1) * Tile<NB>::TQ +
+            (size_t)NB * (d + 1));
+  }
 }
 
 // Pointers into a tiled block's shared memory (see tiled_smem_bytes).
@@ -292,13 +361,13 @@ __device__ __forceinline__ void stage_chol_inv(
 }
 
 // Stage the active rows of x (n x d, row-major) and of the mask.
-template <typename T>
+template <typename T, int NTH = NT>
 __device__ __forceinline__ void stage_rows(T* xs, T* ms,
                                            const T* __restrict__ x,
                                            const T* __restrict__ mask, int n,
                                            int d) {
-  for (int idx = threadIdx.x; idx < n * d; idx += NT) xs[idx] = x[idx];
-  for (int j = threadIdx.x; j < n; j += NT) ms[j] = mask[j];
+  for (int idx = threadIdx.x; idx < n * d; idx += NTH) xs[idx] = x[idx];
+  for (int j = threadIdx.x; j < n; j += NTH) ms[j] = mask[j];
 }
 
 // ks[j][ql] = kfn(j) for j < n, where ql is this thread's query in the
@@ -514,21 +583,427 @@ inline cudaError_t persistent_grid(GridCache& cache, Kernel kernel,
 }
 
 // ---------------------------------------------------------------------------
-// Panel body: N_TILED_MAX < n <= Panel<T>::N_MAX (kernels 2 and 3)
+// Float64 on the FP64 tensor cores (DMMA): the tiled and panel bodies of
+// kernels 1-3 in float64 (their design is in the header note)
+// ---------------------------------------------------------------------------
+// Depth of one mma.sync: m16n8k16 in float64 (sm_90), the fastest of the
+// three float64 depths in the first builds on the card.
+constexpr int KD = 16;
+constexpr int KS4 = KD / 4;  // groups of 4 columns of one mma
+
+// c += A B for one 16 x 8 x 16 float64 tile. Fragments of lane (g, t) =
+// (lane / 4, lane % 4): a[s][h] = A[g + 8h][4s + t], b[s] = B[4s + t][g],
+// c[2h + e] = C[g + 8h][2t + e] (the PTX ISA's layout of this shape).
+__device__ __forceinline__ void dmma(double (&c)[4],
+                                     const double (&a)[KS4][2],
+                                     const double (&b)[KS4]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f64.f64.f64.f64 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7, %8, %9, %10, %11}, "
+      "{%12, %13, %14, %15}, {%0, %1, %2, %3};\n"
+      : "+d"(c[0]), "+d"(c[1]), "+d"(c[2]), "+d"(c[3])
+      : "d"(a[0][0]), "d"(a[0][1]), "d"(a[1][0]), "d"(a[1][1]),
+        "d"(a[2][0]), "d"(a[2][1]), "d"(a[3][0]), "d"(a[3][1]),
+        "d"(b[0]), "d"(b[1]), "d"(b[2]), "d"(b[3]));
+}
+
+// n rounded up to the mma depth: K rows and chol_inv columns from n to
+// there are zeros, so the last k step adds exact zeros.
+__host__ __device__ constexpr int dmma_rows(int n) {
+  return (n + KD - 1) / KD * KD;
+}
+
+// Column of element (row, col) in a [rows][W] shared-memory array whose
+// width W is a multiple of 16 doubles, swizzled so that a fragment load
+// (4 consecutive rows by 4 columns a half-warp, or 4 rows by 4 column
+// groups) meets 16 different 8-byte banks: two 128-byte wavefronts a
+// warp, no padding.
+__device__ __forceinline__ int swz(int row, int col) {
+  return col ^ ((row & 3) << 2);
+}
+
+// v[c] is this lane's partial for query tile c of the warp's N (query
+// 8c + 2t + e, for one e); returns the sum over the 8 lanes g of this t
+// for query tile c = g >> (3 - log2 N), alike in every lane that shares
+// it. Halving exchanges over g's bits from the top, then butterflies:
+// every query's sum has the same tree over the g lanes,
+// ((x0 + x4) + (x2 + x6)) + ((x1 + x5) + (x3 + x7)), whatever its tile.
+template <int N, int OFF = 16>
+__device__ __forceinline__ double reduce_tiles(const double (&v)[N],
+                                               int lane) {
+  if constexpr (OFF == 2) {
+    return v[0];
+  } else if constexpr (N == 1) {
+    const double w[1] = {v[0] + __shfl_xor_sync(0xffffffffu, v[0], OFF)};
+    return reduce_tiles<1, OFF / 2>(w, lane);
+  } else {
+    const bool hi = lane & OFF;
+    double w[N / 2];
+#pragma unroll
+    for (int k = 0; k < N / 2; ++k) {
+      const double send = hi ? v[k] : v[k + N / 2];
+      w[k] = (hi ? v[k + N / 2] : v[k]) +
+             __shfl_xor_sync(0xffffffffu, send, OFF);
+    }
+    return reduce_tiles<N / 2, OFF / 2>(w, lane);
+  }
+}
+
+// log2 of the g lanes that share a reduce_tiles result over N tiles.
+template <int N>
+__host__ __device__ constexpr int share_bits() {
+  return N == 2 ? 2 : N == 4 ? 1 : 0;
+}
+
+// Shape of the float64 tiled body at bucket NB: RT row tiles of 16 rows;
+// WG warps share a query group, each taking the row tiles g and RT-1-g
+// (H of them); an mma warp owns QT query tiles of 8; TQ queries a block
+// tile; one partial-sum slot a row warp. Up to bucket 128 all NW warps
+// fill and then solve, two blocks an SM. Warp-specialised (SPEC; bucket
+// 192, where kernels 2 and 3 keep chol_inv resident from 129 to 192 rows,
+// 160 KB): MW mma warps solve one tile from one K buffer while FW fill
+// warps evaluate the next tile's K into the other, one barrier a tile
+// (dmma_tiles), so the float64 k fill on the CUDA cores overlaps the
+// product on the tensor cores.
+template <int NB>
+struct TileD {
+  static_assert(NB % 16 == 0 && NB <= 192, "bucket");
+  static constexpr int RT = NB / 16;
+  static constexpr int WG = RT > 1 ? RT / 2 : 1;
+  static constexpr int H = RT > 1 ? 2 : 1;
+  static constexpr bool SPEC = NB == 192;
+  static_assert(SPEC || NB <= N_TILED_MAX, "bucket 192 is warp-specialised");
+  static constexpr int QT = NB >= 128 ? 2 : 4;
+  static constexpr int MW = SPEC ? 6 : NW;
+  static constexpr int FW = SPEC ? 10 : 0;
+  static constexpr int NTH = 32 * (MW + FW);
+  static constexpr int FTH = SPEC ? 32 * FW : NTH;  // threads that fill
+  static constexpr int TQ = MW / WG * 8 * QT;
+  static constexpr int NBUF = SPEC ? 2 : 1;
+};
+
+// The query tile and the threads of a tiled block in dtype T.
+template <typename T, int NB>
+__host__ __device__ constexpr int tiled_tq() {
+  if constexpr (sizeof(T) == 4) {
+    return Tile<NB>::TQ;
+  } else {
+    return TileD<NB>::TQ;
+  }
+}
+template <typename T, int NB>
+__host__ __device__ constexpr int tiled_threads() {
+  if constexpr (sizeof(T) == 4) {
+    return NT;
+  } else {
+    return TileD<NB>::NTH;
+  }
+}
+
+// The resident chol_inv of the tiled body, transposed and packed: row
+// tile m (rows 16m .. 16m + 15) keeps its columns j < 16 (m + 1) as a
+// [j][16] block at dmma_tri(m), swizzled. Columns past a row tile's last
+// row are never read, so the triangle takes 128 RT (RT + 1) values, not
+// NB^2 (72 KB at NB = 128 against 128 KB).
+__host__ __device__ constexpr int dmma_tri(int m) {
+  return 128 * m * (m + 1);
+}
+
+// Blocks of a tiled kernel per SM for its launch bounds: the float32
+// choice (tiled_min_blocks); in float64 one warp-specialised block, or
+// two blocks so that one block's k fill overlaps the other's solve.
+template <typename T, int NB>
+__host__ __device__ constexpr int tiled_blocks() {
+  if constexpr (sizeof(T) == 4) {
+    return tiled_min_blocks<T, NB>();
+  } else {
+    return TileD<NB>::SPEC ? 1 : 2;
+  }
+}
+
+// Dynamic shared memory of one float64 tiled block: the packed chol_inv
+// of n_res outputs, NBUF [NB][TQ] K tiles and [WG][p + 1][TQ] partial
+// sums, and the active rows of x and of the mask.
+template <int NB>
+__host__ __device__ constexpr size_t dmma_tiled_smem_bytes(int n_res, int p,
+                                                           int d) {
+  using TL = TileD<NB>;
+  return sizeof(double) *
+         ((size_t)n_res * dmma_tri(NB / 16) +
+          (size_t)TL::NBUF * (NB + TL::WG * (p + 1)) * TL::TQ +
+          (size_t)NB * (d + 1));
+}
+
+// Pointers into a float64 tiled block's shared memory; ks(b) and red(b)
+// are buffer b's K tile and partial sums.
+template <int NB>
+struct TiledSmemD {
+  using TL = TileD<NB>;
+  double *ls, *kbuf, *rbuf, *xs, *ms;
+  int rsz;
+  __device__ __forceinline__ TiledSmemD(unsigned char* raw, int n_res, int p,
+                                        int d)
+      : ls(reinterpret_cast<double*>(raw)),
+        kbuf(ls + n_res * dmma_tri(NB / 16)),
+        rbuf(kbuf + TL::NBUF * NB * TL::TQ),
+        xs(rbuf + TL::NBUF * TL::WG * (p + 1) * TL::TQ),
+        ms(xs + NB * d),
+        rsz(TL::WG * (p + 1) * TL::TQ) {}
+  __device__ __forceinline__ double* ks(int b) const {
+    return kbuf + b * NB * TL::TQ;
+  }
+  __device__ __forceinline__ double* red(int b) const {
+    return rbuf + b * rsz;
+  }
+};
+
+// Stage chol_inv[:n, :n] (row stride cap) into the packed layout of
+// dmma_tri, by NTH threads; zero past the count. Row tiles at or past n
+// are never read.
+template <int NB, int NTH>
+__device__ __forceinline__ void stage_chol_inv_dmma(
+    double* ls, const double* __restrict__ chol_inv, int cap, int n) {
+#pragma unroll 1
+  for (int m = 0; m < NB / 16 && 16 * m < n; ++m) {
+    const int cols = 16 * (m + 1);
+    double* dst = ls + dmma_tri(m);
+    for (int idx = threadIdx.x; idx < 16 * cols; idx += NTH) {
+      const int il = idx / cols;
+      const int j = idx - il * cols;
+      const int i = 16 * m + il;
+      dst[j * 16 + swz(j, il)] =
+          i < n && j < n ? chol_inv[(int64_t)i * cap + j] : 0.0;
+    }
+  }
+}
+
+// ks[j][swz(j, ql)] = kfn(j) for j < n and 0 up to dmma_rows(n), where ql
+// is the query in the TQ-query tile of fill thread tid (of NTH).
+template <int TQ, int NTH, class KFn>
+__device__ __forceinline__ void fill_k_dmma(double* ks, const KFn& kfn,
+                                            int n, int tid) {
+  constexpr int JS = NTH / TQ;  // threads per query
+  static_assert(NTH % TQ == 0, "whole queries a fill");
+  const int ql = tid % TQ;
+  const int j0 = tid / TQ;
+  // Unrolled so that several rows' covariances are in flight at once.
+#pragma unroll 4
+  for (int j = j0; j < n; j += JS) {
+    ks[j * TQ + swz(j, ql)] = kfn(j);
+  }
+  for (int j = n + j0; j < dmma_rows(n); j += JS) {
+    ks[j * TQ + swz(j, ql)] = 0.0;
+  }
+}
+
+// This thread's place in a tiled block's K fill: (its thread index among
+// the threads that fill, its query in the tile). Warp-specialised, the
+// fill warps are the warps after the MW mma warps.
+template <int NB>
+__device__ __forceinline__ int fill_tid() {
+  using TL = TileD<NB>;
+  return (int)threadIdx.x - (TL::SPEC ? 32 * TL::MW : 0);
+}
+
+// A tiled block's K fill of one item by its fill threads (fill_tid).
+template <int NB, class KFn>
+__device__ __forceinline__ void fill_tile_dmma(double* ks, const KFn& kfn,
+                                               int n) {
+  using TL = TileD<NB>;
+  fill_k_dmma<TL::TQ, TL::FTH>(ks, kfn, n, fill_tid<NB>());
+}
+
+// A float64 tiled block's items u = 0 .. items - 1 (its query tiles, in
+// order): fill(u, b) evaluates item u's K into buffer b by the fill
+// threads (fill_tile_dmma), solve(u, b) runs the mma warps' product and
+// epilogue into red(b), store(u, b) stores red(b) by every thread.
+// Warp-specialised (SPEC), the fill warps fill item u + 1 while the mma
+// warps solve item u, one barrier an item; else fill, barrier, solve,
+// barrier, store.
+template <int NB, class Fill, class Solve, class Store>
+__device__ __forceinline__ void dmma_tiles(int64_t items, const Fill& fill,
+                                           const Solve& solve,
+                                           const Store& store) {
+  using TL = TileD<NB>;
+  if constexpr (TL::SPEC) {
+    const bool mma = (int)(threadIdx.x >> 5) < TL::MW;
+    if (!mma && items > 0) fill(0, 0);
+    __syncthreads();  // item 0's K filled
+    for (int64_t u = 0; u < items; ++u) {
+      const int b = (int)(u & 1);
+      if (mma) {
+        solve(u, b);
+      } else if (u + 1 < items) {
+        fill(u + 1, b ^ 1);
+      }
+      __syncthreads();  // red(b) written, K(b ^ 1) filled, K(b) free
+      store(u, b);
+    }
+  } else {
+    for (int64_t u = 0; u < items; ++u) {
+      fill(u, 0);
+      __syncthreads();  // k staged
+      solve(u, 0);
+      __syncthreads();  // partials written; k may be overwritten
+      store(u, 0);
+    }
+  }
+}
+
+// The tiles of n_tiles that block blockIdx.x of a persistent grid takes:
+// blockIdx.x, + gridDim.x, ...
+__device__ __forceinline__ int64_t block_items(int64_t n_tiles) {
+  return n_tiles > blockIdx.x
+             ? (n_tiles - 1 - blockIdx.x) / gridDim.x + 1
+             : 0;
+}
+
+// The float64 tiled body's A = L^-1 K on DMMA. Warp (grp, wg) owns the
+// query columns grp * 8 QT .. (QT tiles of 8) and the row tiles wg and
+// RT - 1 - wg (16 rows each, H of them), so every warp of a full bucket
+// does the same work; its k loop runs both tiles to the shorter one's end
+// min(n, 16 wg + 16) rounded to KD, then the longer one alone. Per k step
+// a warp loads 2 A and QT B fragments for 2 QT mma. The epilogue squares
+// or weights each accumulator, sums the thread's rows and reduces over
+// the g lanes (reduce_tiles) into red[wg][c][q] (c < p: mean, c == p:
+// var). Rows at or past n hold exact zeros.
+template <int NB>
+__device__ __forceinline__ void solve_tile_dmma(
+    const double* ks, const double* ls, double* red,
+    const double* __restrict__ alpha, int n, int p) {
+  using TL = TileD<NB>;
+  constexpr int TQ = TL::TQ, RT = TL::RT, WG = TL::WG, H = TL::H;
+  constexpr int QT = TL::QT;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int grp = warp / WG;
+  const int wg = warp - grp * WG;
+  const int qcol = grp * 8 * QT;
+  const int n4 = dmma_rows(n);
+  int mt[H], jend[H];
+  mt[0] = wg;
+  if constexpr (H == 2) mt[1] = RT - 1 - wg;
+#pragma unroll
+  for (int h = 0; h < H; ++h) {
+    jend[h] = 16 * mt[h] < n ? min(n4, 16 * mt[h] + 16) : 0;
+  }
+  double acc[H][QT][4];
+#pragma unroll
+  for (int h = 0; h < H; ++h) {
+#pragma unroll
+    for (int c = 0; c < QT; ++c) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[h][c][e] = 0.0;
+    }
+  }
+  // Lane (g, t) reads K[j0 + 4s + t][qcol + 8c + g] and
+  // L[16 mt + g + 8hh][j0 + 4s + t]; (j0 + 4s + t) & 3 == t.
+  const double* kp = ks + t * TQ;
+  int kcol[QT];
+#pragma unroll
+  for (int c = 0; c < QT; ++c) kcol[c] = swz(t, qcol + 8 * c + g);
+  const double* lp[H];
+#pragma unroll
+  for (int h = 0; h < H; ++h) lp[h] = ls + dmma_tri(mt[h]) + t * 16;
+  const int acol0 = swz(t, g), acol1 = swz(t, g + 8);
+
+  // Both tiles up to the shorter extent, then the longer one alone (a
+  // tile at or past n has extent 0 and was not staged).
+  auto step = [&](int j0, int only) {
+    double b[QT][KS4];
+#pragma unroll
+    for (int c = 0; c < QT; ++c) {
+#pragma unroll
+      for (int s = 0; s < KS4; ++s) b[c][s] = kp[(j0 + 4 * s) * TQ + kcol[c]];
+    }
+#pragma unroll
+    for (int h = 0; h < H; ++h) {
+      if (only >= 0 && h != only) continue;
+      double a[KS4][2];
+#pragma unroll
+      for (int s = 0; s < KS4; ++s) {
+        a[s][0] = lp[h][(j0 + 4 * s) * 16 + acol0];
+        a[s][1] = lp[h][(j0 + 4 * s) * 16 + acol1];
+      }
+#pragma unroll
+      for (int c = 0; c < QT; ++c) dmma(acc[h][c], a, b[c]);
+    }
+  };
+  const int j_both = min(jend[0], jend[H - 1]);
+  const int j_all = max(jend[0], jend[H - 1]);
+  const int tail = jend[H - 1] > jend[0] ? H - 1 : 0;
+#pragma unroll 1
+  for (int j0 = 0; j0 < j_both; j0 += KD) step(j0, -1);
+#pragma unroll 1
+  for (int j0 = j_both; j0 < j_all; j0 += KD) step(j0, tail);
+
+  double* slot = red + (int64_t)wg * (p + 1) * TQ + qcol + 2 * t;
+  // The lanes of query tile cq share the reduction; the first stores.
+  constexpr int SB = share_bits<QT>();
+  const int cq = g >> SB;
+  const bool writer = (g & ((1 << SB) - 1)) == 0;
+#pragma unroll
+  for (int e = 0; e < 2; ++e) {
+    double v[QT];
+#pragma unroll
+    for (int c = 0; c < QT; ++c) {
+      v[c] = 0.0;
+#pragma unroll
+      for (int h = 0; h < H; ++h) {
+        v[c] += acc[h][c][e] * acc[h][c][e];
+        v[c] += acc[h][c][2 + e] * acc[h][c][2 + e];
+      }
+    }
+    const double x = reduce_tiles(v, lane);
+    if (writer) slot[p * TQ + 8 * cq + e] = x;
+  }
+#pragma unroll 1
+  for (int o = 0; o < p; ++o) {
+    double al[H][2];
+#pragma unroll
+    for (int h = 0; h < H; ++h) {
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int i = 16 * mt[h] + g + 8 * hh;
+        al[h][hh] = i < n ? __ldg(alpha + (int64_t)i * p + o) : 0.0;
+      }
+    }
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      double v[QT];
+#pragma unroll
+      for (int c = 0; c < QT; ++c) {
+        v[c] = 0.0;
+#pragma unroll
+        for (int h = 0; h < H; ++h) {
+          v[c] += acc[h][c][e] * al[h][0];
+          v[c] += acc[h][c][2 + e] * al[h][1];
+        }
+      }
+      const double x = reduce_tiles(v, lane);
+      if (writer) slot[o * TQ + 8 * cq + e] = x;
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Panel body: N_TILED_MAX < n <= Panel<T>::N_MAX (float32 kernels 2 and 3)
 // ---------------------------------------------------------------------------
 // Shape of a panel block of NT threads. A warp is WR x WC lanes, each
 // thread a TM x TN tile of A (its TN queries in groups of 4, 4 * WC
 // apart), so a warp owns WTM rows by WTN queries; QG warps span the TQ
 // queries of a tile and RTP warps the PROWS rows of a row panel. chol_inv
-// streams through NSLOT slots of PROWS x JC values (JC: 256 bytes of a row
-// in float32, 128 in float64), row stride LSTR (JC plus 16 bytes: rows
-// start 16-byte aligned). The K tile and the staged rows of x are sized
-// by n rounded up to ROUND, so few sizes reach the launch cache. N_MAX is
-// the largest count it takes: a float32 block at n = 512, d = 16, p = 8
-// needs 209,920 B (one block, 8 warps an SM; two up to n = 256 at
-// d = 3), a float64 block at n = 256 202,752 B.
+// streams through NSLOT slots of PROWS x JC values (JC: 256 bytes of a
+// row), row stride LSTR (JC plus 16 bytes: rows start 16-byte aligned).
+// The K tile and the staged rows of x are sized by n rounded up to ROUND,
+// so few sizes reach the launch cache. N_MAX is the largest count it
+// takes: a block at n = 512, d = 16, p = 8 needs 209,920 B (one block, 8
+// warps an SM; two up to n = 256 at d = 3). Float32 only: float64 takes
+// the DMMA panel body (PanelD).
 template <typename T>
 struct Panel {
+  static_assert(sizeof(T) == 4, "the float64 panel body is PanelD");
   // The register tile: lane row lr holds rows lr * TM .. lr * TM + TM - 1
   // of its warp's WTM.
   static constexpr int TM = 4;
@@ -540,12 +1015,12 @@ struct Panel {
   static constexpr int QG = TQ / WTN;
   static constexpr int RTP = NW / QG;
   static constexpr int PROWS = RTP * WTM;
-  static constexpr int JC = (sizeof(T) == 4 ? 256 : 128) / (int)sizeof(T);
+  static constexpr int JC = 256 / (int)sizeof(T);
   static constexpr int LSTR = JC + 16 / (int)sizeof(T);
   static constexpr int NSLOT = 2;
-  static constexpr int MIN_BLOCKS = sizeof(T) == 4 ? 2 : 1;
+  static constexpr int MIN_BLOCKS = 2;
   static constexpr int ROUND = 64;
-  static constexpr int N_MAX = sizeof(T) == 4 ? 512 : 256;
+  static constexpr int N_MAX = 512;
   static_assert((PROWS * JC) % NT == 0, "copies per thread");
 };
 
@@ -811,8 +1286,262 @@ __device__ __forceinline__ void solve_panels(
 }
 
 // ---------------------------------------------------------------------------
+// Float64 panel body on DMMA (kernels 2 and 3 above 192 rows up to
+// PanelD::N_MAX, or from 129 where the resident block of bucket 192 does
+// not fit)
+// ---------------------------------------------------------------------------
+// A block of NT threads takes a (query tile, output) item: it evaluates
+// K[0:n, TQ] into shared memory, then each warp computes whole 16-row
+// tiles of A for all TQ = 64 queries (8 query tiles, 32 accumulators a
+// lane), streaming its tiles' chol_inv rows through its own ring of NSLOT
+// slots of 16 rows x JC columns by cp.async, synchronised by the warp
+// alone. Row tiles go to warps by longest extent first onto the least
+// loaded warp (lpt_tiles), from n alone, so a warp's tiles and the order
+// of its partial sums do not depend on the query tile. Per k step a warp
+// loads 1 A and QT B fragments for QT mma. After the solve each warp's
+// partials (registers) go to red, which reuses the K tile's memory, and
+// are summed in warp order. One block an SM: a 32-query tile, for two,
+// was slower (PERF.md). The K tile and the staged rows are sized by n
+// rounded up to ROUND; N_MAX is the largest count it takes (a block at
+// n = 256, d = 16, p = 8: 215,040 B).
+struct PanelD {
+  static constexpr int TQ = 64;
+  static constexpr int QT = TQ / 8;  // query tiles a warp
+  static constexpr int JC = 16;
+  static constexpr int NSLOT = 3;
+  static constexpr int SLOT = 16 * JC;
+  static constexpr int ROUND = 64;
+  static constexpr int N_MAX = 256;
+  static_assert(N_MAX <= 16 * 32, "row tiles as bits of a word");
+  static_assert(JC % KD == 0, "whole mma steps a slot");
+};
+
+// The panel body's largest count and query tile in dtype T.
+template <typename T>
+__host__ __device__ constexpr int panel_max() {
+  if constexpr (sizeof(T) == 4) {
+    return Panel<T>::N_MAX;
+  } else {
+    return PanelD::N_MAX;
+  }
+}
+template <typename T>
+__host__ __device__ constexpr int panel_tq() {
+  if constexpr (sizeof(T) == 4) {
+    return Panel<T>::TQ;
+  } else {
+    return PanelD::TQ;
+  }
+}
+
+// The float64 panel body's rows: n rounded up to ROUND.
+__host__ __device__ constexpr int dmma_panel_rows(int n) {
+  return (n + PanelD::ROUND - 1) / PanelD::ROUND * PanelD::ROUND;
+}
+
+// Dynamic shared memory of one float64 panel block: the K tile
+// ([dmma_panel_rows][TQ]; later the [NW][p + 1][TQ] partial sums), the
+// warps' rings and the staged rows of x and of the mask.
+__host__ __device__ constexpr size_t dmma_panel_smem_bytes(int n, int p,
+                                                           int d) {
+  const size_t rows = (size_t)dmma_panel_rows(n);
+  const size_t ks = rows * PanelD::TQ;
+  const size_t red = (size_t)NW * (p + 1) * PanelD::TQ;
+  return sizeof(double) * ((ks > red ? ks : red) +
+                           (size_t)NW * PanelD::NSLOT * PanelD::SLOT +
+                           rows * (d + 1));
+}
+
+// Dynamic shared memory of one panel block in dtype T.
+template <typename T>
+__host__ __device__ constexpr size_t panel_bytes(int n, int p, int d) {
+  if constexpr (sizeof(T) == 8) {
+    return dmma_panel_smem_bytes(n, p, d);
+  } else {
+    return panel_smem_bytes<T>(n, p, d);
+  }
+}
+
+// This warp's row tiles (bit m: rows 16m .. 16m + 15) of the M = ceil(n /
+// 16) at n rows: longest extent first, each onto the warp with the least
+// work so far (the lowest index on a tie).
+__device__ __forceinline__ unsigned lpt_tiles(int n, int warp) {
+  int load[NW];
+#pragma unroll
+  for (int w = 0; w < NW; ++w) load[w] = 0;
+  unsigned mine = 0;
+  const int n4 = dmma_rows(n);
+  for (int m = (n + 15) / 16 - 1; m >= 0; --m) {
+    int best = 0, least = load[0];
+#pragma unroll
+    for (int w = 1; w < NW; ++w) {
+      if (load[w] < least) {
+        least = load[w];
+        best = w;
+      }
+    }
+#pragma unroll
+    for (int w = 0; w < NW; ++w) {
+      if (w == best) load[w] += min(n4, 16 * m + 16);
+    }
+    if (best == warp) mine |= 1u << m;
+  }
+  return mine;
+}
+
+// Walks one warp's chol_inv chunks in order: its row tiles from the
+// highest, in each the JC-column chunks up to the tile's extent.
+struct WarpCursor {
+  unsigned left;
+  int n4, m = -1, c = 0, nc = 0;
+  __device__ __forceinline__ WarpCursor(unsigned tiles, int n4_)
+      : left(tiles), n4(n4_) {
+    next_tile();
+  }
+  __device__ __forceinline__ void next_tile() {
+    if (left == 0) {
+      m = -1;
+      return;
+    }
+    m = 31 - __clz(left);
+    left &= ~(1u << m);
+    c = 0;
+    nc = (extent() + PanelD::JC - 1) / PanelD::JC;
+  }
+  __device__ __forceinline__ bool valid() const { return m >= 0; }
+  __device__ __forceinline__ int extent() const {
+    return min(n4, 16 * m + 16);
+  }
+  __device__ __forceinline__ bool last_chunk() const { return c == nc - 1; }
+  __device__ __forceinline__ void next() {
+    if (++c == nc) next_tile();
+  }
+};
+
+// Start copying the cursor's chunk of chol_inv (rows 16m + r, columns
+// c JC + cc) into a warp's slot, swizzled ([16][JC]); elements above the
+// diagonal or at or past n are zero-filled without a read.
+__device__ __forceinline__ void warp_fetch(double* slot,
+                                           const double* __restrict__ chol_inv,
+                                           int cap, int n,
+                                           const WarpCursor& cur, int lane) {
+  constexpr int JC = PanelD::JC;
+  const int cc = lane % JC;
+  const int col = cur.c * JC + cc;
+#pragma unroll
+  for (int i = 0; i < PanelD::SLOT / 32; ++i) {
+    const int r = lane / JC + i * (32 / JC);
+    const int row = 16 * cur.m + r;
+    const bool in = row < n && col <= row;
+    cp_async<8>(slot + r * JC + swz(r, cc),
+                in ? chol_inv + (int64_t)row * cap + col : chol_inv,
+                in ? 8 : 0);
+  }
+}
+
+// A = L^-1 K for one query tile and output on DMMA, into this warp's
+// partial sums part[c][e] (c < p: mean, c == P_MAX: var) of queries
+// 8 (g >> share_bits<QT>) + 2t + e. `ic` has already started (and
+// committed, one group each) the warp's first NSLOT - 1 chunks into its
+// slots 0 .. NSLOT - 2; the K tile is in ks. Every lane of the warp must
+// call this.
+__device__ __forceinline__ void solve_panels_dmma(
+    const double* ks, double* ring, WarpCursor& ic, unsigned tiles,
+    const double* __restrict__ chol_inv, const double* __restrict__ alpha,
+    int cap, int n, int p, int lane, double (&part)[P_MAX + 1][2]) {
+  constexpr int TQ = PanelD::TQ, QT = PanelD::QT, JC = PanelD::JC;
+  constexpr int NSLOT = PanelD::NSLOT;
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int c = 0; c <= P_MAX; ++c) part[c][0] = part[c][1] = 0.0;
+  double acc[QT][4];
+#pragma unroll
+  for (int c = 0; c < QT; ++c) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[c][e] = 0.0;
+  }
+  const double* kp = ks + t * TQ;
+  int kcol[QT];
+#pragma unroll
+  for (int c = 0; c < QT; ++c) kcol[c] = swz(t, 8 * c + g);
+  const int aoff0 = g * JC, aoff1 = (g + 8) * JC;
+  WarpCursor cc(tiles, ic.n4);
+  for (int it = 0; cc.valid(); ++it) {
+    cp_async_wait<NSLOT - 2>();  // chunk `it` has landed (this lane's part)
+    __syncwarp();  // ... every lane's; the slot of chunk it - 1 is free
+    if (ic.valid()) {
+      warp_fetch(ring + (it + NSLOT - 1) % NSLOT * PanelD::SLOT, chol_inv,
+                 cap, n, ic, lane);
+      ic.next();
+    }
+    cp_async_commit();  // one group a chunk, empty past the last
+    const double* slot = ring + it % NSLOT * PanelD::SLOT;
+    const int j0 = cc.c * JC;
+    const int jn = min(JC, cc.extent() - j0);
+#pragma unroll
+    for (int kk = 0; kk < JC; kk += KD) {
+      if (kk >= jn) break;
+      double a[KS4][2];
+#pragma unroll
+      for (int s = 0; s < KS4; ++s) {
+        const int col = swz(g, kk + 4 * s + t);
+        a[s][0] = slot[aoff0 + col];
+        a[s][1] = slot[aoff1 + col];
+      }
+#pragma unroll
+      for (int c = 0; c < QT; ++c) {
+        double b[KS4];
+#pragma unroll
+        for (int s = 0; s < KS4; ++s) {
+          b[s] = kp[(j0 + kk + 4 * s) * TQ + kcol[c]];
+        }
+        dmma(acc[c], a, b);
+      }
+    }
+    if (cc.last_chunk()) {
+      // The tile's rows into the partial sums; rows at or past n are
+      // exact zeros.
+      const int r0 = 16 * cc.m;
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        double v[QT];
+#pragma unroll
+        for (int c = 0; c < QT; ++c) {
+          v[c] = acc[c][e] * acc[c][e];
+          v[c] += acc[c][2 + e] * acc[c][2 + e];
+        }
+        part[P_MAX][e] += reduce_tiles(v, lane);
+      }
+#pragma unroll
+      for (int o = 0; o < P_MAX; ++o) {
+        if (o >= p) break;
+        const int i0 = r0 + g, i1 = r0 + g + 8;
+        const double al0 = i0 < n ? __ldg(alpha + (int64_t)i0 * p + o) : 0.0;
+        const double al1 = i1 < n ? __ldg(alpha + (int64_t)i1 * p + o) : 0.0;
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          double v[QT];
+#pragma unroll
+          for (int c = 0; c < QT; ++c) {
+            v[c] = acc[c][e] * al0;
+            v[c] += acc[c][2 + e] * al1;
+          }
+          part[o][e] += reduce_tiles(v, lane);
+        }
+      }
+#pragma unroll
+      for (int c = 0; c < QT; ++c) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[c][e] = 0.0;
+      }
+    }
+    cc.next();
+  }
+}
+
+// ---------------------------------------------------------------------------
 // Streamed body: kernel 1 above N_TILED_MAX, kernels 2 and 3 above
-// Panel<T>::N_MAX
+// panel_max<T>()
 // ---------------------------------------------------------------------------
 constexpr int NTS = 128;  // threads (queries) per streamed block
 constexpr int RB = 32;    // rows of a held in registers at a time

@@ -62,9 +62,13 @@
 // (query tile, output) items of a persistent grid: it evaluates the
 // output's program into the K tile once, streams that output's chol_inv
 // through the cp.async ring and reduces. The streamed body
-// (solve_streamed) runs above Panel<T>::N_MAX rows (512 in float32, 256
+// (solve_streamed) runs above panel_max<T>() rows (512 in float32, 256
 // in float64) or where a panel block does not fit; gp_program_streamed_*
-// launch it at any count, for comparison.
+// launch it at any count, for comparison. In float64 (the rigor paths)
+// the tiled and panel bodies run the product on the FP64 tensor cores
+// (gp_program_tiled_dmma, gp_program_panel_dmma; the DMMA bodies of
+// gp_predict_common.cuh), and the program's float64 evaluation on the
+// CUDA cores becomes the larger share.
 // Numerics follow the plain twin (ops/gp_kernel.py::_eval_program):
 // lengthscales enter as reciprocals multiplied into the differences, the
 // program's k is scaled by s2 * mask afterwards, the 1e-36 guards of the
@@ -128,6 +132,74 @@ __device__ __forceinline__ void load_params(const T* __restrict__ params,
   for (int i = 0; i < Prog::NUM_PARAMS; ++i) pr[i] = __ldg(params + i);
 }
 
+// Output OUT of the float64 tiled body on DMMA over this block's query
+// tiles (dmma_tiles), then the outputs after it. With `resident`, ls
+// holds every output's chol_inv; else this stages OUT's.
+template <class Prog, int NB, int OUT>
+__device__ __forceinline__ void outputs_dmma(
+    const TiledSmemD<NB>& sm, bool resident, const Args<double>& a,
+    const double (&pr)[Prog::NUM_PARAMS], double s2) {
+  using TL = TileD<NB>;
+  constexpr int TQ = TL::TQ;
+  if (!resident) {
+    // The last output's solves were done with ls before its last barrier.
+    stage_chol_inv_dmma<NB, TL::NTH>(
+        sm.ls, a.chol_inv + (int64_t)OUT * a.cap * a.cap, a.cap, a.n);
+  }
+  const double* ls = resident ? sm.ls + OUT * dmma_tri(NB / 16) : sm.ls;
+  const double* alpha = a.alpha + (int64_t)OUT * a.cap * a.p;
+  auto q0_of = [&](int64_t u) { return (blockIdx.x + u * gridDim.x) * TQ; };
+  dmma_tiles<NB>(
+      block_items((a.n_q + TQ - 1) / TQ),
+      [&](int64_t u, int b) {
+        double qv[D_MAX];
+        load_row(a.q, q0_of(u) + fill_tid<NB>() % TQ, a.n_q, a.d, qv);
+        const double* xs = sm.xs;
+        const double* ms = sm.ms;
+        const int d = a.d;
+        fill_tile_dmma<NB>(sm.ks(b), [&](int j) {
+          return Prog::template k<double, OUT>(xs + j * d, qv, pr) * s2 *
+                 ms[j];
+        }, a.n);
+      },
+      [&](int64_t, int b) {
+        solve_tile_dmma<NB>(sm.ks(b), ls, sm.red(b), alpha, a.n, a.p);
+      },
+      [&](int64_t u, int b) {
+        store_slots<double, TQ, TL::WG, TL::NTH>(
+            sm.red(b), q0_of(u), a.n_q, a.p, Prog::NUM_OUT, OUT, a.mean_out,
+            a.var_out);
+      });
+  if constexpr (OUT + 1 < Prog::NUM_OUT) {
+    outputs_dmma<Prog, NB, OUT + 1>(sm, resident, a, pr, s2);
+  }
+}
+
+// The float64 tiled body, bucket NB >= n: the product on DMMA
+// (gp_predict_common.cuh's DMMA bodies). Bucket 192 is the panel body's
+// up to 192 rows where its block fits (panel_resident).
+template <typename T, class Prog, int NB>
+__global__ void __launch_bounds__((tiled_threads<T, NB>()),
+                                  (tiled_blocks<T, NB>()))
+gp_program_tiled_dmma(const Args<T> a, bool resident) {
+  static_assert(sizeof(T) == 8, "the DMMA body is float64");
+  using TL = TileD<NB>;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const TiledSmemD<NB> sm(smem_raw, resident ? Prog::NUM_OUT : 1, a.p, a.d);
+  if (resident) {
+    for (int s = 0; s < Prog::NUM_OUT; ++s) {
+      stage_chol_inv_dmma<NB, TL::NTH>(
+          sm.ls + s * dmma_tri(NB / 16),
+          a.chol_inv + (int64_t)s * a.cap * a.cap, a.cap, a.n);
+    }
+  }
+  stage_rows<T, TL::NTH>(sm.xs, sm.ms, a.x, a.mask, a.n, a.d);
+  __syncthreads();  // x, the mask (and chol_inv) staged
+  T pr[Prog::NUM_PARAMS];
+  load_params<T, Prog>(a.params, pr);
+  outputs_dmma<Prog, NB, 0>(sm, resident, a, pr, *a.s2);
+}
+
 // Tiled body, bucket NB >= n (gp_predict_common.cuh).
 template <typename T, class Prog, int NB>
 __global__ void __launch_bounds__(NT, (tiled_min_blocks<T, NB>()))
@@ -157,7 +229,7 @@ gp_program_tiled(const Args<T> a, bool resident) {
   }
 }
 
-// Streamed body (n > Panel<T>::N_MAX, or gp_program_streamed_*): output
+// Streamed body (n > panel_max<T>(), or gp_program_streamed_*): output
 // OUT, then the outputs after it.
 template <typename T, class Prog, int OUT>
 __device__ __forceinline__ void streamed_outputs(
@@ -228,6 +300,90 @@ __device__ __forceinline__ void panel_fill(
   }
 }
 
+// Output s's K tile for the float64 panel body on DMMA.
+template <class Prog, int OUT = 0>
+__device__ __forceinline__ void panel_fill_dmma(
+    int s, double* ks, const double* xs, const double* ms, int n, int d,
+    const double (&qv)[D_MAX], const double (&pr)[Prog::NUM_PARAMS],
+    double s2) {
+  if (s == OUT) {
+    fill_k_dmma<PanelD::TQ, NT>(ks, [&](int j) {
+      return Prog::template k<double, OUT>(xs + j * d, qv, pr) * s2 * ms[j];
+    }, n, (int)threadIdx.x);
+  } else if constexpr (OUT + 1 < Prog::NUM_OUT) {
+    panel_fill_dmma<Prog, OUT + 1>(s, ks, xs, ms, n, d, qv, pr, s2);
+  }
+}
+
+// The float64 panel body on DMMA (gp_predict_common.cuh), chol_inv
+// streamed through the warps' rings: a persistent grid over (query tile,
+// output) items.
+template <typename T, class Prog>
+__global__ void __launch_bounds__(NT, 1)
+gp_program_panel_dmma(const Args<T> a) {
+  static_assert(sizeof(T) == 8, "the DMMA body is float64");
+  constexpr int TQ = PanelD::TQ;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int rows = dmma_panel_rows(a.n);
+  double* ks = reinterpret_cast<double*>(smem_raw);
+  const int ksz = max(rows * TQ, NW * (a.p + 1) * TQ);
+  double* ring = ks + ksz;
+  double* xs = ring + NW * PanelD::NSLOT * PanelD::SLOT;
+  double* ms = xs + rows * a.d;
+  double* red = ks;  // the partial sums reuse the K tile's memory
+  stage_rows(xs, ms, a.x, a.mask, a.n, a.d);
+  double pr[Prog::NUM_PARAMS];
+  load_params<double, Prog>(a.params, pr);
+  const double s2 = *a.s2;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const unsigned tiles = lpt_tiles(a.n, warp);
+  double* wring = ring + warp * PanelD::NSLOT * PanelD::SLOT;
+  const int64_t items = (a.n_q + TQ - 1) / TQ * Prog::NUM_OUT;
+  for (int64_t it = blockIdx.x; it < items; it += gridDim.x) {
+    const int64_t q0 = it / Prog::NUM_OUT * TQ;
+    const int s = (int)(it % Prog::NUM_OUT);
+    const double* chol_inv = a.chol_inv + (int64_t)s * a.cap * a.cap;
+    // The warp's first chunks are copied while the block evaluates k.
+    WarpCursor ic(tiles, dmma_rows(a.n));
+    for (int i = 0; i < PanelD::NSLOT - 1; ++i) {
+      if (ic.valid()) {
+        warp_fetch(wring + i * PanelD::SLOT, chol_inv, a.cap, a.n, ic, lane);
+        ic.next();
+      }
+      cp_async_commit();
+    }
+    __syncthreads();  // x and the mask staged; the last item's red stored
+    double qv[D_MAX];
+    load_row(a.q, q0 + threadIdx.x % TQ, a.n_q, a.d, qv);
+    panel_fill_dmma<Prog>(s, ks, xs, ms, a.n, a.d, qv, pr, s2);
+    __syncthreads();  // K filled
+    double part[P_MAX + 1][2];
+    solve_panels_dmma(ks, wring, ic, tiles, chol_inv,
+                      a.alpha + (int64_t)s * a.cap * a.p, a.cap, a.n, a.p,
+                      lane, part);
+    __syncthreads();  // every warp is done with K
+    // The lanes of a query tile share its sums; the first stores them.
+    constexpr int SB = share_bits<PanelD::QT>();
+    double* mine = red + warp * (a.p + 1) * TQ +
+                   8 * (lane >> 2 >> SB) + 2 * (lane & 3);
+    if ((lane >> 2 & ((1 << SB) - 1)) == 0) {
+#pragma unroll
+      for (int c = 0; c <= P_MAX; ++c) {
+        const int row = c == P_MAX ? a.p : c;
+        if (c < a.p || c == P_MAX) {
+          mine[row * TQ] = part[c][0];
+          mine[row * TQ + 1] = part[c][1];
+        }
+      }
+    }
+    __syncthreads();  // partials written
+    store_slots<double, TQ, NW, NT>(red, q0, a.n_q, a.p, Prog::NUM_OUT, s,
+                                    a.mean_out, a.var_out);
+  }
+  cp_async_wait<0>();
+}
+
 // Panel body (gp_predict_common.cuh): a persistent grid over (query tile,
 // output) items.
 template <typename T, class Prog>
@@ -273,10 +429,17 @@ gp_program_panel(const Args<T> a) {
 template <typename T, class Prog>
 cudaError_t launch_panel(const Args<T>& a, cudaStream_t stream) {
   static GridCache cache;
-  auto kernel = gp_program_panel<T, Prog>;
-  const size_t smem = panel_smem_bytes<T>(a.n, a.p, a.d);
+  // Float64 takes the DMMA body.
+  auto kernel = [] {
+    if constexpr (sizeof(T) == 8) {
+      return gp_program_panel_dmma<T, Prog>;
+    } else {
+      return gp_program_panel<T, Prog>;
+    }
+  }();
+  const size_t smem = panel_bytes<T>(a.n, a.p, a.d);
   const int64_t items =
-      (a.n_q + Panel<T>::TQ - 1) / Panel<T>::TQ * Prog::NUM_OUT;
+      (a.n_q + panel_tq<T>() - 1) / panel_tq<T>() * Prog::NUM_OUT;
   int grid = 0;
   const cudaError_t err =
       persistent_grid(cache, kernel, smem, items, 1, &grid);
@@ -299,16 +462,35 @@ int resident_outputs(int p, int d) {
 template <typename T, class Prog, int NB>
 cudaError_t launch_tiled(const Args<T>& a, cudaStream_t stream) {
   static GridCache cache;
-  auto kernel = gp_program_tiled<T, Prog, NB>;
+  // Float64 takes the DMMA body.
+  auto kernel = [] {
+    if constexpr (sizeof(T) == 8) {
+      return gp_program_tiled_dmma<T, Prog, NB>;
+    } else {
+      return gp_program_tiled<T, Prog, NB>;
+    }
+  }();
   const int n_res = resident_outputs<T, Prog, NB>(a.p, a.d);
   const bool resident = n_res == Prog::NUM_OUT;
   const size_t smem = tiled_smem_bytes<T, NB>(n_res, a.p, a.d);
+  constexpr int threads = tiled_threads<T, NB>();
   int grid = 0;
-  const cudaError_t err =
-      persistent_grid(cache, kernel, smem, a.n_q, Tile<NB>::TQ, &grid);
+  const cudaError_t err = persistent_grid(cache, kernel, smem, a.n_q,
+                                          tiled_tq<T, NB>(), &grid, threads);
   if (err != cudaSuccess) return err;
-  kernel<<<grid, NT, smem, stream>>>(a, resident);
+  kernel<<<grid, threads, smem, stream>>>(a, resident);
   return cudaGetLastError();
+}
+
+// Whether a float64 panel launch at count rows keeps chol_inv resident:
+// the warp-specialised tiled body at bucket 192, where its block fits.
+template <typename T, class Prog>
+bool panel_resident(int count, int p, int d) {
+  if constexpr (sizeof(T) == 8) {
+    return count <= 192 && resident_outputs<double, Prog, 192>(p, d) > 0;
+  } else {
+    return false;
+  }
 }
 
 // f(std::integral_constant<int, NB>{}) at the tiled bucket NB >= count
@@ -323,7 +505,11 @@ decltype(auto) with_bucket(int count, F&& f) {
 
 // The body a launch takes, from its shape alone: the tiled body up to
 // N_TILED_MAX rows where its block fits, else the panel body up to
-// Panel<T>::N_MAX rows where its block fits, else the streamed body.
+// panel_max<T>() rows where its block fits, else the streamed body. In
+// float64, BODY_PANEL from 129 to 192 rows launches the resident tiled
+// body at bucket 192 (gp_program_tiled_dmma, panel_resident) where its
+// block fits, else gp_program_panel_dmma: both are the DMMA bodies that
+// serve the panel's range.
 enum Body { BODY_TILED = 0, BODY_PANEL = 1, BODY_STREAMED = 2 };
 
 template <typename T, class Prog>
@@ -334,8 +520,9 @@ Body body(int count, int p, int d) {
       }) > 0) {
     return BODY_TILED;
   }
-  if (count <= Panel<T>::N_MAX &&
-      panel_smem_bytes<T>(count, p, d) <= SMEM_MAX) {
+  if (count <= panel_max<T>() &&
+      (panel_resident<T, Prog>(count, p, d) ||
+       panel_bytes<T>(count, p, d) <= SMEM_MAX)) {
     return BODY_PANEL;
   }
   return BODY_STREAMED;
@@ -384,13 +571,18 @@ int launch(const void* q, const void* x, const void* params,
         return (int)launch_tiled<T, Prog, decltype(nb)::value>(a, st);
       });
     case BODY_PANEL:
+      if constexpr (sizeof(T) == 8) {
+        if (panel_resident<T, Prog>(count, p, d)) {
+          return (int)launch_tiled<T, Prog, 192>(a, st);
+        }
+      }
       return (int)launch_panel<T, Prog>(a, st);
     default:
       return (int)launch_streamed<T, Prog>(a, st);
   }
 }
 
-// The streamed body at any count (the body above Panel<T>::N_MAX), for
+// The streamed body at any count (the body above panel_max<T>()), for
 // comparisons with the body a launch takes; no path of the package
 // launches it below that count.
 template <typename T, class Prog>
@@ -418,7 +610,13 @@ long long smem_bytes(int count, int p, int d) {
             resident_outputs<T, Prog, NB>(p, d), p, d);
       });
     case BODY_PANEL:
-      return (long long)panel_smem_bytes<T>(count, p, d);
+      if constexpr (sizeof(T) == 8) {
+        if (panel_resident<T, Prog>(count, p, d)) {
+          return (long long)tiled_smem_bytes<T, 192>(
+              resident_outputs<T, Prog, 192>(p, d), p, d);
+        }
+      }
+      return (long long)panel_bytes<T>(count, p, d);
     default:
       return (long long)streamed_smem_bytes<T>();
   }
@@ -476,7 +674,7 @@ long long smem_bytes(int count, int p, int d) {
                          : gp_program::body<float, PROG>(count, p, d);      \
   }                                                                         \
   int gp_program_panel_max(int itemsize) {                                  \
-    return itemsize == 8 ? gp_common::Panel<double>::N_MAX                  \
-                         : gp_common::Panel<float>::N_MAX;                  \
+    return itemsize == 8 ? gp_common::panel_max<double>()                   \
+                         : gp_common::panel_max<float>();                   \
   }                                                                         \
   }

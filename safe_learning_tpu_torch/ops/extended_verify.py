@@ -448,7 +448,7 @@ def _check_panel_limit(dynamics, device):
         raise ValueError(
             "the extended sweep's float64 GP predict holds {} data points; "
             "the float64 panel body of kernels 2 and 3 stops at count {} "
-            "(Panel<double>::N_MAX)".format(dynamics.count, limit))
+            "(PanelD::N_MAX)".format(dynamics.count, limit))
 
 
 def _spotcheck(lyapunov, fn, matrix, what):

@@ -601,3 +601,64 @@ def test_kernel_variants_launch_their_kernels(on_cuda):
     gp(torch.zeros(5, 3, device=on_cuda))
     assert gp_kernel.gp_predict_cuda.launches == plain_before + 1
     assert [cuda_fn.launches for _, cuda_fn, _ in wrappers] == counts
+
+
+#: The float64 DMMA bodies' edges (``chip_smoke.DMMA_COUNTS``): every k
+#: step, 16-row tile and bucket edge of the tiled body and the panel
+#: body's row tiles.
+DMMA_COUNTS = [1, 4, 5, 8, 9, 10, 16, 17, 24, 32, 64, 127, 128, 129, 136,
+               181, 255, 256]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("count", DMMA_COUNTS)
+def test_float64_dmma_bodies_at_their_edges(on_cuda, count):
+    """Kernels 1 (up to 128 rows), 2 and 3 in float64, where the product
+    runs on DMMA, against their plain versions within
+    ``chip_smoke.rounding_bounds`` and ``program_bounds``: p from 1 to 8,
+    S from 1 to 3, d 3 or 5 (``chip_smoke.dmma_count_cases``), a query
+    count that is no multiple of any query tile."""
+    from chip_smoke import (STACKED_SETS, case_gp, case_inputs,
+                            case_queries, compare, compare_program,
+                            dmma_count_cases, program_case)
+
+    _, cap, p, d, n_out = next(c for c in dmma_count_cases()
+                               if c[0] == count)
+    n_q = 4099
+    if count <= 128:
+        gp = case_gp("matern52", cap, p, 2.5, torch.float64, seed=count,
+                     n=count, d=d)
+        _, _, ratio = compare(case_inputs(gp, n_q, count), "matern52",
+                              count=count)
+        assert ratio <= 1.0
+    for route, names, pp, dd in (("general", ("product",), p, d),
+                                 ("stacked", STACKED_SETS[n_out], 1, 3)):
+        inputs, programs = program_case(route, names, cap, pp, 2.5,
+                                        torch.float64, seed=count, n=count,
+                                        d=dd)
+        points = case_queries(n_q, inputs[0], count)
+        _, _, ratio = compare_program(route, (points,) + inputs, programs,
+                                      count=count)
+        assert ratio <= 1.0
+
+
+@pytest.mark.cuda
+def test_float64_dmma_far_queries_with_subnormal_k(on_cuda):
+    """Far queries (r^2 from about 1,370 to 1,600: k subnormal, then 0)
+    through kernel 1 in float64 against the plain version within
+    ``chip_smoke.underflow_bounds``; finite outputs, some nonzero."""
+    from chip_smoke import (case_gp, case_inputs, compare_outputs,
+                            underflow_bounds)
+
+    gp = case_gp("rbf", 128, 2, 2.5, torch.float64, seed=950, n=100)
+    inputs = case_inputs(gp, 3001, 950)
+    far = torch.linspace(37.0, 40.0, 3001, dtype=torch.float64,
+                         device=on_cuda)[:, None] / 3 ** 0.5
+    far = (far + inputs[0] * 0.01).contiguous()
+    out = gp_kernel.gp_predict_cuda(far, *inputs[1:], kind="rbf",
+                                    count=gp.count)
+    (errors,) = compare_outputs(
+        [out], lambda part: gp_kernel.gp_predict_plain(*part, kind="rbf"),
+        lambda part: underflow_bounds(part, "rbf"), (far,) + inputs[1:])
+    assert errors[2] <= 1.0
+    assert (out[0] != 0).any() and (out[0] == 0).any()
