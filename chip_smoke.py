@@ -14,9 +14,12 @@ Phases, in order; any failure raises and the exit code is not 0:
    covariance program tuple (``csrc/gp_predict_program.cuh``) for
    ``sm_90a``, one ``nvcc`` each, all at once, and prints each build's
    time and the compiler's report; ``sass_check`` reads ``cuobjdump
-   --dump-sass`` of kernels 1-3's libraries: every float64 tiled and
-   panel kernel holds ``DMMA`` (the product on the FP64 tensor cores), no
-   float32 kernel and no float64 streamed kernel does;
+   --dump-sass`` of kernels 1-3's libraries and the variants': every
+   float64 tiled and panel kernel of kernels 1-3 holds ``DMMA`` (the
+   product on the FP64 tensor cores), no float32 kernel and no float64
+   streamed kernel does, and none of them a TF32 tensor-core instruction;
+   of the variants, kernel 7's float32 tiled kernels hold TF32 ``HGMMA``
+   (three passes, off every path) and no other does;
 3. kernel 1 against plain: the stationary GP-predict kernel against its
    plain PyTorch version on the card, for every stationary kind,
    capacities 8, 128 and 2048 with a partly filled mask, 1 and 2 outputs,
@@ -45,8 +48,10 @@ Phases, in order; any failure raises and the exit code is not 0:
    policy and quadratic candidate) in float32, once with a
    ``StackedGaussianProcess`` (kernel 3) and once with a ``FunctionStack``
    of two ``GaussianProcess``es (kernel 2). Each passes the two gates
-   against the port's float64 oracle (``oracle.oracle_safe_set``), certifies
-   more than the exempt initial set, and went through its kernel;
+   against the port's float64 oracle (``oracle.oracle_safe_set``; its
+   margins computed once, for the first route, and held for the second:
+   the same GPs on the same data), certifies more than the exempt initial
+   set, and went through its kernel;
 7. sweep times: CUDA events, median of 10 runs after warm-up, for the
    bench and flagship sweeps (one sweep a run);
 8. safe learning: the inverted pendulum's loop of
@@ -272,9 +277,11 @@ Phases, in order; any failure raises and the exit code is not 0:
     (``phase_kernel_variants``, the pipelined, interleaved by 2 and 4,
     folded and expanded-distance kernels of the port's benchmark modules):
     (a) each against its plain version within its bound
-    (``rounding_bounds``, ``folded_bounds``, ``expanded_bounds``) in float32
-    and float64, the four kinds, capacities 8, 128 and 2048 and the
-    cart-pole's d = 5, p = 4; (b) at the bench's and the cart-pole's
+    (``rounding_bounds``, ``folded_bounds``, ``expanded_bounds``; kernel
+    7's three-pass TF32 body with ``tf32x3``) in float32 and float64, the
+    four kinds, capacities 8, 128 and 2048 and the cart-pole's d = 5, p =
+    4, then in float32 the count edges ``VARIANT_COUNTS`` with queries on
+    training rows; (b) at the bench's and the cart-pole's
     kernel-1 inputs, their path, ``pipelined_predict.run`` and
     ``distance_mxu_experiment.run`` (launches counted; each variant's max
     |d| from kernel 1 and speed-up), then each against its plain version,
@@ -867,7 +874,15 @@ COV_SLOPE = {
 }
 
 
-def expanded_bounds(inputs, kind):
+#: The three-pass TF32 split's residual on one product, in units of
+#: float32's ``u = 2^-24``: each operand's small TF32 half leaves ``2^-22``
+#: of it (``2^-11`` of the ``2^-11`` its big half leaves) and the dropped
+#: ``small x small`` term is another ``2^-22``: ``3 x 2^-22 = 12 u``, and
+#: one to spare.
+TF32X3_SPLIT_U = 13
+
+
+def expanded_bounds(inputs, kind, tf32x3=False):
     """Elementwise bounds on ``|kernel - plain|`` of the expanded-distance
     variant, both computing ``r^2 = max(xx - 2 x.q + qq, 0)``.
 
@@ -886,6 +901,20 @@ def expanded_bounds(inputs, kind):
     relative error of the differences' ``r^2``): ``16 u`` relative for
     the covariance, the scale and the mask, ``cap u`` for each dot
     product stage, counted twice.
+
+    ``tf32x3``: the bound of kernel 7's float32 tiled body, which takes
+    the cross term ``x.q`` and the product ``L^-1 K`` on the tensor cores
+    in three TF32 passes. Each product there carries the split's residual
+    (``TF32X3_SPLIT_U`` units of ``|x_c q_c|`` or ``|l_ij k_j|``), and
+    each sum inside the tensor cores is taken at ``2u`` an addition
+    (truncation: NVIDIA does not document the accumulation as
+    round-to-nearest, and published measurements of earlier tensor cores
+    found truncation) over ``3 depth`` terms for the cross term (``depth``,
+    the dimensions padded to one or two k steps of 8) and ``3 (cap + 7)``
+    for a row of the product (its k steps of 8). So the kernel's ``r^2``
+    adds ``(TF32X3_SPLIT_U + 6 depth) u 2 |x|.|q|`` to ``eps``, and its
+    product ``(TF32X3_SPLIT_U + 6 (cap + 7)) u`` in place of ``cap u``; the
+    plain side is as above.
     """
     q, x, li, alpha, mask, var_s2 = (t.double() for t in inputs)
     u = torch.finfo(inputs[0].dtype).eps / 2
@@ -894,10 +923,13 @@ def expanded_bounds(inputs, kind):
     for i in range(d):
         diff = x[:, i][:, None] - q[:, i][None, :]
         r2 = diff * diff if r2 is None else r2 + diff * diff
-    big = ((x * x).sum(1)[:, None] + 2 * (x.abs() @ q.abs().T)
-           + (q * q).sum(1)[None, :])
-    eps = 2 * (d + 3) * u * big
-    del big
+    cross = x.abs() @ q.abs().T
+    eps = 2 * (d + 3) * u * ((x * x).sum(1)[:, None] + 2 * cross
+                             + (q * q).sum(1)[None, :])
+    if tf32x3:
+        depth = 8 if d <= 8 else 16
+        eps += 2 * (TF32X3_SPLIT_U + 6 * depth) * u * cross
+    del cross
     r_lo = (r2 - eps).clamp(min=0).sqrt()
     tiny = torch.finfo(torch.float64).tiny
     dr = torch.minimum(eps.sqrt(), eps / (2 * r_lo).clamp(min=tiny))
@@ -907,7 +939,12 @@ def expanded_bounds(inputs, kind):
     k = st.functions.gp.STATIONARY_COVARIANCES[kind](r2) * var_s2 \
         * mask[:, None]
     del r2
-    w = li.abs() @ ((cap + 16) * k.abs() + dk / (2 * u))
+    # The product's and k's units of both sides, over two (as counted
+    # twice below).
+    units = cap + 16
+    if tf32x3:
+        units = (units + TF32X3_SPLIT_U + 6 * (cap + 7) + 16) / 2
+    w = li.abs() @ (units * k.abs() + dk / (2 * u))
     del dk
     a = (li @ k).abs()
     del k
@@ -1047,13 +1084,32 @@ def phase_build():
 SASS_KERNEL = re.compile(
     r"gp_(?:predict|program)_(tiled|panel|streamed)(?:_dmma)?I([df])")
 
+#: A kernel function of kernel 1's variants (``gp_predict_variants.cu``):
+#: its body (``tiled_expanded_tf32`` is kernel 7's float32 tiled body,
+#: ``tiled_pipelined_ws`` kernel 4's) and its value type, the first
+#: template argument or, for those two, that of its ``Args``.
+SASS_VARIANT = re.compile(
+    r"(tiled_expanded_tf32|tiled_pipelined_ws|tiled_pipelined|"
+    r"tiled_interleaved|tiled_serial|streamed)I(?:([df])|.*ArgsI([df])E)")
+
+#: A tensor-core instruction on TF32 operands (``HGMMA`` of ``wgmma``,
+#: ``HMMA`` of ``mma.sync``).
+SASS_TF32 = re.compile(r"\bH(?:G)?MMA\.\S*TF32")
+
 
 def sass_check(tuples):
     """``cuobjdump --dump-sass`` of kernels 1-3's libraries (the stationary
-    one and each program tuple's): every float64 tiled and panel kernel
-    contains ``DMMA`` (the product on the FP64 tensor cores), no float32
-    kernel does, and the float64 streamed kernels (the CUDA-core body kept
-    above the panel body) do not. A missing ``cuobjdump`` fails."""
+    one and each program tuple's) and of the variants' library. Kernels
+    1-3: every float64 tiled and panel kernel contains ``DMMA`` (the
+    product on the FP64 tensor cores), no float32 kernel does, the float64
+    streamed kernels (the CUDA-core body kept above the panel body) do
+    not, and no float32 kernel contains a TF32 tensor-core instruction
+    (``SASS_TF32``): TF32 is not allowed on the kernels' path. The
+    variants: kernel 7's float32 tiled kernels (``tiled_expanded_tf32``)
+    contain TF32 tensor-core instructions, and no other variant kernel
+    does (kernel 4's float32 body, ``tiled_pipelined_ws``, and its
+    streamed body are FP32 on the CUDA cores). A missing ``cuobjdump``
+    fails."""
     from safe_learning_tpu_torch.ops.build import _nvcc
 
     tool = shutil.which("cuobjdump") or os.path.join(
@@ -1063,36 +1119,65 @@ def sass_check(tuples):
             tool))
     libs = [gp_kernel.kernel_library()] + [gp_kernel.program_library(
         tuple(p)) for p in tuples]
+    variants = gp_kernel.variants_library()
     # One cuobjdump a library, all at once.
     procs = [subprocess.Popen([tool, "--dump-sass", lib._name],
                               stdout=subprocess.PIPE, text=True)
-             for lib in libs]
+             for lib in libs + [variants]]
     found = collections.Counter()
-    for lib, proc in zip(libs, procs):
+    tf32_forms = set()
+    for lib, proc in zip(libs + [variants], procs):
         sass = proc.communicate()[0]
         if proc.returncode != 0:
             raise AssertionError("cuobjdump failed on {}".format(lib._name))
         for part in sass.split("Function : ")[1:]:
             name = part.split("\n", 1)[0].strip()
+            tf32 = SASS_TF32.findall(part)
+            tf32_forms.update(form.split(" ")[0] for form in tf32)
+            if lib is variants:
+                m = SASS_VARIANT.search(name)
+                if m is None:
+                    continue
+                body, t = m.group(1), m.group(2) or m.group(3)
+                want = body == "tiled_expanded_tf32"
+                found["variant " + body, t, "TF32" if tf32 else "no TF32"] \
+                    += 1
+                if bool(tf32) != want:
+                    raise AssertionError("{} has {} TF32 tensor-core "
+                                         "instructions".format(name,
+                                                               len(tf32)))
+                continue
             m = SASS_KERNEL.search(name)
             if m is None:
                 continue
             body, t = m.groups()
             dmma = part.count("DMMA")
             want = t == "d" and body != "streamed"
-            found[body, t, dmma > 0] += 1
+            found[body, t, "DMMA" if dmma else "no DMMA"] += 1
             if (dmma > 0) != want:
                 raise AssertionError("{} has {} DMMA instructions ({})"
                                      .format(name, dmma, os.path.basename(
                                          lib._name)))
-    print("SASS of kernels 1-3 ({} libraries, cuobjdump --dump-sass): {}"
-          .format(len(libs), ", ".join(
-              "{} {} {}: {}".format(body, {"d": "f64", "f": "f32"}[t],
-                                    "DMMA" if has else "no DMMA", n)
-              for (body, t, has), n in sorted(found.items()))))
+            if tf32:
+                raise AssertionError("{} of kernels 1-3 has {} TF32 tensor-"
+                                     "core instructions".format(name,
+                                                                len(tf32)))
+    print("SASS of kernels 1-3 and the variants ({} libraries, cuobjdump "
+          "--dump-sass): {}; TF32 tensor-core instructions only in kernel "
+          "7's float32 tiled body ({})".format(
+              len(libs) + 1, ", ".join(
+                  "{} {} {}: {}".format(body, {"d": "f64", "f": "f32"}[t],
+                                        has, n)
+                  for (body, t, has), n in sorted(found.items())),
+              ", ".join(sorted(tf32_forms))))
     for body in ("tiled", "panel"):
-        if not found[body, "d", True]:
+        if not found[body, "d", "DMMA"]:
             raise AssertionError("no float64 {} kernel found in the SASS"
+                                 .format(body))
+    for body in ("tiled_expanded_tf32", "tiled_pipelined_ws"):
+        if not sum(n for (b, t, _), n in found.items()
+                   if b == "variant " + body and t == "f"):
+            raise AssertionError("no float32 {} kernel found in the SASS"
                                  .format(body))
 
 
@@ -1657,7 +1742,7 @@ def gate_2(c_max, c_ref):
     print("gate 2 passed")
 
 
-def oracle_gate(lyap, label, initial=None, explain=None):
+def oracle_gate(lyap, label, initial=None, explain=None, margins64=None):
     """A certified sweep against the port's float64 oracle.
 
     ``lyap`` has just run ``update_safe_set``. ``bench.py``'s first gate
@@ -1671,7 +1756,9 @@ def oracle_gate(lyap, label, initial=None, explain=None):
     ``initial`` (the exempt initial set, a boolean mask), some point beyond
     it must pass. Then sweeps again with the calibrated margin installed:
     that safe set must lie inside the oracle's, and its level pass
-    ``bench.py``'s second gate. Returns the margin.
+    ``bench.py``'s second gate. ``margins64``: the oracle's margins of
+    the same instance, computed already (the flagship's second route).
+    Returns the float64 margins it held the card to.
     """
     c_dev = lyap.c_max
     safe = np.array(lyap.safe_set)
@@ -1683,12 +1770,16 @@ def oracle_gate(lyap, label, initial=None, explain=None):
     margin = st.oracle.calibrate_certificate_margin(lyap, num_samples=4096)
     start = time.perf_counter()
     all_points = lyap.discretization.all_points
-    margins64 = st.oracle.oracle_margins(lyap, all_points)
+    reused = margins64 is not None
+    if not reused:
+        margins64 = st.oracle.oracle_margins(lyap, all_points)
     oracle_safe, c_ref = st.oracle.oracle_safe_set(lyap, margins=margins64)
     print("{}: {} points, c_max={!r} (f64 oracle {!r}), {} safe points "
-          "(oracle {}); f64 host oracle in {:.3f} s".format(
+          "(oracle {}); f64 host oracle in {:.3f} s{}".format(
               label, len(all_points), c_dev, c_ref, int(safe.sum()),
-              int(oracle_safe.sum()), time.perf_counter() - start))
+              int(oracle_safe.sum()), time.perf_counter() - start,
+              " (the margins of the same instance, computed already)"
+              if reused else ""))
     gate_1(c_dev, c_ref)
 
     differ = negative != (margins64 < 0)
@@ -1736,10 +1827,10 @@ def oracle_gate(lyap, label, initial=None, explain=None):
         raise AssertionError("{}: the certified set holds {} points the f64 "
                              "oracle does not".format(label, unsafe))
     gate_2(lyap.c_max, c_ref)
-    return margin
+    return margins64
 
 
-def phase_flagship_path(route):
+def phase_flagship_path(route, margins64=None):
     """The flagship verification at full width by one route: the stacked
     GP (kernel 3, one launch per sweep) or the fan-out of two GPs
     (kernel 2, one launch per member per sweep), through ``oracle_gate``.
@@ -1749,6 +1840,11 @@ def phase_flagship_path(route):
     this instance, in exact arithmetic too: near the origin the GP error
     term keeps the decrease bound above the threshold
     ``-L_v (1 + L_f) tau``.)
+
+    Both routes model the same GPs on the same data, so the second route
+    is held to the float64 margins the first computed (``margins64``;
+    about 22 s of host oracle less). Returns ``(lyap, launches,
+    margins64)``.
     """
     kernel = ("gp_predict_stacked" if route == "stacked"
               else "gp_predict_general")
@@ -1766,7 +1862,8 @@ def phase_flagship_path(route):
               route, lyap.discretization.nindex, inst["tau"], inst["lv"],
               inst["lf"], -inst["lv"] * (1 + inst["lf"]) * inst["tau"],
               build_s))
-    oracle_gate(lyap, "flagship " + route, initial=initial)
+    margins64 = oracle_gate(lyap, "flagship " + route, initial=initial,
+                            margins64=margins64)
     launches = read_launches()
     print("kernel launches during the flagship {} path: first sweep {}, "
           "whole path {}".format(route, first, launches))
@@ -1774,7 +1871,7 @@ def phase_flagship_path(route):
         raise AssertionError("the flagship {} sweep launched {} {} times, "
                              "not {}".format(route, kernel, first[kernel],
                                              per_sweep))
-    return lyap, launches
+    return lyap, launches, margins64
 
 
 def sweep_fn(lyap):
@@ -1952,14 +2049,19 @@ def time_against_plain(name, kernel, plain, card, shape):
 
 #: The H100 SXM's published peaks (NVIDIA's data sheet, dense, 700 W):
 #: FP32 on the CUDA cores, FP64 on the CUDA cores and on the tensor cores
-#: (DMMA, IEEE float64), and HBM3 bandwidth. TF32 is not IEEE float32 and
-#: is not allowed on the kernels' path, so FP32 is a float32 kernel's
-#: arithmetic peak. A float64 kernel's matrix product ``L^-1 K`` could run
-#: on DMMA, so its bound takes that product at ``FP64_TC_FLOPS`` and the
-#: rest at ``FP64_FLOPS``, whatever instructions the kernel executes.
+#: (DMMA, IEEE float64), TF32 on the tensor cores, and HBM3 bandwidth. TF32
+#: is not IEEE float32 and is not allowed on the kernels' path, so FP32 is
+#: a float32 kernel's arithmetic peak (kernel 1's arithmetic is IEEE
+#: float32; three TF32 passes are not). The one exception is kernel 7's
+#: float32 tiled body, off every path, whose ``L^-1 K`` runs in three TF32
+#: passes: its bound (``tf32x3``) takes that product at a third of
+#: ``TF32_TC_FLOPS``. A float64 kernel's matrix product ``L^-1 K`` could
+#: run on DMMA, so its bound takes that product at ``FP64_TC_FLOPS`` and
+#: the rest at ``FP64_FLOPS``, whatever instructions the kernel executes.
 FP32_FLOPS = 67e12
 FP64_FLOPS = 34e12
 FP64_TC_FLOPS = 67e12
+TF32_TC_FLOPS = 495e12
 HBM_BYTES_PER_S = 3.35e12
 
 #: Operations of one stationary covariance from r^2 (exp and sqrt one
@@ -1999,7 +2101,7 @@ def program_ops(programs):
     return len(columns) + per_output
 
 
-def kernel_bound(n_q, d, count, p, n_out, k_ops, itemsize):
+def kernel_bound(n_q, d, count, p, n_out, k_ops, itemsize, tf32x3=False):
     """The least time of one predict on the H100 at these inputs:
     ``(bound_ms, bound_by, bound_kind)``.
 
@@ -2009,10 +2111,12 @@ def kernel_bound(n_q, d, count, p, n_out, k_ops, itemsize):
     the reductions; per query ``n * k_ops`` for k (``k_ops``: every
     output's operations per row, ``stationary_ops`` or ``program_ops``).
     For 4-byte values all of them over ``FP32_FLOPS``; for 8-byte ones the
-    product over ``FP64_TC_FLOPS`` and the rest over ``FP64_FLOPS``.
-    Bytes: queries, the active rows of x, chol_inv, alpha and the mask
-    read once, the outputs written once, over ``HBM_BYTES_PER_S``. The
-    larger wins.
+    product over ``FP64_TC_FLOPS`` and the rest over ``FP64_FLOPS``; with
+    ``tf32x3`` (kernel 7's float32 tiled body, kind ``tf32x3``) the
+    product over ``TF32_TC_FLOPS / 3`` (three TF32 passes) and the rest
+    over ``FP32_FLOPS``. Bytes: queries, the active rows of x, chol_inv,
+    alpha and the mask read once, the outputs written once, over
+    ``HBM_BYTES_PER_S``. The larger wins.
     """
     product = n_q * n_out * count * count
     rest = n_q * (n_out * (p + 1) * max(2 * count - 1, 0) + count * k_ops)
@@ -2021,6 +2125,9 @@ def kernel_bound(n_q, d, count, p, n_out, k_ops, itemsize):
     if itemsize == 8:
         ops_ms = (product / FP64_TC_FLOPS + rest / FP64_FLOPS) * 1e3
         kind = "fp64"
+    elif tf32x3:
+        ops_ms = (product / (TF32_TC_FLOPS / 3) + rest / FP32_FLOPS) * 1e3
+        kind = "tf32x3"
     else:
         ops_ms = (product + rest) / FP32_FLOPS * 1e3
         kind = "fp32"
@@ -2102,10 +2209,19 @@ def form_inputs(inputs, form):
     return (q, x, pipelined_predict.fold_chol_inv(li, mask, var_s2), alpha)
 
 
-def form_plain(form, kind):
+def tf32x3_body(inputs, count):
+    """Whether kernel 7 takes its three-pass TF32 body on these inputs:
+    float32 and its loops bounded at 128 rows or fewer (the tiled body;
+    ``count`` ``None``: the capacity)."""
+    n = inputs[1].shape[0] if count is None else count
+    return inputs[0].dtype == torch.float32 and n <= 128
+
+
+def form_plain(form, kind, tf32x3=False):
     """``(plain(part), bounds(part))`` of a k form: its plain version and
     its rounding bound (``rounding_bounds``, ``folded_bounds``,
-    ``expanded_bounds``)."""
+    ``expanded_bounds``; with ``tf32x3`` the expanded form's three-pass
+    TF32 bound, ``tf32x3_body``)."""
     if form == "stationary":
         return (lambda part: gp_kernel.gp_predict_plain(*part, kind=kind),
                 lambda part: rounding_bounds(part, kind))
@@ -2113,7 +2229,7 @@ def form_plain(form, kind):
         return (lambda part: pipelined_predict.folded_gp_predict_plain(
             *part, kind=kind), lambda part: folded_bounds(part, kind))
     return (lambda part: distance_mxu_experiment.fused_predict_mxu_dist_plain(
-        *part, kind=kind), lambda part: expanded_bounds(part, kind))
+        *part, kind=kind), lambda part: expanded_bounds(part, kind, tf32x3))
 
 
 def kernel_calls(inputs, kind, count):
@@ -2137,12 +2253,26 @@ def check_variants(inputs, kind, count, chunk=2 ** 19):
     for form in FORMS:
         names = [name for name, _, f, _ in VARIANTS if f == form]
         outs = [calls[name]() for name in names]
-        plain, bounds = form_plain(form, kind)
+        plain, bounds = form_plain(form, kind, tf32x3_body(inputs, count))
         errors = compare_outputs(outs, plain, bounds,
                                  form_inputs(inputs, form), chunk)
         results.update(zip(names, errors))
         del outs
     return results
+
+
+#: Count edges of kernels 4 and 7's float32 tiled bodies: one row, one
+#: and two 8-row k steps and 16-row tiles, the 64-row split of kernel 7's
+#: solve warpgroups, the bucket's last rows; 129 takes the streamed body.
+VARIANT_COUNTS = (0, 1, 16, 17, 64, 127, 128, 129)
+
+
+def on_training_rows(inputs, count):
+    """Kernel inputs with the GP's first ``count`` (scaled) training rows
+    put before the queries: ``r^2 = 0`` there, where the expanded form
+    cancels."""
+    q, x = inputs[:2]
+    return (torch.cat([x[:count], q]),) + tuple(inputs[1:])
 
 
 def variant_cases():
@@ -2152,36 +2282,53 @@ def variant_cases():
     rows padding, and the cart-pole's d = 5, p = 4; the loops bounded by
     the count in every other case, by the capacity in the rest. The query
     counts are ragged and give every block of the persistent grid several
-    tiles (and groups of 4 tiles)."""
+    tiles (and groups of 4 tiles). Then, in float32, the count edges
+    ``VARIANT_COUNTS`` at the four kinds, d = 3, p = 2 and d = 5, p = 4 in
+    turn, the queries led by the GP's training rows
+    (``on_training_rows``). Kernel 7's float32 tiled body is held to
+    ``expanded_bounds(..., tf32x3=True)``, its other cases to
+    ``expanded_bounds``."""
     worst = {name: 0.0 for name, _, _, _ in VARIANTS}
     case = 0
     specs = [(kind, cap, 1 + (ki + ci) % 2, 3)
              for ki, kind in enumerate(gp_kernel.KINDS)
              for ci, cap in enumerate((8, 128, 2048))] + [("rbf", 128, 4, 5)]
-    for dtype in (torch.float32, torch.float64):
-        for kind, cap, p, d in specs:
-            case += 1
-            scale = (1.0, 2.5)[case % 2]
-            gp = case_gp(kind, cap, p, scale, dtype, seed=500 + case, d=d)
+    cases = [(dtype, kind, cap, p, d, None) for dtype in (torch.float32,
+                                                         torch.float64)
+             for kind, cap, p, d in specs]
+    cases += [(torch.float32, kind, 128 if n <= 128 else 256,
+               *((2, 3), (4, 5))[(ci + ki) % 2], n)
+              for ci, n in enumerate(VARIANT_COUNTS)
+              for ki, kind in enumerate(gp_kernel.KINDS)]
+    for dtype, kind, cap, p, d, n in cases:
+        case += 1
+        scale = (1.0, 2.5)[case % 2]
+        gp = case_gp(kind, cap, p, scale, dtype, seed=500 + case, n=n, d=d)
+        if n is None:
             n_q = 65537 if cap > 128 else 100003
             count = gp.count if case % 2 else None
-            errors = check_variants(case_inputs(gp, n_q, 500 + case), kind,
-                                    count)
-            print("variant case {:2d} {} {:8s} d={} cap={:4d} count={} p={} "
-                  "scale={} Q={:6d}: ".format(
-                      case, str(dtype)[6:], kind, d, cap, count, p, scale,
-                      n_q) + ", ".join(
-                          "{} {:.3e}/{:.3e} ({:.3f})".format(name, *err)
+            inputs = case_inputs(gp, n_q, 500 + case)
+        else:
+            count = gp.count
+            inputs = on_training_rows(case_inputs(gp, 4099, 500 + case), n)
+            n_q = inputs[0].shape[0]
+        errors = check_variants(inputs, kind, count)
+        print("variant case {:2d} {} {:8s} d={} cap={:4d} count={} p={} "
+              "scale={} Q={:6d}{}: ".format(
+                  case, str(dtype)[6:], kind, d, cap, count, p, scale, n_q,
+                  " (training rows first)" if n is not None else "")
+              + ", ".join("{} {:.3e}/{:.3e} ({:.3f})".format(name, *err)
                           for name, err in errors.items()))
-            for name, (_, _, ratio) in errors.items():
-                if not ratio <= 1.0:
-                    raise AssertionError(
-                        "variant {} and its plain version disagree beyond "
-                        "the rounding bound (err/bound {:.3f})".format(
-                            name, ratio))
-                worst[name] = max(worst[name], ratio)
+        for name, (_, _, ratio) in errors.items():
+            if not ratio <= 1.0:
+                raise AssertionError(
+                    "variant {} and its plain version disagree beyond "
+                    "the rounding bound (err/bound {:.3f})".format(
+                        name, ratio))
+            worst[name] = max(worst[name], ratio)
     print("variants against plain: {} cases each, worst err/bound {} "
-          "(bounds: rounding_bounds, folded_bounds, expanded_bounds)".format(
+          "(bounds: rounding_bounds, folded_bounds, expanded_bounds, "
+          "in kernel 7's float32 tiled body with tf32x3)".format(
               case, {k: round(v, 4) for k, v in worst.items()}))
 
 
@@ -2212,8 +2359,10 @@ def variant_times(card, label, inputs, count):
             label, shape, name, entry["ms"], entry["runs"],
             "" if name == "kernel1" else
             ", speed-up {!r}, max|dmean| from kernel 1 {:.3e}, max|dvar| "
-            "{:.3e}".format(entry["speedup"], entry["max_abs_mean_diff"],
-                            entry["max_abs_var_diff"]), card))
+            "{:.3e}, bit for bit kernel 1's: {}".format(
+                entry["speedup"], entry["max_abs_mean_diff"],
+                entry["max_abs_var_diff"], entry["bitwise_identical"]),
+            card))
     for name, entry in oracle.items():
         print("distance experiment ({}): {} {!r} ms per 1M predicts, "
               "|mean err vs f64| {:.3e} (first 4096 queries) [{}]".format(
@@ -2237,6 +2386,9 @@ def variant_times(card, label, inputs, count):
         library_ms = stationary_product_ms(inputs, "rbf", count)
     bound = kernel_bound(n_q, d, count, p, 1, stationary_ops("rbf", d),
                          inputs[0].element_size())
+    # Kernel 7's float32 tiled body: L^-1 K in three TF32 passes.
+    bound_tf32 = kernel_bound(n_q, d, count, p, 1, stationary_ops("rbf", d),
+                              inputs[0].element_size(), tf32x3=True)
     k1_ms = statistics.mean(runs["kernel1"])
     print("variants ({}, {}): kernel 1 {!r} ms (runs {!r}), eager {!r} ms, "
           "plain {!r} ms; bound {!r} ms ({}); the product alone {!r} ms "
@@ -2247,13 +2399,17 @@ def variant_times(card, label, inputs, count):
     for name, kernel, form, kw in VARIANTS:
         ms = statistics.mean(runs[name])
         em, ev, ratio = errors[name]
+        own = bound
+        if form == "expanded" and tf32x3_body(inputs, count):
+            own = bound_tf32
         print("variant {} ({}): {!r} ms (runs {!r}), {:.3f} of kernel 1's "
-              "time, eager {!r} ms, plain {!r} ms, {:.1%} of bound; against "
-              "plain max|dmean| {:.3e} max|dvar| {:.3e} err/bound {:.3f}; "
-              "{} launches on the path [{}]".format(
+              "time, eager {!r} ms, plain {!r} ms, {:.1%} of its bound "
+              "{!r} ms ({}; FP32 bound {:.1%}); against plain max|dmean| "
+              "{:.3e} max|dvar| {:.3e} err/bound {:.3f}; {} launches on the "
+              "path [{}]".format(
                   name, label, ms, runs[name], ms / k1_ms, eager[name],
-                  plain_ms[form], bound[0] / ms, em, ev, ratio,
-                  launches[kernel], card))
+                  plain_ms[form], own[0] / ms, own[0], own[2],
+                  bound[0] / ms, em, ev, ratio, launches[kernel], card))
         if not ratio <= 1.0:
             raise AssertionError("variant {} disagrees with its plain version "
                                  "on the {} inputs".format(name, label))
@@ -2262,7 +2418,7 @@ def variant_times(card, label, inputs, count):
                                  .format(kernel))
         path = label + ("_halves{}".format(kw["halves"]) if kw else "")
         entries.append((kernel, path, (launches[kernel], max(em, ev), ms,
-                                       plain_ms[form], eager[name]) + bound
+                                       plain_ms[form], eager[name]) + own
                         + (library_ms,)))
     return entries
 
@@ -6350,10 +6506,12 @@ def main():
     clocked("kernel cases", phase_kernel_cases)
     clocked("program cases", phase_program_cases)
     bench_lyap, bench_launches = clocked("bench", phase_bench_path)
-    stacked_lyap, stacked_launches = clocked(
+    stacked_lyap, stacked_launches, flagship_margins = clocked(
         "flagship stacked", phase_flagship_path, "stacked")
-    fan_lyap, fan_launches = clocked("flagship fan_out",
-                                     phase_flagship_path, "fan_out")
+    fan_lyap, fan_launches, _ = clocked("flagship fan_out",
+                                        phase_flagship_path, "fan_out",
+                                        flagship_margins)
+    del flagship_margins
     # The host-bound end-to-end times come first: the sweeps and the
     # loop's steps, before the count cases and before any CUDA graph is
     # captured for the kernel timings.

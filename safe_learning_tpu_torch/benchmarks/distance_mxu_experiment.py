@@ -2,12 +2,17 @@
 
 Counterpart of ``benchmarks/distance_mxu_experiment.py``, whose Pallas
 kernel (``_kernel_mxu`` ``:30``) forms ``r^2 = max(xx - 2 x^T q + qq, 0)``
-with the cross term on the TPU's matrix unit. Here
-``fused_predict_mxu_dist`` is a hand-written CUDA kernel for Hopper
-(``csrc/gp_predict_variants.cu``, ``gp_expanded``): ``xx`` staged per
-training row in shared memory, ``qq`` per query in a register, the cross
-term as d FMAs in the working precision on the CUDA cores (never TF32).
-The expanded form cancels near ``r^2 = 0``; the clamp keeps ``r^2 >= 0``.
+with the cross term on the TPU's matrix unit, and ``L^-1 K`` there too.
+Here ``fused_predict_mxu_dist`` is a hand-written CUDA kernel for Hopper
+(``csrc/gp_predict_variants.cu``, ``gp_expanded``). In float32, up to 128
+rows, both products run on the tensor cores in three TF32 passes
+(``wgmma``; each operand split into two TF32 halves, ``small big + big
+small + big big`` into an FP32 accumulator), ``xx`` and ``qq`` in float32
+on the CUDA cores: not IEEE float32, so the kernel stays off every path
+of the package, and ``chip_smoke.expanded_bounds(..., tf32x3=True)``
+bounds it. In float64, and above 128 rows, the cross term is d FMAs in
+the working precision on the CUDA cores. The expanded form cancels near
+``r^2 = 0``; the clamp keeps ``r^2 >= 0``.
 
 ``fused_predict_mxu_dist`` keeps the JAX signature: ``tile`` and
 ``precision`` (the TPU's block width and matrix-unit pass) are accepted
@@ -89,8 +94,8 @@ def fused_predict_mxu_dist(points_scaled, x_scaled, chol_inv, alpha, mask,
     """Kernel 1's outputs with r^2 in the expanded form.
 
     ``tile`` and ``precision`` (``"highest"`` or ``"high"``, the TPU's
-    matrix-unit passes) are accepted and unused: the card computes in the
-    working dtype.
+    matrix-unit passes) are accepted and unused: on the card the float32
+    kernel takes three TF32 passes whatever ``precision`` says.
     """
     if precision not in PRECISIONS:
         raise ValueError("precision must be one of {}, got {!r}".format(

@@ -7,9 +7,14 @@ the TPU's vector unit) with the ``chol_inv @ k`` matmul. Here each is a
 hand-written CUDA kernel for Hopper in ``csrc/gp_predict_variants.cu``,
 whose header says what each schedule does on the H100:
 
-- ``pipelined_gp_predict`` (``_pipelined_kernel`` ``:44``): the k tile and
-  the partial sums in two slots; a block solves one tile while it builds
-  the next, one barrier a tile;
+- ``pipelined_gp_predict`` (``_pipelined_kernel`` ``:44``): the TPU's
+  two-stage pipeline as producer and consumer warps. In float32 a block
+  has a solve warpgroup and two fill warpgroups, which compute k tiles
+  into a ring of two slots and hand them over by mbarriers; the solve
+  threads hold 8 x 8 register tiles and each ``a_i`` runs over ``j`` in
+  kernel 1's order (``run`` reports whether the outputs are bit for bit
+  kernel 1's). In float64 a block solves one tile while it builds the
+  next, one barrier a tile;
 - ``interleaved_gp_predict`` (``_interleaved_kernel`` ``:141``): ``halves``
   (2 or 4) tiles a group, each sub-tile's build following the previous
   sub-tile's solve with no barrier between;

@@ -145,9 +145,10 @@
 // fixed amount of shared memory.
 //
 // The DMMA bodies (float64 kernels 1-3; dmma, solve_tile_dmma,
-// dmma_tiles, solve_panels_dmma). The float32 bodies above, and kernels
-// 4-7 in both dtypes, keep the CUDA-core solve; so does the float64
-// streamed body.
+// dmma_tiles, solve_panels_dmma). The float32 bodies above, kernels 4-6
+// in both dtypes and kernel 7 in float64 keep the CUDA-core solve; so
+// does the float64 streamed body. (Kernel 7's float32 tiled body runs on
+// the TF32 tensor cores, off every path: gp_predict_variants.cu.)
 //   - A = L^-1 K in 16 x 8 x 16 mma tiles (m16n8k16, the fastest depth on
 //     the card): a warp owns 16-row tiles of A (rows on the mma's M,
 //     queries on N, j on K). A k step loads one A fragment (16 rows x 16 j
@@ -628,20 +629,19 @@ __device__ __forceinline__ int swz(int row, int col) {
 // it. Halving exchanges over g's bits from the top, then butterflies:
 // every query's sum has the same tree over the g lanes,
 // ((x0 + x4) + (x2 + x6)) + ((x1 + x5) + (x3 + x7)), whatever its tile.
-template <int N, int OFF = 16>
-__device__ __forceinline__ double reduce_tiles(const double (&v)[N],
-                                               int lane) {
+template <int N, int OFF = 16, typename T>
+__device__ __forceinline__ T reduce_tiles(const T (&v)[N], int lane) {
   if constexpr (OFF == 2) {
     return v[0];
   } else if constexpr (N == 1) {
-    const double w[1] = {v[0] + __shfl_xor_sync(0xffffffffu, v[0], OFF)};
+    const T w[1] = {v[0] + __shfl_xor_sync(0xffffffffu, v[0], OFF)};
     return reduce_tiles<1, OFF / 2>(w, lane);
   } else {
     const bool hi = lane & OFF;
-    double w[N / 2];
+    T w[N / 2];
 #pragma unroll
     for (int k = 0; k < N / 2; ++k) {
-      const double send = hi ? v[k] : v[k + N / 2];
+      const T send = hi ? v[k] : v[k + N / 2];
       w[k] = (hi ? v[k + N / 2] : v[k]) +
              __shfl_xor_sync(0xffffffffu, send, OFF);
     }

@@ -18,16 +18,30 @@
 // modules (safe_learning_tpu_torch/benchmarks/) time them beside kernel 1.
 //
 // What bounds them on the H100 is what bounds kernel 1 (gp_predict.cu):
-// FP32 FMAs on the CUDA cores, the solve fed from shared memory, never
-// device memory. Each variant asks one question about kernel 1's tiled
-// body (fill k, barrier, solve, barrier, store, per query tile):
+// the product L^-1 K (n (n + 1) / 2 FMAs a query) fed from shared memory,
+// and the n covariances of k, never device memory. Each variant asks one
+// question about kernel 1's tiled body (fill k, barrier, solve, barrier,
+// store, per query tile):
 //
-//   - pipelined: the k tile and the partial sums are doubled into two
-//     slots. In iteration t a block solves tile t from one slot and builds
-//     tile t+1's k into the other, so one barrier a tile separates the
-//     stages instead of two, and one warp's expf may overlap another's
-//     FMAs. The TPU's extra drain step of the grid is the loop's prologue
-//     (build the first tile) and its last iteration (solve only).
+//   - pipelined: the k fill overlapped with the solve. In float32 (the
+//     tiled body of tiled_pipelined_ws) by warp specialisation: one solve
+//     warpgroup and two fill warpgroups a block, one block an SM with
+//     chol_inv resident (transposed) beside a ring of NS = 2 K slots of
+//     128 queries; the fill warps hand each slot over by a full mbarrier
+//     and take it back by an empty one, so they run a tile ahead and no
+//     block-wide barrier stops the solve. The fill warps give up registers
+//     (setmaxnreg.dec) and the solve warps take them (setmaxnreg.inc):
+//     each solve thread holds an 8 x 8 register tile (8 rows, 8 queries),
+//     64 FMAs per four 16-byte shared loads where kernel 1's 4 x 4 tile
+//     issues 16 per two, which halves the shared traffic per FMA that
+//     bounds kernel 1's solve. A solve warp is 2 row lanes x 16 query
+//     lanes (16 rows x 128 queries) and takes the row tiles g and 7 - g,
+//     so its four warps do the same work; each a_i accumulates over j
+//     from 0 in kernel 1's order, so A is kernel 1's bit for bit and only
+//     the reductions' tree differs. In float64 (tiled_pipelined): the k
+//     tile and the partial sums are doubled into two slots;
+//     in iteration t a block solves tile t from one slot and builds tile
+//     t+1's k into the other, one barrier a tile.
 //   - interleaved<H>, H in {2, 4}: a block takes H tiles at a time; each
 //     sub-tile builds its k and runs its solve, and sub-tile h+1's build
 //     follows sub-tile h's solve with no barrier between (the k tile is a
@@ -36,11 +50,36 @@
 //   - folded: k is the bare cov_kind(r2); the wrapper has folded
 //     var_s2 * mask into the columns of chol_inv once per call, as the JAX
 //     wrapper does outside its body. Two multiplies less per (row, query).
-//   - expanded: r2 = max(xx_j - 2 sum_c x_jc q_c + qq, 0), xx_j staged per
-//     row in shared memory beside x, qq per query in a register; FP32 (or
-//     FP64) on the CUDA cores, never TF32. The cross term is d FMAs where
-//     the differences are d subtractions and d FMAs, at a cost in accuracy
-//     (cancellation in xx + qq - 2 x.q near r2 = 0; the clamp keeps r2 >= 0).
+//   - expanded: r2 = max(xx_j - 2 x_j.q + qq, 0), xx_j and qq in the
+//     working precision on the CUDA cores. On the TPU both of the JAX
+//     kernel's products, the cross term x^T q and L^-1 K, run on the
+//     matrix unit; in float32 (the tiled body of tiled_expanded_tf32)
+//     both run on the tensor cores in three TF32 passes: each operand v
+//     is split into big = cvt.rna.tf32(v) and small = cvt.rna.tf32(v -
+//     big), and small.big + big.small, then big.big, go into one FP32
+//     accumulator (495 TFLOP/s of TF32 is about 165 effective, against 67
+//     of FP32). Two solve warpgroups hold chol_inv's rows 0-63 and 64-127
+//     as the register A operand of wgmma (m64n64k8, split into TF32
+//     halves once a block: 64 and 128 registers a thread; the triangle
+//     above each warpgroup's last row is never read, a quarter of the k
+//     steps); K's halves are the B operand in shared memory, a ring of
+//     NS = 2 slots of 64 queries (68 KB each). Two fill warpgroups form
+//     the cross term q x^T of rows 0-63 and 64-127 the same way
+//     (m64n64k8, the queries' halves from registers, loaded a tile ahead,
+//     x's staged in shared memory once a block), take r2, the covariance
+//     and var_s2 mask_j from the accumulator fragments, split k and store
+//     both halves into the slot, two rows at a time; full and empty
+//     mbarriers hand the slots over. Registers move from the fill
+//     warpgroups to the solve warpgroup of rows 64-127 (setmaxnreg). The
+//     epilogue sums alpha^T a and a^2 from the accumulator fragments by
+//     shuffles (reduce_tiles), then over the 8 solve warps in shared
+//     memory. Three TF32 passes are not IEEE float32: the split leaves
+//     about 2^-22 of each operand, the tensor cores' sums are not
+//     documented as rounded to nearest (chip_smoke.expanded_bounds, with
+//     tf32x3, bounds both), and the kernel stays off every path. In
+//     float64 the expanded form runs on the CUDA cores (tiled_serial),
+//     never TF32. The expanded form cancels near r2 = 0
+//     (the clamp keeps r2 >= 0).
 //
 // Above 128 rows, and where a tiled block does not fit in shared memory
 // (float64 with many outputs or dimensions), every variant takes the
@@ -56,9 +95,12 @@
 // (the bench's and the cart-pole's GPs), is a template parameter as in
 // kernel 1; the other three families share one instantiation that reads
 // the family at run time (a branch uniform over the block), and so does
-// the streamed body: 26 kernels where one per family would be 64, which
-// keeps the library's build near kernel 1's. float32 blocks have 256
-// threads; float64 pipelined and interleaved blocks 128, whose tile is 32
+// the streamed body (kernel 7's float32 tiled body also takes the depth
+// of its cross term, 8 or 16, as a template parameter): 28 kernels where
+// one per family would be 68, which keeps the library's build near
+// kernel 1's. float32 blocks have 256
+// threads (the pipelined body 384, the expanded body 512, one block an
+// SM); float64 pipelined and interleaved blocks 128, whose tile is 32
 // queries wide, so that chol_inv (128 KB in float64) and two k slots fit
 // in the 227 KB a block may use. Loops are bounded by the host's count,
 // padded rows are exact zeros (gp_predict.cu), no fast-math.
@@ -316,6 +358,619 @@ tiled_interleaved(const Args<T> a) {
   }
 }
 
+// ---------------------------------------------------------------------------
+// Hopper primitives of the two float32 bodies below
+// ---------------------------------------------------------------------------
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// An mbarrier in shared memory that completes a phase after `count`
+// arrivals.
+__device__ __forceinline__ void mbar_init(uint64_t* bar, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_u32(bar)),
+               "r"(count)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   smem_u32(bar))
+               : "memory");
+}
+// Wait until the phase of parity `parity` has completed (a fresh barrier
+// counts parity 1 as completed).
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
+  unsigned done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_u32(bar)), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+// Barrier `id` (1-15) over `threads` threads of the block.
+__device__ __forceinline__ void named_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+// Shared-memory writes by this thread visible to the tensor cores' reads
+// (the async proxy), before the barrier that hands them over.
+__device__ __forceinline__ void fence_async_shared() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+// Registers a thread of this warpgroup may hold (sm_90a). The counts of a
+// block's warpgroups, times 128, must fit the SM's 65,536: an increase
+// the pool cannot grant waits forever.
+template <int R>
+__device__ __forceinline__ void regs_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(R));
+}
+template <int R>
+__device__ __forceinline__ void regs_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(R));
+}
+
+// The float32 v as TF32, rounded to nearest (ties away), and the TF32
+// of what it leaves: v = big + small + O(2^-22 |v|).
+__device__ __forceinline__ uint32_t to_tf32(float v) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(v));
+  return r;
+}
+__device__ __forceinline__ void split_tf32(float v, uint32_t& big,
+                                           uint32_t& small) {
+  big = to_tf32(v);
+  small = to_tf32(v - __uint_as_float(big));
+}
+
+// Shared-memory matrix descriptor of wgmma, no swizzle (K-major): 8 x 16-
+// byte core matrices, `kstride` bytes apart along K (the leading byte
+// offset), `nstride` bytes apart along M or N (the stride byte offset).
+__device__ __forceinline__ uint64_t wgmma_desc(const void* p,
+                                               uint32_t kstride,
+                                               uint32_t nstride) {
+  return (uint64_t)((smem_u32(p) & 0x3FFFF) >> 4) |
+         ((uint64_t)(kstride >> 4) << 16) |
+         ((uint64_t)(nstride >> 4) << 32);
+}
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit_wait() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// The accumulators as written by the wgmma just waited for: no access the
+// compiler moves to before the wait.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// d (64 x 64 of a warpgroup, fp32) += A B in TF32: A (64 x 8) from
+// registers, a[0..3] = A[16w + g][t], A[16w + g + 8][t], A[16w + g][t + 4],
+// A[16w + g + 8][t + 4] (warp w, lane (g, t) = (lane / 4, lane % 4)); B
+// (8 x 64) by descriptor; d[4c + 2h + e] = D[16w + g + 8h][8c + 2t + e].
+__device__ __forceinline__ void wgmma_n64(float (&d)[32],
+                                          const uint32_t (&a)[4],
+                                          uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "
+      "%29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// ---------------------------------------------------------------------------
+// Kernel 7's float32 tiled body: the expanded form on the tensor cores in
+// three TF32 passes (its design is in the header note)
+// ---------------------------------------------------------------------------
+struct Tf32 {
+  static constexpr int TQ = 64;    // queries a tile
+  static constexpr int NS = 2;     // K slots in the ring
+  static constexpr int NTH = 512;  // 2 solve and 2 fill warpgroups
+  // A K half ([128 j][64 q] as TF32, K-major for wgmma): core matrices of
+  // 8 queries x 4 rows (128 bytes), the 8 query groups of 4 rows together,
+  // KSTR bytes per 4 rows. The 64 bytes past 1024 put the two 4-row groups
+  // of a half-warp's 8-byte fill stores on other banks.
+  static constexpr int KSTR = 1088;
+  static constexpr int HALF = NBV / 4 * KSTR;
+  static constexpr int SLOT = 2 * HALF;  // big, then small
+  // x's TF32 halves as the cross term's B operand ([128 j][16 dims],
+  // K-major): the 16 row groups of 128 bytes per 4 dimensions.
+  static constexpr int XSTR = NBV / 8 * 128;
+  static constexpr int XHALF = 4 * XSTR;
+  // Partial sums a tile: [2 buffers][8 warps][p + 1][TQ].
+  static __host__ __device__ constexpr int red_floats(int p) {
+    return 2 * 8 * (p + 1) * TQ;
+  }
+  static __host__ __device__ constexpr size_t bytes(int p) {
+    return (size_t)NS * SLOT + 2 * XHALF +
+           sizeof(float) * ((size_t)red_floats(p) + 2 * NBV) +
+           2 * NS * sizeof(uint64_t);
+  }
+};
+
+// Pointers into its shared memory.
+struct Tf32Smem {
+  uint64_t *full, *empty;
+  unsigned char *slots, *xop;
+  float *red, *xx, *vm;
+  __device__ __forceinline__ Tf32Smem(unsigned char* raw, int p) {
+    slots = raw;
+    xop = slots + Tf32::NS * Tf32::SLOT;
+    red = reinterpret_cast<float*>(xop + 2 * Tf32::XHALF);
+    xx = red + Tf32::red_floats(p);
+    vm = xx + NBV;
+    full = reinterpret_cast<uint64_t*>(vm + NBV);
+    empty = full + Tf32::NS;
+  }
+};
+
+// Solve warpgroup MT: rows 64 MT .. 64 MT + 63 of A = L^-1 K, for every
+// query tile of the block. chol_inv's rows stay in registers, split into
+// TF32 halves, for the whole run: KS = 8 (MT + 1) k steps of 8 columns
+// (the triangle above row 64 MT + 63 is never read). Per tile: the two
+// small passes over every k step, then big x big, into one FP32
+// accumulator; then alpha^T a and sum a^2 of its rows by shuffles into
+// its warps' partial sums.
+template <int MT>
+__device__ __forceinline__ void tf32_solve(const Tf32Smem& sm,
+                                           const Args<float>& a,
+                                           int64_t items) {
+  constexpr int KS = 8 * (MT + 1);
+  const int tid = threadIdx.x - 128 * MT;
+  const int lane = tid & 31, w = tid >> 5, g = lane >> 2, t = lane & 3;
+  const int n = a.n, p = a.p;
+  const int i0 = 64 * MT + 16 * w + g;  // this lane's rows: i0, i0 + 8
+  uint32_t lb[KS][4], ls[KS][4];
+#pragma unroll
+  for (int s = 0; s < KS; ++s) {
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const int i = i0 + 8 * (r & 1), j = 8 * s + t + 4 * (r >> 1);
+      const float v =
+          i < n && j < n ? __ldg(a.chol_inv + (int64_t)i * a.cap + j) : 0.f;
+      split_tf32(v, lb[s][r], ls[s][r]);
+    }
+  }
+  // Its k steps at this count: rows 0-63 to min(n, 64), rows 64-127 to n.
+  const int lim = MT == 0 ? min(n, 64) : (n > 64 ? n : 0);
+  const int steps = (lim + 7) / 8;
+  for (int64_t u = 0; u < items; ++u) {
+    const int s = (int)(u % Tf32::NS);
+    mbar_wait(sm.full + s, (unsigned)(u / Tf32::NS) & 1u);
+    const unsigned char* kb = sm.slots + s * Tf32::SLOT;
+    const uint64_t big = wgmma_desc(kb, Tf32::KSTR, 128);
+    const uint64_t small = wgmma_desc(kb + Tf32::HALF, Tf32::KSTR, 128);
+    // One k step is two 4-row groups: 2 KSTR bytes, in 16-byte units.
+    constexpr uint64_t STEP = 2 * Tf32::KSTR / 16;
+    float d[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) d[i] = 0.f;
+    wgmma_fence();
+#pragma unroll
+    for (int k = 0; k < KS; ++k) {
+      if (k < steps) {
+        wgmma_n64(d, ls[k], big + k * STEP);
+        wgmma_n64(d, lb[k], small + k * STEP);
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < KS; ++k) {
+      if (k < steps) wgmma_n64(d, lb[k], big + k * STEP);
+    }
+    wgmma_commit_wait();
+    fence_regs(d);
+    mbar_arrive(sm.empty + s);
+
+    // Rows at or past n hold exact zeros. Lane (g, t) ends with the sums
+    // of query 8g + 2t + e over the warp's 16 rows (reduce_tiles).
+    float* red = sm.red + (int)(u & 1) * (Tf32::red_floats(p) / 2) +
+                 (4 * MT + w) * (p + 1) * Tf32::TQ + 8 * g + 2 * t;
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      float v[8];
+#pragma unroll
+      for (int c = 0; c < 8; ++c) {
+        v[c] = d[4 * c + e] * d[4 * c + e];
+        v[c] += d[4 * c + 2 + e] * d[4 * c + 2 + e];
+      }
+      red[p * Tf32::TQ + e] = reduce_tiles(v, lane);
+    }
+#pragma unroll 1
+    for (int o = 0; o < p; ++o) {
+      const float al0 = i0 < n ? __ldg(a.alpha + (int64_t)i0 * p + o) : 0.f;
+      const float al1 =
+          i0 + 8 < n ? __ldg(a.alpha + (int64_t)(i0 + 8) * p + o) : 0.f;
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        float v[8];
+#pragma unroll
+        for (int c = 0; c < 8; ++c) {
+          v[c] = d[4 * c + e] * al0;
+          v[c] += d[4 * c + 2 + e] * al1;
+        }
+        red[o * Tf32::TQ + e] = reduce_tiles(v, lane);
+      }
+    }
+    named_sync(1, 256);  // both solve warpgroups' partials written
+    // Buffer u & 1 is written again two tiles on, after the next barrier.
+    const int64_t t0 = ((int64_t)blockIdx.x + u * gridDim.x) * Tf32::TQ;
+    store_slots<float, Tf32::TQ, 8, 256>(
+        sm.red + (int)(u & 1) * (Tf32::red_floats(p) / 2), t0, a.n_q, p, 1,
+        0, a.mean_out, a.var_out);
+  }
+}
+
+// This lane's query coordinates in a fill warpgroup's A operand of the
+// cross term: queries q0 + g and q0 + g + 8 (rows of the m64 tile, q0 the
+// warp's first), dimensions 8 kk + t and 8 kk + t + 4 (zero past d).
+template <int DK>
+__device__ __forceinline__ void load_query_frag(float (&qa)[DK / 8][4],
+                                                const Args<float>& a,
+                                                int64_t q0, int g, int t) {
+#pragma unroll
+  for (int kk = 0; kk < DK / 8; ++kk) {
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const int c = 8 * kk + t + 4 * (r >> 1);
+      qa[kk][r] = c < a.d ? __ldg(query_row(a.q, q0 + g + 8 * (r & 1),
+                                            a.n_q, a.d) + c)
+                          : 0.f;
+    }
+  }
+}
+
+// Fill warpgroup F: rows 64 F .. 64 F + 63 of each tile's K. The cross
+// term q x^T (queries on M, rows on N) on the tensor cores in three TF32
+// passes, the queries' halves from registers (loaded a tile ahead), x's
+// from shared memory; then k_j = cov(max(xx_j - 2 x_j.q + qq, 0)) vm_j
+// (vm_j = var_s2 mask_j) from the accumulator fragments, split into TF32
+// halves and stored, two rows at a time, into the tile's K slot; rows
+// from n to the solve's last k step are zeros (vm_j = 0 there). With DK = 16 (d > 8) the
+// two k steps of the cross term run one after the other.
+template <int KIND, int DK>
+__device__ __forceinline__ void tf32_fill(const Tf32Smem& sm,
+                                          const Args<float>& a,
+                                          int64_t items) {
+  const int F = (int)threadIdx.x / 128 - 2;
+  const int tid = threadIdx.x & 127;
+  const int lane = tid & 31, w = tid >> 5, g = lane >> 2, t = lane & 3;
+  const int n = a.n;
+  // Rows 64-127 only where the solve reads them.
+  const bool active = F == 0 || n > 64;
+  const unsigned char* xb = sm.xop + F * 8 * 128;
+  const uint64_t xbig = wgmma_desc(xb, Tf32::XSTR, 128);
+  const uint64_t xsmall = wgmma_desc(xb + Tf32::XHALF, Tf32::XSTR, 128);
+  constexpr uint64_t XSTEP = 2 * Tf32::XSTR / 16;
+  float qa[DK / 8][4];
+  if (items > 0) {
+    load_query_frag<DK>(qa, a, (int64_t)blockIdx.x * Tf32::TQ + 16 * w, g,
+                        t);
+  }
+  for (int64_t u = 0; u < items; ++u) {
+    // qq of this lane's queries g and g + 8: its dimensions, then the 4
+    // lanes t of the quad.
+    float qq[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float s2 = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < DK / 8; ++kk) {
+        s2 += qa[kk][h] * qa[kk][h];
+        s2 += qa[kk][2 + h] * qa[kk][2 + h];
+      }
+      s2 += __shfl_xor_sync(0xffffffffu, s2, 1);
+      qq[h] = s2 + __shfl_xor_sync(0xffffffffu, s2, 2);
+    }
+    float cr[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) cr[i] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < DK / 8; ++kk) {
+      uint32_t hi[4], lo[4];
+#pragma unroll
+      for (int r = 0; r < 4; ++r) split_tf32(qa[kk][r], hi[r], lo[r]);
+      if (active) {
+        wgmma_fence();
+        wgmma_n64(cr, lo, xbig + kk * XSTEP);
+        wgmma_n64(cr, hi, xsmall + kk * XSTEP);
+        wgmma_n64(cr, hi, xbig + kk * XSTEP);
+        wgmma_commit_wait();
+        fence_regs(cr);
+      }
+    }
+    // The next tile's queries, in flight while this one is stored.
+    if (u + 1 < items) {
+      load_query_frag<DK>(
+          qa, a, ((int64_t)blockIdx.x + (u + 1) * gridDim.x) * Tf32::TQ +
+                     16 * w, g, t);
+    }
+    const int s = (int)(u % Tf32::NS);
+    mbar_wait(sm.empty + s, ((unsigned)(u / Tf32::NS) & 1u) ^ 1u);
+    if (active) {
+      unsigned char* kb = sm.slots + s * Tf32::SLOT;
+#pragma unroll
+      for (int c = 0; c < 8; ++c) {
+        // Rows j, j + 1 of this lane; queries 16 w + g + 8 h.
+        const int j = 64 * F + 8 * c + 2 * t;
+        const float2 xx2 = *reinterpret_cast<const float2*>(sm.xx + j);
+        const float2 vm2 = *reinterpret_cast<const float2*>(sm.vm + j);
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          uint32_t hi[2], lo[2];
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            // Past n, vm is 0 and so is k: no branch in the loop.
+            float r2 = (e ? xx2.y : xx2.x) - 2.f * cr[4 * c + 2 * h + e] +
+                       qq[h];
+            r2 = r2 > 0.f ? r2 : 0.f;
+            const float k =
+                cov_of<float, KIND>(r2, a.kind) * (e ? vm2.y : vm2.x);
+            split_tf32(k, hi[e], lo[e]);
+          }
+          const int q = 16 * w + g + 8 * h;
+          const int off = (j / 4) * Tf32::KSTR + (q / 8) * 128 +
+                          (q % 8) * 16 + (j % 4) * 4;
+          *reinterpret_cast<uint2*>(kb + off) = make_uint2(hi[0], hi[1]);
+          *reinterpret_cast<uint2*>(kb + Tf32::HALF + off) =
+              make_uint2(lo[0], lo[1]);
+        }
+      }
+      fence_async_shared();
+    }
+    mbar_arrive(sm.full + s);
+  }
+}
+
+// Kernel 7's float32 tiled body: a persistent block of two solve and two
+// fill warpgroups over 64-query tiles, a ring of NS K slots between them
+// (full and empty mbarriers). x's TF32 halves, the rows' squared norms
+// and var_s2 mask_j are staged once a block. Registers move to the solve
+// warpgroup of rows 64-127, whose chol_inv halves take 128 a thread.
+template <int KIND, int DK>
+__global__ void __launch_bounds__(Tf32::NTH, 1)
+tiled_expanded_tf32(const Args<float> a) {
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  const Tf32Smem sm(smem_raw, a.p);
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < Tf32::NS; ++s) {
+      mbar_init(sm.full + s, 256);
+      mbar_init(sm.empty + s, 256);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  const float var_s2 = scale_of(a);
+  for (int idx = threadIdx.x; idx < NBV * DK; idx += Tf32::NTH) {
+    const int j = idx / DK, c = idx - j * DK;
+    const float v = j < a.n && c < a.d ? a.x[(int64_t)j * a.d + c] : 0.f;
+    uint32_t hi, lo;
+    split_tf32(v, hi, lo);
+    const int off =
+        (c / 4) * Tf32::XSTR + (j / 8) * 128 + (j % 8) * 16 + (c % 4) * 4;
+    *reinterpret_cast<uint32_t*>(sm.xop + off) = hi;
+    *reinterpret_cast<uint32_t*>(sm.xop + Tf32::XHALF + off) = lo;
+  }
+  for (int j = threadIdx.x; j < NBV; j += Tf32::NTH) {
+    sm.xx[j] = j < a.n ? row_sq_norm(a.x + (int64_t)j * a.d, a.d) : 0.f;
+    sm.vm[j] = j < a.n ? var_s2 * a.mask[j] : 0.f;
+  }
+  fence_async_shared();
+  __syncthreads();
+  const int64_t items = block_items((a.n_q + Tf32::TQ - 1) / Tf32::TQ);
+  const int wg = (int)threadIdx.x / 128;
+  if (wg >= 2) {
+    regs_dec<88>();
+    tf32_fill<KIND, DK>(sm, a, items);
+  } else if (wg == 1) {
+    regs_inc<208>();
+    tf32_solve<1>(sm, a, items);
+  } else {
+    tf32_solve<0>(sm, a, items);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Kernel 4's float32 tiled body: warp-specialised FP32 (its design is in
+// the header note)
+// ---------------------------------------------------------------------------
+struct Ws {
+  static constexpr int TQ = 128;   // queries a tile
+  static constexpr int NS = 2;     // K slots in the ring
+  static constexpr int SW = 4;     // solve warps (one warpgroup)
+  static constexpr int NTH = 384;  // and two fill warpgroups
+  static constexpr int FTH = NTH - 32 * SW;
+  // A solve thread's register tile: TM rows x TN queries; a warp is 2 row
+  // lanes x 16 query lanes, 16 rows x TQ queries, and takes the row tiles
+  // g and 7 - g, so every solve warp does the same work.
+  static constexpr int TM = 8, TN = 8, WQ = 16;
+  static constexpr int LS = NBV + 4;  // ls_stride<float>(NBV)
+  static __host__ __device__ constexpr size_t bytes(int p, int d) {
+    return sizeof(float) * ((size_t)NBV * LS + (size_t)NS * NBV * TQ +
+                            (size_t)SW * (p + 1) * TQ + (size_t)NBV * (d + 1)) +
+           2 * NS * sizeof(uint64_t);
+  }
+};
+
+struct WsSmem {
+  float *ls, *ks, *red, *xs, *ms;
+  uint64_t *full, *empty;
+  __device__ __forceinline__ WsSmem(unsigned char* raw, int p, int d) {
+    ls = reinterpret_cast<float*>(raw);
+    ks = ls + NBV * Ws::LS;
+    red = ks + Ws::NS * NBV * Ws::TQ;
+    xs = red + Ws::SW * (p + 1) * Ws::TQ;
+    ms = xs + NBV * d;
+    full = reinterpret_cast<uint64_t*>(
+        (reinterpret_cast<uintptr_t>(ms + NBV) + 7) & ~uintptr_t(7));
+    empty = full + Ws::NS;
+  }
+};
+
+// part[c] (this thread's 8 queries) summed over the two row lanes; the
+// lanes of row lane 0 store it to (first) or add it to dst, their queries
+// 4 lc + c % 4 + 64 (c / 4).
+__device__ __forceinline__ void ws_add(float (&part)[Ws::TN], float* dst,
+                                       int lr, bool first) {
+#pragma unroll
+  for (int c = 0; c < Ws::TN; ++c) {
+    part[c] += __shfl_xor_sync(0xffffffffu, part[c], 16);
+  }
+  if (lr == 0) {
+#pragma unroll
+    for (int c = 0; c < Ws::TN; ++c) {
+      float* q = dst + (c / 4) * 64 + c % 4;
+      *q = first ? part[c] : *q + part[c];
+    }
+  }
+}
+
+// The solve warps: per tile, A = L^-1 K for the row tiles g and 7 - g,
+// each a_i over j from 0 in ascending order as kernel 1's solve; after
+// each row tile its rows into the warp's partial sums red[w][c][q]; then
+// the four warps' sums are stored.
+__device__ __forceinline__ void ws_solve(const WsSmem& sm,
+                                         const Args<float>& a,
+                                         int64_t items) {
+  constexpr int TM = Ws::TM, TN = Ws::TN, TQ = Ws::TQ, LS = Ws::LS;
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+  const int lc = lane % Ws::WQ, lr = lane / Ws::WQ;
+  const int n = a.n, p = a.p;
+  float* red = sm.red + w * (p + 1) * TQ + 4 * lc;
+  for (int64_t u = 0; u < items; ++u) {
+    const int s = (int)(u % Ws::NS);
+    mbar_wait(sm.full + s, (unsigned)(u / Ws::NS) & 1u);
+    const float* ks = sm.ks + s * NBV * TQ + 4 * lc;
+    // The last tile's sums have been stored (the barrier of its end).
+#pragma unroll 1
+    for (int half = 0; half < 2; ++half) {
+      const int r0 = 16 * (half == 0 ? w : 7 - w);
+      const int jend = r0 < n ? min(n, r0 + 16) : 0;
+      float acc[TM][TN];
+#pragma unroll
+      for (int r = 0; r < TM; ++r) {
+#pragma unroll
+        for (int c = 0; c < TN; ++c) acc[r][c] = 0.f;
+      }
+      const float* lp = sm.ls + r0 + lr * TM;
+#pragma unroll 4
+      for (int j = 0; j < jend; ++j) {
+        const float4 l0 = *reinterpret_cast<const float4*>(lp + j * LS);
+        const float4 l1 = *reinterpret_cast<const float4*>(lp + j * LS + 4);
+        const float4 k0 = *reinterpret_cast<const float4*>(ks + j * TQ);
+        const float4 k1 = *reinterpret_cast<const float4*>(ks + j * TQ + 64);
+        const float l[TM] = {l0.x, l0.y, l0.z, l0.w, l1.x, l1.y, l1.z, l1.w};
+        const float k[TN] = {k0.x, k0.y, k0.z, k0.w, k1.x, k1.y, k1.z, k1.w};
+#pragma unroll
+        for (int r = 0; r < TM; ++r) {
+#pragma unroll
+          for (int c = 0; c < TN; ++c) acc[r][c] += l[r] * k[c];
+        }
+      }
+      if (half == 1) mbar_arrive(sm.empty + s);  // K slot s read
+      // Rows at or past n hold exact zeros (their chol_inv rows are
+      // staged as zeros).
+      float part[TN];
+#pragma unroll
+      for (int c = 0; c < TN; ++c) {
+        part[c] = 0.f;
+#pragma unroll
+        for (int r = 0; r < TM; ++r) part[c] += acc[r][c] * acc[r][c];
+      }
+      ws_add(part, red + p * TQ, lr, half == 0);
+#pragma unroll 1
+      for (int o = 0; o < p; ++o) {
+        float al[TM];
+#pragma unroll
+        for (int r = 0; r < TM; ++r) {
+          const int i = r0 + lr * TM + r;
+          al[r] = i < n ? __ldg(a.alpha + (int64_t)i * p + o) : 0.f;
+        }
+#pragma unroll
+        for (int c = 0; c < TN; ++c) {
+          part[c] = 0.f;
+#pragma unroll
+          for (int r = 0; r < TM; ++r) part[c] += acc[r][c] * al[r];
+        }
+        ws_add(part, red + o * TQ, lr, half == 0);
+      }
+    }
+    named_sync(1, 32 * Ws::SW);  // every warp's partials written
+    const int64_t t0 = ((int64_t)blockIdx.x + u * gridDim.x) * TQ;
+    store_slots<float, TQ, Ws::SW, 32 * Ws::SW>(sm.red, t0, a.n_q, p, 1, 0,
+                                                a.mean_out, a.var_out);
+    named_sync(1, 32 * Ws::SW);  // stored; the partials may be rewritten
+  }
+}
+
+// The fill warps: k of each tile (kernel 1's stationary_k) into the ring.
+template <int KIND>
+__device__ __forceinline__ void ws_fill(const WsSmem& sm,
+                                        const Args<float>& a,
+                                        int64_t items) {
+  constexpr int TQ = Ws::TQ, JS = Ws::FTH / TQ;
+  const int tid = (int)threadIdx.x - 32 * Ws::SW;
+  const int ql = tid % TQ, j0 = tid / TQ;
+  const float var_s2 = scale_of(a);
+  for (int64_t u = 0; u < items; ++u) {
+    const int s = (int)(u % Ws::NS);
+    const int64_t qi = ((int64_t)blockIdx.x + u * gridDim.x) * TQ + ql;
+    float qv[D_MAX];
+    load_row(a.q, qi, a.n_q, a.d, qv);
+    const float* qrow = query_row(a.q, qi, a.n_q, a.d);
+    mbar_wait(sm.empty + s, ((unsigned)(u / Ws::NS) & 1u) ^ 1u);
+    float* ks = sm.ks + s * NBV * TQ + ql;
+#pragma unroll 4
+    for (int j = j0; j < a.n; j += JS) {
+      ks[j * TQ] = variant_k<float, KIND, K_STATIONARY>(
+          sm.xs, sm.ms, nullptr, qv, qrow, 0.f, a.d, var_s2, a.kind, j);
+    }
+    mbar_arrive(sm.full + s);
+  }
+}
+
+// Kernel 4's float32 tiled body: one persistent block an SM, chol_inv
+// resident, a solve warpgroup and two fill warpgroups over 128-query
+// tiles, a ring of NS K slots between them (full and empty mbarriers).
+template <int KIND>
+__global__ void __launch_bounds__(Ws::NTH, 1)
+tiled_pipelined_ws(const Args<float> a) {
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  const WsSmem sm(smem_raw, a.p, a.d);
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < Ws::NS; ++s) {
+      mbar_init(sm.full + s, Ws::FTH);
+      mbar_init(sm.empty + s, 32 * Ws::SW);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  stage_chol_inv<float, NBV, Ws::NTH>(sm.ls, a.chol_inv, a.cap, a.n);
+  stage_rows<float, Ws::NTH>(sm.xs, sm.ms, a.x, a.mask, a.n, a.d);
+  __syncthreads();
+  const int64_t items = block_items((a.n_q + Ws::TQ - 1) / Ws::TQ);
+  if ((int)threadIdx.x >= 32 * Ws::SW) {
+    regs_dec<96>();
+    ws_fill<KIND>(sm, a, items);
+  } else {
+    regs_inc<232>();
+    ws_solve(sm, a, items);
+  }
+}
+
 // Streamed body: one query per thread, chol_inv from device memory; the
 // family read at run time.
 template <typename T, int KF>
@@ -384,24 +1039,42 @@ constexpr int nth_of() {
 template <typename T, int KIND, int KF>
 cudaError_t launch_serial(const Args<T>& a, cudaStream_t stream) {
   static GridCache cache;
-  const size_t smem = VSmem<T, NT>::bytes(1, 1, a.p, a.d);
-  if (a.n > NBV || smem > SMEM_MAX) {
-    return launch_streamed<T, KF>(a, stream);
+  if constexpr (sizeof(T) == 4 && KF == K_EXPANDED) {
+    // Kernel 7's float32 body: the expanded form on the tensor cores.
+    const size_t smem = Tf32::bytes(a.p);
+    if (a.n > NBV) return launch_streamed<T, KF>(a, stream);
+    return launch_persistent(
+        cache, a.d > 8 ? tiled_expanded_tf32<KIND, 16>
+                       : tiled_expanded_tf32<KIND, 8>,
+        smem, Tf32::TQ, Tf32::NTH, a, stream);
+  } else {
+    const size_t smem = VSmem<T, NT>::bytes(1, 1, a.p, a.d);
+    if (a.n > NBV || smem > SMEM_MAX) {
+      return launch_streamed<T, KF>(a, stream);
+    }
+    return launch_persistent(cache, tiled_serial<T, KIND, KF>, smem,
+                             Tile<NBV, NT>::TQ, NT, a, stream);
   }
-  return launch_persistent(cache, tiled_serial<T, KIND, KF>, smem,
-                           Tile<NBV, NT>::TQ, NT, a, stream);
 }
 
 template <typename T, int KIND>
 cudaError_t launch_pipelined(const Args<T>& a, cudaStream_t stream) {
   static GridCache cache;
-  constexpr int NTH = nth_of<T>();
-  const size_t smem = VSmem<T, NTH>::bytes(2, 2, a.p, a.d);
-  if (a.n > NBV || smem > SMEM_MAX) {
-    return launch_streamed<T, K_STATIONARY>(a, stream);
+  if constexpr (sizeof(T) == 4) {
+    // Kernel 4's float32 body: warp-specialised.
+    const size_t smem = Ws::bytes(a.p, a.d);
+    if (a.n > NBV) return launch_streamed<T, K_STATIONARY>(a, stream);
+    return launch_persistent(cache, tiled_pipelined_ws<KIND>, smem, Ws::TQ,
+                             Ws::NTH, a, stream);
+  } else {
+    constexpr int NTH = nth_of<T>();
+    const size_t smem = VSmem<T, NTH>::bytes(2, 2, a.p, a.d);
+    if (a.n > NBV || smem > SMEM_MAX) {
+      return launch_streamed<T, K_STATIONARY>(a, stream);
+    }
+    return launch_persistent(cache, tiled_pipelined<T, KIND, NTH>, smem,
+                             Tile<NBV, NTH>::TQ, NTH, a, stream);
   }
-  return launch_persistent(cache, tiled_pipelined<T, KIND, NTH>, smem,
-                           Tile<NBV, NTH>::TQ, NTH, a, stream);
 }
 
 template <typename T, int KIND, int HS>

@@ -603,6 +603,56 @@ def test_kernel_variants_launch_their_kernels(on_cuda):
     assert [cuda_fn.launches for _, cuda_fn, _ in wrappers] == counts
 
 
+#: Count edges of kernels 4 and 7's float32 tiled bodies
+#: (``chip_smoke.VARIANT_COUNTS``); 129 takes the streamed body.
+VARIANT_COUNTS = [0, 1, 16, 17, 64, 127, 128, 129]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("count", VARIANT_COUNTS)
+def test_redesigned_variant_bodies_at_their_edges(on_cuda, count):
+    """Kernels 4 and 7 (and the other variants) in float32 at the count
+    edges of the redesigned tiled bodies, the cart-pole's d = 5, p = 4,
+    the queries led by the GP's training rows (``r^2 = 0``), each within
+    its bound (kernel 7's tiled body: ``expanded_bounds(...,
+    tf32x3=True)``) of its plain version, the four kinds."""
+    from chip_smoke import (case_gp, case_inputs, check_variants,
+                            on_training_rows)
+
+    cap = 128 if count <= 128 else 256
+    for kind in KINDS:
+        gp = case_gp(kind, cap, 4, 2.5, torch.float32, seed=count, n=count,
+                     d=5)
+        inputs = on_training_rows(case_inputs(gp, 3001, count), count)
+        errors = check_variants(inputs, kind, gp.count)
+        assert all(ratio <= 1.0 for _, _, ratio in errors.values())
+
+
+@pytest.mark.cuda
+def test_no_user_path_launches_kernels_4_or_7(on_cuda):
+    """Kernels 4 and 7 stay off every path: on CUDA tensors a
+    ``GaussianProcess`` predict and the bench's ``update_safe_set`` launch
+    kernel 1 and neither of them."""
+    from chip_smoke import build_bench_instance, case_gp
+    from safe_learning_tpu_torch.benchmarks import (
+        distance_mxu_experiment as dm, pipelined_predict as pp)
+
+    variants = (pp.pipelined_gp_predict_cuda, dm.fused_predict_mxu_dist_cuda)
+    before = [fn.launches for fn in variants]
+    kernel1 = gp_kernel.gp_predict_cuda.launches
+    gp = case_gp("rbf", 128, 2, 1.0, torch.float32, seed=2)
+    gp(torch.zeros(7, 3, device=on_cuda))
+    assert gp_kernel.gp_predict_cuda.launches == kernel1 + 1
+    inst = build_bench_instance(1000)
+    lyap = st.Lyapunov(inst["grid"], inst["v"], inst["gp"], inst["lf"],
+                       inst["lv"], inst["tau"], inst["policy"],
+                       initial_set=inst["initial_set"])
+    lyap.update_safe_set()
+    torch.cuda.synchronize()
+    assert gp_kernel.gp_predict_cuda.launches >= kernel1 + 2
+    assert [fn.launches for fn in variants] == before
+
+
 #: The float64 DMMA bodies' edges (``chip_smoke.DMMA_COUNTS``): every k
 #: step, 16-row tile and bucket edge of the tiled body and the panel
 #: body's row tiles.

@@ -239,3 +239,30 @@ def test_kernel_bound_of_a_float64_path(count):
     assert (by, kind) == ("bytes", "hbm")
     assert ms == pytest.approx(values * 8 / HBM_BYTES_PER_S * 1e3,
                                rel=1e-12)
+
+
+@pytest.mark.parametrize("count", [64, 128])
+def test_kernel_bound_of_the_three_pass_tf32_body(count):
+    """``kernel_bound(..., tf32x3=True)``, kernel 7's float32 tiled body:
+    the product ``L^-1 K`` over a third of the H100's TF32 tensor-core peak
+    (``TF32_TC_FLOPS / 3``, three passes) and the rest over ``FP32_FLOPS``,
+    kind ``tf32x3``; below the FP32 bound of the same work, above the
+    product's share of it at the TF32 rate, and the bytes as any float32
+    path's."""
+    from chip_smoke import (FP32_FLOPS, HBM_BYTES_PER_S, TF32_TC_FLOPS,
+                            kernel_bound, stationary_ops)
+
+    n_q, d, p = 6_765_201, 5, 4
+    k_ops = stationary_ops("rbf", d)
+    product = n_q * count * count
+    rest = n_q * ((p + 1) * (2 * count - 1) + count * k_ops)
+    ms, by, kind = kernel_bound(n_q, d, count, p, 1, k_ops, 4, tf32x3=True)
+    assert (by, kind) == ("operations", "tf32x3")
+    assert ms == pytest.approx(
+        (3 * product / TF32_TC_FLOPS + rest / FP32_FLOPS) * 1e3, rel=1e-12)
+    f32_ms = kernel_bound(n_q, d, count, p, 1, k_ops, 4)[0]
+    assert rest / FP32_FLOPS * 1e3 < ms < f32_ms
+    values = d + count * d + count * (count + p) + count + (p + 1)
+    assert kernel_bound(1, d, count, p, 1, k_ops, 4, tf32x3=True) == (
+        pytest.approx(values * 4 / HBM_BYTES_PER_S * 1e3, rel=1e-12),
+        "bytes", "hbm")
