@@ -18,8 +18,8 @@ Phases, in order; any failure raises and the exit code is not 0:
    float64 tiled and panel kernel of kernels 1-3 holds ``DMMA`` (the
    product on the FP64 tensor cores), no float32 kernel and no float64
    streamed kernel does, and none of them a TF32 tensor-core instruction;
-   of the variants, kernel 7's float32 tiled kernels hold TF32 ``HGMMA``
-   (three passes, off every path) and no other does;
+   of the variants, kernels 6 and 7's float32 tiled kernels hold TF32
+   ``HGMMA`` (three passes, off every path) and no other does;
 3. kernel 1 against plain: the stationary GP-predict kernel against its
    plain PyTorch version on the card, for every stationary kind,
    capacities 8, 128 and 2048 with a partly filled mask, 1 and 2 outputs,
@@ -277,17 +277,18 @@ Phases, in order; any failure raises and the exit code is not 0:
     (``phase_kernel_variants``, the pipelined, interleaved by 2 and 4,
     folded and expanded-distance kernels of the port's benchmark modules):
     (a) each against its plain version within its bound
-    (``rounding_bounds``, ``folded_bounds``, ``expanded_bounds``; kernel
-    7's three-pass TF32 body with ``tf32x3``) in float32 and float64, the
-    four kinds, capacities 8, 128 and 2048 and the cart-pole's d = 5, p =
-    4, then in float32 the count edges ``VARIANT_COUNTS`` with queries on
+    (``rounding_bounds``, ``folded_bounds``, ``expanded_bounds``; kernels
+    6 and 7's three-pass TF32 bodies with ``tf32x3``) in float32 and
+    float64, the four kinds, capacities 8, 128 and 2048 and the
+    cart-pole's d = 5, p = 4, then in float32 the count edges ``VARIANT_COUNTS`` with queries on
     training rows; (b) at the bench's and the cart-pole's
     kernel-1 inputs, their path, ``pipelined_predict.run`` and
     ``distance_mxu_experiment.run`` (launches counted; each variant's max
     |d| from kernel 1 and speed-up), then each against its plain version,
     device times in turns with kernel 1's, eager and plain times, and
     the solve's product alone at those inputs as their ``library_ms``; (c) the
-    expanded form's and kernel 1's errors against the float64 oracle; then
+    folded and expanded forms' and kernel 1's errors against the float64
+    oracle; then
     the loop's step times again, to show how far the work before moved
     them;
 26. profiles, after every time: ``profiling.trace`` over the safe-learning and
@@ -824,7 +825,7 @@ def cuda_ms(fn, reps=10, warmup=2, batch=1):
     return statistics.median(times)
 
 
-def rounding_bounds(inputs, kind):
+def rounding_bounds(inputs, kind, product_units=None):
     """Elementwise bounds on ``|kernel - plain|`` for both outputs.
 
     Standard forward-error bounds for the two dot-product stages, each
@@ -832,7 +833,9 @@ def rounding_bounds(inputs, kind):
     ``k`` carries a relative error below ``(16 + 2 r^2) u`` (differences,
     sum of squares, exp; ``r^2`` because exp amplifies the error of its
     argument); ``a = L^-1 k`` adds ``cap u |L^-1| |k|``; the mean and the
-    variance add ``cap u`` of their absolute sums.
+    variance add ``cap u`` of their absolute sums. ``product_units``
+    replaces the kernel's ``cap`` units of ``a`` (the plain side keeps
+    ``cap``): ``folded_bounds`` with ``tf32x3``.
     """
     q, x, li, alpha, mask, var_s2 = (t.double() for t in inputs)
     u = torch.finfo(inputs[0].dtype).eps / 2
@@ -843,7 +846,8 @@ def rounding_bounds(inputs, kind):
         r2 = diff * diff if r2 is None else r2 + diff * diff
     k = st.functions.gp.STATIONARY_COVARIANCES[kind](r2) * var_s2 \
         * mask[:, None]
-    w = li.abs() @ ((cap + 16 + 2 * r2) * k.abs())
+    units = cap if product_units is None else (cap + product_units) / 2
+    w = li.abs() @ ((units + 16 + 2 * r2) * k.abs())
     del r2
     a = (li @ k).abs()
     del k
@@ -852,12 +856,26 @@ def rounding_bounds(inputs, kind):
     return tol_mean, tol_var
 
 
-def folded_bounds(inputs, kind):
+def folded_bounds(inputs, kind, tf32x3=False):
     """``rounding_bounds`` of the folded variant: its inputs ``(q, x,
-    chol_inv_scaled, alpha)`` and a bare ``k`` (unit scale and mask)."""
+    chol_inv_scaled, alpha)`` and a bare ``k`` (unit scale and mask).
+
+    ``tf32x3``: the bound of kernel 6's float32 tiled body, which takes
+    the product ``L^-1 K`` on the tensor cores in three TF32 passes, as
+    ``expanded_bounds``'s ``tf32x3`` term does for kernel 7: each product
+    carries the split's residual (``TF32X3_SPLIT_U`` units of
+    ``|l_ij k_j|``) and each sum inside the tensor cores ``2u`` an addition
+    over the ``3 (cap + 7)`` terms of a row (its k steps of 8), so the
+    kernel's product takes ``TF32X3_SPLIT_U + 6 (cap + 7)`` units in place
+    of ``cap``. No cross-term part applies: its ``r^2`` is kernel 1's,
+    formed by per-dimension differences on the CUDA cores in IEEE
+    float32."""
     q, x, li, alpha = inputs
     ones = torch.ones(x.shape[0], dtype=q.dtype, device=q.device)
-    return rounding_bounds((q, x, li, alpha, ones, ones[0]), kind)
+    units = None
+    if tf32x3:
+        units = TF32X3_SPLIT_U + 6 * (x.shape[0] + 7)
+    return rounding_bounds((q, x, li, alpha, ones, ones[0]), kind, units)
 
 
 #: Per stationary kind: ``r*``, where ``|f'(r)|`` of the covariance as a
@@ -1085,12 +1103,24 @@ SASS_KERNEL = re.compile(
     r"gp_(?:predict|program)_(tiled|panel|streamed)(?:_dmma)?I([df])")
 
 #: A kernel function of kernel 1's variants (``gp_predict_variants.cu``):
-#: its body (``tiled_expanded_tf32`` is kernel 7's float32 tiled body,
-#: ``tiled_pipelined_ws`` kernel 4's) and its value type, the first
-#: template argument or, for those two, that of its ``Args``.
+#: its body (the float32 tiled bodies ``tiled_pipelined_ws`` of kernel 4,
+#: ``tiled_interleaved_chains`` of kernel 5, ``tiled_folded_tf32`` of kernel
+#: 6 and ``tiled_expanded_tf32`` of kernel 7) and its value type, the first
+#: template argument or, for those four, that of its ``Args``.
 SASS_VARIANT = re.compile(
-    r"(tiled_expanded_tf32|tiled_pipelined_ws|tiled_pipelined|"
-    r"tiled_interleaved|tiled_serial|streamed)I(?:([df])|.*ArgsI([df])E)")
+    r"(tiled_expanded_tf32|tiled_folded_tf32|tiled_pipelined_ws|"
+    r"tiled_interleaved_chains|tiled_pipelined|tiled_interleaved|"
+    r"tiled_serial|streamed)I(?:([df])|.*ArgsI([df])E)")
+
+#: The variants' bodies whose product runs on the TF32 tensor cores
+#: (``wgmma``): kernels 6 and 7's float32 tiled bodies. No other kernel
+#: may hold a TF32 tensor-core instruction.
+SASS_TF32_BODIES = ("tiled_folded_tf32", "tiled_expanded_tf32")
+
+#: The redesigned float32 tiled bodies of kernels 4-7, each of which must
+#: be found in the variants' SASS.
+SASS_REDESIGNED = ("tiled_pipelined_ws", "tiled_interleaved_chains",
+                   "tiled_folded_tf32", "tiled_expanded_tf32")
 
 #: A tensor-core instruction on TF32 operands (``HGMMA`` of ``wgmma``,
 #: ``HMMA`` of ``mma.sync``).
@@ -1105,11 +1135,14 @@ def sass_check(tuples):
     streamed kernels (the CUDA-core body kept above the panel body) do
     not, and no float32 kernel contains a TF32 tensor-core instruction
     (``SASS_TF32``): TF32 is not allowed on the kernels' path. The
-    variants: kernel 7's float32 tiled kernels (``tiled_expanded_tf32``)
-    contain TF32 tensor-core instructions, and no other variant kernel
-    does (kernel 4's float32 body, ``tiled_pipelined_ws``, and its
-    streamed body are FP32 on the CUDA cores). A missing ``cuobjdump``
-    fails."""
+    variants: kernels 6 and 7's float32 tiled kernels
+    (``SASS_TF32_BODIES``) contain TF32 ``HGMMA`` (``wgmma``), and no other
+    variant kernel holds a TF32 tensor-core instruction (kernels 4 and 5's
+    float32 bodies, ``tiled_pipelined_ws`` and
+    ``tiled_interleaved_chains``, and the streamed bodies are FP32 on the
+    CUDA cores); each of the four redesigned float32 bodies
+    (``SASS_REDESIGNED``) is found. TF32 is allowed only in kernels 6 and
+    7's float32 tiled bodies. A missing ``cuobjdump`` fails."""
     from safe_learning_tpu_torch.ops.build import _nvcc
 
     tool = shutil.which("cuobjdump") or os.path.join(
@@ -1139,13 +1172,15 @@ def sass_check(tuples):
                 if m is None:
                     continue
                 body, t = m.group(1), m.group(2) or m.group(3)
-                want = body == "tiled_expanded_tf32"
+                want = body in SASS_TF32_BODIES
                 found["variant " + body, t, "TF32" if tf32 else "no TF32"] \
                     += 1
-                if bool(tf32) != want:
+                if bool(tf32) != want or (want and not any(
+                        form.startswith("HGMMA") for form in tf32)):
                     raise AssertionError("{} has {} TF32 tensor-core "
-                                         "instructions".format(name,
-                                                               len(tf32)))
+                                         "instructions ({})".format(
+                                             name, len(tf32),
+                                             sorted(set(tf32))))
                 continue
             m = SASS_KERNEL.search(name)
             if m is None:
@@ -1163,8 +1198,8 @@ def sass_check(tuples):
                                      "core instructions".format(name,
                                                                 len(tf32)))
     print("SASS of kernels 1-3 and the variants ({} libraries, cuobjdump "
-          "--dump-sass): {}; TF32 tensor-core instructions only in kernel "
-          "7's float32 tiled body ({})".format(
+          "--dump-sass): {}; TF32 tensor-core instructions only in "
+          "kernels 6 and 7's float32 tiled bodies ({})".format(
               len(libs) + 1, ", ".join(
                   "{} {} {}: {}".format(body, {"d": "f64", "f": "f32"}[t],
                                         has, n)
@@ -1174,7 +1209,7 @@ def sass_check(tuples):
         if not found[body, "d", "DMMA"]:
             raise AssertionError("no float64 {} kernel found in the SASS"
                                  .format(body))
-    for body in ("tiled_expanded_tf32", "tiled_pipelined_ws"):
+    for body in SASS_REDESIGNED:
         if not sum(n for (b, t, _), n in found.items()
                    if b == "variant " + body and t == "f"):
             raise AssertionError("no float32 {} kernel found in the SASS"
@@ -2052,9 +2087,9 @@ def time_against_plain(name, kernel, plain, card, shape):
 #: (DMMA, IEEE float64), TF32 on the tensor cores, and HBM3 bandwidth. TF32
 #: is not IEEE float32 and is not allowed on the kernels' path, so FP32 is
 #: a float32 kernel's arithmetic peak (kernel 1's arithmetic is IEEE
-#: float32; three TF32 passes are not). The one exception is kernel 7's
-#: float32 tiled body, off every path, whose ``L^-1 K`` runs in three TF32
-#: passes: its bound (``tf32x3``) takes that product at a third of
+#: float32; three TF32 passes are not). The exceptions are kernels 6 and
+#: 7's float32 tiled bodies, off every path, whose ``L^-1 K`` runs in three
+#: TF32 passes: their bound (``tf32x3``) takes that product at a third of
 #: ``TF32_TC_FLOPS``. A float64 kernel's matrix product ``L^-1 K`` could
 #: run on DMMA, so its bound takes that product at ``FP64_TC_FLOPS`` and
 #: the rest at ``FP64_FLOPS``, whatever instructions the kernel executes.
@@ -2074,6 +2109,14 @@ def stationary_ops(kind, d):
     differences, ``d`` squares and ``d - 1`` adds for ``r^2``, the
     covariance, the scale and the mask."""
     return 3 * d - 1 + COV_OPS[kind] + 2
+
+
+def folded_ops(kind, d):
+    """Operations of kernel 6's bare ``k_j`` per row and query: kernel 1's
+    without the scale and the mask, which the wrapper folds into the
+    columns of ``chol_inv`` once per call (``count^2`` multiplies, left
+    out)."""
+    return stationary_ops(kind, d) - 2
 
 
 def program_ops(programs):
@@ -2112,7 +2155,7 @@ def kernel_bound(n_q, d, count, p, n_out, k_ops, itemsize, tf32x3=False):
     output's operations per row, ``stationary_ops`` or ``program_ops``).
     For 4-byte values all of them over ``FP32_FLOPS``; for 8-byte ones the
     product over ``FP64_TC_FLOPS`` and the rest over ``FP64_FLOPS``; with
-    ``tf32x3`` (kernel 7's float32 tiled body, kind ``tf32x3``) the
+    ``tf32x3`` (kernels 6 and 7's float32 tiled bodies, kind ``tf32x3``) the
     product over ``TF32_TC_FLOPS / 3`` (three TF32 passes) and the rest
     over ``FP32_FLOPS``. Bytes: queries, the active rows of x, chol_inv,
     alpha and the mask read once, the outputs written once, over
@@ -2210,9 +2253,9 @@ def form_inputs(inputs, form):
 
 
 def tf32x3_body(inputs, count):
-    """Whether kernel 7 takes its three-pass TF32 body on these inputs:
-    float32 and its loops bounded at 128 rows or fewer (the tiled body;
-    ``count`` ``None``: the capacity)."""
+    """Whether kernels 6 and 7 take their three-pass TF32 bodies on these
+    inputs: float32 and the loops bounded at 128 rows or fewer (the tiled
+    bodies; ``count`` ``None``: the capacity)."""
     n = inputs[1].shape[0] if count is None else count
     return inputs[0].dtype == torch.float32 and n <= 128
 
@@ -2220,14 +2263,15 @@ def tf32x3_body(inputs, count):
 def form_plain(form, kind, tf32x3=False):
     """``(plain(part), bounds(part))`` of a k form: its plain version and
     its rounding bound (``rounding_bounds``, ``folded_bounds``,
-    ``expanded_bounds``; with ``tf32x3`` the expanded form's three-pass
-    TF32 bound, ``tf32x3_body``)."""
+    ``expanded_bounds``; with ``tf32x3`` the folded and expanded forms'
+    three-pass TF32 bounds, ``tf32x3_body``)."""
     if form == "stationary":
         return (lambda part: gp_kernel.gp_predict_plain(*part, kind=kind),
                 lambda part: rounding_bounds(part, kind))
     if form == "folded":
         return (lambda part: pipelined_predict.folded_gp_predict_plain(
-            *part, kind=kind), lambda part: folded_bounds(part, kind))
+            *part, kind=kind),
+                lambda part: folded_bounds(part, kind, tf32x3))
     return (lambda part: distance_mxu_experiment.fused_predict_mxu_dist_plain(
         *part, kind=kind), lambda part: expanded_bounds(part, kind, tf32x3))
 
@@ -2261,9 +2305,10 @@ def check_variants(inputs, kind, count, chunk=2 ** 19):
     return results
 
 
-#: Count edges of kernels 4 and 7's float32 tiled bodies: one row, one
-#: and two 8-row k steps and 16-row tiles, the 64-row split of kernel 7's
-#: solve warpgroups, the bucket's last rows; 129 takes the streamed body.
+#: Count edges of kernels 4-7's float32 tiled bodies: one row, one and two
+#: 8-row k steps and 16-row tiles (and 4-row groups of kernel 6's fill),
+#: the 64-row split of kernels 6 and 7's solve warpgroups, the bucket's
+#: last rows; 129 takes the streamed body.
 VARIANT_COUNTS = (0, 1, 16, 17, 64, 127, 128, 129)
 
 
@@ -2279,20 +2324,24 @@ def variant_cases():
     """Part (a) of ``phase_kernel_variants``: every variant against its
     plain version within its bound, float32 and float64, the four kinds,
     capacities 8, 128 (tiled) and 2048 (streamed) with a quarter of the
-    rows padding, and the cart-pole's d = 5, p = 4; the loops bounded by
+    rows padding, the cart-pole's d = 5, p = 4, and many outputs at
+    capacity 128 (p = 8 at d = 2, p = 7 at d = 16, where kernel 5's
+    partial sums take its K tile's room); the loops bounded by
     the count in every other case, by the capacity in the rest. The query
     counts are ragged and give every block of the persistent grid several
     tiles (and groups of 4 tiles). Then, in float32, the count edges
     ``VARIANT_COUNTS`` at the four kinds, d = 3, p = 2 and d = 5, p = 4 in
     turn, the queries led by the GP's training rows
-    (``on_training_rows``). Kernel 7's float32 tiled body is held to
-    ``expanded_bounds(..., tf32x3=True)``, its other cases to
-    ``expanded_bounds``."""
+    (``on_training_rows``). Kernels 6 and 7's float32 tiled bodies are
+    held to ``folded_bounds(..., tf32x3=True)`` and ``expanded_bounds(...,
+    tf32x3=True)``, their other cases to the bounds without."""
     worst = {name: 0.0 for name, _, _, _ in VARIANTS}
     case = 0
     specs = [(kind, cap, 1 + (ki + ci) % 2, 3)
              for ki, kind in enumerate(gp_kernel.KINDS)
-             for ci, cap in enumerate((8, 128, 2048))] + [("rbf", 128, 4, 5)]
+             for ci, cap in enumerate((8, 128, 2048))] + [
+                 ("rbf", 128, 4, 5), ("rbf", 128, 8, 2),
+                 ("matern32", 128, 7, 16)]
     cases = [(dtype, kind, cap, p, d, None) for dtype in (torch.float32,
                                                          torch.float64)
              for kind, cap, p, d in specs]
@@ -2328,7 +2377,7 @@ def variant_cases():
             worst[name] = max(worst[name], ratio)
     print("variants against plain: {} cases each, worst err/bound {} "
           "(bounds: rounding_bounds, folded_bounds, expanded_bounds, "
-          "in kernel 7's float32 tiled body with tf32x3)".format(
+          "in kernels 6 and 7's float32 tiled bodies with tf32x3)".format(
               case, {k: round(v, 4) for k, v in worst.items()}))
 
 
@@ -2344,7 +2393,9 @@ def variant_times(card, label, inputs, count):
     plain version within its bound; device times (``graph_ms``) of kernel
     1 and every variant in turns, two rounds; eager times; the plain
     versions' device times. Returns the ``paths`` entries; a variant's
-    ``bound_ms`` is kernel 1's ``kernel_bound``, the same work.
+    ``bound_ms`` is the ``kernel_bound`` of kernel 1's work (kernel 6's
+    without the scale and the mask, ``folded_ops``), over the three-pass
+    TF32 rate in kernels 6 and 7's float32 tiled bodies.
     """
     n_q, d = inputs[0].shape
     p = inputs[3].shape[1]
@@ -2371,6 +2422,16 @@ def variant_times(card, label, inputs, count):
     with torch.no_grad(), uncounted():
         errors = check_variants(inputs, "rbf", count)
         calls = kernel_calls(inputs, "rbf", count)
+        # Kernel 6's error against the float64 oracle on the queries
+        # distance_mxu_experiment.run holds kernel 1 and kernel 7 to.
+        ref = distance_mxu_experiment.oracle_mean(inputs, "rbf", 4096)
+        folded_f64 = float((dict(calls)["folded"]()[0][:4096].to(
+            "cpu", torch.float64) - ref).abs().max())
+        print("variants ({}): |mean err vs f64| (first 4096 queries): "
+              "kernel 1 {:.3e}, folded {:.3e}, expanded {:.3e} [{}]".format(
+                  label, oracle["kernel1"]["max_abs_err_vs_f64"],
+                  folded_f64, oracle["expanded"]["max_abs_err_vs_f64"],
+                  card))
         runs = {name: [] for name, _ in calls}
         for _ in range(2):
             for name, fn in calls:
@@ -2384,11 +2445,17 @@ def variant_times(card, label, inputs, count):
         # Every variant computes kernel 1's function at kernel 1's inputs:
         # the same yardstick, the solve's product alone.
         library_ms = stationary_product_ms(inputs, "rbf", count)
-    bound = kernel_bound(n_q, d, count, p, 1, stationary_ops("rbf", d),
-                         inputs[0].element_size())
-    # Kernel 7's float32 tiled body: L^-1 K in three TF32 passes.
-    bound_tf32 = kernel_bound(n_q, d, count, p, 1, stationary_ops("rbf", d),
-                              inputs[0].element_size(), tf32x3=True)
+    def form_bounds(form):
+        """``(FP32 bound, tf32x3 bound)`` of a k form: kernel 6's folded
+        form counts ``folded_ops``, the others kernel 1's work; the second
+        for kernels 6 and 7's float32 tiled bodies (L^-1 K in three TF32
+        passes)."""
+        k_ops = (folded_ops if form == "folded" else stationary_ops)("rbf", d)
+        return tuple(kernel_bound(n_q, d, count, p, 1, k_ops,
+                                  inputs[0].element_size(), tf32x3=tc)
+                     for tc in (False, True))
+
+    bound = form_bounds("stationary")[0]
     k1_ms = statistics.mean(runs["kernel1"])
     print("variants ({}, {}): kernel 1 {!r} ms (runs {!r}), eager {!r} ms, "
           "plain {!r} ms; bound {!r} ms ({}); the product alone {!r} ms "
@@ -2399,9 +2466,10 @@ def variant_times(card, label, inputs, count):
     for name, kernel, form, kw in VARIANTS:
         ms = statistics.mean(runs[name])
         em, ev, ratio = errors[name]
-        own = bound
-        if form == "expanded" and tf32x3_body(inputs, count):
-            own = bound_tf32
+        fp32, tf32x3 = form_bounds(form)
+        own = fp32
+        if form != "stationary" and tf32x3_body(inputs, count):
+            own = tf32x3
         print("variant {} ({}): {!r} ms (runs {!r}), {:.3f} of kernel 1's "
               "time, eager {!r} ms, plain {!r} ms, {:.1%} of its bound "
               "{!r} ms ({}; FP32 bound {:.1%}); against plain max|dmean| "
@@ -2409,7 +2477,7 @@ def variant_times(card, label, inputs, count):
               "path [{}]".format(
                   name, label, ms, runs[name], ms / k1_ms, eager[name],
                   plain_ms[form], own[0] / ms, own[0], own[2],
-                  bound[0] / ms, em, ev, ratio, launches[kernel], card))
+                  fp32[0] / ms, em, ev, ratio, launches[kernel], card))
         if not ratio <= 1.0:
             raise AssertionError("variant {} disagrees with its plain version "
                                  "on the {} inputs".format(name, label))

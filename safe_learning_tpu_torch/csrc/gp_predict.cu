@@ -115,7 +115,8 @@ gp_predict_tiled_dmma(const T* __restrict__ q, const T* __restrict__ x,
       },
       [&](int64_t u, int b) {
         store_slots<T, TQ, TL::WG, TL::NTH>(sm.red(b), q0_of(u), n_q, p, 1,
-                                            0, mean_out, var_out);
+                                            0, mean_out, var_out,
+                                            (int)threadIdx.x);
       });
 }
 

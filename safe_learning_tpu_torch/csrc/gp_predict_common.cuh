@@ -145,10 +145,11 @@
 // fixed amount of shared memory.
 //
 // The DMMA bodies (float64 kernels 1-3; dmma, solve_tile_dmma,
-// dmma_tiles, solve_panels_dmma). The float32 bodies above, kernels 4-6
-// in both dtypes and kernel 7 in float64 keep the CUDA-core solve; so
-// does the float64 streamed body. (Kernel 7's float32 tiled body runs on
-// the TF32 tensor cores, off every path: gp_predict_variants.cu.)
+// dmma_tiles, solve_panels_dmma). The float32 bodies above, kernels 4
+// and 5 in both dtypes and kernels 6 and 7 in float64 keep the CUDA-core
+// solve; so does the float64 streamed body. (Kernels 6 and 7's float32
+// tiled bodies run on the TF32 tensor cores, off every path:
+// gp_predict_variants.cu.)
 //   - A = L^-1 K in 16 x 8 x 16 mma tiles (m16n8k16, the fastest depth on
 //     the card): a warp owns 16-row tiles of A (rows on the mma's M,
 //     queries on N, j on K). A k step loads one A fragment (16 rows x 16 j
@@ -490,13 +491,15 @@ __device__ __forceinline__ void solve_tile(const T* ks, const T* ls,
 // Sum the SLOTS partials red[w][c][q] (each [p + 1][TQ]) of each query of
 // the TQ-query tile starting at q0 and store output `out` of n_out:
 // mean_out[(q * n_out + out) * p + c] and var_out[q * n_out + out],
-// consecutive threads on consecutive queries.
+// consecutive threads on consecutive queries. `tid` is the thread's index
+// among the NTH that store (threadIdx.x where they are the block's first).
 template <typename T, int TQ, int SLOTS, int NTH>
 __device__ __forceinline__ void store_slots(const T* red, int64_t q0,
                                             int64_t n_q, int p, int n_out,
                                             int out, T* __restrict__ mean_out,
-                                            T* __restrict__ var_out) {
-  for (int idx = threadIdx.x; idx < TQ * (p + 1); idx += NTH) {
+                                            T* __restrict__ var_out,
+                                            int tid) {
+  for (int idx = tid; idx < TQ * (p + 1); idx += NTH) {
     const int c = idx / TQ;
     const int ql = idx - c * TQ;
     const int64_t qi = q0 + ql;
@@ -519,7 +522,7 @@ __device__ __forceinline__ void store_tile(const T* red, int64_t q0,
                                            int out, T* __restrict__ mean_out,
                                            T* __restrict__ var_out) {
   store_slots<T, Tile<NB, NTH>::TQ, Tile<NB, NTH>::SLOTS, NTH>(
-      red, q0, n_q, p, n_out, out, mean_out, var_out);
+      red, q0, n_q, p, n_out, out, mean_out, var_out, (int)threadIdx.x);
 }
 
 // What the launches of one tiled instantiation ask of the CUDA runtime,

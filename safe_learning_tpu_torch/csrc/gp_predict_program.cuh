@@ -168,7 +168,7 @@ __device__ __forceinline__ void outputs_dmma(
       [&](int64_t u, int b) {
         store_slots<double, TQ, TL::WG, TL::NTH>(
             sm.red(b), q0_of(u), a.n_q, a.p, Prog::NUM_OUT, OUT, a.mean_out,
-            a.var_out);
+            a.var_out, (int)threadIdx.x);
       });
   if constexpr (OUT + 1 < Prog::NUM_OUT) {
     outputs_dmma<Prog, NB, OUT + 1>(sm, resident, a, pr, s2);
@@ -379,7 +379,7 @@ gp_program_panel_dmma(const Args<T> a) {
     }
     __syncthreads();  // partials written
     store_slots<double, TQ, NW, NT>(red, q0, a.n_q, a.p, Prog::NUM_OUT, s,
-                                    a.mean_out, a.var_out);
+                                    a.mean_out, a.var_out, (int)threadIdx.x);
   }
   cp_async_wait<0>();
 }
@@ -422,7 +422,8 @@ gp_program_panel(const Args<T> a) {
                  a.n, a.p, rt, lane / WC, qbase);
     __syncthreads();  // partials written; K, the ring and red are free
     store_slots<T, P::TQ, P::RTP, NT>(sm.red, q0, a.n_q, a.p, Prog::NUM_OUT,
-                                      s, a.mean_out, a.var_out);
+                                      s, a.mean_out, a.var_out,
+                                      (int)threadIdx.x);
   }
 }
 

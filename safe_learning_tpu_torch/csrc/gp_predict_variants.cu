@@ -42,14 +42,57 @@
 //     tile and the partial sums are doubled into two slots;
 //     in iteration t a block solves tile t from one slot and builds tile
 //     t+1's k into the other, one barrier a tile.
-//   - interleaved<H>, H in {2, 4}: a block takes H tiles at a time; each
-//     sub-tile builds its k and runs its solve, and sub-tile h+1's build
-//     follows sub-tile h's solve with no barrier between (the k tile is a
-//     ring of two slots; every sub-tile has its own partial sums, stored
-//     after the group's last barrier): H + 1 barriers for H tiles.
+//   - interleaved<H>, H in {2, 4}: on the TPU, H sub-tiles a tile, each
+//     sub-tile's covariance -> matmul chain independent of the others, so
+//     the compiler interleaves one chain's exp with another's matmul in
+//     one instruction stream. A GPU warp issues in order; the warp
+//     schedulers interleave warps. So in float32 (tiled_interleaved_chains)
+//     each chain is a warpgroup of its own: one persistent block an SM
+//     stages chol_inv (transposed), x and the mask once behind the block's
+//     only barrier, then each of its H warpgroups walks its own sequence of
+//     query tiles (the block's tiles g, g + H, ...) and per tile fills its
+//     own K slot (kernel 1's stationary_k, one or two threads a query),
+//     syncs on its own named barrier (bar.sync 1 + g, 128), solves with
+//     kernel 4's solve rows (ws_rows: row tiles w and 7 - w a warp, both
+//     held in registers, each a_i over j from 0 in kernel 1's order, so A
+//     is kernel 1's bit for bit and only the reductions' tree differs),
+//     syncs, writes its partial sums over its K slot (ws_part), syncs,
+//     stores and syncs again. No barrier spans two chains, so the chains
+//     drift out of phase and one chain's exp (MUFU) issues beside
+//     another's shared loads and FMAs; the block holds one chol_inv
+//     (67,584 B) where kernel 1's two blocks an SM hold two, and no room
+//     for partial sums, so it fits at every p and d. What bounds it is the
+//     SM's issue rate: about 9,216 FMAs and 576 shared loads a query for
+//     the solve (16-row tiles) plus about 20 instructions a covariance.
+//     Its shape per H: at H = 2, 8 x 8 register tiles (64 FMAs per four
+//     16-byte loads) and 128-query tiles (64 KB a K slot, 255 registers a
+//     thread, 8 warps); at H = 4, 8 x 4 tiles and 64-query tiles (32 KB,
+//     128 registers, 16 warps, kernel 1's warp count with one chol_inv).
+//     In float64 (tiled_interleaved) a block takes
+//     H tiles at a time; each sub-tile builds its k and runs its solve,
+//     and sub-tile h+1's build follows sub-tile h's solve with no barrier
+//     between (the k tile is a ring of two slots; every sub-tile has its
+//     own partial sums, stored after the group's last barrier): H + 1
+//     barriers for H tiles.
 //   - folded: k is the bare cov_kind(r2); the wrapper has folded
 //     var_s2 * mask into the columns of chol_inv once per call, as the JAX
-//     wrapper does outside its body. Two multiplies less per (row, query).
+//     wrapper does outside its body. Two multiplies less per (row, query)
+//     in the fill; on kernel 1's schedule (float64, tiled_serial) the fill
+//     is not what bounds it, the FP32 solve is. So in float32
+//     (tiled_folded_tf32) the product runs on the tensor cores in three
+//     TF32 passes with kernel 7's solve warpgroups, ring and epilogue
+//     (tf32_block, tf32_solve; the folded chol_inv's TF32 halves in
+//     registers), and the fill, which then sets the pace, is kernel 1's
+//     per-dimension r2 (no cancellation near r2 = 0, unlike the expanded
+//     form) on the CUDA cores: x transposed in shared memory, read 4 rows
+//     a 16-byte broadcast, the query's coordinates in registers (a tile
+//     ahead), the covariance, the TF32 split and two 16-byte stores per 4
+//     rows (folded_fill). Rows from the count to the solve's last k step
+//     must be exact zeros (0 * NaN is NaN on the tensor cores; kernel 7
+//     gets them from var_s2 mask_j = 0): the block zeroes both K slots
+//     once and the fill's loop stops at the count, so no element pays for
+//     the count or the mask. Not IEEE float32: chip_smoke.folded_bounds,
+//     with tf32x3.
 //   - expanded: r2 = max(xx_j - 2 x_j.q + qq, 0), xx_j and qq in the
 //     working precision on the CUDA cores. On the TPU both of the JAX
 //     kernel's products, the cross term x^T q and L^-1 K, run on the
@@ -98,12 +141,13 @@
 // the streamed body (kernel 7's float32 tiled body also takes the depth
 // of its cross term, 8 or 16, as a template parameter): 28 kernels where
 // one per family would be 68, which keeps the library's build near
-// kernel 1's. float32 blocks have 256
-// threads (the pipelined body 384, the expanded body 512, one block an
-// SM); float64 pipelined and interleaved blocks 128, whose tile is 32
-// queries wide, so that chol_inv (128 KB in float64) and two k slots fit
-// in the 227 KB a block may use. Loops are bounded by the host's count,
-// padded rows are exact zeros (gp_predict.cu), no fast-math.
+// kernel 1's. float32 blocks are one an SM: the pipelined body 384
+// threads, the interleaved 128 a chain, the folded and expanded 512;
+// float64 blocks have 256 threads (kernel 1's), the pipelined and
+// interleaved 128, whose tile is 32 queries wide, so that chol_inv (128 KB
+// in float64) and two k slots fit in the 227 KB a block may use. Loops
+// are bounded by the host's count, padded rows are exact zeros
+// (gp_predict.cu), no fast-math.
 
 #include "gp_predict_stationary.cuh"
 
@@ -267,8 +311,8 @@ __device__ __forceinline__ T scale_of(const Args<T>& a) {
   return a.var_s2 != nullptr ? *a.var_s2 : T(1);
 }
 
-// Kernel 1's schedule with the k form KF (folded, expanded): per tile,
-// build, barrier, solve, barrier, store.
+// Kernel 1's schedule with the k form KF (folded, expanded; float64): per
+// tile, build, barrier, solve, barrier, store.
 template <typename T, int KIND, int KF>
 __global__ void __launch_bounds__(NT, (tiled_min_blocks<T, NBV>()))
 tiled_serial(const Args<T> a) {
@@ -319,9 +363,9 @@ __global__ void __launch_bounds__(NTH, 1) tiled_pipelined(const Args<T> a) {
   }
 }
 
-// The interleaved schedule: HS consecutive tiles a group. Sub-tile h's
-// solve is followed by sub-tile h+1's build (k slots alternate) with no
-// barrier between; each sub-tile has its own partials, stored after the
+// The float64 interleaved schedule: HS consecutive tiles a group. Sub-tile
+// h's solve is followed by sub-tile h+1's build (k slots alternate) with
+// no barrier between; each sub-tile has its own partials, stored after the
 // group's last barrier.
 template <typename T, int KIND, int NTH, int HS>
 __global__ void __launch_bounds__(NTH, 1)
@@ -359,7 +403,7 @@ tiled_interleaved(const Args<T> a) {
 }
 
 // ---------------------------------------------------------------------------
-// Hopper primitives of the two float32 bodies below
+// Hopper primitives of the float32 bodies below
 // ---------------------------------------------------------------------------
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -612,7 +656,7 @@ __device__ __forceinline__ void tf32_solve(const Tf32Smem& sm,
     const int64_t t0 = ((int64_t)blockIdx.x + u * gridDim.x) * Tf32::TQ;
     store_slots<float, Tf32::TQ, 8, 256>(
         sm.red + (int)(u & 1) * (Tf32::red_floats(p) / 2), t0, a.n_q, p, 1,
-        0, a.mean_out, a.var_out);
+        0, a.mean_out, a.var_out, (int)threadIdx.x);
   }
 }
 
@@ -737,16 +781,18 @@ __device__ __forceinline__ void tf32_fill(const Tf32Smem& sm,
   }
 }
 
-// Kernel 7's float32 tiled body: a persistent block of two solve and two
-// fill warpgroups over 64-query tiles, a ring of NS K slots between them
-// (full and empty mbarriers). x's TF32 halves, the rows' squared norms
-// and var_s2 mask_j are staged once a block. Registers move to the solve
-// warpgroup of rows 64-127, whose chol_inv halves take 128 a thread.
-template <int KIND, int DK>
-__global__ void __launch_bounds__(Tf32::NTH, 1)
-tiled_expanded_tf32(const Args<float> a) {
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  const Tf32Smem sm(smem_raw, a.p);
+// The block of kernels 6 and 7's float32 tiled bodies: the ring's
+// mbarriers, the fill's operands staged by `stage()` (and made visible to
+// the tensor cores), then two solve warpgroups and two fill warpgroups
+// (`fill(items)`) over the block's 64-query tiles, a ring of NS K slots
+// between them (full and empty mbarriers). Registers move from the fill
+// warpgroups to the solve warpgroup of rows 64-127, whose chol_inv halves
+// take 128 a thread.
+template <class Stage, class Fill>
+__device__ __forceinline__ void tf32_block(const Tf32Smem& sm,
+                                           const Args<float>& a,
+                                           const Stage& stage,
+                                           const Fill& fill) {
   if (threadIdx.x == 0) {
     for (int s = 0; s < Tf32::NS; ++s) {
       mbar_init(sm.full + s, 256);
@@ -754,28 +800,14 @@ tiled_expanded_tf32(const Args<float> a) {
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-  const float var_s2 = scale_of(a);
-  for (int idx = threadIdx.x; idx < NBV * DK; idx += Tf32::NTH) {
-    const int j = idx / DK, c = idx - j * DK;
-    const float v = j < a.n && c < a.d ? a.x[(int64_t)j * a.d + c] : 0.f;
-    uint32_t hi, lo;
-    split_tf32(v, hi, lo);
-    const int off =
-        (c / 4) * Tf32::XSTR + (j / 8) * 128 + (j % 8) * 16 + (c % 4) * 4;
-    *reinterpret_cast<uint32_t*>(sm.xop + off) = hi;
-    *reinterpret_cast<uint32_t*>(sm.xop + Tf32::XHALF + off) = lo;
-  }
-  for (int j = threadIdx.x; j < NBV; j += Tf32::NTH) {
-    sm.xx[j] = j < a.n ? row_sq_norm(a.x + (int64_t)j * a.d, a.d) : 0.f;
-    sm.vm[j] = j < a.n ? var_s2 * a.mask[j] : 0.f;
-  }
+  stage();
   fence_async_shared();
   __syncthreads();
   const int64_t items = block_items((a.n_q + Tf32::TQ - 1) / Tf32::TQ);
   const int wg = (int)threadIdx.x / 128;
   if (wg >= 2) {
     regs_dec<88>();
-    tf32_fill<KIND, DK>(sm, a, items);
+    fill(items);
   } else if (wg == 1) {
     regs_inc<208>();
     tf32_solve<1>(sm, a, items);
@@ -784,9 +816,127 @@ tiled_expanded_tf32(const Args<float> a) {
   }
 }
 
+// Kernel 7's float32 tiled body: x's TF32 halves, the rows' squared norms
+// and var_s2 mask_j staged once a block for tf32_fill.
+template <int KIND, int DK>
+__global__ void __launch_bounds__(Tf32::NTH, 1)
+tiled_expanded_tf32(const Args<float> a) {
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  const Tf32Smem sm(smem_raw, a.p);
+  tf32_block(sm, a, [&] {
+    const float var_s2 = scale_of(a);
+    for (int idx = threadIdx.x; idx < NBV * DK; idx += Tf32::NTH) {
+      const int j = idx / DK, c = idx - j * DK;
+      const float v = j < a.n && c < a.d ? a.x[(int64_t)j * a.d + c] : 0.f;
+      uint32_t hi, lo;
+      split_tf32(v, hi, lo);
+      const int off =
+          (c / 4) * Tf32::XSTR + (j / 8) * 128 + (j % 8) * 16 + (c % 4) * 4;
+      *reinterpret_cast<uint32_t*>(sm.xop + off) = hi;
+      *reinterpret_cast<uint32_t*>(sm.xop + Tf32::XHALF + off) = lo;
+    }
+    for (int j = threadIdx.x; j < NBV; j += Tf32::NTH) {
+      sm.xx[j] = j < a.n ? row_sq_norm(a.x + (int64_t)j * a.d, a.d) : 0.f;
+      sm.vm[j] = j < a.n ? var_s2 * a.mask[j] : 0.f;
+    }
+  }, [&](int64_t items) { tf32_fill<KIND, DK>(sm, a, items); });
+}
+
+// Kernel 6's fill warpgroups: the bare cov(r2) of each tile's K with r2 by
+// kernel 1's per-dimension differences on the CUDA cores, x staged
+// transposed in shared memory (xt[c][j], read as 4 rows a 16-byte
+// broadcast), the query's coordinates in registers, loaded a tile ahead.
+// A thread owns query tid % 64 of the tile and the 4-row groups 4 rg,
+// 4 rg + 16, ... (rg = tid / 64): its k of 4 rows are 16 contiguous bytes of
+// each TF32 half in the slot, and a warp's 32 queries 512 contiguous bytes.
+// Its loop stops at the count; rows from n to the solve's last k step are
+// the zeros the block stored once (the group that holds row n - 1 stores
+// zeros past it), so no element pays for the count or the mask.
+template <int KIND>
+__device__ __forceinline__ void folded_fill(const Tf32Smem& sm,
+                                            const Args<float>& a,
+                                            int64_t items) {
+  const int tid = (int)threadIdx.x - 256;
+  const int ql = tid & 63, rg = tid >> 6;
+  const int n = a.n, d = a.d;
+  const float* xt = reinterpret_cast<const float*>(sm.xop);
+  float qv[D_MAX], qn[D_MAX];
+  if (items > 0) {
+    load_row(a.q, (int64_t)blockIdx.x * Tf32::TQ + ql, a.n_q, d, qv);
+  }
+  for (int64_t u = 0; u < items; ++u) {
+    // The next tile's query, in flight while this one is filled.
+    if (u + 1 < items) {
+      load_row(a.q, ((int64_t)blockIdx.x + (u + 1) * gridDim.x) * Tf32::TQ +
+                        ql, a.n_q, d, qn);
+    }
+    const int s = (int)(u % Tf32::NS);
+    mbar_wait(sm.empty + s, ((unsigned)(u / Tf32::NS) & 1u) ^ 1u);
+    unsigned char* kb = sm.slots + s * Tf32::SLOT + ql * 16;
+#pragma unroll
+    for (int r = 0; r < NBV / 16; ++r) {
+      const int j = 16 * r + 4 * rg;
+      if (j >= n) break;
+      float r2[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+      for (int c = 0; c < D_MAX; ++c) {
+        if (c >= d) break;
+        const float4 xv = *reinterpret_cast<const float4*>(xt + c * NBV + j);
+        const float xs[4] = {xv.x, xv.y, xv.z, xv.w};
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float diff = xs[e] - qv[c];
+          r2[e] = r2[e] + diff * diff;
+        }
+      }
+      float k[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) k[e] = cov_of<float, KIND>(r2[e], a.kind);
+      if (j + 4 > n) {
+#pragma unroll
+        for (int e = 1; e < 4; ++e) k[e] = j + e < n ? k[e] : 0.f;
+      }
+      uint32_t hi[4], lo[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) split_tf32(k[e], hi[e], lo[e]);
+      const int off = (j / 4) * Tf32::KSTR;
+      *reinterpret_cast<uint4*>(kb + off) =
+          make_uint4(hi[0], hi[1], hi[2], hi[3]);
+      *reinterpret_cast<uint4*>(kb + Tf32::HALF + off) =
+          make_uint4(lo[0], lo[1], lo[2], lo[3]);
+    }
+    fence_async_shared();
+    mbar_arrive(sm.full + s);
+#pragma unroll
+    for (int c = 0; c < D_MAX; ++c) qv[c] = qn[c];
+  }
+}
+
+// Kernel 6's float32 tiled body: both K slots zeroed and x staged
+// transposed once a block for folded_fill; tf32_solve's product takes the
+// folded chol_inv as it takes kernel 7's.
+template <int KIND>
+__global__ void __launch_bounds__(Tf32::NTH, 1)
+tiled_folded_tf32(const Args<float> a) {
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  const Tf32Smem sm(smem_raw, a.p);
+  tf32_block(sm, a, [&] {
+    uint4* slots = reinterpret_cast<uint4*>(sm.slots);
+    for (int i = threadIdx.x; i < Tf32::NS * Tf32::SLOT / 16;
+         i += Tf32::NTH) {
+      slots[i] = make_uint4(0u, 0u, 0u, 0u);
+    }
+    float* xt = reinterpret_cast<float*>(sm.xop);
+    for (int idx = threadIdx.x; idx < D_MAX * NBV; idx += Tf32::NTH) {
+      const int c = idx / NBV, j = idx - c * NBV;
+      xt[idx] = j < a.n && c < a.d ? a.x[(int64_t)j * a.d + c] : 0.f;
+    }
+  }, [&](int64_t items) { folded_fill<KIND>(sm, a, items); });
+}
+
 // ---------------------------------------------------------------------------
-// Kernel 4's float32 tiled body: warp-specialised FP32 (its design is in
-// the header note)
+// Kernel 4's float32 tiled body: warp-specialised FP32, and kernel 5's: H
+// independent warpgroup chains (their designs are in the header note)
 // ---------------------------------------------------------------------------
 struct Ws {
   static constexpr int TQ = 128;   // queries a tile
@@ -821,110 +971,165 @@ struct WsSmem {
   }
 };
 
-// part[c] (this thread's 8 queries) summed over the two row lanes; the
+// part[c] (this thread's TN queries) summed over the two row lanes; the
 // lanes of row lane 0 store it to (first) or add it to dst, their queries
 // 4 lc + c % 4 + 64 (c / 4).
-__device__ __forceinline__ void ws_add(float (&part)[Ws::TN], float* dst,
+template <int TN>
+__device__ __forceinline__ void ws_add(float (&part)[TN], float* dst,
                                        int lr, bool first) {
 #pragma unroll
-  for (int c = 0; c < Ws::TN; ++c) {
+  for (int c = 0; c < TN; ++c) {
     part[c] += __shfl_xor_sync(0xffffffffu, part[c], 16);
   }
   if (lr == 0) {
 #pragma unroll
-    for (int c = 0; c < Ws::TN; ++c) {
+    for (int c = 0; c < TN; ++c) {
       float* q = dst + (c / 4) * 64 + c % 4;
       *q = first ? part[c] : *q + part[c];
     }
   }
 }
 
-// The solve warps: per tile, A = L^-1 K for the row tiles g and 7 - g,
-// each a_i over j from 0 in ascending order as kernel 1's solve; after
-// each row tile its rows into the warp's partial sums red[w][c][q]; then
-// the four warps' sums are stored.
+// A = L^-1 K of the 16-row tile at r0 (kernels 4 and 5): the thread's TM
+// rows x TN queries (4 lc + c, and at TN = 8 also 64 + 4 lc + c - 4) of a
+// TQ = 16 TN query tile, each a_i over j from 0 in ascending order as
+// kernel 1's solve. ks points at the thread's first query column.
+template <int TN>
+__device__ __forceinline__ void ws_rows(const float* ls, const float* ks,
+                                        int n, int r0, int lr,
+                                        float (&acc)[Ws::TM][TN]) {
+  constexpr int TM = Ws::TM, TQ = 16 * TN, LS = Ws::LS;
+  const int jend = r0 < n ? min(n, r0 + 16) : 0;
+#pragma unroll
+  for (int r = 0; r < TM; ++r) {
+#pragma unroll
+    for (int c = 0; c < TN; ++c) acc[r][c] = 0.f;
+  }
+  const float* lp = ls + r0 + lr * TM;
+#pragma unroll 4
+  for (int j = 0; j < jend; ++j) {
+    const float4 l0 = *reinterpret_cast<const float4*>(lp + j * LS);
+    const float4 l1 = *reinterpret_cast<const float4*>(lp + j * LS + 4);
+    const float l[TM] = {l0.x, l0.y, l0.z, l0.w, l1.x, l1.y, l1.z, l1.w};
+    float k[TN];
+#pragma unroll
+    for (int v = 0; v < TN / 4; ++v) {
+      const float4 kv = *reinterpret_cast<const float4*>(ks + j * TQ + 64 * v);
+      k[4 * v] = kv.x, k[4 * v + 1] = kv.y, k[4 * v + 2] = kv.z,
+      k[4 * v + 3] = kv.w;
+    }
+#pragma unroll
+    for (int r = 0; r < TM; ++r) {
+#pragma unroll
+      for (int c = 0; c < TN; ++c) acc[r][c] += l[r] * k[c];
+    }
+  }
+}
+
+// The rows of acc (the tile at r0) into the warp's partial sums red
+// ([p + 1][TQ], at the thread's first query column): a^2 and alpha^T a,
+// stored (first) or added. Rows at or past n hold exact zeros (their
+// chol_inv rows are staged as zeros).
+template <int TN>
+__device__ __forceinline__ void ws_part(const float (&acc)[Ws::TM][TN],
+                                        float* red, const Args<float>& a,
+                                        int r0, int lr, bool first) {
+  constexpr int TM = Ws::TM, TQ = 16 * TN;
+  const int n = a.n, p = a.p;
+  float part[TN];
+#pragma unroll
+  for (int c = 0; c < TN; ++c) {
+    part[c] = 0.f;
+#pragma unroll
+    for (int r = 0; r < TM; ++r) part[c] += acc[r][c] * acc[r][c];
+  }
+  ws_add(part, red + p * TQ, lr, first);
+#pragma unroll 1
+  for (int o = 0; o < p; ++o) {
+    float al[TM];
+#pragma unroll
+    for (int r = 0; r < TM; ++r) {
+      const int i = r0 + lr * TM + r;
+      al[r] = i < n ? __ldg(a.alpha + (int64_t)i * p + o) : 0.f;
+    }
+#pragma unroll
+    for (int c = 0; c < TN; ++c) {
+      part[c] = 0.f;
+#pragma unroll
+      for (int r = 0; r < TM; ++r) part[c] += acc[r][c] * al[r];
+    }
+    ws_add(part, red + o * TQ, lr, first);
+  }
+}
+
+// Solve warp w's share of one tile of kernel 4: the row tiles w and 7 - w
+// (ws_rows), each into the warp's partial sums red[w][c][q] (ws_part) once
+// solved. `read()` runs once the warp has read the K tile.
+template <class Read>
+__device__ __forceinline__ void ws_tile(const float* ls, const float* ks,
+                                        float* red, const Args<float>& a,
+                                        int w, int lane, const Read& read) {
+  constexpr int TN = Ws::TN, TQ = 16 * TN;
+  const int lc = lane % Ws::WQ, lr = lane / Ws::WQ;
+  red += w * (a.p + 1) * TQ + 4 * lc;
+  ks += 4 * lc;
+#pragma unroll 1
+  for (int half = 0; half < 2; ++half) {
+    const int r0 = 16 * (half == 0 ? w : 7 - w);
+    float acc[Ws::TM][TN];
+    ws_rows<TN>(ls, ks, a.n, r0, lr, acc);
+    if (half == 1) read();
+    ws_part<TN>(acc, red, a, r0, lr, half == 0);
+  }
+}
+
+// The solve warps: per tile, ws_tile; then the four warps' sums are
+// stored.
 __device__ __forceinline__ void ws_solve(const WsSmem& sm,
                                          const Args<float>& a,
                                          int64_t items) {
-  constexpr int TM = Ws::TM, TN = Ws::TN, TQ = Ws::TQ, LS = Ws::LS;
+  constexpr int TQ = Ws::TQ;
   const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
-  const int lc = lane % Ws::WQ, lr = lane / Ws::WQ;
-  const int n = a.n, p = a.p;
-  float* red = sm.red + w * (p + 1) * TQ + 4 * lc;
   for (int64_t u = 0; u < items; ++u) {
     const int s = (int)(u % Ws::NS);
     mbar_wait(sm.full + s, (unsigned)(u / Ws::NS) & 1u);
-    const float* ks = sm.ks + s * NBV * TQ + 4 * lc;
     // The last tile's sums have been stored (the barrier of its end).
-#pragma unroll 1
-    for (int half = 0; half < 2; ++half) {
-      const int r0 = 16 * (half == 0 ? w : 7 - w);
-      const int jend = r0 < n ? min(n, r0 + 16) : 0;
-      float acc[TM][TN];
-#pragma unroll
-      for (int r = 0; r < TM; ++r) {
-#pragma unroll
-        for (int c = 0; c < TN; ++c) acc[r][c] = 0.f;
-      }
-      const float* lp = sm.ls + r0 + lr * TM;
-#pragma unroll 4
-      for (int j = 0; j < jend; ++j) {
-        const float4 l0 = *reinterpret_cast<const float4*>(lp + j * LS);
-        const float4 l1 = *reinterpret_cast<const float4*>(lp + j * LS + 4);
-        const float4 k0 = *reinterpret_cast<const float4*>(ks + j * TQ);
-        const float4 k1 = *reinterpret_cast<const float4*>(ks + j * TQ + 64);
-        const float l[TM] = {l0.x, l0.y, l0.z, l0.w, l1.x, l1.y, l1.z, l1.w};
-        const float k[TN] = {k0.x, k0.y, k0.z, k0.w, k1.x, k1.y, k1.z, k1.w};
-#pragma unroll
-        for (int r = 0; r < TM; ++r) {
-#pragma unroll
-          for (int c = 0; c < TN; ++c) acc[r][c] += l[r] * k[c];
-        }
-      }
-      if (half == 1) mbar_arrive(sm.empty + s);  // K slot s read
-      // Rows at or past n hold exact zeros (their chol_inv rows are
-      // staged as zeros).
-      float part[TN];
-#pragma unroll
-      for (int c = 0; c < TN; ++c) {
-        part[c] = 0.f;
-#pragma unroll
-        for (int r = 0; r < TM; ++r) part[c] += acc[r][c] * acc[r][c];
-      }
-      ws_add(part, red + p * TQ, lr, half == 0);
-#pragma unroll 1
-      for (int o = 0; o < p; ++o) {
-        float al[TM];
-#pragma unroll
-        for (int r = 0; r < TM; ++r) {
-          const int i = r0 + lr * TM + r;
-          al[r] = i < n ? __ldg(a.alpha + (int64_t)i * p + o) : 0.f;
-        }
-#pragma unroll
-        for (int c = 0; c < TN; ++c) {
-          part[c] = 0.f;
-#pragma unroll
-          for (int r = 0; r < TM; ++r) part[c] += acc[r][c] * al[r];
-        }
-        ws_add(part, red + o * TQ, lr, half == 0);
-      }
-    }
+    ws_tile(sm.ls, sm.ks + s * NBV * TQ, sm.red, a, w, lane,
+            [&] { mbar_arrive(sm.empty + s); });  // K slot s read
     named_sync(1, 32 * Ws::SW);  // every warp's partials written
     const int64_t t0 = ((int64_t)blockIdx.x + u * gridDim.x) * TQ;
-    store_slots<float, TQ, Ws::SW, 32 * Ws::SW>(sm.red, t0, a.n_q, p, 1, 0,
-                                                a.mean_out, a.var_out);
+    store_slots<float, TQ, Ws::SW, 32 * Ws::SW>(sm.red, t0, a.n_q, a.p, 1,
+                                                0, a.mean_out, a.var_out,
+                                                (int)threadIdx.x);
     named_sync(1, 32 * Ws::SW);  // stored; the partials may be rewritten
   }
 }
 
-// The fill warps: k of each tile (kernel 1's stationary_k) into the ring.
+// Column ql of a TQ-query K tile: k (kernel 1's stationary_k) of the query
+// qv (qrow its row) at rows j0, j0 + JS, ... below the count.
+template <int KIND, int TQ, int JS>
+__device__ __forceinline__ void fill_column(float* ks, const float* xs,
+                                            const float* ms,
+                                            const Args<float>& a,
+                                            float var_s2,
+                                            const float (&qv)[D_MAX],
+                                            const float* qrow, int ql,
+                                            int j0) {
+#pragma unroll 4
+  for (int j = j0; j < a.n; j += JS) {
+    ks[j * TQ + ql] = variant_k<float, KIND, K_STATIONARY>(
+        xs, ms, nullptr, qv, qrow, 0.f, a.d, var_s2, a.kind, j);
+  }
+}
+
+// The fill warps: k of each tile into the ring.
 template <int KIND>
 __device__ __forceinline__ void ws_fill(const WsSmem& sm,
                                         const Args<float>& a,
                                         int64_t items) {
-  constexpr int TQ = Ws::TQ, JS = Ws::FTH / TQ;
+  constexpr int TQ = Ws::TQ;
   const int tid = (int)threadIdx.x - 32 * Ws::SW;
-  const int ql = tid % TQ, j0 = tid / TQ;
+  const int ql = tid % TQ;
   const float var_s2 = scale_of(a);
   for (int64_t u = 0; u < items; ++u) {
     const int s = (int)(u % Ws::NS);
@@ -933,12 +1138,8 @@ __device__ __forceinline__ void ws_fill(const WsSmem& sm,
     load_row(a.q, qi, a.n_q, a.d, qv);
     const float* qrow = query_row(a.q, qi, a.n_q, a.d);
     mbar_wait(sm.empty + s, ((unsigned)(u / Ws::NS) & 1u) ^ 1u);
-    float* ks = sm.ks + s * NBV * TQ + ql;
-#pragma unroll 4
-    for (int j = j0; j < a.n; j += JS) {
-      ks[j * TQ] = variant_k<float, KIND, K_STATIONARY>(
-          sm.xs, sm.ms, nullptr, qv, qrow, 0.f, a.d, var_s2, a.kind, j);
-    }
+    fill_column<KIND, TQ, Ws::FTH / TQ>(sm.ks + s * NBV * TQ, sm.xs, sm.ms,
+                                        a, var_s2, qv, qrow, ql, tid / TQ);
     mbar_arrive(sm.full + s);
   }
 }
@@ -968,6 +1169,78 @@ tiled_pipelined_ws(const Args<float> a) {
   } else {
     regs_inc<232>();
     ws_solve(sm, a, items);
+  }
+}
+
+// Kernel 5's float32 tiled body at HS chains: one warpgroup a chain, each
+// with its own K tile of TQ queries, which takes the chain's partial sums
+// once its solve has read it.
+template <int HS>
+struct Chains {
+  // A solve thread's queries: 8 x 8 register tiles at two chains (255
+  // registers a thread), 8 x 4 at four (128).
+  static constexpr int TN = HS == 2 ? 8 : 4;
+  static constexpr int TQ = 16 * TN;  // queries a chain's tile
+  static constexpr int NTH = 128 * HS;
+  // chol_inv transposed, x and the mask, then each chain's K tile.
+  static __host__ __device__ constexpr size_t bytes(int d) {
+    return sizeof(float) * ((size_t)NBV * Ws::LS + (size_t)NBV * (d + 1) +
+                            (size_t)HS * NBV * TQ);
+  }
+  // The partial sums ([4 warps][p + 1][TQ]) fit in the K tile, and the
+  // block fits at every d: the tiled body runs at every p and d.
+  static_assert(4 * (P_MAX + 1) <= NBV, "partials exceed the K tile");
+  static_assert(bytes(D_MAX) <= SMEM_MAX, "chains exceed shared memory");
+};
+
+// One persistent block an SM: chol_inv (transposed), x and the mask staged
+// once behind the block's only barrier; then chain g takes the block's
+// tiles g, g + HS, ... (tile blockIdx.x + (u HS + g) gridDim.x of its item
+// u). Per tile a chain fills its K, syncs on its own named barrier 1 + g
+// (128 threads), solves both row tiles of each warp into registers
+// (ws_rows), syncs, writes its partial sums over the K tile (ws_part),
+// syncs, stores them and syncs again before the next fill. No barrier
+// spans two chains, so chains with more or fewer tiles than the others
+// never wait on each other, and the warp schedulers overlap one chain's
+// covariances with another's shared loads and FMAs.
+template <int KIND, int HS>
+__global__ void __launch_bounds__(Chains<HS>::NTH, 1)
+tiled_interleaved_chains(const Args<float> a) {
+  using C = Chains<HS>;
+  constexpr int TQ = C::TQ, TN = C::TN;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* ls = reinterpret_cast<float*>(smem_raw);
+  float* xs = ls + NBV * Ws::LS;
+  float* ms = xs + NBV * a.d;
+  const int g = (int)threadIdx.x / 128, tid = (int)threadIdx.x & 127;
+  const int w = tid >> 5, lc = tid % Ws::WQ, lr = (tid & 31) / Ws::WQ;
+  float* ks = ms + NBV + g * NBV * TQ;
+  stage_chol_inv<float, NBV, C::NTH>(ls, a.chol_inv, a.cap, a.n);
+  stage_rows<float, C::NTH>(xs, ms, a.x, a.mask, a.n, a.d);
+  __syncthreads();
+  const float var_s2 = scale_of(a);
+  const int64_t m = block_items((a.n_q + TQ - 1) / TQ);
+  const int ql = tid % TQ;
+  for (int64_t u = g; u < m; u += HS) {
+    const int64_t t = (int64_t)blockIdx.x + u * gridDim.x;
+    const int64_t qi = t * TQ + ql;
+    float qv[D_MAX];
+    load_row(a.q, qi, a.n_q, a.d, qv);
+    fill_column<KIND, TQ, 128 / TQ>(ks, xs, ms, a, var_s2, qv,
+                                    query_row(a.q, qi, a.n_q, a.d), ql,
+                                    tid / TQ);
+    named_sync(1 + g, 128);  // K filled
+    float acc0[Ws::TM][TN], acc1[Ws::TM][TN];
+    ws_rows<TN>(ls, ks + 4 * lc, a.n, 16 * w, lr, acc0);
+    ws_rows<TN>(ls, ks + 4 * lc, a.n, 16 * (7 - w), lr, acc1);
+    named_sync(1 + g, 128);  // K read: its tile takes the partials
+    float* red = ks + w * (a.p + 1) * TQ + 4 * lc;
+    ws_part<TN>(acc0, red, a, 16 * w, lr, true);
+    ws_part<TN>(acc1, red, a, 16 * (7 - w), lr, false);
+    named_sync(1 + g, 128);  // partials written
+    store_slots<float, TQ, 4, 128>(ks, t * TQ, a.n_q, a.p, 1, 0,
+                                   a.mean_out, a.var_out, tid);
+    named_sync(1 + g, 128);  // stored: K may be refilled
   }
 }
 
@@ -1029,24 +1302,27 @@ cudaError_t launch_persistent(GridCache& cache, Kernel kernel, size_t smem,
   return cudaGetLastError();
 }
 
-// Block threads of the pipelined and interleaved bodies: a 32-query tile
-// in float64, so that two k slots fit beside chol_inv.
-template <typename T>
-constexpr int nth_of() {
-  return sizeof(T) == 4 ? NT : NT / 2;
-}
+// Block threads of the float64 pipelined and interleaved bodies: a
+// 32-query tile, so that two k slots fit beside chol_inv.
+constexpr int NT64 = NT / 2;
 
 template <typename T, int KIND, int KF>
 cudaError_t launch_serial(const Args<T>& a, cudaStream_t stream) {
-  static GridCache cache;
-  if constexpr (sizeof(T) == 4 && KF == K_EXPANDED) {
-    // Kernel 7's float32 body: the expanded form on the tensor cores.
+  static GridCache cache, cache16;
+  if constexpr (sizeof(T) == 4) {
+    // Kernels 6 and 7's float32 bodies: the product on the tensor cores.
     const size_t smem = Tf32::bytes(a.p);
     if (a.n > NBV) return launch_streamed<T, KF>(a, stream);
-    return launch_persistent(
-        cache, a.d > 8 ? tiled_expanded_tf32<KIND, 16>
-                       : tiled_expanded_tf32<KIND, 8>,
-        smem, Tf32::TQ, Tf32::NTH, a, stream);
+    if constexpr (KF == K_BARE) {
+      return launch_persistent(cache, tiled_folded_tf32<KIND>, smem,
+                               Tf32::TQ, Tf32::NTH, a, stream);
+    } else if (a.d > 8) {
+      return launch_persistent(cache16, tiled_expanded_tf32<KIND, 16>, smem,
+                               Tf32::TQ, Tf32::NTH, a, stream);
+    } else {
+      return launch_persistent(cache, tiled_expanded_tf32<KIND, 8>, smem,
+                               Tf32::TQ, Tf32::NTH, a, stream);
+    }
   } else {
     const size_t smem = VSmem<T, NT>::bytes(1, 1, a.p, a.d);
     if (a.n > NBV || smem > SMEM_MAX) {
@@ -1067,26 +1343,32 @@ cudaError_t launch_pipelined(const Args<T>& a, cudaStream_t stream) {
     return launch_persistent(cache, tiled_pipelined_ws<KIND>, smem, Ws::TQ,
                              Ws::NTH, a, stream);
   } else {
-    constexpr int NTH = nth_of<T>();
-    const size_t smem = VSmem<T, NTH>::bytes(2, 2, a.p, a.d);
+    const size_t smem = VSmem<T, NT64>::bytes(2, 2, a.p, a.d);
     if (a.n > NBV || smem > SMEM_MAX) {
       return launch_streamed<T, K_STATIONARY>(a, stream);
     }
-    return launch_persistent(cache, tiled_pipelined<T, KIND, NTH>, smem,
-                             Tile<NBV, NTH>::TQ, NTH, a, stream);
+    return launch_persistent(cache, tiled_pipelined<T, KIND, NT64>, smem,
+                             Tile<NBV, NT64>::TQ, NT64, a, stream);
   }
 }
 
 template <typename T, int KIND, int HS>
 cudaError_t launch_interleaved(const Args<T>& a, cudaStream_t stream) {
   static GridCache cache;
-  constexpr int NTH = nth_of<T>();
-  const size_t smem = VSmem<T, NTH>::bytes(2, HS, a.p, a.d);
-  if (a.n > NBV || smem > SMEM_MAX) {
-    return launch_streamed<T, K_STATIONARY>(a, stream);
+  if constexpr (sizeof(T) == 4) {
+    // Kernel 5's float32 body: HS warpgroup chains.
+    if (a.n > NBV) return launch_streamed<T, K_STATIONARY>(a, stream);
+    return launch_persistent(cache, tiled_interleaved_chains<KIND, HS>,
+                             Chains<HS>::bytes(a.d),
+                             HS * Chains<HS>::TQ, Chains<HS>::NTH, a, stream);
+  } else {
+    const size_t smem = VSmem<T, NT64>::bytes(2, HS, a.p, a.d);
+    if (a.n > NBV || smem > SMEM_MAX) {
+      return launch_streamed<T, K_STATIONARY>(a, stream);
+    }
+    return launch_persistent(cache, tiled_interleaved<T, KIND, NT64, HS>,
+                             smem, HS * Tile<NBV, NT64>::TQ, NT64, a, stream);
   }
-  return launch_persistent(cache, tiled_interleaved<T, KIND, NTH, HS>, smem,
-                           HS * Tile<NBV, NTH>::TQ, NTH, a, stream);
 }
 
 enum Variant { PIPELINED = 0, INTERLEAVED2 = 1, INTERLEAVED4 = 2, FOLDED = 3,

@@ -65,9 +65,9 @@ __all__ = ["KINDS", "fused_gp_predict", "gp_predict_plain",
            "gp_predict_stacked_cuda", "fused_gp_predict_general",
            "fused_gp_predict_stacked", "render_program_source",
            "program_library", "build_kernels", "variants_library",
-           "launch_stationary", "PROGRAM_BODIES", "program_body",
-           "program_panel_max", "gp_predict_stacked_streamed_cuda",
-           "kernels"]
+           "bind_variants", "launch_stationary", "PROGRAM_BODIES",
+           "program_body", "program_panel_max",
+           "gp_predict_stacked_streamed_cuda", "kernels"]
 
 #: Stationary families, in the order of the kernel's ``kind`` switch.
 KINDS = ("rbf", "matern12", "matern32", "matern52")
@@ -222,12 +222,18 @@ def kernel_library():
 
 @functools.lru_cache(maxsize=None)
 def variants_library():
-    """Build (first call only) and bind ``csrc/gp_predict_variants.cu``:
-    ``gp_pipelined``, ``gp_interleaved`` (after the item size, ``halves``),
-    ``gp_folded`` (no mask, no scale) and ``gp_expanded``."""
+    """Build (first call only) and bind ``csrc/gp_predict_variants.cu``
+    (:func:`bind_variants`)."""
     from .build import load_libraries
 
     (lib,) = load_libraries([_VARIANTS_JOB])
+    return bind_variants(lib)
+
+
+def bind_variants(lib):
+    """Bind a build of ``csrc/gp_predict_variants.cu``: ``gp_pipelined``,
+    ``gp_interleaved`` (after the item size, ``halves``), ``gp_folded`` (no
+    mask, no scale) and ``gp_expanded``; returns ``lib``."""
     tail = [ctypes.c_int64] + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 3
     for fn, lead in ((lib.gp_pipelined, 6), (lib.gp_expanded, 6),
                      (lib.gp_folded, 4)):

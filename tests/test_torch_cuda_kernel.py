@@ -603,7 +603,7 @@ def test_kernel_variants_launch_their_kernels(on_cuda):
     assert [cuda_fn.launches for _, cuda_fn, _ in wrappers] == counts
 
 
-#: Count edges of kernels 4 and 7's float32 tiled bodies
+#: Count edges of kernels 4-7's float32 tiled bodies
 #: (``chip_smoke.VARIANT_COUNTS``); 129 takes the streamed body.
 VARIANT_COUNTS = [0, 1, 16, 17, 64, 127, 128, 129]
 
@@ -611,11 +611,11 @@ VARIANT_COUNTS = [0, 1, 16, 17, 64, 127, 128, 129]
 @pytest.mark.cuda
 @pytest.mark.parametrize("count", VARIANT_COUNTS)
 def test_redesigned_variant_bodies_at_their_edges(on_cuda, count):
-    """Kernels 4 and 7 (and the other variants) in float32 at the count
-    edges of the redesigned tiled bodies, the cart-pole's d = 5, p = 4,
-    the queries led by the GP's training rows (``r^2 = 0``), each within
-    its bound (kernel 7's tiled body: ``expanded_bounds(...,
-    tf32x3=True)``) of its plain version, the four kinds."""
+    """Kernels 4-7 in float32 at the count edges of their redesigned tiled
+    bodies, the cart-pole's d = 5, p = 4, the queries led by the GP's
+    training rows (``r^2 = 0``), each within its bound of its plain
+    version (kernel 6's tiled body: ``folded_bounds(..., tf32x3=True)``,
+    kernel 7's: ``expanded_bounds(..., tf32x3=True)``), the four kinds."""
     from chip_smoke import (case_gp, case_inputs, check_variants,
                             on_training_rows)
 
@@ -629,15 +629,31 @@ def test_redesigned_variant_bodies_at_their_edges(on_cuda, count):
 
 
 @pytest.mark.cuda
-def test_no_user_path_launches_kernels_4_or_7(on_cuda):
-    """Kernels 4 and 7 stay off every path: on CUDA tensors a
+@pytest.mark.parametrize("p, d", [(6, 10), (7, 2), (8, 2), (8, 16)])
+def test_variant_bodies_at_many_outputs(on_cuda, p, d):
+    """Kernels 4-7 in float32 at 128 rows with many outputs (up to
+    ``P_MAX`` and ``D_MAX``), where kernel 5's chains write their partial
+    sums over their K tiles: each within its bound of its plain version,
+    on ragged query counts."""
+    from chip_smoke import case_gp, case_inputs, check_variants
+
+    gp = case_gp("rbf", 128, p, 2.5, torch.float32, seed=p + d, n=128, d=d)
+    inputs = case_inputs(gp, 20011, p + d)
+    errors = check_variants(inputs, "rbf", gp.count)
+    assert all(ratio <= 1.0 for _, _, ratio in errors.values())
+
+
+@pytest.mark.cuda
+def test_no_user_path_launches_kernels_4_to_7(on_cuda):
+    """Kernels 4-7 stay off every path: on CUDA tensors a
     ``GaussianProcess`` predict and the bench's ``update_safe_set`` launch
-    kernel 1 and neither of them."""
+    kernel 1 and none of them."""
     from chip_smoke import build_bench_instance, case_gp
     from safe_learning_tpu_torch.benchmarks import (
         distance_mxu_experiment as dm, pipelined_predict as pp)
 
-    variants = (pp.pipelined_gp_predict_cuda, dm.fused_predict_mxu_dist_cuda)
+    variants = (pp.pipelined_gp_predict_cuda, pp.interleaved_gp_predict_cuda,
+                pp.folded_gp_predict_cuda, dm.fused_predict_mxu_dist_cuda)
     before = [fn.launches for fn in variants]
     kernel1 = gp_kernel.gp_predict_cuda.launches
     gp = case_gp("rbf", 128, 2, 1.0, torch.float32, seed=2)

@@ -266,3 +266,26 @@ def test_kernel_bound_of_the_three_pass_tf32_body(count):
     assert kernel_bound(1, d, count, p, 1, k_ops, 4, tf32x3=True) == (
         pytest.approx(values * 4 / HBM_BYTES_PER_S * 1e3, rel=1e-12),
         "bytes", "hbm")
+
+
+@pytest.mark.parametrize("n_q, d, p", [(10 ** 6, 3, 2), (6_765_201, 5, 4)])
+def test_folded_bound_leaves_out_the_scale_and_the_mask(n_q, d, p):
+    """Kernel 6's bound counts its bare ``k_j`` (``folded_ops``): two
+    operations a row and query fewer than kernel 1's, at every kind, so
+    both its FP32 and its three-pass TF32 bound sit ``2 n_q count`` FP32
+    operations below kernel 1's at the bench's and the cart-pole's
+    shapes."""
+    from chip_smoke import (COV_OPS, FP32_FLOPS, folded_ops, kernel_bound,
+                            stationary_ops)
+
+    for kind in COV_OPS:
+        assert folded_ops(kind, d) == stationary_ops(kind, d) - 2
+    count = 128
+    for tf32x3 in (False, True):
+        full = kernel_bound(n_q, d, count, p, 1, stationary_ops("rbf", d), 4,
+                            tf32x3=tf32x3)
+        folded = kernel_bound(n_q, d, count, p, 1, folded_ops("rbf", d), 4,
+                              tf32x3=tf32x3)
+        assert folded[1:] == full[1:] == ("operations", folded[2])
+        assert full[0] - folded[0] == pytest.approx(
+            2 * n_q * count / FP32_FLOPS * 1e3, rel=1e-9)

@@ -1,11 +1,14 @@
-"""The bound that ``chip_smoke.py`` holds kernel 7's float32 body to, on
-the CPU.
+"""The bounds that ``chip_smoke.py`` holds kernels 6 and 7's float32
+bodies to, on the CPU.
 
 Kernel 7's float32 tiled body (``csrc/gp_predict_variants.cu``,
 ``gp_expanded``) takes the expanded form's cross term ``x.q`` and the
-product ``L^-1 K`` on the tensor cores in three TF32 passes.
-``chip_smoke.expanded_bounds(..., tf32x3=True)`` bounds its difference
-from the plain float32 version. Here the passes are emulated in torch:
+product ``L^-1 K`` on the tensor cores in three TF32 passes;
+kernel 6's (``gp_folded``) takes the folded form's product that way, its
+``r^2`` by per-dimension differences in IEEE float32.
+``chip_smoke.expanded_bounds(..., tf32x3=True)`` and
+``chip_smoke.folded_bounds(..., tf32x3=True)`` bound their differences
+from the plain float32 versions. Here the passes are emulated in torch:
 ``cvt.rna.tf32`` as "add ``0x1000`` to the float32 bit pattern, clear the
 low 13 bits", each product's terms summed in float64 and rounded to
 float32 toward zero (truncation's ``2u``). At cancellation-heavy inputs
@@ -18,6 +21,8 @@ import pytest
 import torch
 
 import safe_learning_tpu_torch as st
+from safe_learning_tpu_torch.benchmarks.pipelined_predict import (
+    fold_chol_inv, folded_gp_predict_plain)
 from safe_learning_tpu_torch.functions.gp import STATIONARY_COVARIANCES
 from safe_learning_tpu_torch.ops import gp_kernel
 
@@ -108,6 +113,52 @@ def test_three_pass_emulation_fits_the_bound(kind, count, d):
 @pytest.mark.parametrize("d", [3, 5])
 def test_one_pass_emulation_exceeds_the_bound(count, d):
     assert ratio(adversarial_inputs("rbf", count, d), "rbf", passes=1) > 1.0
+
+
+def emulated_folded(inputs, kind, passes):
+    """Kernel 6's float32 body, emulated: ``r^2`` by per-dimension
+    differences and the bare covariance in float32, ``L^-1 K`` (the folded
+    ``chol_inv``) on the tensor cores (``tensor_core_product``), the
+    reductions in float32."""
+    q, x, li, alpha = inputs
+    r2 = None
+    for i in range(q.shape[1]):
+        diff = x[:, i][:, None] - q[:, i][None, :]
+        r2 = diff * diff if r2 is None else r2 + diff * diff
+    a = tensor_core_product(li, STATIONARY_COVARIANCES[kind](r2), passes)
+    return a.T @ alpha, (a * a).sum(0)
+
+
+def folded_ratio(inputs, kind, passes):
+    """The emulated folded predict's largest error against the float64
+    function of the same (folded, float32) inputs, over
+    ``folded_bounds(..., tf32x3=True)``."""
+    from chip_smoke import folded_bounds
+
+    q, x, li, alpha, mask, var_s2 = inputs
+    folded = (q, x, fold_chol_inv(li, mask, var_s2), alpha)
+    outs = emulated_folded(folded, kind, passes)
+    ref = folded_gp_predict_plain(*(t.double() for t in folded), kind=kind)
+    tols = folded_bounds(folded, kind, tf32x3=True)
+    tiny = torch.finfo(torch.float64).tiny
+    return max(float(((o.double() - r).abs() / t.clamp(min=tiny)).max())
+               for o, r, t in zip(outs, ref, tols))
+
+
+@pytest.mark.parametrize("kind", gp_kernel.KINDS)
+@pytest.mark.parametrize("count", [10, 128])
+@pytest.mark.parametrize("d", [3, 5])
+def test_three_pass_folded_emulation_fits_the_bound(kind, count, d):
+    got = folded_ratio(adversarial_inputs(kind, count, d), kind, passes=3)
+    assert 0.0 < got <= 1.0
+
+
+@pytest.mark.parametrize("kind", gp_kernel.KINDS)
+@pytest.mark.parametrize("count", [10, 128])
+@pytest.mark.parametrize("d", [3, 5])
+def test_one_pass_folded_emulation_exceeds_the_bound(kind, count, d):
+    got = folded_ratio(adversarial_inputs(kind, count, d), kind, passes=1)
+    assert got > 1.0
 
 
 def test_tf32_rounding_is_to_nearest_ties_away():

@@ -1,5 +1,5 @@
 """``benchmarks/variant_parts.py`` on the CPU: every alternative of kernels
-4 and 7's float32 bodies still applies to ``csrc/gp_predict_variants.cu``
+4-7's float32 bodies still applies to ``csrc/gp_predict_variants.cu``
 (each text it changes is there exactly once), and the module refuses to
 time without a card. Its timings run on the card only."""
 
@@ -12,12 +12,11 @@ from safe_learning_tpu_torch.benchmarks import variant_parts
 @pytest.mark.parametrize("name", sorted(variant_parts.ALTERNATIVES))
 def test_alternative_applies_to_the_source(name):
     entry, what, changes = variant_parts.ALTERNATIVES[name]
-    assert entry in ("gp_pipelined", "gp_expanded") and what
+    assert entry in variant_parts.ENTRIES and what
     text = variant_parts.alternative_source(name)
     for old, new in changes:
         assert new in text
-    assert ("gp_pipelined" if name.startswith("pipelined") else
-            "gp_expanded") == entry
+    assert entry == "gp_" + name.split("_")[0]
 
 
 def test_a_text_that_is_not_there_is_refused(monkeypatch):
