@@ -118,9 +118,9 @@ Phases, in order; any failure raises and the exit code is not 0:
     passes ``oracle_gate``; the sweep's time and checks/s;
 12. cart-pole RL (``phase_cartpole_rl``): ``examples/
     reinforcement_learning_cartpole.py --full`` through the port's script,
-    400 joint actor-critic iterations of 50 + 10 eager SGD steps, the
-    closed loops, and
-    both 2000-step ROAs over the 51^4 grid with no host
+    its 400 joint actor-critic iterations cut to 100
+    (``CARTPOLE_JOINT_ITERS``), each of 50 + 10 eager SGD steps, the
+    closed loops, and both 2000-step ROAs over the 51^4 grid with no host
     wait in the rollouts; the example's assertions; the float32 LQR ROA
     against a float64 rollout of 65,536 sampled states; the fractions
     beside the JAX package's record, the training's and the rollouts'
@@ -236,7 +236,19 @@ Phases, in order; any failure raises and the exit code is not 0:
     to phase 10's stacked one, kernel 2 alone, its panel body above count
     128, each certify there against the float64 oracle outside the
     calibrated band (``check_certify``), the example's assertion;
-24. count cases, kernel 1 and kernels 2 and 3 (``COUNT_CASES``: counts 0,
+24. the bench grown (``phase_bench_grown``): ``bench.py``'s instance at
+    512 and 2,048 training points, kernel 1 once a certify on its panel and
+    strip bodies (``gp_kernel.stationary_body``), at 512 every decrease
+    verdict against the float64 oracle outside the calibrated band and the
+    ``c_max`` gap, at 2,048 the host float64 factorization's time;
+25. the adaptive example grown past the panel body
+    (``phase_adaptive_grown``): ``run(full=True, updates=3,
+    data_per_update=340, capacity=1024)``, certifies at counts 1, 341, 681
+    and 1,021: kernel 3's launches and bodies, the device appends, the
+    oracle gate at 1,021, the fan-out re-certify equal, the rigor
+    certifies at 341 (refinement 4) and 1,021 (refinement 16; hybrid =
+    extended, inside the oracle's verdicts), the example's assertion;
+26. count cases, kernel 1 and kernels 2 and 3 (``COUNT_CASES``: counts 0,
     1, 10, both sides of each bucket edge 16/32/64/128, 129 and 2048,
     below and at capacity; kernel 1 also at d = 6, and at d = 5, p = 4 and
     d = 16, p = 8, ``WIDE_COUNT_CASES``; kernels 2 and 3 also the panel
@@ -250,7 +262,7 @@ Phases, in order; any failure raises and the exit code is not 0:
     ``underflow_bounds``, and ``position_check``: each query's float64
     outputs bit for bit the same at each of ``position_shifts`` in its
     query tile, reversed and alone;
-25. kernel times: each kernel against its plain version on its path's
+27. kernel times: each kernel against its plain version on its path's
     own inputs, on the device alone (a CUDA graph of 10 calls,
     ``graph_ms``; of 2 calls for a plain version, ``PLAIN_GRAPH``, whose
     change from 10 replays of 10 calls ``plain_method_check`` reads at the
@@ -263,7 +275,11 @@ Phases, in order; any failure raises and the exit code is not 0:
     flagship, a training ascent step, the safe-learning sweep and the
     adaptive path's sampler step, refinement chunk and coarse pass (count
     181, ``panel_times``: the panel body in turns with the streamed
-    body); kernels 1 to 3 in float64 at the rigor paths' inputs (the
+    body), kernels 1 to 3 on the grown paths (``grown_bench_times``,
+    ``grown_times``: the bench at 512 and 2,048, the grown loop's sampler
+    step, chunk, coarse pass and fan-out coarse pass at count 1,021, the
+    strip body in turns with the streamed body); kernels 1 to 3 in float64
+    at the rigor paths' inputs (the
     bench, the adaptive coarse pass and last refinement chunk, the 1-D
     ROA, the pendulum's rigor sweep at S = 2; ``kernel_bound`` at the FP64
     peak; ``"design": "dmma"``), under the rows' ``paths``; kernel 2's
@@ -291,7 +307,7 @@ Phases, in order; any failure raises and the exit code is not 0:
     oracle; then
     the loop's step times again, to show how far the work before moved
     them;
-26. profiles, after every time: ``profiling.trace`` over the safe-learning and
+28. profiles, after every time: ``profiling.trace`` over the safe-learning and
     the bench sweeps (``profile_sweep``), over 20 pretraining and 20
     penalised ascent steps (``profile_training``) and over the adaptive
     path's batches and certifies (``profile_adaptive``), the device's busy
@@ -699,6 +715,21 @@ def program_bounds(points, x, params, chol_inv, alpha, mask, s2, programs,
     return torch.cat(tol_mean), torch.cat(tol_var)
 
 
+def program_plain(route, inputs, programs):
+    """Kernel 2's (``route="general"``) or 3's plain twin on ``inputs``,
+    ``PLAIN_ROWS`` queries at a time where the ``cap x Q`` intermediates
+    of one call would exceed 2^28 values."""
+    points = inputs[0]
+    plain = (gp_kernel.gp_predict_general_plain if route == "general"
+             else gp_kernel.gp_predict_stacked_plain)
+    arg = programs[0] if route == "general" else programs
+    step = (PLAIN_ROWS if points.shape[0] * inputs[1].shape[0] > 2 ** 28
+            else points.shape[0])
+    outs = [plain(points[start:start + step], *inputs[1:], arg)
+            for start in range(0, points.shape[0], step)]
+    return tuple(torch.cat(parts) for parts in zip(*outs))
+
+
 def compare_program(route, inputs, programs, count=None):
     """Kernel 2 (``route="general"``) or 3 (``"stacked"``; ``"streamed"``:
     kernel 3 on its streamed body) against its plain version on one input
@@ -709,14 +740,13 @@ def compare_program(route, inputs, programs, count=None):
         (program,) = programs
         mean_k, var_k = gp_kernel.gp_predict_general_cuda(*inputs, program,
                                                           count=count)
-        mean_p, var_p = gp_kernel.gp_predict_general_plain(*inputs, program)
+        mean_p, var_p = program_plain(route, inputs, programs)
         li, al = chol_inv[None], alpha[None]
     else:
         cuda = (gp_kernel.gp_predict_stacked_streamed_cuda
                 if route == "streamed" else gp_kernel.gp_predict_stacked_cuda)
         mean_k, var_k = cuda(*inputs, programs, count=count)
-        mean_p, var_p = gp_kernel.gp_predict_stacked_plain(*inputs,
-                                                           programs)
+        mean_p, var_p = program_plain("stacked", inputs, programs)
         li, al = chol_inv, alpha[:, :, None]
     torch.cuda.synchronize()
     if not (torch.isfinite(mean_k).all() and torch.isfinite(var_k).all()):
@@ -801,6 +831,23 @@ def program_library_sets():
     return tuples
 
 
+#: Milliseconds one ``cuda_ms`` or ``graph_ms`` reading may spend on its
+#: runs: a call slow enough to exceed it at the asked repetitions (the
+#: strip body's and the streamed body's at 1,021 to 2,048 rows) is timed
+#: in fewer calls a run, then fewer runs (at least 3).
+TIMING_BUDGET_MS = 1000.0
+
+
+def _within_budget(ms, reps, batch):
+    """``(reps, batch)`` cut so that ``reps * batch`` calls of ``ms`` each
+    fit ``TIMING_BUDGET_MS``."""
+    while reps * batch * ms > TIMING_BUDGET_MS and batch > 1:
+        batch = max(1, batch // 2)
+    while reps * batch * ms > TIMING_BUDGET_MS and reps > 3:
+        reps -= 1
+    return reps, batch
+
+
 def cuda_ms(fn, reps=10, warmup=2, batch=1):
     """Median milliseconds of ``fn()`` over ``reps`` runs (CUDA events).
 
@@ -808,10 +855,19 @@ def cuda_ms(fn, reps=10, warmup=2, batch=1):
     With ``batch=1`` a run includes the host's work before the first
     launch, as a caller of one sweep sees it; a kernel is timed with
     ``batch=10``, so the device stays busy and the time is the kernel's.
+    A call too slow for ``TIMING_BUDGET_MS`` is timed in fewer
+    (``_within_budget``), from the last warm-up call's time.
     """
-    for _ in range(warmup):
+    for _ in range(warmup - 1):
         fn()
     torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    fn()
+    end.record()
+    end.synchronize()
+    reps, batch = _within_budget(start.elapsed_time(end), reps, batch)
     times = []
     for _ in range(reps):
         start = torch.cuda.Event(enable_timing=True)
@@ -1091,7 +1147,7 @@ def phase_build():
                                 513)
                   for size, name in ((4, "f32"), (8, "f64"))))
     print("panel body: counts 129 to {} in float32, to {} in float64; the "
-          "streamed body above".format(
+          "strip body above".format(
               *(gp_kernel.program_panel_max(tuples[0], dtype)
                 for dtype in (torch.float32, torch.float64))))
     sass_check(tuples)
@@ -1100,7 +1156,7 @@ def phase_build():
 #: A kernel function of kernels 1-3 in ``cuobjdump``'s listing: the body
 #: and the template's value type (``d`` float64, ``f`` float32) as mangled.
 SASS_KERNEL = re.compile(
-    r"gp_(?:predict|program)_(tiled|panel|streamed)(?:_dmma)?I([df])")
+    r"gp_(?:predict|program)_(tiled|panel|strip|streamed)(?:_dmma)?I([df])")
 
 #: A kernel function of kernel 1's variants (``gp_predict_variants.cu``):
 #: its body (the float32 tiled bodies ``tiled_pipelined_ws`` of kernel 4,
@@ -1130,10 +1186,11 @@ SASS_TF32 = re.compile(r"\bH(?:G)?MMA\.\S*TF32")
 def sass_check(tuples):
     """``cuobjdump --dump-sass`` of kernels 1-3's libraries (the stationary
     one and each program tuple's) and of the variants' library. Kernels
-    1-3: every float64 tiled and panel kernel contains ``DMMA`` (the
-    product on the FP64 tensor cores), no float32 kernel does, the float64
-    streamed kernels (the CUDA-core body kept above the panel body) do
-    not, and no float32 kernel contains a TF32 tensor-core instruction
+    1-3: every float64 tiled, panel and strip kernel contains ``DMMA``
+    (the product on the FP64 tensor cores), no float32 kernel does, the
+    float64 streamed kernels (the CUDA-core body of the comparison
+    entries) do not, and no float32 kernel contains a TF32 tensor-core
+    instruction
     (``SASS_TF32``): TF32 is not allowed on the kernels' path. The
     variants: kernels 6 and 7's float32 tiled kernels
     (``SASS_TF32_BODIES``) contain TF32 ``HGMMA`` (``wgmma``), and no other
@@ -1205,7 +1262,7 @@ def sass_check(tuples):
                                         has, n)
                   for (body, t, has), n in sorted(found.items())),
               ", ".join(sorted(tf32_forms))))
-    for body in ("tiled", "panel"):
+    for body in ("tiled", "panel", "strip"):
         if not found[body, "d", "DMMA"]:
             raise AssertionError("no float64 {} kernel found in the SASS"
                                  .format(body))
@@ -1219,8 +1276,8 @@ def sass_check(tuples):
 #: ``(count, capacity)`` of the count cases: a GP holding ``count`` points
 #: at that capacity, the kernels' loops bounded by the count. Count 0 (an
 #: all-zero mask), small counts, both sides of every bucket edge of the
-#: tiled body (16, 32, 64, 128), the streamed body above it, and count
-#: below and equal to capacity.
+#: tiled body (16, 32, 64, 128), the panel body above it and the strip
+#: body at 2048, and count below and equal to capacity.
 COUNT_CASES = ((0, 64), (1, 128), (10, 64), (15, 16), (16, 128), (17, 32),
                (31, 32), (32, 32), (33, 64), (64, 64), (65, 128),
                (127, 128), (128, 128), (129, 256), (2048, 2048))
@@ -1262,38 +1319,39 @@ def panel_max(dtype):
 
 
 def expected_body(count, n_panel):
-    """The body kernels 2 and 3 take at ``count`` rows (blocks that fit)."""
+    """The body kernels 1-3 take at ``count`` rows (blocks that fit)."""
     return ("tiled" if count <= 128 else "panel" if count <= n_panel
-            else "streamed")
+            else "strip")
 
 
 #: The float64 DMMA bodies' edges (``csrc/gp_predict_common.cuh``): every
 #: k step (mma depth 4 to 16), 16-row tile and bucket edge of the tiled
-#: body (1 to 128) and the panel body's row tiles (129 to 256).
+#: body (1 to 128), the panel body's row tiles (129 to 256) and the strip
+#: body's strips, warps' row tiles and chunks (257 to 1,024).
 DMMA_COUNTS = (1, 4, 5, 8, 9, 10, 16, 17, 24, 32, 64, 127, 128, 129, 136,
-               181, 255, 256)
+               181, 255, 256, 257, 271, 272, 511, 512, 513, 1021)
 
 
 def dmma_count_cases():
     """``(count, cap, p, d, n_out)`` of the float64 count cases at
     ``DMMA_COUNTS``: p cycles through 1 to 8, the stacked outputs S
     through 1 to 3, d is 3 or 5, and the capacity is the count's or the
-    next of 16, 64, 181 and 256 above it."""
+    next of 16, 64, 181, 256, 512 and 1024 above it."""
     cases = []
     for i, count in enumerate(DMMA_COUNTS):
-        larger = [c for c in (16, 64, 181, 256) if c > count]
+        larger = [c for c in (16, 64, 181, 256, 512, 1024) if c > count]
         cap = count if i % 3 == 0 or not larger else larger[0]
         cases.append((count, cap, 1 + i % 8, (3, 5)[i % 2], 1 + i % 3))
     return cases
 
 
 #: The query tile of the float64 DMMA bodies by the largest count they
-#: take at p <= 2, d = 3 (``TileD``, ``PanelD`` of
+#: take at p <= 2, d = 3 (``TileD``, ``PanelD``, ``Strip`` of
 #: ``csrc/gp_predict_common.cuh``): the tiled buckets, chol_inv resident to
-#: 192 rows, the streaming panel body to 256. A query's shift within a
-#: launch runs 1 to the tile - 1.
+#: 192 rows, the streaming panel body to 256, the strip body above. A
+#: query's shift within a launch runs 1 to the tile - 1.
 DMMA_QUERY_TILE = ((16, 256), (32, 256), (64, 128), (128, 32), (192, 16),
-                   (256, 64))
+                   (256, 64), (2048, 64))
 
 
 def dmma_query_tile(count):
@@ -1369,23 +1427,22 @@ def underflow_bounds(inputs, kind):
 
 def phase_dmma_cases():
     """The float64 DMMA bodies at their edges (``dmma_count_cases``):
-    kernel 1 up to 128 rows, kernel 2 (``product`` program, p and d as the
-    case gives) and kernel 3 (S outputs) at every count, each against its
-    plain version within its bound, the query count not a multiple of the
-    query tile; far queries with subnormal k through kernel 1 within
-    ``underflow_bounds``; then ``position_check`` on kernel 1 (counts 10
-    and 128), kernel 2 (136) and kernel 3 (17, 181 with chol_inv resident
-    and 250 streamed)."""
+    kernel 1, kernel 2 (``product`` program, p and d as the case gives)
+    and kernel 3 (S outputs) at every count, each against its plain
+    version within its bound, the query count not a multiple of the query
+    tile; far queries with subnormal k through kernel 1 within
+    ``underflow_bounds``; then ``position_check`` on kernel 1 (counts 10,
+    128, 200 on the panel body and 600 on the strip body), kernel 2 (136,
+    600) and kernel 3 (17, 181 with chol_inv resident, 250 streaming
+    chol_inv, 300 and 1,021 on the strip body)."""
     worst, case = 0.0, 0
     for count, cap, p, d, n_out in dmma_count_cases():
         n_q = 4099 if count % 2 else 20011
-        runs = []
-        if count <= 128:
-            kind = gp_kernel.KINDS[case % len(gp_kernel.KINDS)]
-            gp = case_gp(kind, cap, p, 2.5, torch.float64, seed=900 + case,
-                         n=count, d=d)
-            runs.append(("kernel 1 " + kind, compare(
-                case_inputs(gp, n_q, 900 + case), kind, count=count)))
+        kind = gp_kernel.KINDS[case % len(gp_kernel.KINDS)]
+        gp = case_gp(kind, cap, p, 2.5, torch.float64, seed=900 + case,
+                     n=count, d=d)
+        runs = [("kernel 1 " + kind, compare(
+            case_inputs(gp, n_q, 900 + case), kind, count=count))]
         for route, names, pp, dd in (("general", ("product",), p, d),
                                      ("stacked", STACKED_SETS[n_out], 1, 3)):
             inputs, programs = program_case(route, names, cap, pp, 2.5,
@@ -1423,9 +1480,9 @@ def phase_dmma_cases():
     if not errors[2] <= 1.0:
         raise AssertionError("float64 kernel 1 disagrees at far queries")
     launches = 0
-    for count in (10, 128):
-        gp = case_gp("matern32", 128, 2, 2.5, torch.float64, seed=960 + count,
-                     n=count)
+    for count in (10, 128, 200, 600):
+        gp = case_gp("matern32", max(128, count), 2, 2.5, torch.float64,
+                     seed=960 + count, n=count)
         inputs = case_inputs(gp, 1000, 960)
         launches += position_check(
             lambda q: gp_kernel.gp_predict_cuda(
@@ -1436,7 +1493,10 @@ def phase_dmma_cases():
             ("general", ("product",), 136, 181),
             ("stacked", STACKED_SETS[1], 17, 32),
             ("stacked", STACKED_SETS[2], 181, 181),
-            ("stacked", STACKED_SETS[2], 250, 256)):
+            ("stacked", STACKED_SETS[2], 250, 256),
+            ("general", ("product",), 600, 600),
+            ("stacked", STACKED_SETS[2], 300, 300),
+            ("stacked", STACKED_SETS[2], 1021, 1024)):
         inputs, programs = program_case(route, names, cap, 2, 2.5,
                                         torch.float64, seed=970, n=count)
         cuda = (gp_kernel.gp_predict_general_cuda if route == "general"
@@ -1617,7 +1677,15 @@ WIDE_CASES = ((5, 4, 128, 1000003), (16, 8, 128, 65537),
               (16, 8, 2048, 65537))
 
 #: ``(count, capacity, d, p)`` of kernel 1's wide count cases.
-WIDE_COUNT_CASES = ((128, 128, 5, 4), (100, 128, 16, 8), (129, 256, 16, 8))
+WIDE_COUNT_CASES = ((128, 128, 5, 4), (100, 128, 16, 8), (129, 256, 16, 8),
+                    (2048, 2048, 16, 8))
+
+#: ``(count, capacity)`` of kernel 1 above the tiled body: the panel
+#: body's range (129 to 512 in float32, to 256 in float64) and the strip
+#: body's above it, on both sides of each edge.
+STATIONARY_WIDE_COUNTS = ((129, 256), (192, 256), (193, 256), (256, 256),
+                          (257, 512), (512, 512), (513, 1024),
+                          (1021, 1024))
 
 
 def phase_kernel_cases():
@@ -1646,7 +1714,7 @@ def phase_kernel_cases():
                     worst = max(worst, ratio)
         # Past the 4 dimensions k unrolls from registers: the cart-pole's
         # d = 5, p = 4 (tiled), the D_MAX / P_MAX edge d = 16, p = 8
-        # (tiled and streamed).
+        # (tiled and, at capacity 2048, the strip body).
         for d, p, cap, n_q in WIDE_CASES:
             case += 1
             gp = case_gp("rbf", cap, p, 2.5, dtype, seed=case, d=d)
@@ -1680,16 +1748,22 @@ def phase_kernel_cases():
 
 
 def phase_kernel_count_cases():
-    """Kernel 1 with its loops bounded by the GP's count (``COUNT_CASES``,
-    the kinds in turn, float32 and float64) against its plain version at
-    full capacity, within ``rounding_bounds``. At count 0 the outputs must
-    be exact zeros."""
+    """Kernel 1 with its loops bounded by the GP's count (``COUNT_CASES``
+    and ``STATIONARY_WIDE_COUNTS``, the kinds in turn, float32 and
+    float64) against its plain version at full capacity, within
+    ``rounding_bounds``, each taking the body its count selects
+    (``gp_kernel.stationary_body``; the panel and strip bodies above 128
+    rows, as kernels 2 and 3). At count 0 the outputs must be exact
+    zeros."""
     worst, case = 0.0, 0
     # d = 6 once per dtype, and the wide count cases: the dimensions past
     # the 4 that k unrolls from registers, and up to 8 outputs.
     cases = ([(count, cap, 3, 2) for count, cap in COUNT_CASES]
+             + [(count, cap, 3, 1 + i % 3) for i, (count, cap)
+                in enumerate(STATIONARY_WIDE_COUNTS)]
              + [(40, 64, 6, 2)] + list(WIDE_COUNT_CASES))
     for dtype in (torch.float32, torch.float64):
+        n_panel = panel_max(dtype)
         for ci, (count, cap, d, p) in enumerate(cases):
             kind = gp_kernel.KINDS[ci % len(gp_kernel.KINDS)]
             case += 1
@@ -1698,11 +1772,15 @@ def phase_kernel_count_cases():
             n_q = count_queries(count)
             em, ev, ratio = compare(case_inputs(gp, n_q, 300 + case), kind,
                                     count=gp.count)
+            body = gp_kernel.stationary_body(count, dtype, p, d)
             print("count case {:2d} {} {:8s} d={:2d} p={} count={:4d} "
-                  "cap={:4d} Q={:6d}: max|dmean|={:.3e} max|dvar|={:.3e} "
-                  "err/bound={:.3f}".format(case, str(dtype)[6:], kind, d,
-                                            p, count, cap, n_q, em, ev,
-                                            ratio))
+                  "cap={:4d} Q={:6d} body={}: max|dmean|={:.3e} max|dvar|="
+                  "{:.3e} err/bound={:.3f}".format(
+                      case, str(dtype)[6:], kind, d, p, count, cap, n_q,
+                      body, em, ev, ratio))
+            if body != expected_body(count, n_panel):
+                raise AssertionError("kernel 1 at count {} took the {} "
+                                     "body".format(count, body))
             if not ratio <= 1.0 or (count == 0 and em + ev != 0.0):
                 raise AssertionError("kernel 1 at count {} disagrees with "
                                      "plain".format(count))
@@ -2022,7 +2100,8 @@ def profile_window(label, run, reps, card):
 def graph_ms(fn, reps=10, batch=10):
     """Median milliseconds of one call of ``fn`` on the device: ``batch``
     calls captured in a CUDA graph, the graph replayed ``reps`` times
-    between CUDA events. The host's work per call (argument checks,
+    between CUDA events (fewer of each for a call too slow for
+    ``TIMING_BUDGET_MS``). The host's work per call (argument checks,
     allocations, the ctypes call) is not in it."""
     stream = torch.cuda.Stream()
     stream.wait_stream(torch.cuda.current_stream())
@@ -2030,6 +2109,13 @@ def graph_ms(fn, reps=10, batch=10):
         for _ in range(2):
             fn()
     torch.cuda.current_stream().wait_stream(stream)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    fn()
+    end.record()
+    end.synchronize()
+    reps, batch = _within_budget(start.elapsed_time(end), reps, batch)
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
         for _ in range(batch):
@@ -2195,13 +2281,21 @@ def phase_times(card, lyap, label="bench"):
     return stationary_times(card, *sweep_inputs(lyap), label)
 
 
+#: Queries a call of kernel 1's plain version and of its bounds takes
+#: above 512 rows (``stationary_times``).
+PLAIN_ROWS = 2 ** 18
+
+
 def stationary_times(card, inputs, gp, label):
     """Kernel 1 against its plain version on one path's inputs:
     ``(max_abs_err, ms, plain_ms, eager_ms, bound_ms, bound_by,
     bound_kind, library_ms)``, ``library_ms`` the product alone
-    (``stationary_product_ms``)."""
+    (``stationary_product_ms``). Above 512 rows the comparison's bounds
+    and the plain version run ``PLAIN_ROWS`` queries at a time, which
+    bounds their ``count x Q`` intermediates."""
     states = inputs[0]
-    em, ev, ratio = compare(inputs, "rbf", count=gp.count)
+    chunk = PLAIN_ROWS if gp.count > 512 else 2 ** 20
+    em, ev, ratio = compare(inputs, "rbf", count=gp.count, chunk=chunk)
     print("{}-path inputs (Q={}, d={}, cap={}, count={}, p={}): max|dmean|="
           "{:.3e} max|dvar|={:.3e} err/bound={:.3f}".format(
               label, states.shape[0], states.shape[1], gp.capacity, gp.count,
@@ -2209,11 +2303,15 @@ def stationary_times(card, inputs, gp, label):
     if not ratio <= 1.0:
         raise AssertionError("kernel disagrees on the {}-path inputs"
                              .format(label))
+    def plain():
+        for start in range(0, states.shape[0], chunk):
+            gp_kernel.gp_predict_plain(states[start:start + chunk],
+                                       *inputs[1:], kind="rbf")
+
     kernel_ms, plain_ms, eager_ms = time_against_plain(
         "gp predict ({})".format(label),
         lambda: gp_kernel.gp_predict_cuda(*inputs, kind="rbf",
-                                          count=gp.count),
-        lambda: gp_kernel.gp_predict_plain(*inputs, kind="rbf"), card,
+                                          count=gp.count), plain, card,
         "Q={}, d={}, cap {}, count {}, p={}".format(
             states.shape[0], states.shape[1], gp.capacity, gp.count,
             gp.output_dim))
@@ -2226,6 +2324,145 @@ def stationary_times(card, inputs, gp, label):
         label, library_ms, card))
     return (max(em, ev), kernel_ms, plain_ms, eager_ms) + bound + (
         library_ms,)
+
+
+#: ``bench.py``'s instance (1000x1000, Q = 10^6) with more training points
+#: (``n_train``): kernel 1 on its panel body (512) and its strip body
+#: (2,048, the most a GP routes to a kernel).
+BENCH_GROWN = (512, 2048)
+
+
+def phase_bench_grown(card):
+    """``bench.py``'s instance built by the port at ``BENCH_GROWN`` training
+    points: one certify each, kernel 1 launched once on the body its count
+    selects, its wall time; at 512 the decrease verdict of every grid
+    point against the float64 oracle outside
+    ``calibrate_certificate_margin``'s band and the ``c_max`` gap to the
+    oracle's (``bench.py``'s 5e-4 gate is not held: its noise was tuned for
+    128 points); at 2,048, where the host oracle would cost about 2 10^12
+    FMAs, kernel 1 is held to its plain twin on the card
+    (``grown_bench_times``). Returns ``[(lyap, launches)]``."""
+    out = []
+    for n_train in BENCH_GROWN:
+        inst = build_bench_instance(1000, n_train=n_train)
+        lyap = st.Lyapunov(inst["grid"], inst["v"], inst["gp"], inst["lf"],
+                           inst["lv"], inst["tau"], inst["policy"],
+                           initial_set=inst["initial_set"])
+        label = "bench at {} training points".format(n_train)
+        reset_launches()
+        _, sweep_s = synchronised_s(lyap.update_safe_set)
+        launches = read_launches()
+        if launches != dict({n: 0 for n in KERNELS}, gp_predict=1):
+            raise AssertionError("{}: the certify launched {}".format(
+                label, launches))
+        body = gp_kernel.stationary_body(lyap.dynamics.count,
+                                         torch.float32, 2, 3)
+        print("{}: count {}, kernel 1 on its {} body, one launch; safe "
+              "fraction {!r}, c_max {!r}; certify {!r} s wall [{}]".format(
+                  label, lyap.dynamics.count, body,
+                  float(lyap.safe_set.mean()), lyap.c_max, sweep_s, card))
+        if body != expected_body(lyap.dynamics.count,
+                                 panel_max(torch.float32)):
+            raise AssertionError("{}: kernel 1 took the {} body".format(
+                label, body))
+        if n_train == BENCH_GROWN[-1]:
+            host_factorization_time(lyap.dynamics, label, card)
+        if n_train == BENCH_GROWN[0]:
+            with uncounted():
+                band = st.oracle.calibrate_certificate_margin(
+                    lyap, num_samples=4096, set_margin=False)
+                negative = _negative_batch(
+                    lyap.policy, lyap.dynamics, lyap.lyapunov_function,
+                    lyap._lipschitz_lyapunov, lyap._lipschitz_dynamics,
+                    lyap.tau, lyap._device_points())[0].cpu().numpy()
+            margins64, oracle_s = synchronised_s(
+                lambda: st.oracle.oracle_margins(
+                    lyap, lyap.discretization.all_points))
+            _, c_ref = st.oracle.oracle_safe_set(lyap, margins=margins64)
+            differ = negative != (margins64 < 0)
+            outside = int((differ & (np.abs(margins64) > band)).sum())
+            print("{}: decrease verdicts at all {} points: {} pass on the "
+                  "card, {} in the f64 oracle ({!r} s), {} differ, {} of "
+                  "them outside the band {!r}; c_max {!r} against the "
+                  "oracle's {!r} (gap {!r} relative)".format(
+                      label, len(negative), int(negative.sum()),
+                      int((margins64 < 0).sum()), oracle_s,
+                      int(differ.sum()), outside, band, lyap.c_max, c_ref,
+                      abs(lyap.c_max - c_ref) / abs(c_ref)))
+            if outside:
+                raise AssertionError("{}: {} decrease verdicts differ from "
+                                     "the f64 oracle outside the band"
+                                     .format(label, outside))
+        time_sweep(label, lyap, card)
+        out.append((lyap, launches["gp_predict"]))
+    return out
+
+
+def host_factorization_time(gp, label, card, reps=3):
+    """The wall seconds of the GP's host float64 factorization of its data
+    at its capacity (``_host_factorize``: the Cholesky factor, its inverse
+    and alpha, as a fresh GP or a refresh after appends computes them),
+    the median of ``reps``."""
+    from safe_learning_tpu_torch.functions.gp import _host_factorize
+
+    x_buf, y_buf = gp.X_buf.cpu().numpy(), gp.Y_buf.cpu().numpy()
+    times = []
+    for _ in range(reps):
+        start = time.perf_counter()
+        _host_factorize(gp.kernel, x_buf, y_buf, gp.mean_function, gp.count,
+                        float(gp.noise_variance), gp.scale)
+        times.append(time.perf_counter() - start)
+    print("{}: the host float64 factorization at capacity {}, count {}: "
+          "{!r} s (median of {}: {!r}) [{}]".format(
+              label, gp.capacity, gp.count, statistics.median(times), reps,
+              times, card))
+
+
+def grown_bench_times(card, lyap, launches):
+    """Kernel 1 on a grown bench instance's sweep inputs
+    (``stationary_times``, then the streamed body,
+    ``gp_predict_streamed_cuda``), in float32 and, at 2,048 rows,
+    the same inputs in float64. Returns the paths for ``kernel_rows``."""
+    inputs, gp = sweep_inputs(lyap)
+    count = gp.count
+    entries = []
+    for dtype in (torch.float32, torch.float64):
+        if dtype == torch.float64 and count < BENCH_GROWN[-1]:
+            continue
+        ins = tuple(t.to(dtype) if torch.is_tensor(t) else t
+                    for t in inputs)
+        label = "bench {} {}".format(count, str(dtype)[6:])
+
+        def timed(ins=ins, label=label, dtype=dtype):
+            entry = dict(zip(("max_abs_err", "ms", "plain_ms", "eager_ms",
+                              "bound_ms", "bound_by", "bound_kind",
+                              "library_ms"),
+                             stationary_times(card, ins, gp, label)))
+
+            def streamed():
+                gp_kernel.gp_predict_streamed_cuda(*ins, kind="rbf",
+                                                   count=count)
+            # The streamed body read once, after the body's two readings in
+            # ``stationary_times``' turns (its calls take 27 ms to 1.4 s
+            # here); its eager time is not read.
+            entry.update(
+                body=gp_kernel.stationary_body(count, dtype, 2, 3),
+                streamed_ms=graph_ms(streamed), streamed_eager_ms=None,
+                library_call=PRODUCT_CALL, queries=ins[0].shape[0],
+                count=count)
+            print("kernel 1 at {} (Q={}, count {}): {} body {!r} ms, then "
+                  "the streamed body {!r} ms [{}]".format(
+                      label, ins[0].shape[0], count, entry["body"],
+                      entry["ms"], entry["streamed_ms"], card))
+            return entry
+        # The float64 reading times the shape: no path runs kernel 1 in
+        # float64 at 2,048 rows, so it carries no launches.
+        entries.append(timed_path(
+            "gp_predict", "bench_{}".format(count) + (
+                "_float64" if dtype == torch.float64 else ""),
+            0 if dtype == torch.float64 else launches,
+            in_float64(timed) if dtype == torch.float64 else timed))
+    return entries
 
 
 # ---------------------------------------------------------------------------
@@ -3586,19 +3823,7 @@ def check_batch(update, lyap, gp0, got, gps, twin):
         matched = j
         break
 
-    n0, fresh = gp0.count, gp0.chol_inv
-    holds = []
-    for j, gp in enumerate(gps):
-        n = n0 + j + 1
-        if gp.count != n:
-            raise AssertionError("device append {} left count {}".format(
-                j + 1, gp.count))
-        holds.append((gp.chol_inv[:, n:, :n] == 0).all()
-                     & (gp.chol_inv[:, n:] == fresh[:, n:]).all()
-                     & (gp._mask()[n:] == 0).all())
-    if not bool(torch.stack(holds).all()):
-        raise AssertionError("update {}: a device append broke the kernels' "
-                             "count precondition".format(update))
+    append_precondition(gp0, gps, "update {}".format(update))
     q = st.functions.base.as_tensor(sas)
     (mean_d, err_d), (mean_r, err_r) = gps[-1](q), lyap.dynamics(q)
     d_mean = float((mean_d - mean_r).abs().max())
@@ -3611,6 +3836,26 @@ def check_batch(update, lyap, gp0, got, gps, twin):
                              "smallest chosen error".format(
                                  update, d_mean, d_err, share))
     return matched, d_mean, d_err, share
+
+
+def append_precondition(gp0, gps, label):
+    """Each GP the sampler advanced on the device from ``gp0`` (``gps``,
+    one a step) holds one row more and keeps the kernels' count
+    precondition: ``chol_inv[:, n:, :n] == 0``, the rows past the count as
+    the host factorization left them, ``mask[n:] == 0``."""
+    n0, fresh = gp0.count, gp0.chol_inv
+    holds = []
+    for j, gp in enumerate(gps):
+        n = n0 + j + 1
+        if gp.count != n:
+            raise AssertionError("{}: device append {} left count {}".format(
+                label, j + 1, gp.count))
+        holds.append((gp.chol_inv[:, n:, :n] == 0).all()
+                     & (gp.chol_inv[:, n:] == fresh[:, n:]).all()
+                     & (gp._mask()[n:] == 0).all())
+    if not bool(torch.stack(holds).all()):
+        raise AssertionError("{}: a device append broke the kernels' count "
+                             "precondition".format(label))
 
 
 def pair_scores(lyap, gp, pairs):
@@ -3955,12 +4200,46 @@ def profile_adaptive(card, run, reps=3):
         profile_window("adaptive certify", certifies, reps, card)
 
 
+def product_blocks(n_q, rows_a_query):
+    """The column blocks ``[(start, stop)]`` of a product timing over all
+    ``n_q`` queries: one block, or, where their ``K`` would exceed 2^28
+    values, blocks of ``PLAIN_ROWS`` (the last one shorter), each block's
+    product a call on the first block's ``K`` (the values are the first
+    ``PLAIN_ROWS`` queries', the work that of all ``n_q``)."""
+    if n_q * rows_a_query <= 2 ** 28:
+        return [(0, n_q)]
+    return [(start, min(start + PLAIN_ROWS, n_q))
+            for start in range(0, n_q, PLAIN_ROWS)]
+
+
+def blocked_product(chol, ks, blocks):
+    """A function running ``torch.matmul(chol[s], ks[s][:, :stop -
+    start])`` for each output ``s`` and each column block, into one
+    buffer a block width (made here): the product over all the blocks'
+    columns."""
+    calls = []
+    for li, k in zip(chol, ks):
+        outs = {}
+        for start, stop in blocks:
+            width = stop - start
+            if width not in outs:
+                outs[width] = torch.empty((li.shape[0], width),
+                                          dtype=k.dtype, device=k.device)
+            calls.append((li, k[:, :width], outs[width]))
+
+    def product():
+        for li, kb, out in calls:
+            torch.matmul(li, kb, out=out)
+    return product
+
+
 def product_ms(inputs, programs, count):
     """The yardstick ``library_ms`` of kernels 2 and 3: the solve's
     product alone, ``torch.matmul(chol_inv[s, :n, :n], K_s)`` summed over
     the outputs, with ``K_s`` (the plain twin's k, scaled and masked)
     computed beforehand, in the working dtype with TF32 off, on the device
-    alone (``graph_ms``). No PyTorch call computes the whole posterior
+    alone (``graph_ms``), over column blocks where ``K`` would be large
+    (``product_blocks``). No PyTorch call computes the whole posterior
     numerator; the port never calls this. ``inputs`` are kernel 3's, or
     kernel 2's (one ``chol_inv``)."""
     if torch.backends.cuda.matmul.allow_tf32:
@@ -3968,38 +4247,42 @@ def product_ms(inputs, programs, count):
     states, x, params, chol_inv, _, mask, s2 = inputs
     if chol_inv.dim() == 2:
         chol_inv = chol_inv[None]
-    cache, chol, ks, outs = {}, [], [], []
+    blocks = product_blocks(states.shape[0], count * len(programs))
+    states = states[:blocks[0][1]]
+    cache, chol, ks = {}, [], []
     for s, program in enumerate(programs):
         k = gp_kernel._eval_program(program, params, x.T, states.T, cache)
         ks.append((k * s2 * mask[:, None])[:count].contiguous())
         chol.append(chol_inv[s, :count, :count].contiguous())
-        outs.append(torch.empty_like(ks[-1]))
     del cache, k
-
-    def product():
-        for li, k, out in zip(chol, ks, outs):
-            torch.matmul(li, k, out=out)
-    return graph_ms(product)
+    return graph_ms(blocked_product(chol, ks, blocks))
 
 
 PRODUCT_CALL = ("torch.matmul(chol_inv[s, :n, :n], K_s) summed over the S "
                 "outputs (S = 1 for kernels 1 and 2), K precomputed: the "
-                "solve's product alone, not the function")
+                "solve's product alone, not the function (where K of all "
+                "queries would exceed 2^28 values, one call a block of 2^18 "
+                "query columns over the first block's K, all the queries' "
+                "work in one graph: product_blocks)")
 
 
 def panel_times(card, label, inputs, programs, count):
     """Kernel 3 above count 128 on one input set of the adaptive path:
-    the body its launch takes (``program_body``: the panel body) and the
-    streamed body (``gp_predict_stacked_streamed_cuda``, the body before
-    the panel body existed), each against the plain twin within
-    ``program_bounds``; device times by CUDA graphs in turns (streamed,
-    panel, panel, streamed), each by 10 eager calls, the plain twin's,
-    the product alone (``product_ms``) and the bound. Returns the path's
-    entry for ``kernel_rows``."""
+    the body its launch takes (``program_body``: the panel or the strip
+    body) and the streamed body (``gp_predict_stacked_streamed_cuda``, the
+    body before those existed), each against the plain twin within
+    ``program_bounds`` (the streamed body only where K holds at most 2^28
+    values); device times by CUDA graphs in turns (streamed, body, body,
+    streamed), each by eager calls, the plain twin's, the product alone
+    (``product_ms``) and the bound. Returns the path's entry for
+    ``kernel_rows``."""
     states = inputs[0]
     body = gp_kernel.program_body(programs, count, states.dtype)
     errors = {}
-    for route in ("stacked", "streamed"):
+    # The streamed body is held to the plain twin where its comparison is
+    # cheap (up to 2^28 values of K); above, its time alone is read.
+    large = states.shape[0] * count * len(programs) > 2 ** 28
+    for route in ("stacked",) if large else ("stacked", "streamed"):
         em, ev, ratio = compare_program(route, inputs, programs, count=count)
         print("adaptive {} inputs (Q={}, count {}), {} body: max|dmean|="
               "{:.3e} max|dvar|={:.3e} err/bound={:.3f}".format(
@@ -4017,18 +4300,25 @@ def panel_times(card, label, inputs, programs, count):
         gp_kernel.gp_predict_stacked_streamed_cuda(*inputs, programs,
                                                    count=count)
 
-    streamed_runs = [graph_ms(streamed)]
-    panel_runs = [graph_ms(panel), graph_ms(panel)]
-    streamed_runs.append(graph_ms(streamed))
+    if large:
+        # One streamed reading between the body's two (a streamed call
+        # takes a quarter of a second to a second here); its eager time is
+        # not read.
+        panel_runs = [graph_ms(panel)]
+        streamed_runs = [graph_ms(streamed)]
+        panel_runs.append(graph_ms(panel))
+    else:
+        streamed_runs = [graph_ms(streamed)]
+        panel_runs = [graph_ms(panel), graph_ms(panel)]
+        streamed_runs.append(graph_ms(streamed))
     entry = dict(
         max_abs_err=errors["stacked"], body=body,
         ms=statistics.mean(panel_runs),
         eager_ms=cuda_ms(panel, batch=10),
         streamed_ms=statistics.mean(streamed_runs),
-        streamed_eager_ms=cuda_ms(streamed, batch=10),
-        plain_ms=graph_ms(
-            lambda: gp_kernel.gp_predict_stacked_plain(*inputs, programs),
-            **PLAIN_GRAPH),
+        streamed_eager_ms=None if large else cuda_ms(streamed, batch=10),
+        plain_ms=graph_ms(lambda: program_plain("stacked", inputs,
+                                                programs), **PLAIN_GRAPH),
         library_ms=product_ms(inputs, programs, count),
         library_call=PRODUCT_CALL, queries=states.shape[0], count=count)
     entry.update(zip(("bound_ms", "bound_by", "bound_kind"), kernel_bound(
@@ -4076,6 +4366,403 @@ def adaptive_times(card, run):
         entry.update(launches=len(counts),
                      launches_above_128=sum(c > 128 for c in counts))
         entries.append((path, entry))
+    return entries
+
+
+# ---------------------------------------------------------------------------
+# The adaptive loop grown past the panel body
+# ---------------------------------------------------------------------------
+#: ``examples/adaptive_safety_verification.py --full`` grown by its keyword
+#: sizes: 3 updates of 340 measurements at capacity 1,024 (``S cap^2 <=
+#: 2048^2``, the GPs' route to kernel 3), so the certifies run at counts 1,
+#: 341, 681 and 1,021: 341 on the float32 panel body and above the float64
+#: one, 681 and 1,021 on the strip body in both dtypes.
+GROWN_UPDATES, GROWN_DATA, GROWN_CAPACITY = 3, 340, 1024
+
+#: The updates after whose certify the rigor certifies run, and the
+#: refinement of each: at count 341 refinement 4 (its per-state margin 17
+#: passes over the grid), at 1,021 the loop's refinement 16 (257 passes,
+#: most of the phase's time).
+GROWN_RIGOR = {1: 4, 3: ADAPTIVE_REFINEMENT}
+
+#: States held to the float64 oracle at all their refined sub-points: a
+#: seeded sample of the last certify's last refinement chunk, and of each
+#: rigor certify's refined rescues (the full refined oracle at count 1,021
+#: is about 10^12 host FMAs).
+GROWN_REFINED_SAMPLE = 64
+
+
+def refined_oracle_check(lyap, states, band, r, label):
+    """The float32 refined verdicts at every sub-point of the device grid
+    ``states`` (at ``tau / r``, as the refinement walk computes them)
+    against the float64 oracle's, wherever its margin lies outside
+    ``band``. Returns ``(sub-points, disagreements inside the band)``."""
+    offsets = refinement_offsets(lyap.discretization.unit_maxes, r, states)
+    subs = sub_points(states, offsets)
+    with uncounted():
+        got = float32_margins(lyap, subs, lyap.tau / r)
+    want = st.oracle.oracle_margins(lyap, subs.cpu().numpy(),
+                                    tau=lyap.tau / r)
+    differ = (got < 0) != (want < 0)
+    outside = int((differ & (np.abs(want) > band)).sum())
+    if outside:
+        raise AssertionError("{}: {} refined verdicts differ from the f64 "
+                             "oracle outside the band {!r}".format(
+                                 label, outside, band))
+    return len(want), int(differ.sum())
+
+
+def grown_rigor(lyap, update, card, margins64, paths):
+    """The rigor certifies at one count of the grown loop, on a fresh
+    ``Lyapunov`` over the same models (the float32 run goes on as without
+    them): the per-state extended margin at the refinement
+    ``GROWN_RIGOR`` gives this update, then ``rigor_sweeps`` (extended and
+    hybrid, bit for bit, kernel 3 in float64), and the rigor set inside the
+    float64 oracle's verdicts on the states it judges: every state a
+    coarse pass certified has a negative oracle margin at ``tau`` (from
+    ``margins64``, the oracle's margins at every state, or, where it is
+    ``None``, the oracle at those states alone), and every sub-point of a
+    seeded sample of the refined rescues one at ``tau / r``. Prints the
+    hybrid's band fraction and the margin's size; at the last count
+    appends the float64 coarse pass's and refinement chunk's kernel-3
+    times to ``paths``."""
+    r = GROWN_RIGOR[update]
+    count = lyap.dynamics.count
+    label = "adaptive grown, rigor at count {}".format(count)
+    fresh = st.Lyapunov(lyap.discretization, lyap.lyapunov_function,
+                        lyap.dynamics, lyap._lipschitz_dynamics,
+                        lyap._lipschitz_lyapunov, lyap.tau, lyap.policy,
+                        initial_set=np.flatnonzero(lyap.initial_safe_set),
+                        adaptive=True)
+    margin, derive_s = synchronised_s(
+        lambda: extended_verify.extended_certificate_margin(
+            fresh, refinement=r, per_point=True, batch_size=DERIVE_BATCH))
+    margin = np.asarray(margin.cpu() if torch.is_tensor(margin) else margin)
+    ext, hyb, ext_s, hyb_s = rigor_sweeps(fresh, label, card, None, r=r,
+                                          reps=1)
+    initial = np.asarray(fresh.initial_safe_set, dtype=bool)
+    held = ext["safe"] & ~initial
+    coarse = np.flatnonzero(held & (ext["refinement"] == 1))
+    rescued = np.flatnonzero(held & (ext["refinement"] == r)) if r > 1 \
+        else np.zeros(0, dtype=np.int64)
+    all_points = fresh.discretization.all_points
+    coarse64 = (margins64[coarse] if margins64 is not None
+                else st.oracle.oracle_margins(fresh, all_points[coarse]))
+    bad = int((coarse64 >= 0).sum())
+    sample = rescued
+    if len(rescued) > GROWN_REFINED_SAMPLE:
+        sample = np.sort(np.random.default_rng(update).choice(
+            rescued, GROWN_REFINED_SAMPLE, replace=False))
+    points = fresh._device_points()
+    bad_refined, n_subs = 0, 0
+    if len(sample):
+        subs = sub_points(grid_states(points, sample), refinement_offsets(
+            fresh.discretization.unit_maxes, r, points)).cpu().numpy()
+        n_subs = len(subs)
+        bad_refined = int((st.oracle.oracle_margins(
+            fresh, subs, tau=fresh.tau / r) >= 0).sum())
+    print("{}: refinement {}; per-state extended margin up to {!r} (mean "
+          "{!r}; derived in {!r} s); extended {!r} s, hybrid {!r} s, equal "
+          "bit for bit, band fraction {!r}; safe fraction {!r}, c_max {!r}; "
+          "{} coarse passes and {} refined rescues beyond the initial set: "
+          "{} coarse ones with a float64 oracle margin >= 0 at tau, {} of {} "
+          "sub-points of {} sampled rescues >= 0 at tau/{} [{}]".format(
+              label, r, float(np.max(margin)), float(np.mean(margin)),
+              derive_s, ext_s, hyb_s, hyb["band"], float(ext["safe"].mean()),
+              ext["c_max"], len(coarse), len(rescued), bad, bad_refined,
+              n_subs, len(sample), r, card))
+    if bad or bad_refined:
+        raise AssertionError("{}: the rigor set holds states the float64 "
+                             "oracle fails".format(label))
+    if update != GROWN_UPDATES:
+        return
+    sweep = fresh._get_extended_sweep()
+    view = float64_view(sweep, points)
+    chunk_launches = sum(n for _, n in ext["chunks"])
+    if not ext["chunks"] or any(n < 1 for _, n in ext["chunks"]):
+        raise AssertionError("every float64 refinement chunk must launch "
+                             "kernel 3")
+    chunk_states = ext["chunks"][-1][0]
+    chunk_points = sub_points(chunk_states, refinement_offsets(
+        fresh.discretization.unit_maxes, r, chunk_states)).double()
+    paths.append(("gp_predict_stacked", "adaptive_grown_extended_float64",
+                  ext["launches"]["gp_predict_stacked"] - chunk_launches,
+                  in_float64(lambda: panel_times(
+                      card, "grown coarse pass, float64",
+                      *stacked_inputs(view), count))))
+    paths.append(("gp_predict_stacked",
+                  "adaptive_grown_refinement_chunk_extended_float64",
+                  chunk_launches, in_float64(lambda: panel_times(
+                      card, "grown refinement chunk, float64",
+                      *stacked_inputs(view, chunk_points), count))))
+
+
+def phase_adaptive_grown(card):
+    """The adaptive example grown past the panel body, through its entry
+    point: ``adaptive_safety_verification.run(full=True, updates=3,
+    data_per_update=340, capacity=1024)`` (the ``--full`` instance, 501x501,
+    the stacked Matern GP at S = 2, refinement 16, one
+    ``get_safe_sample_batch`` an update), certifies at counts 1, 341, 681
+    and 1,021. Checks, each raising and none caught:
+
+    1. kernel 3 launches exactly once per sampler step, coarse pass and
+       refinement chunk, no other kernel, and no library is built;
+    2. every kernel-3 launch takes the body its count selects
+       (``program_body``: tiled, panel, strip; never the streamed body);
+    3. every device append keeps the kernels' count precondition
+       (``append_precondition``);
+    4. the oracle gate at the last certify (count 1,021): the coarse
+       verdicts at every state, and the refined verdicts at every
+       sub-point of a seeded sample of the last refinement chunk's states
+       (``refined_oracle_check``), against the float64 host oracle
+       outside ``calibrate_certificate_margin(refinement=16)``'s band;
+    5. the last certify again by the fan-out route (kernel 2, twice a
+       predict, the same GP's factors, ``StackedGaussianProcess.unstack``)
+       from the same state: the same safe set, ``c_max`` and
+       ``_refinement``;
+    6. the rigor certifies at counts 341 (refinement 4) and 1,021
+       (refinement 16; ``grown_rigor``, ``GROWN_RIGOR``): hybrid =
+       extended bit for bit, kernel 3 in float64, the rigor set inside the
+       float64 oracle's verdicts on the states it judges;
+    7. the example's assertion ``history[-1] >= history[0] > 0``.
+
+    Prints each batch's and certify's wall ms and the coarse passes' and
+    chunks' CUDA-event ms; the launch shapes at count 1,021 are timed on
+    the body they take and on the streamed body once each, in the timing
+    phase (``grown_times``) and, in float64, here (``grown_rigor``). Returns ``(paths, run)``: the float64 kernel-3 paths
+    of the rigor certify at count 1,021 and a namespace of the float32
+    run (``lyap``, the last chunk's states, the last sampler step's rows,
+    the kernel-3 launches by part, the fan-out's kernel-2 launches)."""
+    r = ADAPTIVE_REFINEMENT
+    builds = dict(build_reports)
+    expected = {name: 0 for name in KERNELS}
+    calls, gps, chunk_states = [], [], []
+    coarse_t, chunk_t = EventTimer(), EventTimer()
+    mark = dict(launches=read_launches(), calls=0, gp0=None)
+    info, parts, rigor_paths = {}, collections.Counter(), []
+    snapshot, gate = {}, {}
+    inner_update = lyapunov_mod.Lyapunov.update_safe_set
+    inner_batch = adaptive_safety_verification.get_safe_sample_batch
+
+    def timed_update(self, *args, **kwargs):
+        if kwargs.get("extended"):
+            return inner_update(self, *args, **kwargs)
+        coarse_t.times.clear()
+        chunk_t.times.clear()
+        chunk_states.clear()
+        out, seconds = synchronised_s(
+            lambda: inner_update(self, *args, **kwargs))
+        info.update(certify_ms=seconds * 1e3,
+                    coarse_ms=sum(ms for ms, _ in coarse_t.times),
+                    chunks_ms=sum(ms for ms, _ in chunk_t.times))
+        return out
+
+    def timed_batch(lyap, *args, **kwargs):
+        mark["gp0"] = lyap.dynamics
+        gps.clear()
+        out, seconds = synchronised_s(lambda: inner_batch(lyap, *args,
+                                                          **kwargs))
+        info["batch_ms"] = seconds * 1e3
+        return out
+
+    def after_certify(lyap, update):
+        count = lyap.dynamics.count
+        label = "adaptive grown, certify {} (count {})".format(update, count)
+        got = {k: v - mark["launches"][k] for k, v in read_launches().items()}
+        counts = lyap.last_sweep_counts
+        n_coarse = counts["coarse_batches"]
+        passes = n_coarse + counts["refinement_chunks"]
+        steps = GROWN_DATA if update else 0
+        if got != dict(expected, gp_predict_stacked=steps + passes):
+            raise AssertionError("{}: launched {}, not kernel 3 once in each "
+                                 "of {} sampler steps and {} passes".format(
+                                     label, got, steps, passes))
+        new = calls[mark["calls"]:]
+        by_part = (("sampler step", new[:steps]),
+                   ("coarse pass", new[steps:steps + n_coarse]),
+                   ("refinement chunk", new[steps + n_coarse:]))
+        for part, part_calls in by_part:
+            for a in part_calls:
+                body = gp_kernel.program_body(a[0], a[8], a[1].dtype)
+                if body != expected_body(a[8], panel_max(a[1].dtype)):
+                    raise AssertionError("{}: a {} at count {} took the {} "
+                                         "body".format(label, part, a[8],
+                                                       body))
+                parts[part, body] += 1
+        if update:
+            append_precondition(mark["gp0"], gps, label)
+        print("{}: safe fraction {:.4f}, c_max {!r}, max N(x) {}; {} coarse "
+              "passes, {} refinement chunks, {} refined points; batch {!r} ms"
+              ", certify {!r} ms wall, coarse passes {!r} ms, chunks {!r} ms "
+              "by CUDA events [{}]".format(
+                  label, float(lyap.safe_set.mean()), lyap.c_max,
+                  int(lyap._refinement.max()), n_coarse,
+                  counts["refinement_chunks"], counts["refined_points"],
+                  info.get("batch_ms") if update else None,
+                  info["certify_ms"], info["coarse_ms"], info["chunks_ms"],
+                  card))
+        if update == GROWN_UPDATES - 1:
+            snapshot.update(safe=np.array(lyap.safe_set),
+                            refinement=np.array(lyap._refinement))
+        margins64 = None
+        if update == GROWN_UPDATES:
+            if not chunk_states:
+                raise AssertionError("{}: no refinement chunk ran".format(
+                    label))
+            margins64 = grown_gate(lyap, label, chunk_states[-1])
+            gate.update(states=chunk_states[-1], rows=new[steps - 1][1])
+        if update in GROWN_RIGOR:
+            grown_rigor(lyap, update, card, margins64, rigor_paths)
+        mark.update(launches=read_launches(), calls=len(calls))
+
+    reset_launches()
+    mark["launches"] = read_launches()
+    with kernel3_calls(calls), \
+            patched(lyapunov_mod, "_negative_batch", coarse_t.wrap), \
+            patched(lyapunov_mod, "_refined_negative_batch", chunk_t.wrap), \
+            patched(lyapunov_mod, "_refined_negative_batch",
+                    recorded(chunk_states, lambda args, out: args[6])), \
+            patched(explore_mod, "_device_border_append", recorded(gps)), \
+            patched(lyapunov_mod.Lyapunov, "update_safe_set",
+                    lambda inner: timed_update), \
+            patched(adaptive_safety_verification, "get_safe_sample_batch",
+                    lambda inner: timed_batch):
+        run = adaptive_safety_verification.run(
+            full=True, updates=GROWN_UPDATES, data_per_update=GROWN_DATA,
+            capacity=GROWN_CAPACITY, after_certify=after_certify)
+    lyap = run.lyap
+    print("adaptive grown: safe-set growth {}; kernel 3 launched by part "
+          "and body: {} [{}]".format(
+              " ".join("{:.4f}".format(h) for h in run.history),
+              ", ".join("{} {}: {}".format(part, body, n)
+                        for (part, body), n in sorted(parts.items())),
+              card))
+    if any(body == "streamed" for _, body in parts):
+        raise AssertionError("a launch of the grown loop took the streamed "
+                             "body")
+    if dict(build_reports) != builds:
+        raise AssertionError("the grown adaptive path built a library")
+
+    # 5: the last certify again by the fan-out route, from the state the
+    # stacked route's started from.
+    final = (np.array(lyap.safe_set), lyap.c_max,
+             np.array(lyap._refinement))
+    stacked = lyap.dynamics
+    lyap.dynamics = st.FunctionStack(stacked.unstack())
+    lyap.safe_set = snapshot["safe"].copy()
+    lyap._refinement = snapshot["refinement"].copy()
+    reset_launches()
+    fan_calls = []
+    with kernel3_calls(fan_calls):
+        lyap.update_safe_set(can_shrink=False, max_refinement=r,
+                             safety_factor=1.0)
+    fan = read_launches()
+    fan_passes = (lyap.last_sweep_counts["coarse_batches"]
+                  + lyap.last_sweep_counts["refinement_chunks"])
+    if fan != dict(expected, gp_predict_general=2 * fan_passes):
+        raise AssertionError("the fan-out certify launched {}, not kernel 2 "
+                             "twice in each of {} passes".format(
+                                 fan, fan_passes))
+    for name, a, b in zip(("safe_set", "c_max", "_refinement"), final,
+                          (np.array(lyap.safe_set), lyap.c_max,
+                           np.array(lyap._refinement))):
+        if not np.array_equal(a, b):
+            raise AssertionError("the fan-out route's last certify gives "
+                                 "another {}".format(name))
+    print("adaptive grown: the fan-out route (kernel 2, {} launches in {} "
+          "passes, {} body) certifies the same safe set, c_max and "
+          "_refinement at count {}".format(
+              fan["gp_predict_general"], fan_passes,
+              gp_kernel.program_body(fan_calls[0][0], stacked.count,
+                                     fan_calls[0][1].dtype), stacked.count))
+    lyap.dynamics = stacked
+    lyap.safe_set, lyap._refinement = final[0], final[2]
+    return rigor_paths, types.SimpleNamespace(
+        lyap=lyap, chunk_states=gate["states"], step_rows=gate["rows"],
+        parts=parts, fan_calls=fan_calls,
+        fan_launches=fan["gp_predict_general"])
+
+
+def grown_gate(lyap, label, chunk_states):
+    """Check 4 of ``phase_adaptive_grown`` at the last certify: the coarse
+    decrease verdict of every grid state on the card (``_negative_batch``,
+    through kernel 3) against the sign of its float64 oracle margin outside
+    the band of ``calibrate_certificate_margin(refinement=16)``, then the
+    refined verdicts of a seeded sample of the last refinement chunk's
+    states (``refined_oracle_check``). Returns the oracle's margins at every
+    state."""
+    r = ADAPTIVE_REFINEMENT
+    with uncounted():
+        band = st.oracle.calibrate_certificate_margin(lyap, refinement=r,
+                                                      set_margin=False)
+        negative = _negative_batch(
+            lyap.policy, lyap.dynamics, lyap.lyapunov_function,
+            lyap._lipschitz_lyapunov, lyap._lipschitz_dynamics, lyap.tau,
+            lyap._device_points())[0].cpu().numpy()
+    start = time.perf_counter()
+    margins64 = st.oracle.oracle_margins(lyap,
+                                         lyap.discretization.all_points)
+    oracle_s = time.perf_counter() - start
+    differ = negative != (margins64 < 0)
+    outside = int((differ & (np.abs(margins64) > band)).sum())
+    rng = np.random.default_rng(0)
+    take = rng.choice(chunk_states.shape[0], min(GROWN_REFINED_SAMPLE,
+                                                 chunk_states.shape[0]),
+                      replace=False)
+    n_sub, differ_sub = refined_oracle_check(
+        lyap, chunk_states[torch.as_tensor(np.sort(take),
+                                           device=chunk_states.device)],
+        band, r, label)
+    print("{}: coarse decrease verdicts at all {} states: {} pass on the "
+          "card, {} in the f64 oracle ({!r} s), {} differ, {} of them "
+          "outside the band {!r}; refined verdicts at {} sub-points of {} "
+          "seeded states of the last refinement chunk ({} states): {} "
+          "differ, none outside the band".format(
+              label, len(negative), int(negative.sum()),
+              int((margins64 < 0).sum()), oracle_s, int(differ.sum()),
+              outside, band, n_sub, len(take), chunk_states.shape[0],
+              differ_sub))
+    if outside:
+        raise AssertionError("{}: {} coarse verdicts differ from the f64 "
+                             "oracle outside the calibrated band".format(
+                                 label, outside))
+    return margins64
+
+
+def grown_times(card, run):
+    """Kernels 2 and 3 on the grown loop's inputs at its final GP (count
+    1,021): a sampler step's rows, the last refinement chunk's sub-points
+    and a coarse pass over the grid (kernel 3, ``panel_times``: the body
+    each takes in turns with the streamed body), and the fan-out route's
+    coarse pass (kernel 2, ``program_times``). Returns the paths for
+    ``kernel_rows``."""
+    lyap = run.lyap
+    count = lyap.dynamics.count
+    points = lyap._device_points()
+    offsets = refinement_offsets(lyap.discretization.unit_maxes,
+                                 ADAPTIVE_REFINEMENT, points)
+    entries = []
+    for path, part, label, make in (
+            ("adaptive_grown_sampler_step", "sampler step", "grown sampler "
+             "step", lambda: gp_inputs(lyap.dynamics, run.step_rows)),
+            ("adaptive_grown_refinement_chunk", "refinement chunk",
+             "grown refinement chunk", lambda: stacked_inputs(
+                 lyap, sub_points(run.chunk_states, offsets))),
+            ("adaptive_grown", "coarse pass", "grown coarse pass",
+             lambda: stacked_inputs(lyap, points))):
+        inputs, programs = make()
+        entry = panel_times(card, label, inputs, programs, count)
+        del inputs
+        entry.update(launches=sum(n for (p, _), n in run.parts.items()
+                                  if p == part))
+        entries.append(("gp_predict_stacked", path, entry))
+    fan_view = types.SimpleNamespace(
+        policy=lyap.policy, dynamics=st.FunctionStack(
+            lyap.dynamics.unstack()), _device_points=lambda: points)
+    entries.append(("gp_predict_general", "adaptive_grown_fan_out",
+                    (run.fan_launches,) + program_times(
+                        card, "general", fan_view,
+                        "grown fan-out coarse pass")))
     return entries
 
 
@@ -4149,11 +4836,20 @@ ROA_SUBSAMPLE = 65536
 #: and 1 ended at 0.287 and 0.232 and seed 2 at 1.4e-5 (PERF.md).
 CARTPOLE_SEED = 2
 
+#: The cart-pole example's joint actor-critic iterations on the card: cut
+#: from its 400 to 100, the depth that pays for the grown adaptive phase.
+#: At 200 iterations seeds 0 to 3 all balanced on an H100; at 100 seed 2
+#: balanced and its learned ROA covered 0.9941 of the grid (0.9999 at 200,
+#: 0.924 at 400, 0.957 at 60; the JAX package's record: 0.991; PERF.md
+#: section 4).
+CARTPOLE_JOINT_ITERS = 100
+
 
 def phase_cartpole_rl(card):
     """``examples/reinforcement_learning_cartpole.py --full`` on the card
     (``safe_learning_tpu_torch.examples.reinforcement_learning_cartpole.
-    run(full=True, seed=CARTPOLE_SEED)``): 400 joint iterations of 50 +
+    run(full=True, seed=CARTPOLE_SEED, joint_iters=CARTPOLE_JOINT_ITERS)``):
+    ``CARTPOLE_JOINT_ITERS`` (its 400 cut to 100) joint iterations of 50 +
     10 eager SGD steps, the closed loops from ``(0.2, 0.2, 0, 0)``, both
     ROAs on the 51^4 grid over 2000 steps.
 
@@ -4178,7 +4874,8 @@ def phase_cartpole_rl(card):
     builds = dict(build_reports)
     reset_launches()
     with patched(analysis, "_simulate", no_host_waits):
-        result = example.run(full=True, seed=CARTPOLE_SEED)
+        result = example.run(full=True, seed=CARTPOLE_SEED,
+                             joint_iters=CARTPOLE_JOINT_ITERS)
     launches = read_launches()
     if any(launches.values()) or dict(build_reports) != builds:
         raise AssertionError("the cart-pole RL path launched {} or built a "
@@ -5262,10 +5959,13 @@ def stationary_product_ms(inputs, kind, count):
     """The yardstick ``library_ms`` of kernel 1: the solve's product alone,
     ``torch.matmul(chol_inv[:n, :n], K)``, ``K`` (``n x Q``, scaled and
     masked) computed beforehand, TF32 off, on the device alone
-    (``graph_ms``)."""
+    (``graph_ms``), over column blocks where ``K`` would be large
+    (``product_blocks``)."""
     if torch.backends.cuda.matmul.allow_tf32:
         raise AssertionError("TF32 is on for matmul")
     q, x, chol_inv, _, mask, var_s2 = inputs
+    blocks = product_blocks(q.shape[0], count)
+    q = q[:blocks[0][1]]
     r2 = None
     for i in range(q.shape[1]):
         diff = x[:count, i][:, None] - q[:, i][None, :]
@@ -5275,8 +5975,7 @@ def stationary_product_ms(inputs, kind, count):
          * mask[:count, None]).contiguous()
     del r2
     li = chol_inv[:count, :count].contiguous()
-    out = torch.empty_like(k)
-    return graph_ms(lambda: torch.matmul(li, k, out=out))
+    return graph_ms(blocked_product([li], [k], blocks))
 
 
 TRANSCENDENTAL_SAMPLES = 2 ** 24
@@ -6614,6 +7313,10 @@ def main():
                                safe_peak))
     sequential = clocked("adaptive sequential", phase_adaptive_sequential,
                          card, adaptive.first)
+    bench_grown = clocked("bench grown", phase_bench_grown, card)
+    grown_rigor_paths, grown = clocked("adaptive grown",
+                                       phase_adaptive_grown, card)
+    rigor_paths += grown_rigor_paths
     with phase_clock(seconds, "count cases"):
         phase_kernel_count_cases()
         phase_program_count_cases()
@@ -6634,6 +7337,9 @@ def main():
     # path (the bench's, the adaptive coarse pass's).
     sharded_rows = sharded_paths(card, bench_lyap, giant_lyap, sharded)
     paths += [row for row in sharded_rows if row[0] == "gp_predict"]
+    for lyap, launches in bench_grown:
+        paths += grown_bench_times(card, lyap, launches)
+    del bench_grown
     paths += [
         ("gp_predict", "bench", (bench_launches["gp_predict"],)
          + phase_times(card, bench_lyap)),
@@ -6646,6 +7352,10 @@ def main():
         ("gp_predict_general", "one_d_example", (one_d_ex_launches,)
          + program_times(card, "general", one_d_ex_lyap, "1-D example")),
         timed_path(*sequential),
+    ]
+    grown_paths = grown_times(card, grown)
+    paths += [p for p in grown_paths if p[0] == "gp_predict_general"]
+    paths += [
         ("gp_predict_general", "flagship_fan_out",
          (fan_launches["gp_predict_general"],)
          + program_times(card, "general", fan_lyap, "flagship fan_out")),
@@ -6664,8 +7374,23 @@ def main():
           "ms ({}, {})".format(*safe))
     paths.append(("gp_predict_stacked", "safe_learning", safe))
     paths += [row for row in sharded_rows if row[0] != "gp_predict"]
-    # Kernel 3's headline numbers are the coarse pass's (listed last); the
-    # sampler step's and the chunk's ride along under "paths".
+    # The grown loop's kernel-3 paths (count 1,021) ride under "paths";
+    # kernel 3's headline numbers are the adaptive coarse pass's (listed
+    # last); the sampler step's and the chunk's ride along.
+    for name, path, entry in grown_paths:
+        if name != "gp_predict_stacked":
+            continue
+        print("kernel 3 on the grown adaptive path ({}): {} launches, max "
+              "abs err {!r}, {} body {!r} ms against the streamed body {!r} "
+              "ms and plain {!r} ms (eager {!r} ms), the product alone {!r} "
+              "ms, bound {!r} ms ({}, {})".format(
+                  path, entry["launches"], entry["max_abs_err"],
+                  entry["body"], entry["ms"], entry["streamed_ms"],
+                  entry["plain_ms"], entry["eager_ms"], entry["library_ms"],
+                  entry["bound_ms"], entry["bound_by"],
+                  entry["bound_kind"]))
+        paths.append((name, path, entry))
+    del grown, grown_paths
     for path, entry in adaptive_times(card, adaptive):
         print("kernel 3 on the adaptive path ({}): {} launches ({} above "
               "count 128), max abs err {!r}, {} body {!r} ms against the "

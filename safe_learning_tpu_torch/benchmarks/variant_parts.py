@@ -36,8 +36,9 @@ import torch
 from ..ops import gp_kernel
 from .pipelined_predict import HALVES, card_line, fold_chol_inv, kernel_inputs
 
-__all__ = ["ALTERNATIVES", "ENTRIES", "SHAPES", "alternative_source",
-           "build", "shape_inputs", "graph_ms", "entry_calls", "run", "main"]
+__all__ = ["ALTERNATIVES", "ENTRIES", "SHAPES", "patch_text",
+           "alternative_source", "build", "shape_inputs", "graph_ms",
+           "entry_calls", "run", "main"]
 
 #: The expanded body's per-element branch on the count, in the source and
 #: as it was before the fill went branch-free.
@@ -144,19 +145,28 @@ SHAPES = (("bench", 10 ** 6, 3, 2), ("cartpole_51x4", 6_765_201, 5, 4),
 _SOURCE = "gp_predict_variants.cu"
 
 
+def patch_text(path, changes, name):
+    """The text of file ``path`` with ``changes`` ``[(text, replacement)]``
+    made, each text found there exactly once (alternative ``name``'s, for
+    the error). The parts harnesses' one patch step: this module's for
+    kernels 4-7, ``strip_parts``' for kernels 1-3."""
+    with open(path) as f:
+        text = f.read()
+    for old, new in changes:
+        if text.count(old) != 1:
+            raise ValueError("alternative {}: the text to change is not in "
+                             "{} exactly once: {!r}".format(
+                                 name, os.path.basename(path), old))
+        text = text.replace(old, new)
+    return text
+
+
 def alternative_source(name):
     """The variants' source with alternative ``name``'s changes."""
     from ..ops.build import CSRC_DIR
 
-    with open(os.path.join(CSRC_DIR, _SOURCE)) as f:
-        text = f.read()
-    for old, new in ALTERNATIVES[name][2]:
-        if text.count(old) != 1:
-            raise ValueError("alternative {}: the text to change is not in "
-                             "{} exactly once: {!r}".format(name, _SOURCE,
-                                                            old))
-        text = text.replace(old, new)
-    return text
+    return patch_text(os.path.join(CSRC_DIR, _SOURCE),
+                      ALTERNATIVES[name][2], name)
 
 
 def build(names):
@@ -167,7 +177,8 @@ def build(names):
 
     headers = ["gp_predict_stationary.cuh", "gp_predict_common.cuh"]
     libs = load_libraries([("variant_" + name, headers,
-                            alternative_source(name)) for name in names])
+                            alternative_source(name), None)
+                           for name in names])
     return {name: gp_kernel.bind_variants(lib)
             for name, lib in zip(names, libs)}
 

@@ -24,8 +24,13 @@
 // register-tiled outer product fed by 16-byte shared-memory vectors, and
 // a fused epilogue. The dimension loop of k is unrolled over the first 4
 // dimensions from registers and runs on from memory past them. Above
-// n = 128 the streamed body recomputes k in chunks, so any count up to
-// kernel_max_capacity = 2048 runs in a fixed amount of shared memory.
+// n = 128 kernel 1 takes the bodies kernels 2 and 3 take there, by shape
+// alone (body): the panel body up to panel_max<T>() rows and the strip
+// body above it, up to kernel_max_capacity = 2048, through
+// StationaryProgram, the stationary covariance as a one-output program of
+// gp_predict_program.cuh whose parameter is the family; gp_predict_body
+// reports the body of a shape.
+// The streamed body stays behind gp_predict_streamed_*, for comparisons.
 // In float64 (the extended check of the bench) the tiled body runs the
 // product on the FP64 tensor cores (gp_predict_common.cuh's DMMA bodies):
 // the float64 exp of the k fill on the CUDA cores is then the larger
@@ -37,11 +42,65 @@
 // certificate margins measure the pipeline's rounding with the library
 // exp.
 
+#include "gp_predict_program.cuh"
 #include "gp_predict_stationary.cuh"
 
 namespace {
 
 using namespace gp_common;
+
+// Kernel 1's covariance as a one-output program of gp_predict_program.cuh,
+// so that the panel and strip bodies serve kernel 1 as they serve kernels 2
+// and 3: the squared scaled distance over the d dimensions, summed from
+// the first as stationary_k does, then the family, whose code (KINDS) is
+// the program's one parameter: one instantiation of each wide body serves
+// the four families, a branch every warp takes alike. The caller scales
+// by var_s2 and masks.
+struct StationaryProgram {
+  static constexpr int NUM_OUT = 1;
+  static constexpr int NUM_PARAMS = 1;
+  static constexpr int MIN_D = 1;
+  template <typename T, int OUT>
+  static __device__ __forceinline__ T k(const T* xj, const T (&q)[D_MAX],
+                                        const T (&pr)[NUM_PARAMS], int d) {
+    T r2 = T(0);
+#pragma unroll
+    for (int c = 0; c < D_MAX; ++c) {
+      if (c < d) {
+        T diff = xj[c] - q[c];
+        r2 = r2 + diff * diff;
+      }
+    }
+    switch ((int)pr[0]) {
+      case RBF:
+        return cov_rbf(r2);
+      case MATERN12:
+        return cov_matern12(r2);
+      case MATERN32:
+        return cov_matern32(r2);
+      default:
+        return cov_matern52(r2);
+    }
+  }
+};
+
+// The family codes as program parameters on the device, one a family.
+__device__ const float kKindCodes32[4] = {0.f, 1.f, 2.f, 3.f};
+__device__ const double kKindCodes64[4] = {0.0, 1.0, 2.0, 3.0};
+
+// The address of family `kind`'s code in dtype T on the current device.
+template <typename T>
+cudaError_t kind_code(int kind, const T** code) {
+  void* ptr = nullptr;
+  cudaError_t err;
+  if constexpr (sizeof(T) == 4) {
+    err = cudaGetSymbolAddress(&ptr, kKindCodes32);
+  } else {
+    err = cudaGetSymbolAddress(&ptr, kKindCodes64);
+  }
+  *code = static_cast<const T*>(ptr) + kind;
+  return err;
+}
 
 // Tiled body, bucket NB >= n (gp_predict_common.cuh).
 template <typename T, int KIND, int NB>
@@ -120,7 +179,8 @@ gp_predict_tiled_dmma(const T* __restrict__ q, const T* __restrict__ x,
       });
 }
 
-// Streamed body, n > N_TILED_MAX: one query per thread.
+// Streamed body, one query per thread: the comparison entries
+// gp_predict_streamed_* alone launch it.
 template <typename T, int KIND>
 __global__ void __launch_bounds__(NTS)
 gp_predict_streamed(const T* __restrict__ q, const T* __restrict__ x,
@@ -190,9 +250,6 @@ cudaError_t launch_tiled(const Args<T>& a) {
     }
   }();
   const size_t smem = tiled_smem_bytes<T, NB>(1, a.p, a.d);
-  // A block that does not fit (none at D_MAX and P_MAX since the float64
-  // tiled body packs chol_inv) would take the streamed body.
-  if (smem > SMEM_MAX) return launch_streamed<T, KIND>(a);
   constexpr int threads = tiled_threads<T, NB>();
   int grid = 0;
   const cudaError_t err = persistent_grid(cache, kernel, smem, a.n_q,
@@ -204,23 +261,41 @@ cudaError_t launch_tiled(const Args<T>& a) {
   return cudaGetLastError();
 }
 
-// The bucket of the count: the smallest NB >= n, or the streamed body.
-template <typename T, int KIND>
-cudaError_t launch_kind(const Args<T>& a) {
-  if (a.n <= 16) return launch_tiled<T, KIND, 16>(a);
-  if (a.n <= 32) return launch_tiled<T, KIND, 32>(a);
-  if (a.n <= 64) return launch_tiled<T, KIND, 64>(a);
-  if (a.n <= N_TILED_MAX) return launch_tiled<T, KIND, N_TILED_MAX>(a);
-  return launch_streamed<T, KIND>(a);
+// The body kernel 1 takes, by shape alone: the tiled body up to
+// N_TILED_MAX rows where its block fits (every block at D_MAX and P_MAX
+// does), else the body kernels 2 and 3 take there (gp_program::wide_body:
+// the panel body up to panel_max<T>() rows, the strip body above).
+template <typename T>
+gp_program::Body body(int count, int p, int d) {
+  if (count <= N_TILED_MAX &&
+      gp_program::with_bucket(count, [&](auto nb) {
+        return tiled_smem_bytes<T, decltype(nb)::value>(1, p, d);
+      }) <= SMEM_MAX) {
+    return gp_program::BODY_TILED;
+  }
+  return gp_program::wide_body<T, StationaryProgram>(count, p, d);
 }
 
+// Launch the tiled body at the bucket NB >= n, or the streamed body, of
+// kind KIND.
+template <typename T, int KIND>
+cudaError_t launch_kind(const Args<T>& a, gp_program::Body b) {
+  if (b == gp_program::BODY_STREAMED) return launch_streamed<T, KIND>(a);
+  return gp_program::with_bucket(a.n, [&](auto nb) {
+    return launch_tiled<T, KIND, decltype(nb)::value>(a);
+  });
+}
+
+// streamed: the streamed body whatever the count (the comparison entry),
+// else the body of the shape.
 template <typename T>
 int launch(const void* q, const void* x, const void* chol_inv,
            const void* alpha, const void* mask, const void* var_s2,
            int64_t n_q, int d, int cap, int count, int p, int kind,
-           void* mean_out, void* var_out, void* stream) {
+           void* mean_out, void* var_out, void* stream, bool streamed) {
   if (n_q <= 0 || d < 1 || d > D_MAX || p < 1 || p > P_MAX || cap < 1 ||
-      count < 0 || count > cap || (n_q + NTS - 1) / NTS > 0x7fffffffLL) {
+      count < 0 || count > cap || (n_q + NTS - 1) / NTS > 0x7fffffffLL ||
+      kind < RBF || kind > MATERN52) {
     return (int)cudaErrorInvalidValue;
   }
   const Args<T> a{static_cast<const T*>(q), static_cast<const T*>(x),
@@ -229,17 +304,27 @@ int launch(const void* q, const void* x, const void* chol_inv,
                   static_cast<const T*>(var_s2), n_q, d, cap, count, p,
                   static_cast<T*>(mean_out), static_cast<T*>(var_out),
                   static_cast<cudaStream_t>(stream)};
+  const gp_program::Body b =
+      streamed ? gp_program::BODY_STREAMED : body<T>(count, p, d);
+  if (b == gp_program::BODY_PANEL || b == gp_program::BODY_STRIP) {
+    const T* code = nullptr;
+    const cudaError_t err = kind_code<T>(kind, &code);
+    if (err != cudaSuccess) return (int)err;
+    const gp_program::Args<T> pa{a.q,    a.x,    code,   a.chol_inv,
+                                 a.alpha, a.mask, a.var_s2, a.n_q,
+                                 a.d,    a.cap,  a.n,    a.p,
+                                 a.mean_out, a.var_out};
+    return gp_program::launch_wide<T, StationaryProgram>(b, pa, a.stream);
+  }
   switch (kind) {
     case RBF:
-      return (int)launch_kind<T, RBF>(a);
+      return (int)launch_kind<T, RBF>(a, b);
     case MATERN12:
-      return (int)launch_kind<T, MATERN12>(a);
+      return (int)launch_kind<T, MATERN12>(a, b);
     case MATERN32:
-      return (int)launch_kind<T, MATERN32>(a);
-    case MATERN52:
-      return (int)launch_kind<T, MATERN52>(a);
+      return (int)launch_kind<T, MATERN32>(a, b);
     default:
-      return (int)cudaErrorInvalidValue;
+      return (int)launch_kind<T, MATERN52>(a, b);
   }
 }
 
@@ -248,24 +333,25 @@ int launch(const void* q, const void* x, const void* chol_inv,
 // Plain C interface, bound with ctypes. Every pointer is a device pointer
 // except `stream` (a cudaStream_t). `count` is the number of active rows
 // (0 <= count <= cap; see the precondition in ops/gp_kernel.py). Returns
-// a cudaError_t; 0 is success.
+// a cudaError_t; 0 is success. gp_predict_streamed_* take the same
+// arguments and launch the streamed body whatever the count, for
+// comparisons; gp_predict_body is the body a launch takes at a count,
+// item size, p and d (0 tiled, 1 panel, 2 strip), introspection only.
 extern "C" {
 
-int gp_predict_f32(const void* q, const void* x, const void* chol_inv,
-                   const void* alpha, const void* mask, const void* var_s2,
-                   int64_t n_q, int d, int cap, int count, int p, int kind,
-                   void* mean_out, void* var_out, void* stream) {
-  return launch<float>(q, x, chol_inv, alpha, mask, var_s2, n_q, d, cap,
-                       count, p, kind, mean_out, var_out, stream);
-}
+#define GP_PREDICT_ENTRY(NAME, T, STREAMED)                                 \
+  int NAME(const void* q, const void* x, const void* chol_inv,             \
+           const void* alpha, const void* mask, const void* var_s2,        \
+           int64_t n_q, int d, int cap, int count, int p, int kind,        \
+           void* mean_out, void* var_out, void* stream) {                  \
+    return launch<T>(q, x, chol_inv, alpha, mask, var_s2, n_q, d, cap,     \
+                     count, p, kind, mean_out, var_out, stream, STREAMED); \
+  }
 
-int gp_predict_f64(const void* q, const void* x, const void* chol_inv,
-                   const void* alpha, const void* mask, const void* var_s2,
-                   int64_t n_q, int d, int cap, int count, int p, int kind,
-                   void* mean_out, void* var_out, void* stream) {
-  return launch<double>(q, x, chol_inv, alpha, mask, var_s2, n_q, d, cap,
-                        count, p, kind, mean_out, var_out, stream);
-}
+GP_PREDICT_ENTRY(gp_predict_f32, float, false)
+GP_PREDICT_ENTRY(gp_predict_f64, double, false)
+GP_PREDICT_ENTRY(gp_predict_streamed_f32, float, true)
+GP_PREDICT_ENTRY(gp_predict_streamed_f64, double, true)
 
 const char* gp_predict_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
@@ -275,6 +361,10 @@ int gp_predict_limits(int* d_max, int* p_max) {
   *d_max = D_MAX;
   *p_max = P_MAX;
   return 0;
+}
+
+int gp_predict_body(int count, int itemsize, int p, int d) {
+  return itemsize == 8 ? body<double>(count, p, d) : body<float>(count, p, d);
 }
 
 }  // extern "C"

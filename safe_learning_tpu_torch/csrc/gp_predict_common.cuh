@@ -44,10 +44,13 @@
 // (0.5 to 0.75 bytes an FMA) and, where chol_inv is streamed, its reads
 // from L2.
 //
-// Three bodies, chosen by shape alone (count, dtype, p, d): the tiled body
-// up to N_TILED_MAX = 128 rows, the panel body above it up to
-// panel_max<T>() (512 rows in float32, 256 in float64; kernels 2 and 3),
-// and the streamed body above that (and for kernel 1 above 128 rows).
+// Three bodies, chosen by shape alone (count, dtype, p, d), for kernels 1,
+// 2 and 3 alike: the tiled body up to N_TILED_MAX = 128 rows, the panel
+// body above it up to panel_max<T>() (512 rows in float32, 256 in
+// float64), and the strip body above that, up to the 2,048 rows the GPs
+// route to a kernel (kernel_max_capacity). A fourth, the streamed body,
+// runs only on kernels 4-7 above 128 rows and behind the comparison
+// entries of kernels 1-3.
 //
 // The tiled body (n <= 128, solve_tile and its helpers):
 //   - a bucket NB in {16, 32, 64, 128} is chosen at launch from n and is a
@@ -138,16 +141,50 @@
 // across the row lanes and three blocks an SM gained 1-2 %, too little to
 // keep a second layout.
 //
-// The streamed body (solve_streamed; kernel 1 above 128 rows and its
-// variants, kernels 2 and 3 above panel_max<T>()): one query per thread,
-// the chol_inv row tile staged transposed, and k recomputed in chunks of
-// CB columns, so any count up to kernel_max_capacity = 2048 runs in a
-// fixed amount of shared memory.
+// The strip body (panel_max<T>() < n; Strip, solve_strips and the kernel
+// gp_program_strip of gp_predict_program.cuh, which kernel 1 reaches
+// through a one-output stationary program). Above the panel K[0:n, 64
+// queries] no longer fits a block (256 KB in float32 at n = 1,021, 512 KB
+// in float64, against 227 KB), so the rows of A go by strips of SR = 256:
+// a block holds a strip's 256 x 64 accumulators in registers (float32, an
+// 8 x 8 tile a thread, 8 warps) or DMMA fragments (float64, one 16-row
+// tile by 8 query tiles a warp, 16 warps), and streams both chol_inv and K
+// through shared memory by chunks of JC columns (32 in float32, 16 in
+// float64), each chunk's K evaluated once per strip: about 2.5 n
+// covariances a query and output at n = 1,021 and 4.5 n at 2,048, against
+// n for the panel body. The costs this design weighed, on the card (H100
+// 80GB HBM3, 700 W; benchmarks/strip_parts.py, PERF.md):
+//   - the 8 x 8 float32 tile: 4 shared loads (2 row vectors of the
+//     transposed chol_inv chunk, 2 K vectors) for 64 FMAs, against the
+//     panel body's 4 x 4 tile at half the FP32 rate; the slots are padded
+//     ([JC][SR + 4] float32, [JC][SR + 8] float64) rather than swizzled, so
+//     that the solve's addresses are the loop's immediates;
+//   - registers: the item's query rows (qs) and a program's parameters sit
+//     in shared memory and the fill reads them there, so that nothing but
+//     the accumulators lives through the solve (float32: 128 registers, two
+//     blocks an SM; float64: 128, 512 threads, one block);
+//   - one barrier a chunk, the next chunk's chol_inv copied by cp.async and
+//     its K evaluated before this chunk's solve; a warp's j loop stops at
+//     the end of its rows (float32) or its tile's k steps (float64);
+//   - the partial sums: each warp adds its rows into its own slot at each
+//     strip's end and the slots are summed in warp order after the last,
+//     so the order of every sum is fixed by n and a query's outputs are
+//     the same wherever it lies in a launch.
+// A thread-block cluster that shares one K tile across four blocks' shared
+// memory (each K evaluated once), and TMA copies of chol_inv (its rows are
+// cap values apart, not 16 bytes for an odd cap), are not tried here.
+//
+// The streamed body (solve_streamed; kernels 4-7 above 128 rows, and the
+// comparison entries gp_predict_streamed_* and gp_program_streamed_* of
+// kernels 1-3 at any count): one query per thread, the chol_inv row tile
+// staged transposed, and k recomputed in chunks of CB columns, so any
+// count up to kernel_max_capacity = 2048 runs in a fixed amount of shared
+// memory.
 //
 // The DMMA bodies (float64 kernels 1-3; dmma, solve_tile_dmma,
-// dmma_tiles, solve_panels_dmma). The float32 bodies above, kernels 4
-// and 5 in both dtypes and kernels 6 and 7 in float64 keep the CUDA-core
-// solve; so does the float64 streamed body. (Kernels 6 and 7's float32
+// dmma_tiles, solve_panels_dmma, strip_chunk_dmma). The float32 bodies
+// above, kernels 4 and 5 in both dtypes and kernels 6 and 7 in float64
+// keep the CUDA-core solve; so does the float64 streamed body. (Kernels 6 and 7's float32
 // tiled bodies run on the TF32 tensor cores, off every path:
 // gp_predict_variants.cu.)
 //   - A = L^-1 K in 16 x 8 x 16 mma tiles (m16n8k16, the fastest depth on
@@ -1543,8 +1580,413 @@ __device__ __forceinline__ void solve_panels_dmma(
 }
 
 // ---------------------------------------------------------------------------
-// Streamed body: kernel 1 above N_TILED_MAX, kernels 2 and 3 above
-// panel_max<T>()
+// Strip body: kernels 1-3 above panel_max<T>() (its design is in the header
+// note)
+// ---------------------------------------------------------------------------
+// A block takes a (query tile, output) item of TQ = 64 queries and walks
+// the rows of A in strips of SR = 256, each warp owning WROWS rows of each
+// strip for all 64 queries: in float32 8 warps of 32 rows, a thread an 8 x
+// 8 tile (rows 4 lr + {0..3, 16..19}, queries 4 lc + {0..3, 32..35}); in
+// float64 16 warps of one 16-row mma tile by 8 query tiles. For each
+// strip the block walks the columns up to the strip's last row (or the
+// count) in chunks of JC: chol_inv[strip rows, chunk] streams through a
+// ring of NSLOT slots by cp.async, and the block evaluates K[chunk, 64
+// queries] into one of two K buffers, the next chunk's before it solves
+// this one, one barrier a chunk. The item's query rows sit in shared
+// memory (qs, [TQ][D_MAX + 1]), as do the parameters of a program, so
+// that the fill holds no registers through the solve. After a strip's
+// last chunk each warp
+// reduces its rows into its own partial-sum slot red[warp][p + 1][TQ]
+// (stored at the first strip, added after), and after the last strip the
+// slots are summed in warp order: the order of every sum is fixed by n.
+template <typename T>
+struct Strip {
+  static constexpr bool F32 = sizeof(T) == 4;
+  static constexpr int SR = 256;              // rows of a strip
+  static constexpr int TQ = 64;               // queries of an item
+  static constexpr int NTH = F32 ? 256 : 512;  // threads of a block
+  static constexpr int NWARP = NTH / 32;
+  static constexpr int WROWS = SR / NWARP;    // rows of a warp
+  static constexpr int JC = F32 ? 32 : KD;    // columns of a chunk
+  static constexpr int NSLOT = 2;
+  static constexpr int BLOCKS = F32 ? 2 : 1;  // blocks an SM
+  // Row strides of a slot ([JC][SRP], chol_inv transposed) and of a K
+  // buffer ([JC][TQP]), padded so that the copies (a warp writes 4 rows x
+  // 8 columns in float32, 8 x 4 in float64), the fill and the solve's
+  // reads (4 row vectors and 2 K vectors a warp in float32, mma fragments
+  // in float64) meet no bank more often than their bytes need.
+  static constexpr int SRP = SR + (F32 ? 4 : 8);
+  static constexpr int TQP = TQ + (F32 ? 0 : 8);
+  static_assert(!F32 || (WROWS == WR * 8 && TQ == WC * 8), "float32 tile");
+  static_assert(F32 || WROWS == 16, "float64 tile");
+};
+
+// Row stride of the item's query rows in shared memory: D_MAX values
+// and one more, so that consecutive queries meet different banks.
+constexpr int QS_STRIDE = D_MAX + 1;
+
+// Dynamic shared memory of one strip block: the ring, the two K buffers,
+// the [NWARP][p + 1][TQ] partial sums and the item's query rows (a
+// program's parameters follow, gp_predict_program.cuh).
+template <typename T>
+__host__ __device__ constexpr size_t strip_smem_bytes(int p) {
+  using S = Strip<T>;
+  return sizeof(T) * ((size_t)S::NSLOT * S::JC * S::SRP +
+                      (size_t)2 * S::JC * S::TQP +
+                      (size_t)S::NWARP * (p + 1) * S::TQ +
+                      (size_t)S::TQ * QS_STRIDE);
+}
+
+// Pointers into a strip block's shared memory (see strip_smem_bytes).
+template <typename T>
+struct StripSmem {
+  using S = Strip<T>;
+  T *ring, *kbuf, *red, *qs, *tail;
+  __device__ __forceinline__ StripSmem(unsigned char* raw, int p) {
+    ring = reinterpret_cast<T*>(raw);
+    kbuf = ring + S::NSLOT * S::JC * S::SRP;
+    red = kbuf + 2 * S::JC * S::TQP;
+    qs = red + S::NWARP * (p + 1) * S::TQ;
+    tail = qs + S::TQ * QS_STRIDE;
+  }
+};
+
+// Stage the query rows q0 .. q0 + TQ - 1 (rows past n_q: the last) into
+// qs; the caller synchronises.
+template <typename T>
+__device__ __forceinline__ void strip_queries(T* qs, const T* __restrict__ q,
+                                              int64_t q0, int64_t n_q,
+                                              int d) {
+  using S = Strip<T>;
+  for (int idx = threadIdx.x; idx < S::TQ * d; idx += S::NTH) {
+    const int ql = idx / d, c = idx - ql * d;
+    const int64_t row = q0 + ql < n_q ? q0 + ql : n_q - 1;
+    qs[ql * QS_STRIDE + c] = q[row * d + c];
+  }
+}
+
+// Walks one item's chunks in order: the strips below the count, and in
+// each the column chunks of JC up to the strip's last row (or the count).
+template <typename T>
+struct StripCursor {
+  using S = Strip<T>;
+  int n, si = 0, ci = 0, nc = 0;
+  __device__ __forceinline__ explicit StripCursor(int n_) : n(n_) {
+    nc = chunks();
+  }
+  __device__ __forceinline__ int r0() const { return si * S::SR; }
+  __device__ __forceinline__ int jc0() const { return ci * S::JC; }
+  __device__ __forceinline__ bool valid() const { return r0() < n; }
+  __device__ __forceinline__ bool last_chunk() const { return ci == nc - 1; }
+  __device__ __forceinline__ int chunks() const {
+    const int end = min(n, r0() + S::SR);
+    return r0() < n ? (end + S::JC - 1) / S::JC : 0;
+  }
+  __device__ __forceinline__ void next() {
+    if (++ci == nc) {
+      ++si;
+      ci = 0;
+      nc = chunks();
+    }
+  }
+};
+
+// This thread's column and first row in every chunk copy: a warp copies
+// VR rows by VC consecutive columns at a time, and the thread's next row
+// is RSTEP below.
+template <typename T>
+struct StripCopy {
+  using S = Strip<T>;
+  static constexpr int VC = S::F32 ? 8 : 4;
+  static constexpr int VR = 32 / VC;
+  static constexpr int CB = S::JC / VC;  // column blocks of a chunk
+  static constexpr int RSTEP = S::NTH / (32 * CB) * VR;
+  static constexpr int COPIES = S::SR / RSTEP;
+  static_assert(S::NTH % (32 * CB) == 0, "whole column blocks a pass");
+  int col, row;
+  __device__ __forceinline__ StripCopy()
+      : col((int)threadIdx.x / 32 % CB * VC + (int)threadIdx.x % VC),
+        row((int)threadIdx.x / (32 * CB) * VR +
+            (int)threadIdx.x / VC % VR) {}
+};
+
+// Start copying the cursor's chunk of chol_inv (row stride cap) into a
+// slot, transposed; elements above the diagonal or at or past the count
+// are zero-filled without a read. Every thread of the block copies its
+// share (StripCopy).
+template <typename T>
+__device__ __forceinline__ void strip_fetch(T* slot,
+                                            const T* __restrict__ chol_inv,
+                                            int cap,
+                                            const StripCursor<T>& cur,
+                                            const StripCopy<T>& cp) {
+  using S = Strip<T>;
+  using C = StripCopy<T>;
+  const int gc = cur.jc0() + cp.col;
+  const int gr0 = cur.r0() + cp.row;
+  const T* src = chol_inv + (int64_t)gr0 * cap + gc;
+  T* dst = slot + cp.col * S::SRP + cp.row;
+  const int64_t step = (int64_t)C::RSTEP * cap;
+#pragma unroll 4
+  for (int i = 0; i < C::COPIES; ++i) {
+    const int gr = gr0 + i * C::RSTEP;
+    const bool in = gr < cur.n && gc <= gr;
+    cp_async<sizeof(T)>(dst + i * C::RSTEP, in ? src + i * step : chol_inv,
+                        in ? (int)sizeof(T) : 0);
+  }
+}
+
+// K[jc0 + jj][ql] = kfn(jc0 + jj) for the chunk's rows below n, else 0,
+// into a K buffer; thread t evaluates query t % TQ at rows t / TQ + JS i.
+template <typename T, class KFn>
+__device__ __forceinline__ void strip_fill(T* kb, const KFn& kfn, int jc0,
+                                           int n) {
+  using S = Strip<T>;
+  constexpr int JS = S::NTH / S::TQ;  // threads per query
+  const int ql = threadIdx.x % S::TQ;
+#pragma unroll
+  for (int jj = threadIdx.x / S::TQ; jj < S::JC; jj += JS) {
+    const int j = jc0 + jj;
+    kb[jj * S::TQP + ql] = j < n ? kfn(j) : T(0);
+  }
+}
+
+// Clears a strip's accumulators (float32: one thread's 8 x 8 tile;
+// float64: a lane's fragments of one row tile by 8 query tiles).
+template <typename T, int N>
+__device__ __forceinline__ void strip_zero(T (&acc)[8][N]) {
+#pragma unroll
+  for (int r = 0; r < 8; ++r) {
+#pragma unroll
+    for (int c = 0; c < N; ++c) acc[r][c] = T(0);
+  }
+}
+
+// The float32 strip's solve of one chunk by one thread: acc += L^-1[its
+// rows, chunk] K[chunk, its queries] over the chunk's first jn columns (a
+// multiple of 8; the values past the diagonal or the count are zeros), j
+// ascending. lp is its first row in the slot, kp its first query in the
+// K buffer.
+__device__ __forceinline__ void strip_chunk(float (&acc)[8][8],
+                                            const float* lp, const float* kp,
+                                            int jn) {
+  using S = Strip<float>;
+#pragma unroll 1
+  for (int j8 = 0; j8 < jn; j8 += 8) {
+#pragma unroll
+    for (int jj = 0; jj < 8; ++jj) {
+      const int j = j8 + jj;
+      const float4 la = *reinterpret_cast<const float4*>(lp + j * S::SRP);
+      const float4 lb =
+          *reinterpret_cast<const float4*>(lp + j * S::SRP + 16);
+      const float4 ka = *reinterpret_cast<const float4*>(kp + j * S::TQP);
+      const float4 kc =
+          *reinterpret_cast<const float4*>(kp + j * S::TQP + 4 * WC);
+      const float l[8] = {la.x, la.y, la.z, la.w, lb.x, lb.y, lb.z, lb.w};
+      const float k[8] = {ka.x, ka.y, ka.z, ka.w, kc.x, kc.y, kc.z, kc.w};
+#pragma unroll
+      for (int r = 0; r < 8; ++r) {
+#pragma unroll
+        for (int c = 0; c < 8; ++c) acc[r][c] += l[r] * k[c];
+      }
+    }
+  }
+}
+
+// part[c] summed over the WR row lanes; the lanes of row lane 0 store it
+// to (first) or add it to their queries of dst ([TQ]).
+__device__ __forceinline__ void strip_add(float (&part)[8], float* dst,
+                                          int lr, int lc, bool first) {
+#pragma unroll
+  for (int off = WC; off < 32; off <<= 1) {
+#pragma unroll
+    for (int c = 0; c < 8; ++c) {
+      part[c] += __shfl_xor_sync(0xffffffffu, part[c], off);
+    }
+  }
+  if (lr == 0) {
+#pragma unroll
+    for (int c = 0; c < 8; ++c) {
+      float* q = dst + (c / 4) * 4 * WC + 4 * lc + c % 4;
+      *q = first ? part[c] : *q + part[c];
+    }
+  }
+}
+
+// The end of a float32 strip: this thread's rows (row0 + {0..3, 16..19})
+// into alpha^T A and sum A^2 over the row lanes, stored (first strip) or
+// added to the warp's partial sums red[c][q]. Rows at or past n hold
+// exact zeros. Clears acc.
+__device__ __forceinline__ void strip_reduce(float (&acc)[8][8], float* red,
+                                             const float* __restrict__ alpha,
+                                             int row0, int n, int p, int lr,
+                                             int lc, bool first) {
+  constexpr int TQ = Strip<float>::TQ;
+  float part[8];
+#pragma unroll
+  for (int c = 0; c < 8; ++c) {
+    part[c] = 0.f;
+#pragma unroll
+    for (int r = 0; r < 8; ++r) part[c] += acc[r][c] * acc[r][c];
+  }
+  strip_add(part, red + p * TQ, lr, lc, first);
+#pragma unroll 1
+  for (int o = 0; o < p; ++o) {
+    float a[8];
+#pragma unroll
+    for (int r = 0; r < 8; ++r) {
+      const int row = row0 + r % 4 + 16 * (r / 4);
+      a[r] = row < n ? __ldg(alpha + (int64_t)row * p + o) : 0.f;
+    }
+#pragma unroll
+    for (int c = 0; c < 8; ++c) {
+      part[c] = 0.f;
+#pragma unroll
+      for (int r = 0; r < 8; ++r) part[c] += acc[r][c] * a[r];
+    }
+    strip_add(part, red + o * TQ, lr, lc, first);
+  }
+  strip_zero(acc);
+}
+
+// The float64 strip's solve of one chunk (one mma k step) by one warp on
+// DMMA: acc += L^-1[its tile, chunk] K[chunk, 64 queries]. lp is the
+// lane's first A element in the slot (row g of the tile, column t), kp its
+// first B element in the K buffer (row t, query g).
+__device__ __forceinline__ void strip_chunk_dmma(double (&acc)[8][4],
+                                                 const double* lp,
+                                                 const double* kp) {
+  using S = Strip<double>;
+  double a[KS4][2];
+#pragma unroll
+  for (int s = 0; s < KS4; ++s) {
+    a[s][0] = lp[4 * s * S::SRP];
+    a[s][1] = lp[4 * s * S::SRP + 8];
+  }
+#pragma unroll
+  for (int c = 0; c < 8; ++c) {
+    double b[KS4];
+#pragma unroll
+    for (int s = 0; s < KS4; ++s) b[s] = kp[4 * s * S::TQP + 8 * c];
+    dmma(acc[c], a, b);
+  }
+}
+
+// The end of a float64 strip: the warp's tile (rows row0 + g + 8 hh) into
+// alpha^T A and sum A^2, reduced over the g lanes (reduce_tiles: lane g
+// holds query tile g) and stored (first strip) or added to the warp's
+// partial sums red[c][q]. Rows at or past n hold exact zeros. Clears acc.
+__device__ __forceinline__ void strip_reduce_dmma(
+    double (&acc)[8][4], double* red, const double* __restrict__ alpha,
+    int row0, int n, int p, int lane, bool first) {
+  constexpr int TQ = Strip<double>::TQ;
+  const int g = lane >> 2, t = lane & 3;
+  auto put = [&](double* dst, int e, double x) {
+    double* q = dst + 8 * g + 2 * t + e;
+    *q = first ? x : *q + x;
+  };
+#pragma unroll
+  for (int e = 0; e < 2; ++e) {
+    double v[8];
+#pragma unroll
+    for (int c = 0; c < 8; ++c) {
+      v[c] = acc[c][e] * acc[c][e];
+      v[c] += acc[c][2 + e] * acc[c][2 + e];
+    }
+    put(red + p * TQ, e, reduce_tiles(v, lane));
+  }
+#pragma unroll 1
+  for (int o = 0; o < p; ++o) {
+    const int i0 = row0 + g, i1 = row0 + g + 8;
+    const double al0 = i0 < n ? __ldg(alpha + (int64_t)i0 * p + o) : 0.0;
+    const double al1 = i1 < n ? __ldg(alpha + (int64_t)i1 * p + o) : 0.0;
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      double v[8];
+#pragma unroll
+      for (int c = 0; c < 8; ++c) {
+        v[c] = acc[c][e] * al0;
+        v[c] += acc[c][2 + e] * al1;
+      }
+      put(red + o * TQ, e, reduce_tiles(v, lane));
+    }
+  }
+  strip_zero(acc);
+}
+
+// A = L^-1 K for one item (query tile, output) by strips, and its
+// reductions into red ([NWARP][p + 1][TQ]); fill(kb, jc0) evaluates the
+// output's K rows jc0 .. jc0 + JC - 1 for the item's queries into a K
+// buffer (strip_fill). Every thread of the block must call this; on
+// return every warp's partials are in red.
+template <typename T, class Fill>
+__device__ __forceinline__ void solve_strips(T* ring, T* kbuf, T* red,
+                                             const Fill& fill,
+                                             const T* __restrict__ chol_inv,
+                                             const T* __restrict__ alpha,
+                                             int cap, int n, int p) {
+  using S = Strip<T>;
+  constexpr int SLOT = S::JC * S::SRP;
+  constexpr int KB = S::JC * S::TQP;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  T* wred = red + warp * (p + 1) * S::TQ;
+  // This thread's first row in a slot and first query in a K buffer.
+  int lrow, kq;
+  if constexpr (S::F32) {
+    lrow = warp * S::WROWS + 4 * (lane / WC);
+    kq = 4 * (lane % WC);
+  } else {
+    lrow = (lane & 3) * S::SRP + warp * S::WROWS + (lane >> 2);
+    kq = (lane & 3) * S::TQP + (lane >> 2);
+  }
+  const StripCopy<T> cp;
+  StripCursor<T> cur(n), ic(n);
+  strip_fetch(ring, chol_inv, cap, ic, cp);
+  cp_async_commit();
+  fill(kbuf, ic.jc0());
+  ic.next();
+  T acc[8][S::F32 ? 8 : 4];
+  strip_zero(acc);
+  for (int t = 0; cur.valid(); ++t) {
+    cp_async_wait<0>();  // chunk t has landed (this thread's part)
+    __syncthreads();  // ... every thread's, and its K; t - 1's buffers free
+    T* kb_next = kbuf + (t + 1) % 2 * KB;
+    if (ic.valid()) {
+      strip_fetch(ring + (t + 1) % S::NSLOT * SLOT, chol_inv, cap, ic, cp);
+    }
+    cp_async_commit();
+    if (ic.valid()) fill(kb_next, ic.jc0());
+    const T* slot = ring + t % S::NSLOT * SLOT;
+    const T* kb = kbuf + t % 2 * KB;
+    const int wr0 = cur.r0() + warp * S::WROWS;  // the warp's first row
+    if constexpr (S::F32) {
+      const int jn = wr0 < n ? min(n, wr0 + S::WROWS) - cur.jc0() : 0;
+      if (jn > 0) {
+        strip_chunk(acc, slot + lrow, kb + kq, min(S::JC, (jn + 7) & ~7));
+      }
+      if (cur.last_chunk() && (cur.si == 0 || wr0 < n)) {
+        strip_reduce(acc, wred, alpha, wr0 + 4 * (lane / WC), n, p,
+                     lane / WC, lane % WC, cur.si == 0);
+      }
+    } else {
+      if (wr0 < n && cur.jc0() < wr0 + S::WROWS) {
+        strip_chunk_dmma(acc, slot + lrow, kb + kq);
+      }
+      if (cur.last_chunk() && (cur.si == 0 || wr0 < n)) {
+        strip_reduce_dmma(acc, wred, alpha, wr0, n, p, lane, cur.si == 0);
+      }
+    }
+    ic.next();
+    cur.next();
+  }
+  cp_async_wait<0>();
+  __syncthreads();  // every warp's partials are in red
+}
+
+// ---------------------------------------------------------------------------
+// Streamed body: kernels 4-7 above N_TILED_MAX, and the comparison entries
+// of kernels 1-3 at any count
 // ---------------------------------------------------------------------------
 constexpr int NTS = 128;  // threads (queries) per streamed block
 constexpr int RB = 32;    // rows of a held in registers at a time

@@ -15,11 +15,12 @@
 //
 //   struct CovarianceProgram {
 //     static constexpr int NUM_OUT, NUM_PARAMS, MIN_D;
-//     template <typename T, int OUT> static T k(xj, q, pr);
+//     template <typename T, int OUT> static T k(xj, q, pr, d);
 //   };
 //
 // where k is output OUT's covariance between training row xj and query q
-// as straight-line code over the parameter registers pr, and then invokes
+// (d input dimensions) as straight-line code over the parameters pr, and
+// then invokes
 // GP_PROGRAM_EXPORTS(CovarianceProgram). The program's structure is
 // compiled in, as the Pallas kernels trace it statically
 // (gp_kernel.py:220-222); the parameter values are a runtime array, so a
@@ -61,14 +62,17 @@
 // rate with its 4 x 4 register tile (gp_predict_common.cuh). A block walks
 // (query tile, output) items of a persistent grid: it evaluates the
 // output's program into the K tile once, streams that output's chol_inv
-// through the cp.async ring and reduces. The streamed body
-// (solve_streamed) runs above panel_max<T>() rows (512 in float32, 256
-// in float64) or where a panel block does not fit; gp_program_streamed_*
-// launch it at any count, for comparison. In float64 (the rigor paths)
-// the tiled and panel bodies run the product on the FP64 tensor cores
-// (gp_program_tiled_dmma, gp_program_panel_dmma; the DMMA bodies of
-// gp_predict_common.cuh), and the program's float64 evaluation on the
-// CUDA cores becomes the larger share.
+// through the cp.async ring and reduces. The strip body (gp_program_strip)
+// runs above panel_max<T>() rows (512 in float32, 256 in float64), or
+// where a panel block does not fit, up to the 2,048 rows the GPs route to
+// a kernel: a safe-exploration loop that runs longer than the adaptive
+// example's 12 rounds passes those counts. The streamed body
+// (solve_streamed) runs on no path; gp_program_streamed_* launch it at any
+// count, for comparison. In float64 (the rigor paths) the tiled, panel
+// and strip bodies run the product on the FP64 tensor cores
+// (gp_program_tiled_dmma, gp_program_panel_dmma, gp_program_strip; the
+// DMMA bodies of gp_predict_common.cuh), and the program's float64
+// evaluation on the CUDA cores becomes the larger share.
 // Numerics follow the plain twin (ops/gp_kernel.py::_eval_program):
 // lengthscales enter as reciprocals multiplied into the differences, the
 // program's k is scaled by s2 * mask afterwards, the 1e-36 guards of the
@@ -112,7 +116,7 @@ __device__ __forceinline__ void tile_outputs(
   const T* ms = sm.ms;
   const int d = a.d;
   fill_k<T, NB>(sm.ks, [&](int j) {
-    return Prog::template k<T, OUT>(xs + j * d, qv, pr) * s2 * ms[j];
+    return Prog::template k<T, OUT>(xs + j * d, qv, pr, d) * s2 * ms[j];
   }, a.n);
   __syncthreads();  // k (and chol_inv) staged
   solve_tile<T, NB>(sm.ks, resident ? sm.ls + OUT * LSZ : sm.ls, sm.red,
@@ -158,7 +162,7 @@ __device__ __forceinline__ void outputs_dmma(
         const double* ms = sm.ms;
         const int d = a.d;
         fill_tile_dmma<NB>(sm.ks(b), [&](int j) {
-          return Prog::template k<double, OUT>(xs + j * d, qv, pr) * s2 *
+          return Prog::template k<double, OUT>(xs + j * d, qv, pr, d) * s2 *
                  ms[j];
         }, a.n);
       },
@@ -243,7 +247,7 @@ __device__ __forceinline__ void streamed_outputs(
   for (int c = 0; c < P_MAX; ++c) macc[c] = T(0);
   T vacc = T(0);
   solve_streamed(ks, ls, [&](int j) {
-    return Prog::template k<T, OUT>(x + (int64_t)j * d, qv, pr) * s2 *
+    return Prog::template k<T, OUT>(x + (int64_t)j * d, qv, pr, d) * s2 *
            mask[j];
   }, a.chol_inv + (int64_t)OUT * a.cap * a.cap,
      a.alpha + (int64_t)OUT * a.cap * a.p, a.cap, a.n, a.p, macc, vacc);
@@ -293,7 +297,7 @@ __device__ __forceinline__ void panel_fill(
     const T (&qv)[D_MAX], const T (&pr)[Prog::NUM_PARAMS], T s2) {
   if (s == OUT) {
     fill_k_rows<T, Panel<T>::TQ>(ks, [&](int j) {
-      return Prog::template k<T, OUT>(xs + j * d, qv, pr) * s2 * ms[j];
+      return Prog::template k<T, OUT>(xs + j * d, qv, pr, d) * s2 * ms[j];
     }, n);
   } else if constexpr (OUT + 1 < Prog::NUM_OUT) {
     panel_fill<T, Prog, OUT + 1>(s, ks, xs, ms, n, d, qv, pr, s2);
@@ -308,7 +312,8 @@ __device__ __forceinline__ void panel_fill_dmma(
     double s2) {
   if (s == OUT) {
     fill_k_dmma<PanelD::TQ, NT>(ks, [&](int j) {
-      return Prog::template k<double, OUT>(xs + j * d, qv, pr) * s2 * ms[j];
+      return Prog::template k<double, OUT>(xs + j * d, qv, pr, d) * s2 *
+             ms[j];
     }, n, (int)threadIdx.x);
   } else if constexpr (OUT + 1 < Prog::NUM_OUT) {
     panel_fill_dmma<Prog, OUT + 1>(s, ks, xs, ms, n, d, qv, pr, s2);
@@ -427,6 +432,83 @@ gp_program_panel(const Args<T> a) {
   }
 }
 
+// Output s's K rows jc0 .. jc0 + JC - 1 for the strip body: its program
+// at the rows of x and this thread's query, whose coordinates (qv) and the
+// parameters (pr) are read from shared memory (OUT runs through the
+// outputs at compile time).
+template <typename T, class Prog, int OUT = 0>
+__device__ __forceinline__ void strip_fill_out(
+    int s, T* kb, int jc0, const Args<T>& a, const T (&qv)[D_MAX],
+    const T (&pr)[Prog::NUM_PARAMS], T s2) {
+  if (s == OUT) {
+    const T* __restrict__ x = a.x;
+    const T* __restrict__ mask = a.mask;
+    const int d = a.d;
+    strip_fill(kb, [&](int j) {
+      return Prog::template k<T, OUT>(x + (int64_t)j * d, qv, pr, d) * s2 *
+             __ldg(mask + j);
+    }, jc0, a.n);
+  } else if constexpr (OUT + 1 < Prog::NUM_OUT) {
+    strip_fill_out<T, Prog, OUT + 1>(s, kb, jc0, a, qv, pr, s2);
+  }
+}
+
+// Dynamic shared memory of one strip block of a program: the body's and
+// the parameters.
+template <typename T, class Prog>
+__host__ __device__ constexpr size_t strip_bytes(int p) {
+  return strip_smem_bytes<T>(p) + sizeof(T) * Prog::NUM_PARAMS;
+}
+
+// The strip body (gp_predict_common.cuh), above the panel body's largest
+// count: a persistent grid over (query tile, output) items, chol_inv and K
+// streamed through shared memory by chunks.
+template <typename T, class Prog>
+__global__ void __launch_bounds__(Strip<T>::NTH, Strip<T>::BLOCKS)
+gp_program_strip(const Args<T> a) {
+  using S = Strip<T>;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const StripSmem<T> sm(smem_raw, a.p);
+  for (int i = threadIdx.x; i < Prog::NUM_PARAMS; i += S::NTH) {
+    sm.tail[i] = a.params[i];
+  }
+  const T(&pr)[Prog::NUM_PARAMS] =
+      *reinterpret_cast<const T(*)[Prog::NUM_PARAMS]>(sm.tail);
+  const T(&qv)[D_MAX] = *reinterpret_cast<const T(*)[D_MAX]>(
+      sm.qs + threadIdx.x % S::TQ * QS_STRIDE);
+  const T s2 = *a.s2;
+  const int64_t items = (a.n_q + S::TQ - 1) / S::TQ * Prog::NUM_OUT;
+  for (int64_t it = blockIdx.x; it < items; it += gridDim.x) {
+    const int64_t q0 = it / Prog::NUM_OUT * S::TQ;
+    const int s = (int)(it % Prog::NUM_OUT);
+    // The last item's fills are done (solve_strips ends in a barrier).
+    strip_queries(sm.qs, a.q, q0, a.n_q, a.d);
+    __syncthreads();  // the queries (and the parameters) staged
+    solve_strips(sm.ring, sm.kbuf, sm.red, [&](T* kb, int jc0) {
+      strip_fill_out<T, Prog>(s, kb, jc0, a, qv, pr, s2);
+    }, a.chol_inv + (int64_t)s * a.cap * a.cap,
+       a.alpha + (int64_t)s * a.cap * a.p, a.cap, a.n, a.p);
+    store_slots<T, S::TQ, S::NWARP, S::NTH>(sm.red, q0, a.n_q, a.p,
+                                            Prog::NUM_OUT, s, a.mean_out,
+                                            a.var_out, (int)threadIdx.x);
+  }
+}
+
+template <typename T, class Prog>
+cudaError_t launch_strip(const Args<T>& a, cudaStream_t stream) {
+  using S = Strip<T>;
+  static GridCache cache;
+  auto kernel = gp_program_strip<T, Prog>;
+  const size_t smem = strip_bytes<T, Prog>(a.p);
+  const int64_t items = (a.n_q + S::TQ - 1) / S::TQ * Prog::NUM_OUT;
+  int grid = 0;
+  const cudaError_t err =
+      persistent_grid(cache, kernel, smem, items, 1, &grid, S::NTH);
+  if (err != cudaSuccess) return err;
+  kernel<<<grid, S::NTH, smem, stream>>>(a);
+  return cudaGetLastError();
+}
+
 template <typename T, class Prog>
 cudaError_t launch_panel(const Args<T>& a, cudaStream_t stream) {
   static GridCache cache;
@@ -506,12 +588,30 @@ decltype(auto) with_bucket(int count, F&& f) {
 
 // The body a launch takes, from its shape alone: the tiled body up to
 // N_TILED_MAX rows where its block fits, else the panel body up to
-// panel_max<T>() rows where its block fits, else the streamed body. In
-// float64, BODY_PANEL from 129 to 192 rows launches the resident tiled
-// body at bucket 192 (gp_program_tiled_dmma, panel_resident) where its
-// block fits, else gp_program_panel_dmma: both are the DMMA bodies that
-// serve the panel's range.
-enum Body { BODY_TILED = 0, BODY_PANEL = 1, BODY_STREAMED = 2 };
+// panel_max<T>() rows where its block fits, else the strip body, at any
+// count (its block fits at every p and d). In float64, BODY_PANEL from 129
+// to 192 rows launches the resident tiled body at bucket 192
+// (gp_program_tiled_dmma, panel_resident) where its block fits, else
+// gp_program_panel_dmma: both are the DMMA bodies that serve the panel's
+// range. No launch takes the streamed body: only gp_program_streamed_*
+// reach it, for comparisons.
+enum Body { BODY_TILED = 0, BODY_PANEL = 1, BODY_STRIP = 2,
+            BODY_STREAMED = 3 };
+
+static_assert(strip_smem_bytes<double>(P_MAX) +
+                      sizeof(double) * PARAMS_MAX <= SMEM_MAX,
+              "the strip block fits at every p");
+
+// The body above the tiled body's range (kernel 1 takes it from 129 rows).
+template <typename T, class Prog>
+Body wide_body(int count, int p, int d) {
+  if (count <= panel_max<T>() &&
+      (panel_resident<T, Prog>(count, p, d) ||
+       panel_bytes<T>(count, p, d) <= SMEM_MAX)) {
+    return BODY_PANEL;
+  }
+  return BODY_STRIP;
+}
 
 template <typename T, class Prog>
 Body body(int count, int p, int d) {
@@ -521,12 +621,19 @@ Body body(int count, int p, int d) {
       }) > 0) {
     return BODY_TILED;
   }
-  if (count <= panel_max<T>() &&
-      (panel_resident<T, Prog>(count, p, d) ||
-       panel_bytes<T>(count, p, d) <= SMEM_MAX)) {
-    return BODY_PANEL;
+  return wide_body<T, Prog>(count, p, d);
+}
+
+// Launch wide_body's b, BODY_PANEL or BODY_STRIP.
+template <typename T, class Prog>
+int launch_wide(Body b, const Args<T>& a, cudaStream_t st) {
+  if (b == BODY_STRIP) return (int)launch_strip<T, Prog>(a, st);
+  if constexpr (sizeof(T) == 8) {
+    if (panel_resident<T, Prog>(a.n, a.p, a.d)) {
+      return (int)launch_tiled<T, Prog, 192>(a, st);
+    }
   }
-  return BODY_STREAMED;
+  return (int)launch_panel<T, Prog>(a, st);
 }
 
 // The launch arguments, or cudaErrorInvalidValue for arguments the
@@ -566,26 +673,17 @@ int launch(const void* q, const void* x, const void* params,
                          cap, count, p, mean_out, var_out, &a);
   if (err != cudaSuccess) return (int)err;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (body<T, Prog>(count, p, d)) {
-    case BODY_TILED:
-      return with_bucket(count, [&](auto nb) {
-        return (int)launch_tiled<T, Prog, decltype(nb)::value>(a, st);
-      });
-    case BODY_PANEL:
-      if constexpr (sizeof(T) == 8) {
-        if (panel_resident<T, Prog>(count, p, d)) {
-          return (int)launch_tiled<T, Prog, 192>(a, st);
-        }
-      }
-      return (int)launch_panel<T, Prog>(a, st);
-    default:
-      return (int)launch_streamed<T, Prog>(a, st);
+  const Body b = body<T, Prog>(count, p, d);
+  if (b == BODY_TILED) {
+    return with_bucket(count, [&](auto nb) {
+      return (int)launch_tiled<T, Prog, decltype(nb)::value>(a, st);
+    });
   }
+  return launch_wide<T, Prog>(b, a, st);
 }
 
-// The streamed body at any count (the body above panel_max<T>()), for
-// comparisons with the body a launch takes; no path of the package
-// launches it below that count.
+// The streamed body at any count, for comparisons with the body a launch
+// takes; no path of the package launches it.
 template <typename T, class Prog>
 int launch_streamed_entry(const void* q, const void* x, const void* params,
                           const void* chol_inv, const void* alpha,
@@ -618,6 +716,8 @@ long long smem_bytes(int count, int p, int d) {
         }
       }
       return (long long)panel_bytes<T>(count, p, d);
+    case BODY_STRIP:
+      return (long long)strip_bytes<T, Prog>(p);
     default:
       return (long long)streamed_smem_bytes<T>();
   }
@@ -633,7 +733,7 @@ long long smem_bytes(int count, int p, int d) {
 // arguments and launch the streamed body whatever the count.
 // gp_program_smem_bytes is the dynamic shared memory of one block at a
 // count, p and d, gp_program_body the body a launch takes there (0 tiled,
-// 1 panel, 2 streamed) and gp_program_panel_max the largest count of the
+// 1 panel, 2 strip) and gp_program_panel_max the largest count of the
 // panel body; they are introspection only.
 #define GP_PROGRAM_ENTRY(NAME, FN, T, PROG)                                 \
   int NAME(const void* q, const void* x, const void* params,               \

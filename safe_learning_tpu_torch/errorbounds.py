@@ -928,11 +928,19 @@ def _gp_statics(gp, u):
                 "got {}".format(type(gp.mean_function).__name__))
         mean_mat = _tensor(mean_mat)
     nd = gp.input_dim
+    # The active rows: past the count the mask, k and chol_inv[:, :count]
+    # are exact zeros (the GP's precondition), so the products and sums
+    # stop there, as the kernels' loops do; the rounding factors keep the
+    # capacity.
+    n = int(gp.count)
     return {
-        "gp": gp, "mean_mat": mean_mat, "nd": nd,
+        "gp": gp, "mean_mat": mean_mat, "nd": nd, "n": n,
         "s2": float(gp.scale) ** 2, "scale": float(gp.scale),
-        "beta": float(gp.beta), "mask": gp._mask(),
-        "chol_abs": gp.chol_inv.abs(), "alpha_abs": gp.alpha.abs(),
+        "beta": float(gp.beta), "mask": gp._mask()[:n],
+        "x": gp.X_buf[:n], "chol_inv": gp.chol_inv[:n, :n],
+        "alpha": gp.alpha[:n],
+        "chol_abs": gp.chol_inv[:n, :n].abs(),
+        "alpha_abs": gp.alpha[:n].abs(),
         "entry": _kernel_program(gp.kernel, np.arange(nd), u),
         "g_dot": _gamma(gp.capacity + 2, u),
         "g_mean": 0.0 if mean_mat is None else _gamma(nd + 1, u),
@@ -954,13 +962,13 @@ def _gp_terms(st, q, dq, u):
 
     # Kernel entries: dk already holds the input perturbation, so the solve
     # chain carries rounding and coordinate uncertainty at once.
-    val, dk_raw, diag_abs, ddiag = st["entry"](gp.X_buf, q, dq)
-    kx = s2 * val * mask                                    # (cap, N)
+    val, dk_raw, diag_abs, ddiag = st["entry"](st["x"], q, dq)
+    kx = s2 * val * mask                                    # (n, N)
     kx_abs = kx.abs()
     dk = (s2 * dk_raw + 4.0 * u * kx_abs) * mask
 
     # The solve chain.
-    a_hat = dot(gp.chol_inv, kx)
+    a_hat = dot(st["chol_inv"], kx)
     r = dot(st["chol_abs"], kx_abs + 2.0 * dk)
     da = dot(st["chol_abs"], dk) + (g_dot + u) * r
     a_tot = a_hat.abs() + 2.0 * da
@@ -968,7 +976,7 @@ def _gp_terms(st, q, dq, u):
     # The posterior mean per output, (N, S).
     e_mn = (dot(da.T, st["alpha_abs"])
             + (g_dot + 2.0 * u) * dot(a_tot.T, st["alpha_abs"]))
-    mean_num = dot(a_hat.T, gp.alpha) / scale
+    mean_num = dot(a_hat.T, st["alpha"]) / scale
     prior = 0.0 if gp.mean_function is None else gp.mean_function(q)
     mu_hat = mean_num + prior
     mean_mat = st["mean_mat"]

@@ -92,8 +92,9 @@ def _peak_bytes():
     return None
 
 
-def run(full=False, seed=0):
-    """The example at the reference's sizes (``full``) or the quick ones.
+def run(full=False, seed=0, joint_iters=None):
+    """The example at the reference's sizes (``full``) or the quick ones;
+    ``joint_iters`` overrides the joint actor-critic iterations.
 
     Checks the example's two assertions and returns a namespace: the
     system, the LQR and the trained policy, the value function, the grid,
@@ -102,8 +103,9 @@ def run(full=False, seed=0):
     milliseconds of an SGD step, each ROA's state-steps per second and the
     peak device memory.
     """
-    (points, joint_iters, value_iters, policy_iters, horizon,
+    (points, full_iters, value_iters, policy_iters, horizon,
      segment) = sizes(full)
+    joint_iters = full_iters if joint_iters is None else int(joint_iters)
 
     system = cartpole()
     a, b = system.linearize()

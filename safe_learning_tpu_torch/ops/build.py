@@ -53,14 +53,17 @@ def _nvcc():
                        "toolkit")
 
 
-def _prepare(name, sources, text):
-    """``(target library, files to compile)`` of one job.
+def _prepare(name, sources, text, csrc):
+    """``(target library, files to compile, include directory)`` of one
+    job.
 
-    ``sources`` are file names under ``csrc/``; the ``.cu`` files among
-    them are compiled, and all of them are hashed. A ``text`` is written
-    to ``_build/`` and compiled with the sources as its headers.
+    ``sources`` are file names under ``csrc`` (``None``: ``csrc/``), which
+    is also the include path; the ``.cu`` files among them are compiled,
+    and all of them are hashed. A ``text`` is written to ``_build/`` and
+    compiled with the sources as its headers.
     """
-    paths = [os.path.join(CSRC_DIR, s) for s in sources]
+    csrc = csrc or CSRC_DIR
+    paths = [os.path.join(csrc, s) for s in sources]
     h = hashlib.sha256()
     for flag in NVCC_FLAGS:
         h.update(flag.encode())
@@ -73,21 +76,21 @@ def _prepare(name, sources, text):
     digest = h.hexdigest()[:16]
     target = os.path.join(BUILD_DIR, "lib{}-{}.so".format(name, digest))
     if text is None:
-        return target, [p for p in paths if p.endswith(".cu")]
+        return target, [p for p in paths if p.endswith(".cu")], csrc
     src = os.path.join(BUILD_DIR, "{}-{}.cu".format(name, digest))
     if not os.path.exists(src):
         fd, tmp = tempfile.mkstemp(suffix=".cu", dir=BUILD_DIR)
         with os.fdopen(fd, "w") as f:
             f.write(text)
         os.replace(tmp, src)
-    return target, [src]
+    return target, [src], csrc
 
 
 def load_libraries(jobs):
     """Build (where needed) and load one library per job.
 
-    ``jobs`` are ``(name, sources, text)``: see :func:`_prepare`. Every
-    missing library starts building at once, one ``nvcc`` each; each
+    ``jobs`` are ``(name, sources, text, csrc)``: see :func:`_prepare`.
+    Every missing library starts building at once, one ``nvcc`` each; each
     writes to a temporary file renamed into place, so concurrent builds
     never load a partial library. Returns the ``ctypes.CDLL`` of each job,
     in order. Raises if any build fails.
@@ -96,14 +99,14 @@ def load_libraries(jobs):
     prepared = [_prepare(*job) for job in jobs]
     running = []
     try:
-        for (name, _, _), (target, srcs) in zip(jobs, prepared):
+        for (name, _, _, _), (target, srcs, include) in zip(jobs, prepared):
             if os.path.exists(target):
                 # A library built earlier in this process keeps its report.
                 build_reports.setdefault(name, (0.0, "cached " + target))
                 continue
             fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
             os.close(fd)
-            cmd = [_nvcc(), *NVCC_FLAGS, "-I", CSRC_DIR, "-o", tmp, *srcs]
+            cmd = [_nvcc(), *NVCC_FLAGS, "-I", include, "-o", tmp, *srcs]
             proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                     stderr=subprocess.PIPE, text=True)
             running.append((name, target, tmp, cmd, proc,
@@ -127,5 +130,5 @@ def load_libraries(jobs):
                 proc.wait()
             if os.path.exists(tmp):
                 os.unlink(tmp)
-    return [ctypes.CDLL(target) for target, _ in prepared]
+    return [ctypes.CDLL(target) for target, _, _ in prepared]
 

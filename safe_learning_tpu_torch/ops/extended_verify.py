@@ -44,11 +44,11 @@ Soundness chain:
 bound of a ``GradientNorm(NeuralNetwork)``; the inflated piecewise-linear
 gradient norm of a ``GradientNorm(Triangulation)``. ``L_f`` the same, with
 one output. At ``tau == 0`` with deterministic dynamics neither is used.
-The GP kernels of the float64 copy run in float64 on the card: kernel 1
-(tiled to 128 rows), kernels 2 and 3 up to the largest count of their
-float64 panel body (``ops.gp_kernel.program_panel_max``, read from the
-built library); above it the sweep raises rather than take the streamed
-body.
+The GP kernels of the float64 copy run in float64 on the card, at any
+count the GPs route to a kernel (up to 2,048 rows), as the JAX package
+does: kernels 1-3 take their tiled body up to 128 rows, the float64 panel
+body up to 256 (``ops.gp_kernel.program_panel_max``) and the strip body
+above it, each with the product on the FP64 tensor cores.
 
 Over a mesh (``Lyapunov(mesh=...)``, ``parallel``) the sweeps split
 their batches and refinement chunks over the entries and ranks, and each
@@ -76,13 +76,12 @@ from ..explore import _future_values
 from ..functions.base import (ConstantFunction, FunctionStack, GradientNorm,
                               MultipliedFunction, Saturation)
 from ..functions.gp import (GaussianProcess, StackedGaussianProcess,
-                            _KIND_OF, coerce_stacked)
+                            coerce_stacked)
 from ..functions.linear import LinearSystem, QuadraticFunction
 from ..functions.neural import LyapunovNetwork, NeuralNetwork
 from ..functions.simplex import Triangulation
 from ..grids import row_major_strides
 from ..lyapunov import _negative_batch, refinement_offsets
-from .gp_kernel import compile_kernel_program, program_panel_max
 from ..oracle import _oracle_env, lift64
 
 __all__ = ["FP_ERROR_FACTOR64", "U_EFF", "ExtendedSweep",
@@ -425,32 +424,6 @@ def _check_candidate(v_fun):
         "a constant); got {}".format(type(v_fun).__name__) + _FALLBACK)
 
 
-def _check_panel_limit(dynamics, device):
-    """Refuse a GP whose float64 predict on the card would leave the panel
-    body of kernels 2 and 3 for the streamed body. The limit is the built
-    library's (``gp_kernel.program_panel_max``); on the CPU the plain twin
-    takes any count."""
-    if torch.device(device).type != "cuda" or not config.use_kernels:
-        return
-    if isinstance(dynamics, GaussianProcess):
-        if type(dynamics.kernel) in _KIND_OF:
-            return  # kernel 1
-        compiled = compile_kernel_program(dynamics.kernel,
-                                          input_dim=dynamics.input_dim)
-        programs = None if compiled is None else (compiled[0],)
-    else:
-        compiled = dynamics._programs()
-        programs = None if compiled is None else compiled[0]
-    if programs is None:
-        return  # the matmul chain, no kernel
-    limit = program_panel_max(programs, torch.float64)
-    if dynamics.count > limit:
-        raise ValueError(
-            "the extended sweep's float64 GP predict holds {} data points; "
-            "the float64 panel body of kernels 2 and 3 stops at count {} "
-            "(PanelD::N_MAX)".format(dynamics.count, limit))
-
-
 def _spotcheck(lyapunov, fn, matrix, what):
     """Fail loudly when a callable ``L_v`` or ``L_f`` disagrees with its
     linear model beyond 32 working units of the positive form
@@ -532,8 +505,6 @@ class ExtendedSweep:
                 "StackedGaussianProcess or deterministic LinearSystem / "
                 "InvertedPendulum / CartPole / VanDerPol dynamics; got "
                 "{}".format(type(dynamics).__name__) + _FALLBACK)
-        if not det:
-            _check_panel_limit(dynamics, device)
         _check_policy(lyapunov.policy)
         _check_candidate(lyapunov.lyapunov_function)
         self._det = det

@@ -23,10 +23,15 @@ path of the package routes through them.
 Every kernel is built with ``nvcc`` for ``sm_90a`` at first use
 (:mod:`.build`) and bound with ``ctypes``; the headers of the CUDA
 sources say what bounds each on the H100 and what the design does about
-that. Kernels 2 and 3 take one of three bodies, chosen by the library
-from the shape alone (:data:`PROGRAM_BODIES`; :func:`program_body` asks
-which): tiled up to 128 rows, the panel body above, the streamed body
-above :func:`program_panel_max`. For each entry point:
+that. Kernels 1, 2 and 3 take one of three bodies, chosen by the library
+from the shape alone (:data:`PROGRAM_BODIES`; :func:`program_body` and
+:func:`stationary_body` ask which): tiled up to 128 rows, the panel body
+above it up to :func:`program_panel_max` (512 rows in float32, 256 in
+float64), the strip body above that, up to the 2,048 rows the GPs route
+to a kernel. The streamed body runs on no path: the comparison entries
+:func:`gp_predict_streamed_cuda` and
+:func:`gp_predict_stacked_streamed_cuda` reach it at any count. For each
+entry point:
 
 - a ``*_plain`` function is the same math in plain PyTorch (per-dimension
   differences, as the Pallas bodies). The CPU tests use it,
@@ -65,9 +70,11 @@ __all__ = ["KINDS", "fused_gp_predict", "gp_predict_plain",
            "gp_predict_stacked_cuda", "fused_gp_predict_general",
            "fused_gp_predict_stacked", "render_program_source",
            "program_library", "build_kernels", "variants_library",
-           "bind_variants", "launch_stationary", "PROGRAM_BODIES",
-           "program_body", "program_panel_max",
-           "gp_predict_stacked_streamed_cuda", "kernels"]
+           "bind_variants", "bind_kernel1", "bind_program",
+           "launch_stationary", "PROGRAM_BODIES",
+           "program_body", "program_panel_max", "stationary_body",
+           "gp_predict_streamed_cuda", "gp_predict_stacked_streamed_cuda",
+           "kernels"]
 
 #: Stationary families, in the order of the kernel's ``kind`` switch.
 KINDS = ("rbf", "matern12", "matern32", "matern52")
@@ -77,10 +84,11 @@ KINDS = ("rbf", "matern12", "matern32", "matern52")
 PROGRAM_OUTPUTS_MAX = 8
 PROGRAM_PARAMS_MAX = 64
 
-#: The bodies of kernels 2 and 3, in the order of ``gp_program_body``'s
-#: codes: up to 128 rows, up to the panel body's largest count
-#: (:func:`program_panel_max`), and above it.
-PROGRAM_BODIES = ("tiled", "panel", "streamed")
+#: The bodies of kernels 1-3, in the order of ``gp_program_body``'s and
+#: ``gp_predict_body``'s codes: up to 128 rows, up to the panel body's
+#: largest count (:func:`program_panel_max`), and above it; the last is
+#: the comparison entries' body, which no launch of a path takes.
+PROGRAM_BODIES = ("tiled", "panel", "strip", "streamed")
 
 
 # ---------------------------------------------------------------------------
@@ -207,12 +215,20 @@ def kernel_library():
     from .build import load_libraries
 
     (lib,) = load_libraries([_STATIONARY_JOB])
+    return bind_kernel1(lib)
+
+
+def bind_kernel1(lib):
+    """Bind a build of ``csrc/gp_predict.cu``; returns ``lib``."""
     args = ([ctypes.c_void_p] * 6
             + [ctypes.c_int64] + [ctypes.c_int] * 5
             + [ctypes.c_void_p] * 3)
-    for fn in (lib.gp_predict_f32, lib.gp_predict_f64):
+    for fn in (lib.gp_predict_f32, lib.gp_predict_f64,
+               lib.gp_predict_streamed_f32, lib.gp_predict_streamed_f64):
         fn.argtypes = args
         fn.restype = ctypes.c_int
+    lib.gp_predict_body.argtypes = [ctypes.c_int] * 4
+    lib.gp_predict_body.restype = ctypes.c_int
     lib.gp_predict_error_string.argtypes = [ctypes.c_int]
     lib.gp_predict_error_string.restype = ctypes.c_char_p
     lib.error_string = lib.gp_predict_error_string
@@ -310,6 +326,21 @@ def _kernel1_entry(lib, dtype):
             else lib.gp_predict_f64), ()
 
 
+def _kernel1_streamed_entry(lib, dtype):
+    return (lib.gp_predict_streamed_f32 if dtype == torch.float32
+            else lib.gp_predict_streamed_f64), ()
+
+
+def stationary_body(count, dtype, p=1, d=3):
+    """The body kernel 1 takes at ``count`` rows, ``p`` outputs and ``d``
+    input dimensions (a name of :data:`PROGRAM_BODIES`). The library
+    decides it from the shape alone; this asks it (introspection only;
+    builds the library on first use)."""
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    return PROGRAM_BODIES[kernel_library().gp_predict_body(int(count),
+                                                           itemsize, p, d)]
+
+
 def gp_predict_cuda(points_scaled, x_scaled, chol_inv, alpha, mask,
                     kernel_variance_s2, kind="rbf", count=None):
     """Launch the CUDA kernel (same contract as :func:`gp_predict_plain`).
@@ -332,6 +363,27 @@ def gp_predict_cuda(points_scaled, x_scaled, chol_inv, alpha, mask,
 
 #: Kernel launches since the last reset (``chip_smoke.py`` resets it).
 gp_predict_cuda.launches = 0
+
+
+def gp_predict_streamed_cuda(points_scaled, x_scaled, chol_inv, alpha, mask,
+                             kernel_variance_s2, kind="rbf", count=None):
+    """Kernel 1 on its streamed body whatever the count.
+
+    Same contract as :func:`gp_predict_cuda`. No launch of a path takes
+    the streamed body (the strip body replaced it above the panel body);
+    this entry reaches it so that ``chip_smoke.py`` and the CUDA tests can
+    hold the body a launch takes against it on the same inputs. No path
+    of the package calls it.
+    """
+    mean_num, var_num, launched = launch_stationary(
+        _kernel1_streamed_entry, kernel_library, "gp_predict_streamed",
+        points_scaled, x_scaled, chol_inv, alpha, mask, kernel_variance_s2,
+        kind, count)
+    gp_predict_streamed_cuda.launches += launched
+    return mean_num, var_num
+
+
+gp_predict_streamed_cuda.launches = 0
 
 
 class _FusedPredict(torch.autograd.Function):
@@ -702,7 +754,7 @@ def render_program_source(programs):
               "  template <typename T, int OUT>",
               "  static __device__ __forceinline__ T k(",
               "      const T* xj, const T (&q)[gp_common::D_MAX],",
-              "      const T (&pr)[NUM_PARAMS]) {",
+              "      const T (&pr)[NUM_PARAMS], int /* d */) {",
               "    using namespace gp_common;"]
     for s, program in enumerate(programs):
         emitter = _ProgramEmitter()
@@ -728,21 +780,22 @@ def render_program_source(programs):
 
 
 _STATIONARY_JOB = ("gp_predict", ["gp_predict.cu", "gp_predict_stationary.cuh",
-                                   "gp_predict_common.cuh"], None)
+                                   "gp_predict_common.cuh"], None, None)
 
 #: The four variants of kernel 1 (``csrc/gp_predict_variants.cu``), which
 #: the port's benchmark modules time beside it; no path routes through
 #: them.
 _VARIANTS_JOB = ("gp_predict_variants",
                  ["gp_predict_variants.cu", "gp_predict_stationary.cuh",
-                  "gp_predict_common.cuh"], None)
+                  "gp_predict_common.cuh"], None, None)
 
 
 def _program_job(programs):
-    """``(name, headers, text)`` of a program library's build."""
+    """``(name, headers, text, csrc)`` of a program library's build."""
     text = render_program_source(programs)
     name = "gp_program-" + hashlib.sha256(text.encode()).hexdigest()[:8]
-    return name, ["gp_predict_common.cuh", "gp_predict_program.cuh"], text
+    return (name, ["gp_predict_common.cuh", "gp_predict_program.cuh"], text,
+            None)
 
 
 def build_kernels(program_tuples=()):
@@ -767,6 +820,12 @@ def program_library(programs):
     from .build import load_libraries
 
     (lib,) = load_libraries([_program_job(programs)])
+    return bind_program(lib)
+
+
+def bind_program(lib):
+    """Bind a build of a program library (:func:`render_program_source`);
+    returns ``lib``."""
     args = ([ctypes.c_void_p] * 7
             + [ctypes.c_int64] + [ctypes.c_int] * 4
             + [ctypes.c_void_p] * 3)
@@ -795,7 +854,7 @@ def program_library(programs):
 def program_body(programs, count, dtype, p=1, d=3):
     """The body kernel 2 or 3 takes for a program tuple at ``count`` rows,
     ``p`` outputs a program and ``d`` input dimensions: ``"tiled"``,
-    ``"panel"`` or ``"streamed"``. The library decides it from the shape
+    ``"panel"`` or ``"strip"``. The library decides it from the shape
     alone; this asks it (introspection only; builds the library on first
     use)."""
     itemsize = torch.empty((), dtype=dtype).element_size()
@@ -823,9 +882,10 @@ def _launch_program(programs, points, x, params, chol_inv, alpha, mask, s2,
 
 
 def _launch_entry(entry, programs, points, x, params, chol_inv, alpha, mask,
-                  s2, count, mean_num, var_num):
+                  s2, count, mean_num, var_num, lib=None):
     """:func:`_launch_program` through the library's ``entry`` (its
-    ``_f32`` or ``_f64`` function)."""
+    ``_f32`` or ``_f64`` function); ``lib``, a bound build of the
+    programs' library (:func:`bind_program`), else the package's."""
     s2 = _scalar_tensor(s2, points)
     dtype, device = _check_tensors(dict(
         points=points, x=x, params=params, chol_inv=chol_inv, alpha=alpha,
@@ -842,7 +902,7 @@ def _launch_entry(entry, programs, points, x, params, chol_inv, alpha, mask,
                                  tuple(alpha.shape), tuple(mask.shape),
                                  len(programs)))
     count = _active_rows(count, cap)
-    lib = program_library(programs)
+    lib = program_library(programs) if lib is None else lib
     lim = lib.limits
     if not lim["min_d"] <= d <= lim["d_max"] or p > lim["p_max"]:
         raise ValueError("this program kernel takes {} <= d <= {} and "
@@ -919,10 +979,10 @@ def gp_predict_stacked_streamed_cuda(points, x, params, chol_inv, alpha_t,
                                      mask, s2, programs, count=None):
     """Kernel 3 on its streamed body whatever the count.
 
-    Same contract as :func:`gp_predict_stacked_cuda`. The streamed body is
-    the one a launch takes above the panel body's largest count
-    (:func:`program_panel_max`); this entry reaches it at any count so
-    that ``chip_smoke.py`` and the CUDA tests can hold the panel body
+    Same contract as :func:`gp_predict_stacked_cuda`. No launch of a path
+    takes the streamed body (the panel and strip bodies replaced it above
+    128 rows); this entry reaches it at any count so that
+    ``chip_smoke.py`` and the CUDA tests can hold the body a launch takes
     against it on the same inputs. No path of the package calls it.
     """
     n_q, n_out = points.shape[0], alpha_t.shape[0]
@@ -946,12 +1006,16 @@ _VARIANTS_SOURCE = _CSRC + "gp_predict_variants.cu"
 
 #: Every hand-written kernel, by name: its wrapper (``module:function``
 #: under this package), its source in the repository and the Pallas body
-#: it replaces. The streamed entry is kernel 3's body above the panel
-#: body's largest count, reached at any count for comparisons; the last
-#: four are kernel 1's design variants in the port's benchmark modules.
+#: it replaces. The streamed entries are kernels 1 and 3 on the streamed
+#: body, which no path takes, reached at any count for comparisons; the
+#: last four are kernel 1's design variants in the port's benchmark
+#: modules.
 _KERNELS = {
     "gp_predict": ("ops.gp_kernel:gp_predict_cuda", _CSRC + "gp_predict.cu",
                    "safe_learning_tpu/ops/gp_kernel.py:169"),
+    "gp_predict_streamed": ("ops.gp_kernel:gp_predict_streamed_cuda",
+                            _CSRC + "gp_predict.cu",
+                            "safe_learning_tpu/ops/gp_kernel.py:169"),
     "gp_predict_general": ("ops.gp_kernel:gp_predict_general_cuda",
                            _PROGRAM_SOURCE,
                            "safe_learning_tpu/ops/gp_kernel.py:271"),

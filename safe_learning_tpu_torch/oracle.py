@@ -179,24 +179,45 @@ def oracle_safe_set(lyapunov, margins=None):
     The construction of a fresh ``update_safe_set`` (decrease check,
     initial-set exemption, ``v_bad = min v(failing)`` level cut) entirely
     in float64. ``margins`` are :func:`oracle_margins` at the grid's
-    points when the caller has them already. Returns ``(safe_set,
-    c_max)`` with the initial set OR-ed in, as the sweep does.
+    points when the caller has them already; without them only the states
+    below the first failing value are evaluated
+    (:func:`_first_failing_value`). Returns ``(safe_set, c_max)`` with the
+    initial set OR-ed in, as the sweep does.
     """
     grid = lyapunov.discretization
     points = grid.all_points
-    if margins is None:
-        margins = oracle_margins(lyapunov, points)
     values = _oracle_values(lyapunov, points)
-    negative = margins < 0.0
     exempt = (np.asarray(lyapunov.initial_safe_set, dtype=bool)
               if lyapunov.initial_safe_set is not None
               else np.zeros(grid.nindex, dtype=bool))
-    eligible = negative | exempt
-    v_bad = np.inf if eligible.all() else values[~eligible].min()
+    if margins is None:
+        v_bad = _first_failing_value(lyapunov, points, values, exempt)
+    else:
+        eligible = (margins < 0.0) | exempt
+        v_bad = np.inf if eligible.all() else values[~eligible].min()
     safe = values < v_bad
     c_max = float(values[safe].max()) if safe.any() else -np.inf
     safe |= exempt
     return safe, c_max
+
+
+def _first_failing_value(lyapunov, points, values, exempt):
+    """``v_bad``: the least value of a state that fails the exact decrease
+    check outside the exempt set (``inf`` if none). The states are checked
+    in increasing value, ``ORACLE_CHUNK`` at a time, and none whose value
+    is at or above a failing one's is evaluated: their margins cannot move
+    the level."""
+    order = np.argsort(values, kind="stable")
+    v_bad = np.inf
+    for start in range(0, len(order), ORACLE_CHUNK):
+        idx = order[start:start + ORACLE_CHUNK]
+        if values[idx[0]] >= v_bad:
+            break
+        failing = ~(oracle_margins(lyapunov, points[idx]) < 0.0) & \
+            ~exempt[idx]
+        if failing.any():
+            v_bad = min(v_bad, float(values[idx][failing].min()))
+    return v_bad
 
 
 def _calibration_sample(lyapunov, num_samples, rng, refinement):

@@ -1,10 +1,10 @@
 """The rigor mode's float64 GP predicts on the card (marked ``cuda``;
 skipped without a GPU).
 
-Kernels 2 and 3 run their float64 panel body up to the count the built
-library reports (``gp_kernel.program_panel_max``); above it the extended
-sweep raises, naming that limit, rather than take the streamed body. No
-JAX is imported:
+Kernels 1-3 run their float64 panel body up to the count the built
+library reports (``gp_kernel.program_panel_max``) and the strip body
+above it, at any count a GP routes to a kernel, as the JAX package does:
+the extended sweep refuses no count. No JAX is imported:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda_extended.py
 """
@@ -23,7 +23,7 @@ def on_cuda():
     """Skip without a GPU; otherwise run with ``config.device = cuda:0``
     in float32."""
     if not torch.cuda.is_available():
-        pytest.skip("the float64 panel body's limit is read from the built "
+        pytest.skip("the float64 kernels' bodies are read from the built "
                     "CUDA library, which needs an NVIDIA GPU")
     old = st.config.device, st.config.dtype
     st.config.device, st.config.dtype = "cuda:0", torch.float32
@@ -47,42 +47,53 @@ def stacked_instance(n):
 
 
 @pytest.mark.cuda
-def test_panel_limit_is_refused(on_cuda):
-    """At the library's float64 panel limit the sweep runs on kernel 3's
-    panel body; one data point more and it raises, naming the limit."""
+def test_float64_sweep_runs_above_the_panel(on_cuda):
+    """One data point past the float64 panel body's largest count (257)
+    and at the adaptive loop's 1,021 the extended sweep runs on kernel 3's
+    strip body, launches it, and its float64 margins lie within the
+    derived extended margin of the float64 oracle's at every grid
+    state; no count is refused."""
+    from safe_learning_tpu_torch.oracle import oracle_margins
+
     lyap = stacked_instance(8)
     programs = lyap.dynamics._programs()[0]
     limit = gp_kernel.program_panel_max(programs, torch.float64)
-    assert limit >= 129
-    lyap = stacked_instance(limit)
-    sweep = ev.ExtendedSweep(lyap, lv_matrix=2.0 * np.eye(2))
-    assert gp_kernel.program_body(programs, limit, torch.float64) == "panel"
-    before = gp_kernel.gp_predict_stacked_cuda.launches
-    assert np.isfinite(sweep.margins(lyap.discretization.all_points)).all()
-    assert gp_kernel.gp_predict_stacked_cuda.launches > before
-    lyap = stacked_instance(limit + 1)
-    with pytest.raises(ValueError, match=str(limit)):
-        ev.ExtendedSweep(lyap, lv_matrix=2.0 * np.eye(2))
+    assert limit == 256
+    for count in (limit + 1, 1021):
+        lyap = stacked_instance(count)
+        assert gp_kernel.program_body(programs, count,
+                                      torch.float64) == "strip"
+        margin = ev.extended_certificate_margin(
+            lyap, lv_matrix=2.0 * np.eye(2), set_margin=False)
+        sweep = ev.ExtendedSweep(lyap, lv_matrix=2.0 * np.eye(2))
+        pts = lyap.discretization.all_points
+        before = gp_kernel.gp_predict_stacked_cuda.launches
+        got = sweep.margins(pts)
+        assert gp_kernel.gp_predict_stacked_cuda.launches > before
+        assert np.isfinite(got).all()
+        assert (np.abs(got - oracle_margins(lyap, pts)) <= margin).all()
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("kernel,count", [(1, 10), (1, 128), (2, 136),
-                                          (3, 17), (3, 181), (3, 250)])
+@pytest.mark.parametrize("kernel,count", [(1, 10), (1, 128), (1, 200),
+                                          (1, 600), (2, 136), (2, 600),
+                                          (3, 17), (3, 181), (3, 250),
+                                          (3, 300), (3, 1021)])
 def test_float64_outputs_do_not_depend_on_position(on_cuda, kernel, count):
     """The hybrid sweep checks only the band's states in float64 and must
     equal the extended sweep over all of them, bit for bit, as must the
     sharded sweeps: each query's float64 outputs are the same wherever it
     lies in a launch, shifted by 1 to the query tile - 1, reversed and
     alone (``chip_smoke.position_check``), through the DMMA tiled body
-    (counts 10 to 128), chol_inv resident (136, 181) and streamed
-    (250)."""
+    (counts 10 to 128), chol_inv resident (136, 181), streamed through
+    the panel body (200, 250) and the strip body (300 to 1,021)."""
     from chip_smoke import (STACKED_SETS, case_gp, case_inputs,
                             case_queries, dmma_query_tile, position_check,
                             program_case)
 
     if kernel == 1:
-        gp = case_gp("matern32", 128, 2, 2.5, torch.float64, seed=count,
-                     n=count)
+        gp = case_gp("matern32", max(128, count), 2, 2.5, torch.float64,
+                     seed=count, n=count)
         inputs = case_inputs(gp, 1000, count)
 
         def fn(q):

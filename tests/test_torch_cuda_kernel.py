@@ -45,14 +45,15 @@ def test_kernel_matches_plain(on_cuda, kind, dtype):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("d,p,count,cap", [(5, 4, 128, 128),
-                                           (16, 8, 129, 256)])
+                                           (16, 8, 129, 256),
+                                           (16, 8, 2048, 2048)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 def test_kernel_at_wide_inputs_and_outputs(on_cuda, d, p, count, cap,
                                            dtype):
     """Kernel 1 past the 4 dimensions it unrolls from registers: the
     cart-pole's d = 5, p = 4 at count 128 (tiled body) and the
-    ``D_MAX``/``P_MAX`` edge d = 16, p = 8 at count 129 (streamed body),
-    within ``chip_smoke.rounding_bounds``."""
+    ``D_MAX``/``P_MAX`` edge d = 16, p = 8 at count 129 (panel body) and
+    2048 (strip body), within ``chip_smoke.rounding_bounds``."""
     from chip_smoke import case_gp, case_inputs, compare
 
     gp = case_gp("rbf", cap, p, 2.5, dtype, seed=d, n=count, d=d)
@@ -299,7 +300,7 @@ def test_safe_sample_with_kernel_matches_plain_twin(on_cuda):
 
 
 #: ``(count, capacity)``: an all-zero mask, a small count, both sides of a
-#: bucket edge of the tiled body, and the streamed body above it.
+#: bucket edge of the tiled body, and the panel body above it.
 COUNT_CASES = [(0, 64), (10, 64), (16, 32), (17, 32), (129, 256)]
 
 
@@ -320,6 +321,43 @@ def test_kernel_at_counts_below_capacity(on_cuda, count, cap, dtype):
     assert ratio <= 1.0
     if count == 0:
         assert em == ev == 0.0
+
+
+#: Kernel 1's counts above the tiled body: the panel body's first, both
+#: sides of the float64 panel limit, both sides of the float32 one, the
+#: adaptive loop grown to 1,024 points and the largest count a GP routes
+#: to a kernel.
+STATIONARY_COUNTS = [129, 256, 257, 512, 513, 1021, 2048]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("count", STATIONARY_COUNTS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_kernel_above_128_rows(on_cuda, count, dtype):
+    """Kernel 1 above 128 rows (the streamed body before the panel and
+    strip bodies served it): one launch, within
+    ``chip_smoke.rounding_bounds`` of the plain version, on the body its
+    count selects (``gp_kernel.stationary_body``, as kernels 2 and 3); its
+    streamed entry on the same inputs within the bound too."""
+    from chip_smoke import (case_gp, case_inputs, compare, compare_outputs,
+                            expected_body, panel_max, rounding_bounds)
+
+    cap = next(c for c in (256, 512, 1024, 2048) if c >= count)
+    gp = case_gp("matern52", cap, 2, 2.5, dtype, seed=count, n=count)
+    inputs = case_inputs(gp, 4099, count)
+    before = gp_kernel.gp_predict_cuda.launches
+    _, _, ratio = compare(inputs, "matern52", count=count)
+    assert gp_kernel.gp_predict_cuda.launches == before + 1
+    assert ratio <= 1.0
+    assert gp_kernel.stationary_body(count, dtype, 2, 3) == expected_body(
+        count, panel_max(dtype))
+    out = gp_kernel.gp_predict_streamed_cuda(*inputs, kind="matern52",
+                                             count=count)
+    (errors,) = compare_outputs(
+        [out], lambda part: gp_kernel.gp_predict_plain(*part,
+                                                       kind="matern52"),
+        lambda part: rounding_bounds(part, "matern52"), inputs)
+    assert errors[2] <= 1.0
 
 
 @pytest.mark.cuda
@@ -346,21 +384,23 @@ def test_stacked_kernel_at_counts_below_capacity(on_cuda, count, cap,
 
 
 #: Counts on both sides of the tiled body's last bucket edge, the panel
-#: body's counts (the adaptive example's 181 among them) and both sides of
+#: body's counts (the adaptive example's 181 among them), both sides of
 #: 256 and of the panel body's largest count in float32 (512; 256 in
-#: float64), above which the streamed body runs.
-PANEL_COUNTS = [1, 128, 129, 136, 181, 192, 255, 256, 257, 512, 513]
+#: float64), above which the strip body runs, and the strip body's counts
+#: up to the 2,048 rows a GP routes to a kernel.
+PANEL_COUNTS = [1, 128, 129, 136, 181, 192, 255, 256, 257, 512, 513, 1021,
+                2048]
 
 
 def panel_capacity(count):
     """The adaptive example's capacity, 181, up to it; else the next of
-    256, 512 and 1024."""
+    256, 512, 1024 and 2048."""
     from safe_learning_tpu_torch.examples.adaptive_safety_verification \
         import CAPACITY as ADAPTIVE_CAPACITY
 
     if count <= ADAPTIVE_CAPACITY:
         return ADAPTIVE_CAPACITY
-    return next(c for c in (256, 512, 1024) if c >= count)
+    return next(c for c in (256, 512, 1024, 2048) if c >= count)
 
 
 def body_of(programs, count, dtype, p=1, d=3):
@@ -381,8 +421,8 @@ def test_stacked_kernel_at_the_adaptive_capacity(on_cuda, count, n_out,
     """Kernel 3 at the adaptive example's GP capacity, 181 (not a power
     of two; ``S cap^2`` float32 values exceed one SM's shared memory), and
     above it: counts on both sides of the tiled body's last bucket edge,
-    through the panel body to the streamed body above its largest count,
-    1 to 3 outputs, against the plain twin within
+    through the panel body to the strip body above its largest count, up
+    to 2,048, 1 to 3 outputs, against the plain twin within
     ``chip_smoke.program_bounds``; each launch takes the body its count
     selects."""
     from chip_smoke import (STACKED_SETS, case_queries, compare_program,
@@ -432,8 +472,9 @@ def test_adaptive_shapes_take_the_panel_body(on_cuda):
     """The body query: the adaptive example's stacked GP (S = 2, p = 1,
     d = 3) takes the tiled body up to count 128 and the panel body from
     129 to its capacity 181 in both dtypes; one past the panel body's
-    largest count takes the streamed body, which its own entry also
-    reaches at count 181 with the same results within the bound."""
+    largest count takes the strip body, and no count to 2,048 takes the
+    streamed body, which its own entry reaches at count 181 with the same
+    results within the bound."""
     from safe_learning_tpu_torch.examples.adaptive_safety_verification \
         import CAPACITY as ADAPTIVE_CAPACITY
     from chip_smoke import (STACKED_SETS, case_queries,
@@ -451,7 +492,9 @@ def test_adaptive_shapes_take_the_panel_body(on_cuda):
             assert gp_kernel.program_body(programs, count, dtype) == "panel"
         assert gp_kernel.program_body(programs, n_panel, dtype) == "panel"
         assert gp_kernel.program_body(programs, n_panel + 1,
-                                      dtype) == "streamed"
+                                      dtype) == "strip"
+        assert {gp_kernel.program_body(programs, count, dtype)
+                for count in range(n_panel + 1, 2049)} == {"strip"}
     points = case_queries(2000, inputs[0], 5)
     before = gp_kernel.gp_predict_stacked_streamed_cuda.launches
     _, _, ratio = compare_program("streamed", (points,) + inputs, programs,
@@ -670,17 +713,17 @@ def test_no_user_path_launches_kernels_4_to_7(on_cuda):
 
 
 #: The float64 DMMA bodies' edges (``chip_smoke.DMMA_COUNTS``): every k
-#: step, 16-row tile and bucket edge of the tiled body and the panel
-#: body's row tiles.
+#: step, 16-row tile and bucket edge of the tiled body, the panel body's
+#: row tiles and the strip body's strips, row tiles and chunks.
 DMMA_COUNTS = [1, 4, 5, 8, 9, 10, 16, 17, 24, 32, 64, 127, 128, 129, 136,
-               181, 255, 256]
+               181, 255, 256, 257, 271, 272, 511, 512, 513, 1021]
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("count", DMMA_COUNTS)
 def test_float64_dmma_bodies_at_their_edges(on_cuda, count):
-    """Kernels 1 (up to 128 rows), 2 and 3 in float64, where the product
-    runs on DMMA, against their plain versions within
+    """Kernels 1, 2 and 3 in float64, where the product runs on DMMA
+    (tiled, panel and strip bodies), against their plain versions within
     ``chip_smoke.rounding_bounds`` and ``program_bounds``: p from 1 to 8,
     S from 1 to 3, d 3 or 5 (``chip_smoke.dmma_count_cases``), a query
     count that is no multiple of any query tile."""
@@ -691,12 +734,11 @@ def test_float64_dmma_bodies_at_their_edges(on_cuda, count):
     _, cap, p, d, n_out = next(c for c in dmma_count_cases()
                                if c[0] == count)
     n_q = 4099
-    if count <= 128:
-        gp = case_gp("matern52", cap, p, 2.5, torch.float64, seed=count,
-                     n=count, d=d)
-        _, _, ratio = compare(case_inputs(gp, n_q, count), "matern52",
-                              count=count)
-        assert ratio <= 1.0
+    gp = case_gp("matern52", cap, p, 2.5, torch.float64, seed=count,
+                 n=count, d=d)
+    _, _, ratio = compare(case_inputs(gp, n_q, count), "matern52",
+                          count=count)
+    assert ratio <= 1.0
     for route, names, pp, dd in (("general", ("product",), p, d),
                                  ("stacked", STACKED_SETS[n_out], 1, 3)):
         inputs, programs = program_case(route, names, cap, pp, 2.5,

@@ -19,7 +19,7 @@ instance of ``tests_f32/test_extended_verify.py:246``. Held here:
 - (e) the guard errors of the JAX package's
   ``test_extended_margins_refused_by_f32_pipelines``,
   ``test_hybrid_refuses_unmodeled_lv`` and ``test_hybrid_rejects_bad_mode``
-  (the float64 panel body's count limit is refused on the card only:
+  (no GP count is refused, on the CPU or the card:
   ``tests/test_torch_cuda_extended.py``);
 - (f) ``get_safe_sample(extended=True)`` picks the JAX package's row on the
   instance of ``test_extended_exploration_certificate_is_exact``;
@@ -289,8 +289,9 @@ def panel_limit_instance(n):
 
 def test_plain_twin_takes_any_count(float32_lane):
     """On the CPU the float64 predict is kernel 3's plain twin, which has
-    no panel body: past the card's float64 panel limit (count 256) the
-    sweep runs, within its derived margin of the oracle."""
+    no panel body: past the card's float64 panel limit (count 256, the
+    strip body's first count there) the sweep runs, within its derived
+    margin of the oracle."""
     lyap = panel_limit_instance(257)
     margin = ev.extended_certificate_margin(lyap, lv_matrix=LV_MAT,
                                             set_margin=False)

@@ -118,7 +118,9 @@ def test_kernel_registry_names_each_wrapper_source_and_pallas_body():
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     table = gp_kernel.kernels()
     assert table["gp_predict"][0] is gp_kernel.gp_predict_cuda
-    assert len(table) == 8
+    assert table["gp_predict_streamed"][0] is \
+        gp_kernel.gp_predict_streamed_cuda
+    assert len(table) == 9
     for name, (wrapper, source, replaces) in table.items():
         assert isinstance(wrapper.launches, int), name
         assert os.path.isfile(os.path.join(root, source)), source
