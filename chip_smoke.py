@@ -254,11 +254,15 @@ Phases, in order; any failure raises and the exit code is not 0:
     d = 16, p = 8, ``WIDE_COUNT_CASES``; kernels 2 and 3 also the panel
     body's ``panel_count_cases``: counts 129 to its largest count and one
     past it, S = 1 to 3, p up to 8, d up to 16, each taking the body its
-    count selects): the kernels' loops bounded by the count, against the
-    plain versions at full capacity, exact zeros at count 0; then the
-    float64 DMMA bodies at their edges (``phase_dmma_cases``:
-    ``DMMA_COUNTS``, 1 to 256 across every k step, row tile and bucket,
-    p 1 to 8, S 1 to 3), far queries with subnormal k within
+    count selects; kernels 1-3 at the strip body's edges, ``STRIP_EDGES``,
+    at 1 to 2^20 queries, ``STRIP_QUERIES``, p up to 8, d up to 16, and
+    each query's outputs bit for bit alone, in a launch of 2,000 and in
+    one of 2^20, ``launch_size_check``, in both dtypes): the kernels' loops
+    bounded by the count, against the plain versions at full capacity,
+    exact zeros at count 0; then the float64 DMMA bodies at their edges
+    (``phase_dmma_cases``: ``DMMA_COUNTS``, 1 to 2,048 across every k
+    step, row tile, bucket and strip round, p 1 to 8, S 1 to 3), far
+    queries with subnormal k within
     ``underflow_bounds``, and ``position_check``: each query's float64
     outputs bit for bit the same at each of ``position_shifts`` in its
     query tile, reversed and alone;
@@ -1150,7 +1154,56 @@ def phase_build():
           "strip body above".format(
               *(gp_kernel.program_panel_max(tuples[0], dtype)
                 for dtype in (torch.float32, torch.float64))))
+    strip_clusters_check(tuples)
     sass_check(tuples)
+
+
+#: Counts of the strip body's edges in each dtype: one past the panel
+#: body's largest count, the 64-row panel and 256-row cluster-block edges
+#: (a cluster grows by a block past each 256 rows) and the largest count a
+#: GP routes to a kernel.
+STRIP_EDGES = {torch.float32: (513, 1021, 1024, 1025, 2048),
+               torch.float64: (257, 512, 513, 1021, 2048)}
+
+
+def expected_cluster(count):
+    """The blocks of the thread-block cluster a strip launch at ``count``
+    rows takes (``strip_cluster`` of ``csrc/gp_predict_common.cuh``): 2
+    at every count."""
+    return 2 if count > 0 else 1
+
+
+def check_cluster(query, count, label):
+    """``query(count)``, a library's strip-cluster query, against
+    ``expected_cluster``, with at least one such cluster on the card."""
+    blocks, clusters = query(count)
+    if blocks != expected_cluster(count) or clusters < 1:
+        raise AssertionError("{} at count {}: clusters of {} blocks, {} on "
+                             "the card; {} expected".format(
+                                 label, count, blocks, clusters,
+                                 expected_cluster(count)))
+    return blocks, clusters
+
+
+def strip_clusters_check(tuples):
+    """The strip body's launch shape in every library of kernels 1-3 at
+    ``STRIP_EDGES``: a thread-block cluster of ``expected_cluster`` blocks
+    (2 to 8), which the card holds (``cudaOccupancyMaxActiveClusters``)."""
+    found = {}
+    for dtype, counts in STRIP_EDGES.items():
+        for count in counts:
+            for p in (1, 8):
+                found[str(dtype)[6:], count, p] = check_cluster(
+                    lambda c: gp_kernel.stationary_strip_clusters(c, dtype, p),
+                    count, "kernel 1's strip body")
+                for programs in tuples:
+                    check_cluster(lambda c: gp_kernel.program_strip_clusters(
+                        programs, c, dtype, p), count,
+                        "the strip body of {!r}".format(programs))
+    print("strip body: a thread-block cluster an item in every library, "
+          "(blocks, clusters on the card) by dtype, count and p (kernel 1): "
+          + ", ".join("{} {} p={}: {}".format(*key, value)
+                      for key, value in found.items()))
 
 
 #: A kernel function of kernels 1-3 in ``cuobjdump``'s listing: the body
@@ -1181,6 +1234,10 @@ SASS_REDESIGNED = ("tiled_pipelined_ws", "tiled_interleaved_chains",
 #: A tensor-core instruction on TF32 operands (``HGMMA`` of ``wgmma``,
 #: ``HMMA`` of ``mma.sync``).
 SASS_TF32 = re.compile(r"\bH(?:G)?MMA\.\S*TF32")
+
+#: The cluster barrier's arrive and wait (``barrier.cluster``), which every
+#: strip kernel of kernels 1-3 holds: its item is a thread-block cluster.
+SASS_CLUSTER_BARRIER = re.compile(r"\bUCGABAR_(?:ARV|WAIT)\b")
 
 
 def sass_check(tuples):
@@ -1250,6 +1307,14 @@ def sass_check(tuples):
                 raise AssertionError("{} has {} DMMA instructions ({})"
                                      .format(name, dmma, os.path.basename(
                                          lib._name)))
+            if body == "strip":
+                barriers = len(SASS_CLUSTER_BARRIER.findall(part))
+                found["strip", t, "cluster barriers"] += barriers > 0
+                if not barriers:
+                    raise AssertionError(
+                        "{} has no cluster barrier ({}): the strip body is a "
+                        "thread-block cluster".format(
+                            name, os.path.basename(lib._name)))
             if tf32:
                 raise AssertionError("{} of kernels 1-3 has {} TF32 tensor-"
                                      "core instructions".format(name,
@@ -1309,6 +1374,44 @@ def panel_count_cases(n_panel):
     return cases
 
 
+def strip_count_cases(dtype):
+    """``(count, cap, route, names, p, d, n_q)`` of the strip body's count
+    cases in ``dtype``: at each of ``STRIP_EDGES``, the general kernel (the
+    ``product`` program, p and d up to 8 and 16) and the stacked kernel (S
+    = 2, 1 above capacity 1024), the query count cycling through
+    ``STRIP_QUERIES`` below 2^20."""
+    shapes = ((8, 16), (2, 3), (1, 5), (4, 16), (8, 3))
+    cases = []
+    for i, count in enumerate(STRIP_EDGES[dtype]):
+        cap = next(c for c in (512, 1024, 2048) if c >= count)
+        p, d = shapes[i]
+        for j, (route, names, pp, dd) in enumerate((
+                ("general", ("product",), p, d),
+                ("stacked", STACKED_SETS[1 if cap > 1024 else 2], 1, 3))):
+            cases.append((count, cap, route, names, pp, dd,
+                          STRIP_QUERIES[(2 * i + j) % 5]))
+    return cases
+
+
+def launch_size_check(fn, queries, step=4099):
+    """A query's outputs, bit for bit, in one launch of all ``queries``,
+    of its first 2,000 (a sampler step) and alone (every ``step``-th
+    query). Returns the launches made."""
+    ref = bits(fn(queries))
+    out = bits(fn(queries[:2000].contiguous()))
+    launches = 2
+    if not all(torch.equal(o, r[:2000]) for o, r in zip(out, ref)):
+        raise AssertionError("a query's outputs change with the launch's "
+                             "size (2,000 queries)")
+    for i in range(0, queries.shape[0], step):
+        out = bits(fn(queries[i:i + 1].contiguous()))
+        launches += 1
+        if not all(torch.equal(o, r[i:i + 1]) for o, r in zip(out, ref)):
+            raise AssertionError("query {}'s outputs differ alone and in a "
+                                 "launch of {}".format(i, queries.shape[0]))
+    return launches
+
+
 def panel_max(dtype):
     """The largest count of the panel body in ``dtype`` (one number for
     every program library), from the stacked flagship pair's library."""
@@ -1327,21 +1430,23 @@ def expected_body(count, n_panel):
 #: The float64 DMMA bodies' edges (``csrc/gp_predict_common.cuh``): every
 #: k step (mma depth 4 to 16), 16-row tile and bucket edge of the tiled
 #: body (1 to 128), the panel body's row tiles (129 to 256) and the strip
-#: body's strips, warps' row tiles and chunks (257 to 1,024).
+#: body's panels, row tiles, chunks and rounds (257 to 2,048).
 DMMA_COUNTS = (1, 4, 5, 8, 9, 10, 16, 17, 24, 32, 64, 127, 128, 129, 136,
-               181, 255, 256, 257, 271, 272, 511, 512, 513, 1021)
+               181, 255, 256, 257, 271, 272, 511, 512, 513, 1021, 2048)
 
 
 def dmma_count_cases():
     """``(count, cap, p, d, n_out)`` of the float64 count cases at
     ``DMMA_COUNTS``: p cycles through 1 to 8, the stacked outputs S
-    through 1 to 3, d is 3 or 5, and the capacity is the count's or the
-    next of 16, 64, 181, 256, 512 and 1024 above it."""
+    through 1 to 3 (1 above capacity 1024, as the GPs route), d is 3 or 5,
+    and the capacity is the count's or the next of 16, 64, 181, 256, 512
+    and 1024 above it."""
     cases = []
     for i, count in enumerate(DMMA_COUNTS):
         larger = [c for c in (16, 64, 181, 256, 512, 1024) if c > count]
         cap = count if i % 3 == 0 or not larger else larger[0]
-        cases.append((count, cap, 1 + i % 8, (3, 5)[i % 2], 1 + i % 3))
+        cases.append((count, cap, 1 + i % 8, (3, 5)[i % 2],
+                      1 if cap > 1024 else 1 + i % 3))
     return cases
 
 
@@ -1368,31 +1473,34 @@ def position_shifts(tile):
                   | {tile - 1})
 
 
-def position_check(fn, queries, tile, shifts=None):
-    """Bit equality of each query's float64 outputs wherever it lies in a
-    launch: ``fn(q)`` returns the outputs, rows by query; the queries as
-    one batch against the same queries after ``shifts`` others (by
-    default 1 to ``tile - 1``), reversed, and as batches of one (every
-    97th query). Returns the launches made."""
-    def key(outs):
-        return [o.contiguous().view(torch.int64) for o in outs]
+def bits(outs):
+    """Outputs as integers of their width, to compare bit for bit."""
+    return [o.contiguous().view(torch.int32 if o.element_size() == 4
+                                else torch.int64) for o in outs]
 
-    ref = key(fn(queries))
+
+def position_check(fn, queries, tile, shifts=None):
+    """Bit equality of each query's outputs wherever it lies in a launch:
+    ``fn(q)`` returns the outputs, rows by query; the queries as one batch
+    against the same queries after ``shifts`` others (by default 1 to
+    ``tile - 1``), reversed, and as batches of one (every 97th query).
+    Returns the launches made."""
+    ref = bits(fn(queries))
     launches = 1
     fill = queries.flip(0) * 0.5 + 0.25
     for shift in range(1, tile) if shifts is None else shifts:
-        out = key(fn(torch.cat([fill[:shift], queries]).contiguous()))
+        out = bits(fn(torch.cat([fill[:shift], queries]).contiguous()))
         launches += 1
         if not all(torch.equal(o[shift:], r) for o, r in zip(out, ref)):
             raise AssertionError("a query's outputs change with its shift "
                                  "{} in the launch".format(shift))
-    out = key(fn(queries.flip(0).contiguous()))
+    out = bits(fn(queries.flip(0).contiguous()))
     launches += 1
     if not all(torch.equal(o.flip(0), r) for o, r in zip(out, ref)):
         raise AssertionError("a query's outputs change with the launch's "
                              "order")
     for i in range(0, queries.shape[0], 97):
-        out = key(fn(queries[i:i + 1].contiguous()))
+        out = bits(fn(queries[i:i + 1].contiguous()))
         launches += 1
         if not all(torch.equal(o, r[i:i + 1]) for o, r in zip(out, ref)):
             raise AssertionError("query {}'s outputs change in a batch of "
@@ -1520,8 +1628,9 @@ def phase_program_count_cases():
     kernel on two flagship programs (one ``sum3`` output at capacity
     2048, as the GP routes allow), float32 and float64; then the panel
     body's cases (``panel_count_cases``), each printing the body it took,
-    which must be the one its count selects. At count 0 the outputs must
-    be exact zeros."""
+    which must be the one its count selects, and the strip body's
+    (``strip_count_cases``); then, at count 1,021, ``launch_size_check``
+    over 2^20 queries. At count 0 the outputs must be exact zeros."""
     worst, case = 0.0, 0
     for dtype in (torch.float32, torch.float64):
         for count, cap in COUNT_CASES:
@@ -1566,6 +1675,37 @@ def phase_program_count_cases():
                 raise AssertionError("{} kernel at count {} disagrees "
                                      "with plain".format(route, count))
             worst = max(worst, ratio)
+        for count, cap, route, names, p, d, n_q in strip_count_cases(dtype):
+            case += 1
+            inputs, programs = program_case(route, names, cap, p, 2.5, dtype,
+                                            seed=500 + case, n=count, d=d)
+            points = case_queries(n_q, inputs[0], 500 + case)
+            em, ev, ratio = compare_program(route, (points,) + inputs,
+                                            programs, count=count)
+            body = gp_kernel.program_body(programs, count, dtype, p, d)
+            print("{} strip case {:2d} {} count={:4d} cap={:4d} S={} p={} "
+                  "d={:2d} Q={:4d} body={} cluster={}: max|dmean|={:.3e} "
+                  "max|dvar|={:.3e} err/bound={:.3f}".format(
+                      route, case, str(dtype)[6:], count, cap, len(programs),
+                      p, d, n_q, body, expected_cluster(count), em, ev,
+                      ratio))
+            if body != "strip":
+                raise AssertionError("count {} took the {} body".format(
+                    count, body))
+            if not ratio <= 1.0:
+                raise AssertionError("{} kernel at count {} disagrees "
+                                     "with plain".format(route, count))
+            worst = max(worst, ratio)
+        # A query's outputs do not depend on the launch's size.
+        inputs, programs = program_case("stacked", STACKED_SETS[2], 1024, 1,
+                                        1.0, dtype, seed=590, n=1021)
+        launches = launch_size_check(
+            lambda q: gp_kernel.gp_predict_stacked_cuda(q, *inputs, programs,
+                                                        count=1021),
+            case_queries(2 ** 20, inputs[0], 590))
+        print("kernel 3 strip body, {}, count 1,021: every query's outputs "
+              "bit for bit the same in a launch of 2^20, of 2,000 and alone "
+              "({} launches)".format(str(dtype)[6:], launches))
     print("kernels 2 and 3 at counts below capacity: {} cases, worst "
           "err/bound {:.3f} (bound: program_bounds)".format(case, worst))
 
@@ -1685,7 +1825,12 @@ WIDE_COUNT_CASES = ((128, 128, 5, 4), (100, 128, 16, 8), (129, 256, 16, 8),
 #: body's above it, on both sides of each edge.
 STATIONARY_WIDE_COUNTS = ((129, 256), (192, 256), (193, 256), (256, 256),
                           (257, 512), (512, 512), (513, 1024),
-                          (1021, 1024))
+                          (1021, 1024), (1024, 1024), (1025, 2048))
+
+#: Query counts of the strip cases: one query, both sides of the 64-query
+#: item, a sampler step's and a refinement chunk's (2^20; kernel 1 only,
+#: whose plain version and bounds are taken in slices).
+STRIP_QUERIES = (1, 63, 64, 65, 2000, 2 ** 20)
 
 
 def phase_kernel_cases():
@@ -1754,7 +1899,10 @@ def phase_kernel_count_cases():
     ``rounding_bounds``, each taking the body its count selects
     (``gp_kernel.stationary_body``; the panel and strip bodies above 128
     rows, as kernels 2 and 3). At count 0 the outputs must be exact
-    zeros."""
+    zeros. Then the strip body's edges (``STRIP_EDGES``, the queries
+    cycling through ``STRIP_QUERIES``, p up to 8, d up to 16) and, at
+    count 2,048, ``launch_size_check`` over 2^20 queries, in both
+    dtypes."""
     worst, case = 0.0, 0
     # d = 6 once per dtype, and the wide count cases: the dimensions past
     # the 4 that k unrolls from registers, and up to 8 outputs.
@@ -1785,6 +1933,38 @@ def phase_kernel_count_cases():
                 raise AssertionError("kernel 1 at count {} disagrees with "
                                      "plain".format(count))
             worst = max(worst, ratio)
+        # The strip body's edges, the queries cycling through STRIP_QUERIES.
+        shapes = ((2, 3), (8, 16), (1, 5), (4, 16), (8, 3), (3, 3))
+        for i, count in enumerate(STRIP_EDGES[dtype]):
+            kind = gp_kernel.KINDS[i % len(gp_kernel.KINDS)]
+            p, d = shapes[i]
+            n_q = STRIP_QUERIES[(i + (dtype == torch.float64)) % 6]
+            case += 1
+            cap = next(c for c in (512, 1024, 2048) if c >= count)
+            gp = case_gp(kind, cap, p, 2.5, dtype, seed=300 + case, n=count,
+                         d=d)
+            em, ev, ratio = compare(case_inputs(gp, n_q, 300 + case), kind,
+                                    count=count, chunk=2 ** 18)
+            body = gp_kernel.stationary_body(count, dtype, p, d)
+            print("strip case {:2d} {} {:8s} d={:2d} p={} count={:4d} cap="
+                  "{:4d} Q={:7d} body={} cluster={}: max|dmean|={:.3e} "
+                  "max|dvar|={:.3e} err/bound={:.3f}".format(
+                      case, str(dtype)[6:], kind, d, p, count, cap, n_q, body,
+                      expected_cluster(count), em, ev, ratio))
+            if body != "strip" or not ratio <= 1.0:
+                raise AssertionError("kernel 1 at count {} ({} body) "
+                                     "disagrees with plain".format(count,
+                                                                   body))
+            worst = max(worst, ratio)
+        gp = case_gp("matern32", 2048, 2, 2.5, dtype, seed=391, n=2048)
+        inputs = case_inputs(gp, 2 ** 20, 391)
+        launches = launch_size_check(
+            lambda q: gp_kernel.gp_predict_cuda(q, *inputs[1:],
+                                                kind="matern32", count=2048),
+            inputs[0])
+        print("kernel 1 strip body, {}, count 2,048: every query's outputs "
+              "bit for bit the same in a launch of 2^20, of 2,000 and alone "
+              "({} launches)".format(str(dtype)[6:], launches))
     print("kernel 1 at counts below capacity: {} cases, worst err/bound "
           "{:.3f} (bound: rounding_bounds)".format(case, worst))
 
@@ -4508,7 +4688,9 @@ def phase_adaptive_grown(card):
     1. kernel 3 launches exactly once per sampler step, coarse pass and
        refinement chunk, no other kernel, and no library is built;
     2. every kernel-3 launch takes the body its count selects
-       (``program_body``: tiled, panel, strip; never the streamed body);
+       (``program_body``: tiled, panel, strip; never the streamed body),
+       and every strip launch a thread-block cluster of
+       ``expected_cluster`` blocks (``program_strip_clusters``);
     3. every device append keeps the kernels' count precondition
        (``append_precondition``);
     4. the oracle gate at the last certify (count 1,021): the coarse
@@ -4540,7 +4722,7 @@ def phase_adaptive_grown(card):
     coarse_t, chunk_t = EventTimer(), EventTimer()
     mark = dict(launches=read_launches(), calls=0, gp0=None)
     info, parts, rigor_paths = {}, collections.Counter(), []
-    snapshot, gate = {}, {}
+    snapshot, gate, clusters = {}, {}, {}
     inner_update = lyapunov_mod.Lyapunov.update_safe_set
     inner_batch = adaptive_safety_verification.get_safe_sample_batch
 
@@ -4588,6 +4770,11 @@ def phase_adaptive_grown(card):
                     raise AssertionError("{}: a {} at count {} took the {} "
                                          "body".format(label, part, a[8],
                                                        body))
+                key = a[8], str(a[1].dtype)[6:]
+                if body == "strip" and key not in clusters:
+                    clusters[key] = check_cluster(
+                        lambda c: gp_kernel.program_strip_clusters(
+                            a[0], c, a[1].dtype), a[8], label)
                 parts[part, body] += 1
         if update:
             append_precondition(mark["gp0"], gps, label)
@@ -4640,6 +4827,13 @@ def phase_adaptive_grown(card):
     if any(body == "streamed" for _, body in parts):
         raise AssertionError("a launch of the grown loop took the streamed "
                              "body")
+    if not clusters:
+        raise AssertionError("no launch of the grown loop took the strip "
+                             "body")
+    print("adaptive grown: every strip launch a thread-block cluster "
+          "(count, dtype: blocks, clusters on the card): {}".format(
+              ", ".join("{} {}: {}".format(*key, value)
+                        for key, value in sorted(clusters.items()))))
     if dict(build_reports) != builds:
         raise AssertionError("the grown adaptive path built a library")
 

@@ -1,21 +1,30 @@
 """The parts and the alternatives of the strip body of kernels 1-3, timed.
 
 The strip body (``csrc/gp_predict_common.cuh``: ``Strip``,
-``solve_strips``) serves kernels 1-3 above the panel body's largest count
-(512 rows in float32, 256 in float64) up to the 2,048 rows the GPs route
-to a kernel; the source keeps one design. This module builds copies of
-``csrc/`` with one change each (``ALTERNATIVES``): a part of the body
-switched off, so that the other part's time shows alone, another choice
-the design could have made, or the strip body in place of the panel body
-(the panel body's largest count lowered to 128). It times each copy's
-kernel in turns with the source's, on the card, as the device time of
-one call in a CUDA graph, at two shapes of the port's paths, float32 and
-float64:
+``solve_strips``) serves kernels 1-3 above the panel body's largest
+count (512 rows in float32, 256 in float64) up to the 2,048 rows the GPs
+route to a kernel: a thread-block cluster of ``strip_cluster(n)`` = 2
+blocks an item, each chunk's K evaluated once a 512-row round across the
+cluster's blocks and exchanged through distributed shared memory. The
+source keeps one design. This module builds copies of ``csrc/`` with one
+change each (``ALTERNATIVES``): a part of the body switched off, so that
+the other parts' time shows alone (the fill, the solve, the cluster
+exchange), clusters of another size (1, 4 or 8 blocks at every count; 1
+is the one-block design's redundancy, K evaluated again every 256-row
+round; 4 and 8 evaluate it once an item up to 1,024 and 2,048 rows), the
+fill after the solve, one block an SM, or the strip body in place of the
+panel body (the panel body's largest count lowered to 128). With
+``--earlier NAME=DIR`` (repeatable) it also builds the ``csrc/``
+directory ``DIR`` of another commit (for example one unpacked with ``git
+archive``) as the alternative ``NAME``. It times each copy's kernel in
+turns with the source's, on the card, as the device time of one call in
+a CUDA graph, at the port's shapes, float32 and float64:
 
 - kernel 3 at the adaptive example's refinement chunk (``chunk``: the
   flagship's two programs, S = 2, Q = 2^20 queries) at counts 181, 256
   and 512 (the panel body's range) and 1,021 (the adaptive loop grown to
-  1,024 points);
+  1,024 points), and at its sampler step (``sampler``: Q = 2,000) at
+  1,021;
 - kernel 1 at ``bench.py``'s shape (``bench``: Q = 10^6, d = 3, p = 2,
   RBF) at 2,048 rows.
 
@@ -23,6 +32,8 @@ A copy whose part is switched off computes a wrong answer: only its time
 means anything. On a machine with the card::
 
     python -m safe_learning_tpu_torch.benchmarks.strip_parts [NAME ...]
+    python -m safe_learning_tpu_torch.benchmarks.strip_parts [NAME ...] \\
+        --earlier NAME=DIR [--earlier NAME=DIR ...]
 
 prints the card's name and power limit, then one JSON line a kernel,
 shape, count and dtype. Each copy is one or two more ``nvcc`` builds
@@ -56,6 +67,17 @@ _COMMON = "gp_predict_common.cuh"
 #: range in the source, "strip": above it), what it measures, and the
 #: changes to ``gp_predict_common.cuh`` ``(text, replacement)``, each text
 #: found exactly once.
+_CLUSTER = "  return n > 0 ? 2 : 1;"
+_SOLVE = "      if (t * S::JC < wend) {"
+_SOLVE_END = ("          strip_chunk_dmma(acc, slot + lrow, kb + kq);\n"
+              "        }\n      }\n")
+_FILL = ("      if (t + 1 < nch) fill(kbuf + (t + 1) % S::NKB * KB, jn);\n"
+         "      cluster_arrive();\n")
+_CONSTANT_K = ("    const T v = j < n ? kfn(j) : T(0);",
+               "    const T v = j < n ? T(0.5) : T(0);")
+_FETCHES = (("    if (wend > 0) strip_fetch(", "    if (false) strip_fetch("),
+            ("      if (jn < wend) {\n        strip_fetch(",
+             "      if (false) {\n        strip_fetch("))
 ALTERNATIVES = {
     "strip_everywhere": (
         (3,), "panel", "the strip body in place of the panel body (the "
@@ -65,23 +87,37 @@ ALTERNATIVES = {
          ("  static constexpr int N_MAX = 256;",
           "  static constexpr int N_MAX = 128;")]),
     "fill_only": (
-        (1, 3), "strip", "the strip body without its product (the K fill, "
-        "the copies and the epilogue)",
-        [("      if (jn > 0) {\n        strip_chunk(",
-          "      if (false) {\n        strip_chunk("),
-         ("      if (wr0 < n && cur.jc0() < wr0 + S::WROWS) {",
-          "      if (false) {")]),
+        (1, 3), "strip", "the strip body without its product (the K fill "
+        "and exchange, the copies and the epilogue)",
+        [(_SOLVE, "      if (false) {")]),
     "solve_only": (
         (1, 3), "strip", "the strip body without its covariances (K set to "
-        "a constant)",
-        [("    kb[jj * S::TQP + ql] = j < n ? kfn(j) : T(0);",
-          "    kb[jj * S::TQP + ql] = j < n ? T(0.5) : T(0);")]),
+        "a constant, still exchanged)",
+        [_CONSTANT_K]),
+    "exchange_only": (
+        (1, 3), "strip", "the cluster exchange alone: a constant K stored "
+        "into every block, the cluster barriers and the epilogue, no "
+        "covariances, no chol_inv copies, no product",
+        [_CONSTANT_K, (_SOLVE, "      if (false) {")] + list(_FETCHES)),
     "one_block": (
         (1, 3), "strip", "float32 at one block an SM (255 registers a "
         "thread; two in the source, 128)",
         [("  static constexpr int BLOCKS = F32 ? 2 : 1;  // blocks an SM",
           "  static constexpr int BLOCKS = 1;  // blocks an SM")]),
+    "fill_after": (
+        (1, 3), "strip", "the next chunk's K fill and the cluster "
+        "barrier's arrival after this chunk's solve (in the source, before "
+        "it: a block waits for the others' fills, not their solves)",
+        [(_FILL, ""), (_SOLVE_END, _SOLVE_END + _FILL)]),
 }
+for _c in (1, 4, 8):
+    ALTERNATIVES["cluster_{}".format(_c)] = (
+        (1, 3), "strip", "clusters of {} block{} at every count{}".format(
+            _c, "s" if _c > 1 else "", " (the one-block design: K "
+            "evaluated again for every 256-row round)"
+            if _c == 1 else " (rounds of {} rows where n is larger)".format(
+                256 * _c)),
+        [(_CLUSTER, "  return n > 0 ? {} : 1;".format(_c))])
 
 #: Kernel 3's counts at the chunk shape and the capacity of each.
 CHUNK_COUNTS = ((181, 181), (256, 256), (512, 512), (1021, 1024))
@@ -117,25 +153,47 @@ def _programs():
     return tuple(programs), params
 
 
-def build(names):
-    """Build the source's libraries and the alternatives ``names`` (one
-    ``nvcc`` each, all at once). Returns ``{(name, kernel): library}``,
-    ``name`` ``"source"`` for the source's."""
+def build(names, earlier=()):
+    """Build the source's libraries, the alternatives ``names`` and the
+    ``earlier`` ``(name, csrc directory)`` of other commits (one ``nvcc``
+    each, all at once). Returns ``{(name, kernel): library}``, ``name``
+    ``"source"`` for the source's."""
     programs, _ = _programs()
     stationary = gp_kernel._STATIONARY_JOB
     program_job = gp_kernel._program_job(programs)
     jobs, keys = [stationary, program_job], [("source", 1), ("source", 3)]
-    for name in names:
-        path = alternative_dir(name)
-        for kernel in ALTERNATIVES[name][0]:
+    dirs = [(name, alternative_dir(name)) for name in names]
+    dirs += [(name, os.path.abspath(path)) for name, path in earlier]
+    for name, path in dirs:
+        for kernel in _kernels(name):
             job = stationary if kernel == 1 else program_job
             jobs.append(("strip_{}_{}".format(name, job[0]),) + job[1:3]
                         + (path,))
             keys.append((name, kernel))
     libs = build_mod.load_libraries(jobs)
-    return {key: (gp_kernel.bind_kernel1(lib) if key[1] == 1
-                  else gp_kernel.bind_program(lib))
-            for key, lib in zip(keys, libs)}
+    bound = {}
+    for key, lib in zip(keys, libs):
+        bind = (gp_kernel.bind_kernel1 if key[1] == 1
+                else gp_kernel.bind_program)
+        bound[key] = bind(lib, launch_only=key[0] not in ALTERNATIVES
+                          and key[0] != "source")
+    return bound
+
+
+def _kernels(name):
+    return ALTERNATIVES[name][0] if name in ALTERNATIVES else (1, 3)
+
+
+def _where(name):
+    return ALTERNATIVES[name][1] if name in ALTERNATIVES else "strip"
+
+
+def _what(name):
+    if name == "source":
+        return "the source's body"
+    if name not in ALTERNATIVES:
+        return "the csrc/ of another commit (--earlier)"
+    return ALTERNATIVES[name][2]
 
 
 def chunk_inputs(count, cap, dtype, n_q=2 ** 20, seed=0):
@@ -217,18 +275,21 @@ def run(libs, rounds=2):
     card = card_line()
     for dtype in (torch.float32, torch.float64):
         panel_max = gp_kernel.program_panel_max(_programs()[0], dtype)
-        shapes = [("chunk", 3, count, cap) for count, cap in CHUNK_COUNTS]
-        shapes.append(("bench", 1, 2048, 2048))
-        for label, kernel, count, cap in shapes:
+        shapes = [("chunk", 3, count, cap, 2 ** 20)
+                  for count, cap in CHUNK_COUNTS]
+        shapes.append(("sampler", 3, 1021, 1024, 2000))
+        shapes.append(("bench", 1, 2048, 2048, 10 ** 6))
+        for label, kernel, count, cap, n_q in shapes:
             where = "panel" if count <= panel_max else "strip"
             if kernel == 3:
-                programs, inputs, count = chunk_inputs(count, cap, dtype)
+                programs, inputs, count = chunk_inputs(count, cap, dtype,
+                                                       n_q=n_q)
             else:
                 programs = None
-                inputs, count = bench_inputs(dtype, count)
+                inputs, count = bench_inputs(dtype, count, n_q=n_q)
             calls = [(name, fn) for name, fn in
                      _calls(libs, kernel, inputs, count, programs)
-                     if name == "source" or ALTERNATIVES[name][1] == where]
+                     if name == "source" or _where(name) == where]
             if len(calls) == 1:
                 continue
             runs = {name: [] for name, _ in calls}
@@ -240,13 +301,12 @@ def run(libs, rounds=2):
             for name, times in runs.items():
                 ms = statistics.mean(times)
                 yield {"shape": label, "kernel": kernel, "count": count,
-                       "dtype": str(dtype).split(".")[-1],
+                       "queries": n_q, "dtype": str(dtype).split(".")[-1],
                        "body": "panel" if where == "panel" and name ==
                        "source" else "strip",
                        "alternative": name, "ms": ms, "runs": times,
                        "of_source": ms / base, "card": card,
-                       "what": ALTERNATIVES[name][2] if name != "source"
-                       else "the source's body"}
+                       "what": _what(name)}
             del inputs
 
 
@@ -255,18 +315,30 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("names", nargs="*", metavar="NAME",
                     help="of ALTERNATIVES (default: all)")
+    ap.add_argument("--earlier", metavar="NAME=DIR", action="append",
+                    default=[], help="a csrc/ directory of another commit, "
+                    "timed as the alternative NAME")
     args = ap.parse_args(argv)
     unknown = sorted(set(args.names) - set(ALTERNATIVES))
     if unknown:
         ap.error("unknown alternatives {}; choose from {}".format(
             unknown, sorted(ALTERNATIVES)))
+    earlier = []
+    for spec in args.earlier:
+        name, _, path = spec.partition("=")
+        if (not name or name in ALTERNATIVES or name == "source"
+                or not os.path.isfile(os.path.join(path, _COMMON))):
+            ap.error("--earlier {}: a new name and a directory holding {}"
+                     .format(spec, _COMMON))
+        earlier.append((name, path))
     if not torch.cuda.is_available():
         raise SystemExit("strip_parts: needs an NVIDIA GPU")
     from ..config import config
 
     config.device = "cuda:0"
     print(card_line(), flush=True)
-    libs = build(args.names or sorted(ALTERNATIVES))
+    names = args.names or ([] if earlier else sorted(ALTERNATIVES))
+    libs = build(names, earlier)
     results = []
     for entry in run(libs):
         print(json.dumps(entry), flush=True)

@@ -336,7 +336,10 @@ int launch(const void* q, const void* x, const void* chol_inv,
 // a cudaError_t; 0 is success. gp_predict_streamed_* take the same
 // arguments and launch the streamed body whatever the count, for
 // comparisons; gp_predict_body is the body a launch takes at a count,
-// item size, p and d (0 tiled, 1 panel, 2 strip), introspection only.
+// item size, p and d (0 tiled, 1 panel, 2 strip) and
+// gp_predict_strip_clusters a strip launch's cluster size and the clusters
+// of that size the device holds at once (0 or a cudaError_t), both
+// introspection only.
 extern "C" {
 
 #define GP_PREDICT_ENTRY(NAME, T, STREAMED)                                 \
@@ -365,6 +368,15 @@ int gp_predict_limits(int* d_max, int* p_max) {
 
 int gp_predict_body(int count, int itemsize, int p, int d) {
   return itemsize == 8 ? body<double>(count, p, d) : body<float>(count, p, d);
+}
+
+int gp_predict_strip_clusters(int count, int itemsize, int p, int* csize,
+                              int* clusters) {
+  return itemsize == 8
+             ? (int)gp_program::strip_clusters<double, StationaryProgram>(
+                   count, p, csize, clusters)
+             : (int)gp_program::strip_clusters<float, StationaryProgram>(
+                   count, p, csize, clusters);
 }
 
 }  // extern "C"

@@ -145,34 +145,64 @@
 // gp_program_strip of gp_predict_program.cuh, which kernel 1 reaches
 // through a one-output stationary program). Above the panel K[0:n, 64
 // queries] no longer fits a block (256 KB in float32 at n = 1,021, 512 KB
-// in float64, against 227 KB), so the rows of A go by strips of SR = 256:
-// a block holds a strip's 256 x 64 accumulators in registers (float32, an
-// 8 x 8 tile a thread, 8 warps) or DMMA fragments (float64, one 16-row
-// tile by 8 query tiles a warp, 16 warps), and streams both chol_inv and K
-// through shared memory by chunks of JC columns (32 in float32, 16 in
-// float64), each chunk's K evaluated once per strip: about 2.5 n
-// covariances a query and output at n = 1,021 and 4.5 n at 2,048, against
-// n for the panel body. The costs this design weighed, on the card (H100
-// 80GB HBM3, 700 W; benchmarks/strip_parts.py, PERF.md):
-//   - the 8 x 8 float32 tile: 4 shared loads (2 row vectors of the
-//     transposed chol_inv chunk, 2 K vectors) for 64 FMAs, against the
-//     panel body's 4 x 4 tile at half the FP32 rate; the slots are padded
-//     ([JC][SR + 4] float32, [JC][SR + 8] float64) rather than swizzled, so
-//     that the solve's addresses are the loop's immediates;
-//   - registers: the item's query rows (qs) and a program's parameters sit
-//     in shared memory and the fill reads them there, so that nothing but
-//     the accumulators lives through the solve (float32: 128 registers, two
-//     blocks an SM; float64: 128, 512 threads, one block);
-//   - one barrier a chunk, the next chunk's chol_inv copied by cp.async and
-//     its K evaluated before this chunk's solve; a warp's j loop stops at
-//     the end of its rows (float32) or its tile's k steps (float64);
-//   - the partial sums: each warp adds its rows into its own slot at each
-//     strip's end and the slots are summed in warp order after the last,
-//     so the order of every sum is fixed by n and a query's outputs are
-//     the same wherever it lies in a launch.
-// A thread-block cluster that shares one K tile across four blocks' shared
-// memory (each K evaluated once), and TMA copies of chol_inv (its rows are
-// cap values apart, not 16 bytes for an odd cap), are not tried here.
+// in float64, against 227 KB), nor do an item's accumulators. So a
+// thread-block cluster of 2 blocks takes each item, and the rows of A go
+// to its blocks by 64-row panels, 4 a block, in rounds of 8 panels (512
+// rows; the first round takes the rest), dealt from n alone longest first
+// onto the less loaded block (strip_deal). What bounds it on the H100:
+// per query and output n (n + 1) / 2 product FMAs (FP32 on the CUDA
+// cores, 67 TFLOP/s; float64 on DMMA, 67 TFLOP/s) against n covariances
+// and 28 bytes, so arithmetic fed from shared memory, as in the panel
+// body. What it does about the four causes that held the strip body's
+// first design (one block an item walking 256-row strips) to 31 %
+// (float32) and 22 % (float64) of its bound:
+//   1. K evaluated again for every strip (2.5 n covariances a query and
+//      output at n = 1,021, 4.5 n at 2,048): the blocks of a cluster walk
+//      the same 32-column chunks in the same order; each evaluates half
+//      of a chunk's K rows and stores them into both blocks' K buffers
+//      through distributed shared memory, so K is evaluated once a round
+//      (1.5 n at 1,021, 2.5 n at 2,048). Once an item (a cluster of
+//      ceil(n / 256) blocks, one round) was slower: a round's walk runs to
+//      its last row, and the warps of its lower panels idle once the walk
+//      passes them (by count, 53 % of a block's warp-chunks busy at 1,021
+//      in one round, 71 % in two);
+//   2. small launches idled the card (a sampler step of 64 items on 64
+//      blocks, each a serial chain of 80 chunks): an item is 2 blocks,
+//      each walking 48 chunks at 1,021, on a persistent grid of clusters
+//      (cudaOccupancyMaxActiveClusters; a cluster that does not fit is
+//      refused, never run another way);
+//   3. float64 met all 512 threads at a barrier after each DMMA k step:
+//      a chunk is two k steps, and no block-wide barrier is left in the
+//      walk (a warp copies its own rows of chol_inv and waits for them
+//      with __syncwarp). Shared memory at p = 8, float64: the ring 2 x 32
+//      x 264 x 8 = 135,168 B, the K buffers 3 x 32 x 72 x 8 = 55,296, the
+//      partial sums 4 x 9 x 64 x 8 = 18,432 (one slot a panel, its 4
+//      warps adding in turns: 73,728 with one a warp), the queries 8,704
+//      (float32: 114,176 B, two blocks an SM);
+//   4. the fill and the solve overlapped in part: the next chunk's K and
+//      chol_inv are in flight while a warp solves this chunk, and the
+//      cluster barrier is split (arrive after the fill, wait before the
+//      next chunk), so a block waits only for the other's fill.
+// The partial sums: each warp (float32) or panel slot (float64) reduces
+// its rows into its own slot after a round, and the cluster sums every
+// block's slots through distributed shared memory in block-rank, then slot
+// order (strip_store): the order of every sum is fixed by n, and a query's
+// outputs are the same wherever it lies in a launch and whatever Q is.
+// chol_inv's rows are cap values apart (not 16 bytes for an odd cap), so
+// its copies stay element-wise cp.async, as in the panel body; TMA is not
+// used. On the card (H100 80GB HBM3, 700.00 W; benchmarks/strip_parts.py,
+// CUDA-graph ms, the first design in turns in the same call): the
+// refinement chunk at 1,021 rows 97.97 ms in float32 (107.66), 119.60 in
+// float64 (151.30); the sampler step 0.305 / 0.251 (0.599 / 0.618);
+// kernel 1 at 2,048 rows 171.85 / 209.94 (201.77 / 297.76). At the chunk,
+// float32 / float64: the fill, copies and exchange alone 45.11 / 83.90,
+// the solve alone 83.49 / 96.44, the exchange alone 15.22 / 29.89; the
+// fill after the solve 1.108 / 1.174x. In other calls: the fill left to
+// the warps with no rows in the chunk 1.07 / 1.32x (they became the
+// critical path); clusters of 1, 4 and 8 blocks 0.986 / 1.079, 1.193 /
+// 1.194 and 1.851 / 1.993x of 2 at the chunk and 2.00 / 2.08, 1.30 / 1.59
+// and 1.57 / 2.18x at the sampler step; the cluster barrier whole rather
+// than split 1.07-1.21x (at 4 blocks).
 //
 // The streamed body (solve_streamed; kernels 4-7 above 128 rows, and the
 // comparison entries gp_predict_streamed_* and gp_program_streamed_* of
@@ -238,12 +268,15 @@
 
 #pragma once
 
+#include <cooperative_groups.h>
 #include <cstdint>
 #include <cuda_runtime.h>
 #include <mutex>
 #include <type_traits>
 
 namespace gp_common {
+
+namespace cg = cooperative_groups;
 
 constexpr int D_MAX = 16;  // largest input dimension
 constexpr int P_MAX = 8;   // largest number of outputs of one GP
@@ -1583,57 +1616,98 @@ __device__ __forceinline__ void solve_panels_dmma(
 // Strip body: kernels 1-3 above panel_max<T>() (its design is in the header
 // note)
 // ---------------------------------------------------------------------------
-// A block takes a (query tile, output) item of TQ = 64 queries and walks
-// the rows of A in strips of SR = 256, each warp owning WROWS rows of each
-// strip for all 64 queries: in float32 8 warps of 32 rows, a thread an 8 x
-// 8 tile (rows 4 lr + {0..3, 16..19}, queries 4 lc + {0..3, 32..35}); in
-// float64 16 warps of one 16-row mma tile by 8 query tiles. For each
-// strip the block walks the columns up to the strip's last row (or the
-// count) in chunks of JC: chol_inv[strip rows, chunk] streams through a
-// ring of NSLOT slots by cp.async, and the block evaluates K[chunk, 64
-// queries] into one of two K buffers, the next chunk's before it solves
-// this one, one barrier a chunk. The item's query rows sit in shared
-// memory (qs, [TQ][D_MAX + 1]), as do the parameters of a program, so
-// that the fill holds no registers through the solve. After a strip's
-// last chunk each warp
-// reduces its rows into its own partial-sum slot red[warp][p + 1][TQ]
-// (stored at the first strip, added after), and after the last strip the
-// slots are summed in warp order: the order of every sum is fixed by n.
+// A thread-block cluster of C = strip_cluster(n) = 2 blocks takes a
+// (query tile, output) item of TQ = 64 queries. The rows of A go by panels
+// of STRIP_PANEL = 64, in rounds of 4 C panels (the first round takes the
+// rest), each round's panels dealt out to the cluster's blocks from n
+// alone (strip_deal), STRIP_SLOTS = 4 a block: a block's 256 rows of
+// accumulators for all 64 queries, in registers (float32: 2 warps a
+// panel, 32 rows a warp, an 8 x 8 tile a thread; float64: 4 warps a
+// panel, a 16-row mma tile by 8 query tiles a warp). In a round every
+// block walks the same column chunks of JC = 32 in the same order, up to
+// the round's last row: it evaluates the chunk's K rows jj = rank, rank +
+// C, ... for the item's queries and stores each into the K buffer of
+// every block of the cluster (distributed shared memory), and each warp
+// streams chol_inv[its rows, chunk] through its own rows of a ring of
+// NSLOT slots by cp.async. The next chunk's K (NKB = 3 buffers) and
+// chol_inv are in flight while a warp solves this one; the cluster
+// barrier is split, its arrival after a block's fill and its wait before
+// the next chunk, so a block waits for the others' fills, not for their
+// solves. A warp solves a chunk while it starts below the warp's last row
+// (or the count). The item's query rows sit in shared memory (qs,
+// [TQ][D_MAX + 1]), as do the parameters of a program, so that the fill
+// holds no registers through the solve. After a round each warp
+// (float32) or panel slot (float64, its warps in turns) reduces its rows
+// into its own partial-sum slot red[RED][p + 1][TQ] (stored at the first
+// round, added after), and the cluster sums every block's slots through
+// distributed shared memory in block-rank, then slot order (strip_store):
+// the order of every sum is fixed by n.
+constexpr int STRIP_PANEL = 64;  // rows of a panel
+constexpr int STRIP_SLOTS = 4;   // panels a block holds
+constexpr int STRIP_C_MAX = 8;   // blocks of a cluster (the portable limit)
+
 template <typename T>
 struct Strip {
   static constexpr bool F32 = sizeof(T) == 4;
-  static constexpr int SR = 256;              // rows of a strip
-  static constexpr int TQ = 64;               // queries of an item
+  static constexpr int PANEL = STRIP_PANEL;
+  static constexpr int BR = PANEL * STRIP_SLOTS;  // rows a block holds
+  static constexpr int TQ = 64;                // queries of an item
   static constexpr int NTH = F32 ? 256 : 512;  // threads of a block
   static constexpr int NWARP = NTH / 32;
-  static constexpr int WROWS = SR / NWARP;    // rows of a warp
-  static constexpr int JC = F32 ? 32 : KD;    // columns of a chunk
-  static constexpr int NSLOT = 2;
+  static constexpr int JC = 32;                // columns of a chunk
+  static constexpr int NSLOT = 2;              // chol_inv chunks
+  static constexpr int NKB = 3;                // K buffers
   static constexpr int BLOCKS = F32 ? 2 : 1;  // blocks an SM
+  // Warps of a panel slot (float32: 2 of 32 rows, a thread an 8 x 8
+  // tile; float64: 4 of one 16-row mma tile by 8 query tiles) and their
+  // rows.
+  static constexpr int WSLOT = NWARP / STRIP_SLOTS;
+  static constexpr int WROWS = PANEL / WSLOT;
+  // Partial-sum slots of a block: one a warp (float32), one a panel slot
+  // (float64, its 4 warps adding in turns).
+  static constexpr int RED = F32 ? NWARP : STRIP_SLOTS;
   // Row strides of a slot ([JC][SRP], chol_inv transposed) and of a K
   // buffer ([JC][TQP]), padded so that the copies (a warp writes 4 rows x
   // 8 columns in float32, 8 x 4 in float64), the fill and the solve's
   // reads (4 row vectors and 2 K vectors a warp in float32, mma fragments
   // in float64) meet no bank more often than their bytes need.
-  static constexpr int SRP = SR + (F32 ? 4 : 8);
+  static constexpr int SRP = BR + (F32 ? 4 : 8);
   static constexpr int TQP = TQ + (F32 ? 0 : 8);
   static_assert(!F32 || (WROWS == WR * 8 && TQ == WC * 8), "float32 tile");
   static_assert(F32 || WROWS == 16, "float64 tile");
 };
 
+// Blocks of the cluster a strip item takes at n rows: 2 at every count,
+// so an item's panels go by rounds of 2 STRIP_SLOTS (512 rows). On the
+// card clusters of 1, 4 and 8 blocks (K once an item at ceil(n / 256))
+// were slower at the refinement chunk and the sampler step at 1,021 rows
+// and at kernel 1's 2,048, in both dtypes (PERF.md).
+__host__ __device__ constexpr int strip_cluster(int n) {
+  return n > 0 ? 2 : 1;
+}
+
+// Rounds of a strip item at n rows and C blocks: ceil(panels / 4 C).
+__host__ __device__ constexpr int strip_rounds(int n, int csize) {
+  const int np = (n + STRIP_PANEL - 1) / STRIP_PANEL;
+  const int per = STRIP_SLOTS * csize;
+  return (np + per - 1) / per;
+}
+
 // Row stride of the item's query rows in shared memory: D_MAX values
 // and one more, so that consecutive queries meet different banks.
 constexpr int QS_STRIDE = D_MAX + 1;
 
-// Dynamic shared memory of one strip block: the ring, the two K buffers,
-// the [NWARP][p + 1][TQ] partial sums and the item's query rows (a
-// program's parameters follow, gp_predict_program.cuh).
+// Dynamic shared memory of one strip block: the ring, the K buffers, the
+// [RED][p + 1][TQ] partial sums and the item's query rows (a program's
+// parameters follow, gp_predict_program.cuh). At p = 8: float32 66,560 +
+// 24,576 + 18,432 + 4,352 B (two blocks an SM), float64 135,168 + 55,296
+// + 18,432 + 8,704 B.
 template <typename T>
 __host__ __device__ constexpr size_t strip_smem_bytes(int p) {
   using S = Strip<T>;
   return sizeof(T) * ((size_t)S::NSLOT * S::JC * S::SRP +
-                      (size_t)2 * S::JC * S::TQP +
-                      (size_t)S::NWARP * (p + 1) * S::TQ +
+                      (size_t)S::NKB * S::JC * S::TQP +
+                      (size_t)S::RED * (p + 1) * S::TQ +
                       (size_t)S::TQ * QS_STRIDE);
 }
 
@@ -1645,8 +1719,8 @@ struct StripSmem {
   __device__ __forceinline__ StripSmem(unsigned char* raw, int p) {
     ring = reinterpret_cast<T*>(raw);
     kbuf = ring + S::NSLOT * S::JC * S::SRP;
-    red = kbuf + 2 * S::JC * S::TQP;
-    qs = red + S::NWARP * (p + 1) * S::TQ;
+    red = kbuf + S::NKB * S::JC * S::TQP;
+    qs = red + S::RED * (p + 1) * S::TQ;
     tail = qs + S::TQ * QS_STRIDE;
   }
 };
@@ -1665,89 +1739,112 @@ __device__ __forceinline__ void strip_queries(T* qs, const T* __restrict__ q,
   }
 }
 
-// Walks one item's chunks in order: the strips below the count, and in
-// each the column chunks of JC up to the strip's last row (or the count).
-template <typename T>
-struct StripCursor {
-  using S = Strip<T>;
-  int n, si = 0, ci = 0, nc = 0;
-  __device__ __forceinline__ explicit StripCursor(int n_) : n(n_) {
-    nc = chunks();
-  }
-  __device__ __forceinline__ int r0() const { return si * S::SR; }
-  __device__ __forceinline__ int jc0() const { return ci * S::JC; }
-  __device__ __forceinline__ bool valid() const { return r0() < n; }
-  __device__ __forceinline__ bool last_chunk() const { return ci == nc - 1; }
-  __device__ __forceinline__ int chunks() const {
-    const int end = min(n, r0() + S::SR);
-    return r0() < n ? (end + S::JC - 1) / S::JC : 0;
-  }
-  __device__ __forceinline__ void next() {
-    if (++ci == nc) {
-      ++si;
-      ci = 0;
-      nc = chunks();
+// The panels of round rd of `rounds` dealt to the C blocks of a cluster:
+// the last rounds take STRIP_SLOTS * C panels each and the first the rest,
+// so that no round walks the columns further than its own rows need. A
+// round's panels go longest first (panel i needs i + 1 panels of
+// columns), each onto the block with the least work so far and fewer
+// than STRIP_SLOTS panels, the lowest rank on a tie. pan[s] are block
+// `rank`'s, descending, -1 past its last: from n and C alone. Returns the
+// round's last panel + 1.
+__device__ __forceinline__ int strip_deal(int n, int csize, int rd,
+                                          int rounds, int rank,
+                                          int (&pan)[STRIP_SLOTS]) {
+  const int np = (n + STRIP_PANEL - 1) / STRIP_PANEL;
+  const int per = STRIP_SLOTS * csize;
+  const int hi = np - (rounds - 1 - rd) * per;
+  const int lo = max(0, hi - per);
+  int load[STRIP_C_MAX], cnt[STRIP_C_MAX];
+#pragma unroll
+  for (int b = 0; b < STRIP_C_MAX; ++b) load[b] = cnt[b] = 0;
+#pragma unroll
+  for (int s = 0; s < STRIP_SLOTS; ++s) pan[s] = -1;
+  for (int i = hi - 1; i >= lo; --i) {
+    int best = 0, least = 0x7fffffff;
+#pragma unroll
+    for (int b = 0; b < STRIP_C_MAX; ++b) {
+      if (b < csize && cnt[b] < STRIP_SLOTS && load[b] < least) {
+        best = b;
+        least = load[b];
+      }
+    }
+#pragma unroll
+    for (int b = 0; b < STRIP_C_MAX; ++b) {
+      if (b != best) continue;
+      if (b == rank) {
+#pragma unroll
+        for (int s = 0; s < STRIP_SLOTS; ++s) {
+          if (s == cnt[b]) pan[s] = i;
+        }
+      }
+      load[b] += i + 1;
+      ++cnt[b];
     }
   }
-};
+  return hi;
+}
 
-// This thread's column and first row in every chunk copy: a warp copies
-// VR rows by VC consecutive columns at a time, and the thread's next row
-// is RSTEP below.
-template <typename T>
-struct StripCopy {
-  using S = Strip<T>;
-  static constexpr int VC = S::F32 ? 8 : 4;
-  static constexpr int VR = 32 / VC;
-  static constexpr int CB = S::JC / VC;  // column blocks of a chunk
-  static constexpr int RSTEP = S::NTH / (32 * CB) * VR;
-  static constexpr int COPIES = S::SR / RSTEP;
-  static_assert(S::NTH % (32 * CB) == 0, "whole column blocks a pass");
-  int col, row;
-  __device__ __forceinline__ StripCopy()
-      : col((int)threadIdx.x / 32 % CB * VC + (int)threadIdx.x % VC),
-        row((int)threadIdx.x / (32 * CB) * VR +
-            (int)threadIdx.x / VC % VR) {}
-};
+// barrier.cluster in its two halves: this thread's arrival (release: its
+// stores before it, the K fill's into other blocks among them, are seen by
+// every thread of the cluster after its wait) and the wait for the
+// current phase's arrivals (acquire). A thread alternates them; the warp
+// is converged (.aligned).
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
 
-// Start copying the cursor's chunk of chol_inv (row stride cap) into a
-// slot, transposed; elements above the diagonal or at or past the count
-// are zero-filled without a read. Every thread of the block copies its
-// share (StripCopy).
+// Start copying chol_inv[row0 .. row0 + WROWS - 1, jc0 .. jc0 + JC - 1]
+// (row stride cap), one warp's rows, into its rows of a slot (dst: the
+// slot's row of columns at the warp's first row), transposed; elements
+// above the diagonal or at or past the count are zero-filled without a
+// read. A warp instruction copies VR rows by VC consecutive columns (32
+// bytes of a row), which meet no bank of the slot more often than their
+// bytes need.
 template <typename T>
-__device__ __forceinline__ void strip_fetch(T* slot,
+__device__ __forceinline__ void strip_fetch(T* dst,
                                             const T* __restrict__ chol_inv,
-                                            int cap,
-                                            const StripCursor<T>& cur,
-                                            const StripCopy<T>& cp) {
+                                            int cap, int n, int row0,
+                                            int jc0, int lane) {
   using S = Strip<T>;
-  using C = StripCopy<T>;
-  const int gc = cur.jc0() + cp.col;
-  const int gr0 = cur.r0() + cp.row;
-  const T* src = chol_inv + (int64_t)gr0 * cap + gc;
-  T* dst = slot + cp.col * S::SRP + cp.row;
-  const int64_t step = (int64_t)C::RSTEP * cap;
-#pragma unroll 4
-  for (int i = 0; i < C::COPIES; ++i) {
-    const int gr = gr0 + i * C::RSTEP;
-    const bool in = gr < cur.n && gc <= gr;
-    cp_async<sizeof(T)>(dst + i * C::RSTEP, in ? src + i * step : chol_inv,
-                        in ? (int)sizeof(T) : 0);
+  constexpr int VC = S::F32 ? 8 : 4;
+  constexpr int VR = 32 / VC;
+  const int c = lane % VC, r = lane / VC;
+#pragma unroll
+  for (int cb = 0; cb < S::JC; cb += VC) {
+    const int gc = jc0 + cb + c;
+#pragma unroll
+    for (int rg = 0; rg < S::WROWS; rg += VR) {
+      const int gr = row0 + rg + r;
+      const bool in = gr < n && gc <= gr;
+      cp_async<sizeof(T)>(dst + (cb + c) * S::SRP + rg + r,
+                          in ? chol_inv + (int64_t)gr * cap + gc : chol_inv,
+                          in ? (int)sizeof(T) : 0);
+    }
   }
 }
 
-// K[jc0 + jj][ql] = kfn(jc0 + jj) for the chunk's rows below n, else 0,
-// into a K buffer; thread t evaluates query t % TQ at rows t / TQ + JS i.
+// This block's share of the chunk's K rows (jj = rank, rank + C, ... <
+// JC, C the cluster's blocks): K[jc0 + jj][ql] = kfn(jc0 + jj) below n,
+// else 0, stored into the K buffer kb of every block of the cluster;
+// thread t evaluates query t % TQ.
 template <typename T, class KFn>
 __device__ __forceinline__ void strip_fill(T* kb, const KFn& kfn, int jc0,
                                            int n) {
   using S = Strip<T>;
   constexpr int JS = S::NTH / S::TQ;  // threads per query
+  cg::cluster_group cluster = cg::this_cluster();
+  const int csize = (int)cluster.num_blocks();
+  const int rank = (int)cluster.block_rank();
   const int ql = threadIdx.x % S::TQ;
-#pragma unroll
-  for (int jj = threadIdx.x / S::TQ; jj < S::JC; jj += JS) {
+  for (int jj = rank + csize * ((int)threadIdx.x / S::TQ); jj < S::JC;
+       jj += csize * JS) {
     const int j = jc0 + jj;
-    kb[jj * S::TQP + ql] = j < n ? kfn(j) : T(0);
+    const T v = j < n ? kfn(j) : T(0);
+    T* dst = kb + jj * S::TQP + ql;
+    for (int b = 0; b < csize; ++b) *cluster.map_shared_rank(dst, b) = v;
   }
 }
 
@@ -1762,17 +1859,16 @@ __device__ __forceinline__ void strip_zero(T (&acc)[8][N]) {
   }
 }
 
-// The float32 strip's solve of one chunk by one thread: acc += L^-1[its
-// rows, chunk] K[chunk, its queries] over the chunk's first jn columns (a
-// multiple of 8; the values past the diagonal or the count are zeros), j
-// ascending. lp is its first row in the slot, kp its first query in the
-// K buffer.
+// The float32 solve of one chunk by one thread: acc += L^-1[its rows,
+// chunk] K[chunk, its queries], j ascending (the values past the diagonal
+// or the count are zeros). lp is its first row in the slot, kp its first
+// query in the K buffer.
 __device__ __forceinline__ void strip_chunk(float (&acc)[8][8],
-                                            const float* lp, const float* kp,
-                                            int jn) {
+                                            const float* lp,
+                                            const float* kp) {
   using S = Strip<float>;
 #pragma unroll 1
-  for (int j8 = 0; j8 < jn; j8 += 8) {
+  for (int j8 = 0; j8 < S::JC; j8 += 8) {
 #pragma unroll
     for (int jj = 0; jj < 8; ++jj) {
       const int j = j8 + jj;
@@ -1813,14 +1909,15 @@ __device__ __forceinline__ void strip_add(float (&part)[8], float* dst,
   }
 }
 
-// The end of a float32 strip: this thread's rows (row0 + {0..3, 16..19})
-// into alpha^T A and sum A^2 over the row lanes, stored (first strip) or
-// added to the warp's partial sums red[c][q]. Rows at or past n hold
-// exact zeros. Clears acc.
+// The end of a float32 round: this thread's rows (row0 + {0..3, 16..19};
+// none where its panel slot is empty) into alpha^T A and sum A^2 over the
+// row lanes, stored (first round) or added to the warp's partial sums
+// red[c][q]. Rows at or past n hold exact zeros. Clears acc.
 __device__ __forceinline__ void strip_reduce(float (&acc)[8][8], float* red,
                                              const float* __restrict__ alpha,
-                                             int row0, int n, int p, int lr,
-                                             int lc, bool first) {
+                                             int row0, bool held, int n,
+                                             int p, int lr, int lc,
+                                             bool first) {
   constexpr int TQ = Strip<float>::TQ;
   float part[8];
 #pragma unroll
@@ -1831,12 +1928,12 @@ __device__ __forceinline__ void strip_reduce(float (&acc)[8][8], float* red,
   }
   strip_add(part, red + p * TQ, lr, lc, first);
 #pragma unroll 1
-  for (int o = 0; o < p; ++o) {
+  for (int out = 0; out < p; ++out) {
     float a[8];
 #pragma unroll
     for (int r = 0; r < 8; ++r) {
       const int row = row0 + r % 4 + 16 * (r / 4);
-      a[r] = row < n ? __ldg(alpha + (int64_t)row * p + o) : 0.f;
+      a[r] = held && row < n ? __ldg(alpha + (int64_t)row * p + out) : 0.f;
     }
 #pragma unroll
     for (int c = 0; c < 8; ++c) {
@@ -1844,41 +1941,45 @@ __device__ __forceinline__ void strip_reduce(float (&acc)[8][8], float* red,
 #pragma unroll
       for (int r = 0; r < 8; ++r) part[c] += acc[r][c] * a[r];
     }
-    strip_add(part, red + o * TQ, lr, lc, first);
+    strip_add(part, red + out * TQ, lr, lc, first);
   }
   strip_zero(acc);
 }
 
-// The float64 strip's solve of one chunk (one mma k step) by one warp on
+// The float64 solve of one chunk (JC / KD mma k steps) by one warp on
 // DMMA: acc += L^-1[its tile, chunk] K[chunk, 64 queries]. lp is the
-// lane's first A element in the slot (row g of the tile, column t), kp its
-// first B element in the K buffer (row t, query g).
+// lane's first A element in the slot (row g of the tile, column t), kp
+// its first B element in the K buffer (row t, query g).
 __device__ __forceinline__ void strip_chunk_dmma(double (&acc)[8][4],
                                                  const double* lp,
                                                  const double* kp) {
   using S = Strip<double>;
-  double a[KS4][2];
+#pragma unroll 1
+  for (int kk = 0; kk < S::JC; kk += KD) {
+    double a[KS4][2];
 #pragma unroll
-  for (int s = 0; s < KS4; ++s) {
-    a[s][0] = lp[4 * s * S::SRP];
-    a[s][1] = lp[4 * s * S::SRP + 8];
-  }
+    for (int s = 0; s < KS4; ++s) {
+      a[s][0] = lp[(kk + 4 * s) * S::SRP];
+      a[s][1] = lp[(kk + 4 * s) * S::SRP + 8];
+    }
 #pragma unroll
-  for (int c = 0; c < 8; ++c) {
-    double b[KS4];
+    for (int c = 0; c < 8; ++c) {
+      double b[KS4];
 #pragma unroll
-    for (int s = 0; s < KS4; ++s) b[s] = kp[4 * s * S::TQP + 8 * c];
-    dmma(acc[c], a, b);
+      for (int s = 0; s < KS4; ++s) b[s] = kp[(kk + 4 * s) * S::TQP + 8 * c];
+      dmma(acc[c], a, b);
+    }
   }
 }
 
-// The end of a float64 strip: the warp's tile (rows row0 + g + 8 hh) into
-// alpha^T A and sum A^2, reduced over the g lanes (reduce_tiles: lane g
-// holds query tile g) and stored (first strip) or added to the warp's
-// partial sums red[c][q]. Rows at or past n hold exact zeros. Clears acc.
+// The end of a float64 round: the warp's tile (rows row0 + g + 8 h; none
+// where its panel slot is empty) into alpha^T A and sum A^2, reduced over
+// the g lanes (reduce_tiles: lane g holds query tile g) and stored (first)
+// or added to its panel slot's partial sums red[c][q]. Rows at or past n
+// hold exact zeros. Clears acc.
 __device__ __forceinline__ void strip_reduce_dmma(
     double (&acc)[8][4], double* red, const double* __restrict__ alpha,
-    int row0, int n, int p, int lane, bool first) {
+    int row0, bool held, int n, int p, int lane, bool first) {
   constexpr int TQ = Strip<double>::TQ;
   const int g = lane >> 2, t = lane & 3;
   auto put = [&](double* dst, int e, double x) {
@@ -1898,8 +1999,10 @@ __device__ __forceinline__ void strip_reduce_dmma(
 #pragma unroll 1
   for (int o = 0; o < p; ++o) {
     const int i0 = row0 + g, i1 = row0 + g + 8;
-    const double al0 = i0 < n ? __ldg(alpha + (int64_t)i0 * p + o) : 0.0;
-    const double al1 = i1 < n ? __ldg(alpha + (int64_t)i1 * p + o) : 0.0;
+    const double al0 =
+        held && i0 < n ? __ldg(alpha + (int64_t)i0 * p + o) : 0.0;
+    const double al1 =
+        held && i1 < n ? __ldg(alpha + (int64_t)i1 * p + o) : 0.0;
 #pragma unroll
     for (int e = 0; e < 2; ++e) {
       double v[8];
@@ -1914,11 +2017,11 @@ __device__ __forceinline__ void strip_reduce_dmma(
   strip_zero(acc);
 }
 
-// A = L^-1 K for one item (query tile, output) by strips, and its
-// reductions into red ([NWARP][p + 1][TQ]); fill(kb, jc0) evaluates the
-// output's K rows jc0 .. jc0 + JC - 1 for the item's queries into a K
-// buffer (strip_fill). Every thread of the block must call this; on
-// return every warp's partials are in red.
+// A = L^-1 K for one item (query tile, output) by this block's panels, and
+// its reductions into red ([RED][p + 1][TQ]); fill(kb, jc0) stores this
+// block's share of the output's K rows jc0 .. jc0 + JC - 1 into every
+// block's K buffer kb (strip_fill). Every thread of every block of the
+// cluster must call this; on return every block's partials are in its red.
 template <typename T, class Fill>
 __device__ __forceinline__ void solve_strips(T* ring, T* kbuf, T* red,
                                              const Fill& fill,
@@ -1928,60 +2031,208 @@ __device__ __forceinline__ void solve_strips(T* ring, T* kbuf, T* red,
   using S = Strip<T>;
   constexpr int SLOT = S::JC * S::SRP;
   constexpr int KB = S::JC * S::TQP;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int csize = (int)cluster.num_blocks();
+  const int rank = (int)cluster.block_rank();
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
-  T* wred = red + warp * (p + 1) * S::TQ;
-  // This thread's first row in a slot and first query in a K buffer.
+  // This warp's panel slot and its rows there (float32: 32 rows, a thread
+  // 8 of them; float64: one 16-row mma tile); this thread's first element
+  // in a slot and in a K buffer.
+  const int ws = warp / S::WSLOT;
+  const int wrow = (warp % S::WSLOT) * S::WROWS;
   int lrow, kq;
   if constexpr (S::F32) {
-    lrow = warp * S::WROWS + 4 * (lane / WC);
+    lrow = S::PANEL * ws + wrow + 4 * (lane / WC);
     kq = 4 * (lane % WC);
   } else {
-    lrow = (lane & 3) * S::SRP + warp * S::WROWS + (lane >> 2);
+    lrow = (lane & 3) * S::SRP + S::PANEL * ws + wrow + (lane >> 2);
     kq = (lane & 3) * S::TQP + (lane >> 2);
   }
-  const StripCopy<T> cp;
-  StripCursor<T> cur(n), ic(n);
-  strip_fetch(ring, chol_inv, cap, ic, cp);
-  cp_async_commit();
-  fill(kbuf, ic.jc0());
-  ic.next();
   T acc[8][S::F32 ? 8 : 4];
-  strip_zero(acc);
-  for (int t = 0; cur.valid(); ++t) {
-    cp_async_wait<0>();  // chunk t has landed (this thread's part)
-    __syncthreads();  // ... every thread's, and its K; t - 1's buffers free
-    T* kb_next = kbuf + (t + 1) % 2 * KB;
-    if (ic.valid()) {
-      strip_fetch(ring + (t + 1) % S::NSLOT * SLOT, chol_inv, cap, ic, cp);
+  const int rounds = strip_rounds(n, csize);
+  for (int rd = 0; rd < rounds; ++rd) {
+    int pan[STRIP_SLOTS];
+    const int end = min(n, S::PANEL * strip_deal(n, csize, rd, rounds, rank,
+                                              pan));
+    const int nch = (end + S::JC - 1) / S::JC;
+    // The warp's panel, its first row there, and the end of its work: the
+    // chunks below its last row (or the count).
+    int mine = -1;
+#pragma unroll
+    for (int s = 0; s < STRIP_SLOTS; ++s) {
+      if (s == ws) mine = pan[s];
     }
+    const int row0 = S::PANEL * mine + wrow;
+    const int wend = mine >= 0 ? min(n, row0 + S::WROWS) : 0;
+    T* wring = ring + S::PANEL * ws + wrow;  // the warp's rows of slot 0
+    if (wend > 0) strip_fetch(wring, chol_inv, cap, n, row0, 0, lane);
     cp_async_commit();
-    if (ic.valid()) fill(kb_next, ic.jc0());
-    const T* slot = ring + t % S::NSLOT * SLOT;
-    const T* kb = kbuf + t % 2 * KB;
-    const int wr0 = cur.r0() + warp * S::WROWS;  // the warp's first row
-    if constexpr (S::F32) {
-      const int jn = wr0 < n ? min(n, wr0 + S::WROWS) - cur.jc0() : 0;
-      if (jn > 0) {
-        strip_chunk(acc, slot + lrow, kb + kq, min(S::JC, (jn + 7) & ~7));
+    fill(kbuf, 0);
+    cluster_arrive();
+    strip_zero(acc);
+    for (int t = 0; t < nch; ++t) {
+      // Every block's share of chunk t's K is in every K buffer, and every
+      // block is done with chunk t - 2, whose buffer the next fill takes.
+      cluster_wait();
+      const int jn = (t + 1) * S::JC;
+      if (jn < wend) {
+        strip_fetch(wring + (t + 1) % S::NSLOT * SLOT, chol_inv, cap, n,
+                    row0, jn, lane);
       }
-      if (cur.last_chunk() && (cur.si == 0 || wr0 < n)) {
-        strip_reduce(acc, wred, alpha, wr0 + 4 * (lane / WC), n, p,
-                     lane / WC, lane % WC, cur.si == 0);
-      }
-    } else {
-      if (wr0 < n && cur.jc0() < wr0 + S::WROWS) {
-        strip_chunk_dmma(acc, slot + lrow, kb + kq);
-      }
-      if (cur.last_chunk() && (cur.si == 0 || wr0 < n)) {
-        strip_reduce_dmma(acc, wred, alpha, wr0, n, p, lane, cur.si == 0);
+      cp_async_commit();  // one group a chunk, empty where none is copied
+      if (t + 1 < nch) fill(kbuf + (t + 1) % S::NKB * KB, jn);
+      cluster_arrive();
+      if (t * S::JC < wend) {
+        cp_async_wait<1>();  // chunk t's chol_inv has landed (this lane's)
+        __syncwarp();        // ... the warp's
+        const T* slot = ring + t % S::NSLOT * SLOT;
+        const T* kb = kbuf + t % S::NKB * KB;
+        if constexpr (S::F32) {
+          strip_chunk(acc, slot + lrow, kb + kq);
+        } else {
+          strip_chunk_dmma(acc, slot + lrow, kb + kq);
+        }
       }
     }
-    ic.next();
-    cur.next();
+    cluster_wait();
+    cp_async_wait<0>();
+    const bool held = mine >= 0;
+    if constexpr (S::F32) {
+      strip_reduce(acc, red + warp * (p + 1) * S::TQ, alpha,
+                   row0 + 4 * (lane / WC), held, n, p, lane / WC, lane % WC,
+                   rd == 0);
+    } else {
+      // The 4 tiles of a panel slot add into its partial sums in turns.
+#pragma unroll 1
+      for (int i = 0; i < S::WSLOT; ++i) {
+        if (warp % S::WSLOT == i) {
+          strip_reduce_dmma(acc, red + ws * (p + 1) * S::TQ, alpha, row0,
+                            held, n, p, lane, rd == 0 && i == 0);
+        }
+        __syncthreads();
+      }
+    }
+    // Every block's partials of the round are in its red; every block is
+    // done with the round's buffers.
+    cluster.sync();
   }
-  cp_async_wait<0>();
-  __syncthreads();  // every warp's partials are in red
+}
+
+// Store output `out` of the item at q0: each value the sum of every
+// block's partial-sum slots of the cluster (distributed shared memory), in
+// block-rank, then slot order, the cluster's threads taking the values in
+// turns. Every block's red is complete (solve_strips ends in a cluster
+// barrier); the caller synchronises the cluster before red is reused.
+template <typename T>
+__device__ __forceinline__ void strip_store(T* red, int64_t q0, int64_t n_q,
+                                            int p, int n_out, int out,
+                                            T* __restrict__ mean_out,
+                                            T* __restrict__ var_out) {
+  using S = Strip<T>;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int csize = (int)cluster.num_blocks();
+  const int rank = (int)cluster.block_rank();
+  const int per = (p + 1) * S::TQ;
+  for (int idx = rank * S::NTH + (int)threadIdx.x; idx < per;
+       idx += csize * S::NTH) {
+    const int c = idx / S::TQ;
+    const int ql = idx - c * S::TQ;
+    const int64_t qi = q0 + ql;
+    if (qi >= n_q) continue;
+    T sum = T(0);
+    for (int b = 0; b < csize; ++b) {
+      const T* rb = cluster.map_shared_rank(red, b);
+#pragma unroll
+      for (int w = 0; w < S::RED; ++w) {
+        const T v = rb[(w * (p + 1) + c) * S::TQ + ql];
+        sum = b == 0 && w == 0 ? v : sum + v;
+      }
+    }
+    if (c < p) {
+      mean_out[(qi * n_out + out) * p + c] = sum;
+    } else {
+      var_out[qi * n_out + out] = sum;
+    }
+  }
+}
+
+// What the launches of one strip instantiation ask of the CUDA runtime,
+// asked once per device, dynamic shared-memory size and cluster size: the
+// clusters the device holds at once. On a miss the kernel's shared-memory
+// opt-in is raised to the largest size seen on that device, as in
+// GridCache.
+struct ClusterCache {
+  static constexpr int N = 16;
+  std::mutex lock;
+  int n = 0;
+  int dev[N];
+  size_t smem[N];
+  int csize[N];
+  int clusters[N];
+};
+
+// A launch configuration of `blocks` blocks of `threads` threads in
+// clusters of csize (attr holds the cluster dimension).
+inline cudaLaunchConfig_t cluster_config(int64_t blocks, int threads,
+                                         size_t smem, int csize,
+                                         cudaStream_t stream,
+                                         cudaLaunchAttribute* attr) {
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = (unsigned)csize;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)blocks);
+  cfg.blockDim = dim3((unsigned)threads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
+}
+
+// Clusters of csize `threads`-thread blocks the device holds at once
+// (cudaOccupancyMaxActiveClusters), at least 1, else an error: a cluster
+// that does not fit is refused, never run otherwise.
+template <class Kernel>
+inline cudaError_t cluster_grid(ClusterCache& cache, Kernel kernel,
+                                size_t smem, int threads, int csize,
+                                int* clusters) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  std::lock_guard<std::mutex> guard(cache.lock);
+  size_t opt_in = smem;
+  for (int i = 0; i < cache.n; ++i) {
+    if (cache.dev[i] != dev) continue;
+    if (cache.smem[i] == smem && cache.csize[i] == csize) {
+      *clusters = cache.clusters[i];
+      return cudaSuccess;
+    }
+    if (cache.smem[i] > opt_in) opt_in = cache.smem[i];
+  }
+  // Above 48 KB a launch is refused unless the kernel opts in.
+  err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)opt_in);
+  if (err != cudaSuccess) return err;
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg =
+      cluster_config(csize, threads, smem, csize, nullptr, &attr);
+  int found = 0;
+  err = cudaOccupancyMaxActiveClusters(&found, kernel, &cfg);
+  if (err != cudaSuccess) return err;
+  if (found < 1) return cudaErrorInvalidConfiguration;
+  // A full cache asks again next time.
+  if (cache.n < ClusterCache::N) {
+    cache.dev[cache.n] = dev;
+    cache.smem[cache.n] = smem;
+    cache.csize[cache.n] = csize;
+    cache.clusters[cache.n] = found;
+    ++cache.n;
+  }
+  *clusters = found;
+  return cudaSuccess;
 }
 
 // ---------------------------------------------------------------------------

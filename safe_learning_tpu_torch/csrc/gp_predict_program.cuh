@@ -432,8 +432,9 @@ gp_program_panel(const Args<T> a) {
   }
 }
 
-// Output s's K rows jc0 .. jc0 + JC - 1 for the strip body: its program
-// at the rows of x and this thread's query, whose coordinates (qv) and the
+// Output s's K rows jc0 .. jc0 + JC - 1 for the strip body, this block's
+// share of them stored into every block of the cluster: its program at
+// the rows of x and this thread's query, whose coordinates (qv) and the
 // parameters (pr) are read from shared memory (OUT runs through the
 // outputs at compile time).
 template <typename T, class Prog, int OUT = 0>
@@ -461,12 +462,15 @@ __host__ __device__ constexpr size_t strip_bytes(int p) {
 }
 
 // The strip body (gp_predict_common.cuh), above the panel body's largest
-// count: a persistent grid over (query tile, output) items, chol_inv and K
-// streamed through shared memory by chunks.
+// count: a persistent grid of clusters of strip_cluster(n) blocks over
+// (query tile, output) items, K shared across a cluster's blocks and
+// chol_inv streamed into each by chunks.
 template <typename T, class Prog>
 __global__ void __launch_bounds__(Strip<T>::NTH, Strip<T>::BLOCKS)
 gp_program_strip(const Args<T> a) {
   using S = Strip<T>;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int csize = (int)cluster.num_blocks();
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const StripSmem<T> sm(smem_raw, a.p);
   for (int i = threadIdx.x; i < Prog::NUM_PARAMS; i += S::NTH) {
@@ -478,34 +482,57 @@ gp_program_strip(const Args<T> a) {
       sm.qs + threadIdx.x % S::TQ * QS_STRIDE);
   const T s2 = *a.s2;
   const int64_t items = (a.n_q + S::TQ - 1) / S::TQ * Prog::NUM_OUT;
-  for (int64_t it = blockIdx.x; it < items; it += gridDim.x) {
+  const int64_t clusters = gridDim.x / csize;
+  for (int64_t it = blockIdx.x / csize; it < items; it += clusters) {
     const int64_t q0 = it / Prog::NUM_OUT * S::TQ;
     const int s = (int)(it % Prog::NUM_OUT);
-    // The last item's fills are done (solve_strips ends in a barrier).
+    // The last item's fills and reads are done (it ends in a cluster
+    // barrier).
     strip_queries(sm.qs, a.q, q0, a.n_q, a.d);
     __syncthreads();  // the queries (and the parameters) staged
     solve_strips(sm.ring, sm.kbuf, sm.red, [&](T* kb, int jc0) {
       strip_fill_out<T, Prog>(s, kb, jc0, a, qv, pr, s2);
     }, a.chol_inv + (int64_t)s * a.cap * a.cap,
        a.alpha + (int64_t)s * a.cap * a.p, a.cap, a.n, a.p);
-    store_slots<T, S::TQ, S::NWARP, S::NTH>(sm.red, q0, a.n_q, a.p,
-                                            Prog::NUM_OUT, s, a.mean_out,
-                                            a.var_out, (int)threadIdx.x);
+    strip_store(sm.red, q0, a.n_q, a.p, Prog::NUM_OUT, s, a.mean_out,
+                a.var_out);
+    cluster.sync();  // every block's partials read; its buffers are free
   }
 }
 
+// The cluster cache of one strip instantiation.
+template <typename T, class Prog>
+ClusterCache& strip_cache() {
+  static ClusterCache cache;
+  return cache;
+}
+
+// The strip launch at a count and p: its cluster size and the clusters
+// the device holds at once (cluster_grid).
+template <typename T, class Prog>
+cudaError_t strip_clusters(int count, int p, int* csize, int* clusters) {
+  *csize = strip_cluster(count);
+  return cluster_grid(strip_cache<T, Prog>(), gp_program_strip<T, Prog>,
+                      strip_bytes<T, Prog>(p), Strip<T>::NTH, *csize,
+                      clusters);
+}
+
+// A persistent grid of clusters, at most one an item, launched with its
+// cluster dimension (cudaLaunchKernelEx); a refused launch returns its
+// error.
 template <typename T, class Prog>
 cudaError_t launch_strip(const Args<T>& a, cudaStream_t stream) {
   using S = Strip<T>;
-  static GridCache cache;
-  auto kernel = gp_program_strip<T, Prog>;
-  const size_t smem = strip_bytes<T, Prog>(a.p);
-  const int64_t items = (a.n_q + S::TQ - 1) / S::TQ * Prog::NUM_OUT;
-  int grid = 0;
-  const cudaError_t err =
-      persistent_grid(cache, kernel, smem, items, 1, &grid, S::NTH);
+  int csize = 0, clusters = 0;
+  cudaError_t err = strip_clusters<T, Prog>(a.n, a.p, &csize, &clusters);
   if (err != cudaSuccess) return err;
-  kernel<<<grid, S::NTH, smem, stream>>>(a);
+  const int64_t items = (a.n_q + S::TQ - 1) / S::TQ * Prog::NUM_OUT;
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg = cluster_config(
+      (items < clusters ? items : clusters) * csize, S::NTH,
+      strip_bytes<T, Prog>(a.p), csize, stream, &attr);
+  err = cudaLaunchKernelEx(&cfg, gp_program_strip<T, Prog>, a);
+  if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
 
@@ -733,8 +760,10 @@ long long smem_bytes(int count, int p, int d) {
 // arguments and launch the streamed body whatever the count.
 // gp_program_smem_bytes is the dynamic shared memory of one block at a
 // count, p and d, gp_program_body the body a launch takes there (0 tiled,
-// 1 panel, 2 strip) and gp_program_panel_max the largest count of the
-// panel body; they are introspection only.
+// 1 panel, 2 strip), gp_program_panel_max the largest count of the panel
+// body and gp_program_strip_clusters a strip launch's cluster size and the
+// clusters of that size the device holds at once (0 or a cudaError_t);
+// they are introspection only.
 #define GP_PROGRAM_ENTRY(NAME, FN, T, PROG)                                 \
   int NAME(const void* q, const void* x, const void* params,               \
            const void* chol_inv, const void* alpha, const void* mask,      \
@@ -777,5 +806,15 @@ long long smem_bytes(int count, int p, int d) {
   int gp_program_panel_max(int itemsize) {                                  \
     return itemsize == 8 ? gp_common::panel_max<double>()                   \
                          : gp_common::panel_max<float>();                   \
+  }                                                                         \
+  int gp_program_strip_clusters(int count, int itemsize, int p, int* csize, \
+                                int* clusters) {                            \
+    return itemsize == 8                                                    \
+               ? (int)gp_program::strip_clusters<double, PROG>(count, p,    \
+                                                               csize,       \
+                                                               clusters)    \
+               : (int)gp_program::strip_clusters<float, PROG>(count, p,     \
+                                                              csize,        \
+                                                              clusters);    \
   }                                                                         \
   }

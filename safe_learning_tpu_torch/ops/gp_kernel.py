@@ -73,6 +73,7 @@ __all__ = ["KINDS", "fused_gp_predict", "gp_predict_plain",
            "bind_variants", "bind_kernel1", "bind_program",
            "launch_stationary", "PROGRAM_BODIES",
            "program_body", "program_panel_max", "stationary_body",
+           "stationary_strip_clusters", "program_strip_clusters",
            "gp_predict_streamed_cuda", "gp_predict_stacked_streamed_cuda",
            "kernels"]
 
@@ -209,6 +210,21 @@ def _limits(lib, fn):
     lib.limits = d_max.value, p_max.value
 
 
+def _bind_strip_clusters(fn):
+    """Bind ``fn(int count, int itemsize, int p, int *csize, int
+    *clusters)``, a library's strip-cluster query."""
+    fn.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)] * 2
+    fn.restype = ctypes.c_int
+
+
+def _strip_clusters(lib, fn, count, dtype, p):
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    csize, clusters = ctypes.c_int(), ctypes.c_int()
+    _raise_on_error(fn(int(count), itemsize, int(p), ctypes.byref(csize),
+                       ctypes.byref(clusters)), lib, "strip cluster query")
+    return csize.value, clusters.value
+
+
 @functools.lru_cache(maxsize=None)
 def kernel_library():
     """Build (first call only) and bind ``csrc/gp_predict.cu``."""
@@ -218,8 +234,10 @@ def kernel_library():
     return bind_kernel1(lib)
 
 
-def bind_kernel1(lib):
-    """Bind a build of ``csrc/gp_predict.cu``; returns ``lib``."""
+def bind_kernel1(lib, launch_only=False):
+    """Bind a build of ``csrc/gp_predict.cu``; returns ``lib``.
+    ``launch_only``: what a launch needs alone, not the introspection
+    entries (a build of another commit's ``csrc/``, whose may differ)."""
     args = ([ctypes.c_void_p] * 6
             + [ctypes.c_int64] + [ctypes.c_int] * 5
             + [ctypes.c_void_p] * 3)
@@ -227,8 +245,10 @@ def bind_kernel1(lib):
                lib.gp_predict_streamed_f32, lib.gp_predict_streamed_f64):
         fn.argtypes = args
         fn.restype = ctypes.c_int
-    lib.gp_predict_body.argtypes = [ctypes.c_int] * 4
-    lib.gp_predict_body.restype = ctypes.c_int
+    if not launch_only:
+        lib.gp_predict_body.argtypes = [ctypes.c_int] * 4
+        lib.gp_predict_body.restype = ctypes.c_int
+        _bind_strip_clusters(lib.gp_predict_strip_clusters)
     lib.gp_predict_error_string.argtypes = [ctypes.c_int]
     lib.gp_predict_error_string.restype = ctypes.c_char_p
     lib.error_string = lib.gp_predict_error_string
@@ -780,6 +800,7 @@ def render_program_source(programs):
 
 
 _STATIONARY_JOB = ("gp_predict", ["gp_predict.cu", "gp_predict_stationary.cuh",
+                                   "gp_predict_program.cuh",
                                    "gp_predict_common.cuh"], None, None)
 
 #: The four variants of kernel 1 (``csrc/gp_predict_variants.cu``), which
@@ -823,9 +844,9 @@ def program_library(programs):
     return bind_program(lib)
 
 
-def bind_program(lib):
+def bind_program(lib, launch_only=False):
     """Bind a build of a program library (:func:`render_program_source`);
-    returns ``lib``."""
+    returns ``lib``. ``launch_only``: as :func:`bind_kernel1`'s."""
     args = ([ctypes.c_void_p] * 7
             + [ctypes.c_int64] + [ctypes.c_int] * 4
             + [ctypes.c_void_p] * 3)
@@ -838,12 +859,14 @@ def bind_program(lib):
     lib.error_string = lib.gp_program_error_string
     lib.gp_program_limits.argtypes = [ctypes.POINTER(ctypes.c_int)] * 5
     lib.gp_program_limits.restype = ctypes.c_int
-    lib.gp_program_smem_bytes.argtypes = [ctypes.c_int] * 4
-    lib.gp_program_smem_bytes.restype = ctypes.c_longlong
-    lib.gp_program_body.argtypes = [ctypes.c_int] * 4
-    lib.gp_program_body.restype = ctypes.c_int
-    lib.gp_program_panel_max.argtypes = [ctypes.c_int]
-    lib.gp_program_panel_max.restype = ctypes.c_int
+    if not launch_only:
+        lib.gp_program_smem_bytes.argtypes = [ctypes.c_int] * 4
+        lib.gp_program_smem_bytes.restype = ctypes.c_longlong
+        lib.gp_program_body.argtypes = [ctypes.c_int] * 4
+        lib.gp_program_body.restype = ctypes.c_int
+        lib.gp_program_panel_max.argtypes = [ctypes.c_int]
+        lib.gp_program_panel_max.restype = ctypes.c_int
+        _bind_strip_clusters(lib.gp_program_strip_clusters)
     limits = [ctypes.c_int() for _ in range(5)]
     lib.gp_program_limits(*(ctypes.byref(v) for v in limits))
     lib.limits = dict(zip(("d_max", "p_max", "num_out", "num_params",
@@ -860,6 +883,24 @@ def program_body(programs, count, dtype, p=1, d=3):
     itemsize = torch.empty((), dtype=dtype).element_size()
     lib = program_library(tuple(programs))
     return PROGRAM_BODIES[lib.gp_program_body(int(count), itemsize, p, d)]
+
+
+def stationary_strip_clusters(count, dtype, p=1):
+    """Kernel 1's strip body at ``count`` rows and ``p`` outputs: the blocks
+    of the thread-block cluster an item takes and how many such clusters
+    the device holds at once (``cudaOccupancyMaxActiveClusters``).
+    Introspection only; raises where the device refuses the cluster."""
+    lib = kernel_library()
+    return _strip_clusters(lib, lib.gp_predict_strip_clusters, count, dtype,
+                           p)
+
+
+def program_strip_clusters(programs, count, dtype, p=1):
+    """:func:`stationary_strip_clusters` for kernel 2 or 3's program
+    library of ``programs``."""
+    lib = program_library(tuple(programs))
+    return _strip_clusters(lib, lib.gp_program_strip_clusters, count, dtype,
+                           p)
 
 
 def program_panel_max(programs, dtype):

@@ -118,6 +118,88 @@ def test_float64_outputs_do_not_depend_on_position(on_cuda, kernel, count):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("kernel,count", [(1, 2048), (2, 1025), (3, 1021)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_strip_outputs_do_not_depend_on_position_or_launch_size(
+        on_cuda, kernel, count, dtype):
+    """The strip body, in both dtypes: each query's outputs are the same,
+    bit for bit, wherever it lies in a launch (``chip_smoke.
+    position_check``: shifted by 1 to 63, reversed, alone) and whatever
+    the launch's size (``chip_smoke.launch_size_check``: alone, in a
+    launch of 2,000 and in one of 2^20): the order of every sum is fixed
+    by the count."""
+    from chip_smoke import (STACKED_SETS, case_gp, case_inputs,
+                            case_queries, launch_size_check, position_check,
+                            program_case)
+
+    cap = 1024 if count <= 1024 else 2048
+    if kernel == 1:
+        gp = case_gp("matern32", cap, 2, 2.5, dtype, seed=count, n=count)
+        inputs = case_inputs(gp, 2 ** 20, count)
+
+        def fn(q):
+            return gp_kernel.gp_predict_cuda(q, *inputs[1:], kind="matern32",
+                                             count=count)
+        queries = inputs[0]
+    else:
+        route = "general" if kernel == 2 else "stacked"
+        names = ("product",) if kernel == 2 else STACKED_SETS[2]
+        inputs, programs = program_case(route, names, cap, 2, 2.5, dtype,
+                                        seed=count, n=count)
+        cuda = (gp_kernel.gp_predict_general_cuda if kernel == 2
+                else gp_kernel.gp_predict_stacked_cuda)
+        arg = programs[0] if kernel == 2 else programs
+
+        def fn(q):
+            return cuda(q, *inputs, arg, count=count)
+        queries = case_queries(2 ** 20, inputs[0], count)
+    assert position_check(fn, queries[:1000].contiguous(), 64) > 1
+    assert launch_size_check(fn, queries) > 2
+
+
+def grown_instance(n, capacity):
+    """``stacked_instance``'s models on ``n`` data points at ``capacity``
+    in ``config.dtype``, refining where the coarse check fails."""
+    rng = np.random.default_rng(0)
+    x = np.column_stack([rng.uniform(-1, 1, (n, 2)), np.zeros(n)])
+    gp = st.StackedGaussianProcess(
+        [st.Matern32(0.5, [0.4] * 3, input_dim=3)] * 2, x, 0.5 * x[:, :2],
+        [1e-3] * 2, capacity=capacity)
+    grid = st.GridWorld([[-1.0, 1.0], [-1.0, 1.0]], 5)
+    lv = st.LambdaFunction(lambda points: 2.0 * torch.abs(points))
+    return st.Lyapunov(grid, st.QuadraticFunction(np.eye(2)), gp, 0.5, lv,
+                       0.1, st.LinearSystem(np.zeros((1, 2))),
+                       initial_set=[12], adaptive=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_strip_body_launches_once_a_pass_chunk_and_step(on_cuda, dtype):
+    """At count 1,021 (the adaptive loop grown, the strip body) kernel 3
+    launches once per coarse pass and refinement chunk of an adaptive
+    certify and once per sampler step of ``get_safe_sample_batch``, as
+    its launch counter shows."""
+    st.config.dtype = dtype
+    lyap = grown_instance(1021, 1024)
+    programs = lyap.dynamics._programs()[0]
+    assert gp_kernel.program_body(programs, 1021, dtype) == "strip"
+    cuda = gp_kernel.gp_predict_stacked_cuda
+    before = cuda.launches
+    lyap.update_safe_set(can_shrink=False, max_refinement=4)
+    counts = lyap.last_sweep_counts
+    assert counts["coarse_batches"] >= 1
+    assert cuda.launches - before == (counts["coarse_batches"]
+                                      + counts["refinement_chunks"])
+    before = cuda.launches
+    st.get_safe_sample_batch(
+        lyap, st.LambdaFunction(lambda sa: 0.5 * sa[:, :2]), 3,
+        np.array([[0.0], [0.1]]), np.array([[-1.0, 1.0]]), num_samples=10,
+        rng=np.random.default_rng(0))
+    assert cuda.launches - before == 3
+    assert lyap.dynamics.count == 1024
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("kernel", [1, 3])
 def test_float64_error_within_the_margin_model(on_cuda, kernel):
     """The float64 kernel's error against ``numpy.longdouble`` stays

@@ -467,6 +467,78 @@ def test_general_kernel_above_128_rows(on_cuda, count, dtype):
     assert got == want
 
 
+#: The strip body's edges by dtype (``chip_smoke.STRIP_EDGES``): one past
+#: the panel body's largest count, the 64-row panel and 256-row cluster
+#: block edges, the largest count a GP routes to a kernel.
+STRIP_EDGE_CASES = ([("float32", count) for count in (513, 1021, 1024, 1025,
+                                                      2048)]
+                    + [("float64", count) for count in (257, 512, 513, 1021,
+                                                        2048)])
+
+
+def same_bits(a, b):
+    """Whether two tuples of outputs are equal bit for bit."""
+    return all(torch.equal(x.contiguous().view(torch.uint8),
+                           y.contiguous().view(torch.uint8))
+               for x, y in zip(a, b))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_q", [1, 63, 64, 65, 2000, 2 ** 20])
+@pytest.mark.parametrize("dtype,count", STRIP_EDGE_CASES)
+def test_strip_body_at_its_edges(on_cuda, dtype, count, n_q):
+    """Kernels 1, 2 and 3 on the strip body, a thread-block cluster of
+    ``chip_smoke.expected_cluster(count)`` blocks an item, at each of its
+    edges and at 1 to 2^20 queries (both sides of the 64-query item, a
+    sampler step, a refinement chunk), p up to 8 and d up to 16: one launch
+    a call, within ``chip_smoke.rounding_bounds`` and ``program_bounds`` of
+    the plain versions. Kernels 2 and 3 at 2^20 queries hold their first
+    4,099 to the plain versions and, bit for bit, to a launch of their
+    own."""
+    from chip_smoke import (STACKED_SETS, case_gp, case_inputs,
+                            case_queries, compare, compare_program,
+                            expected_cluster, program_case)
+
+    dtype = getattr(torch, dtype)
+    cap = next(c for c in (512, 1024, 2048) if c >= count)
+    p, d = ((8, 16), (2, 3), (1, 5))[(count + n_q) % 3]
+    seed = count + n_q
+    gp = case_gp("matern52", cap, p, 2.5, dtype, seed=seed, n=count, d=d)
+    before = gp_kernel.gp_predict_cuda.launches
+    _, _, ratio = compare(case_inputs(gp, n_q, seed), "matern52",
+                          count=count, chunk=2 ** 18)
+    assert gp_kernel.gp_predict_cuda.launches == before + 1
+    assert ratio <= 1.0
+    assert gp_kernel.stationary_body(count, dtype, p, d) == "strip"
+    assert gp_kernel.stationary_strip_clusters(count, dtype, p)[0] == \
+        expected_cluster(count)
+    head = min(n_q, 4099)
+    for route, names, pp, dd in (
+            ("general", ("product",), p, d),
+            ("stacked", STACKED_SETS[1 if cap > 1024 else 2], 1, 3)):
+        inputs, programs = program_case(route, names, cap, pp, 2.5, dtype,
+                                        seed=seed, n=count, d=dd)
+        points = case_queries(n_q, inputs[0], seed)
+        cuda = (gp_kernel.gp_predict_general_cuda if route == "general"
+                else gp_kernel.gp_predict_stacked_cuda)
+        arg = programs[0] if route == "general" else programs
+        before = cuda.launches
+        if n_q > head:
+            full = cuda(points, *inputs, arg, count=count)
+            alone = cuda(points[:head].contiguous(), *inputs, arg,
+                         count=count)
+            assert same_bits([o[:head] for o in full], alone)
+            points = points[:head].contiguous()
+        _, _, ratio = compare_program(route, (points,) + inputs, programs,
+                                      count=count)
+        assert cuda.launches == before + (3 if n_q > head else 1)
+        assert ratio <= 1.0
+        assert gp_kernel.program_body(programs, count, dtype, pp,
+                                      dd) == "strip"
+        assert gp_kernel.program_strip_clusters(
+            programs, count, dtype, pp)[0] == expected_cluster(count)
+
+
 @pytest.mark.cuda
 def test_adaptive_shapes_take_the_panel_body(on_cuda):
     """The body query: the adaptive example's stacked GP (S = 2, p = 1,
@@ -714,9 +786,9 @@ def test_no_user_path_launches_kernels_4_to_7(on_cuda):
 
 #: The float64 DMMA bodies' edges (``chip_smoke.DMMA_COUNTS``): every k
 #: step, 16-row tile and bucket edge of the tiled body, the panel body's
-#: row tiles and the strip body's strips, row tiles and chunks.
+#: row tiles and the strip body's panels, row tiles, chunks and rounds.
 DMMA_COUNTS = [1, 4, 5, 8, 9, 10, 16, 17, 24, 32, 64, 127, 128, 129, 136,
-               181, 255, 256, 257, 271, 272, 511, 512, 513, 1021]
+               181, 255, 256, 257, 271, 272, 511, 512, 513, 1021, 2048]
 
 
 @pytest.mark.cuda

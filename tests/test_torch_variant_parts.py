@@ -58,3 +58,29 @@ def test_strip_parts_needs_a_card(monkeypatch):
 def test_strip_parts_refuses_an_unknown_name():
     with pytest.raises(SystemExit):
         strip_parts.main(["no_such_alternative"])
+
+
+@pytest.mark.parametrize("size", [1, 4, 8])
+def test_strip_cluster_alternatives_fix_the_cluster_size(size):
+    text = strip_parts.alternative_header("cluster_{}".format(size))
+    assert "  return n > 0 ? {} : 1;".format(size) in text
+    assert strip_parts._CLUSTER not in text
+
+
+def test_strip_fill_after_moves_the_fill_behind_the_solve():
+    text = strip_parts.alternative_header("fill_after")
+    assert text.count(strip_parts._FILL) == 1
+    assert text.index(strip_parts._SOLVE_END) < text.index(strip_parts._FILL)
+
+
+@pytest.mark.parametrize("spec", ["parent={}", "{}", "fill_only={}",
+                                  "source={}"])
+def test_strip_parts_refuses_a_bad_earlier_csrc(tmp_path, spec):
+    """``--earlier NAME=DIR``: a directory without the header, a missing
+    name, or the name of an alternative or of the source is refused."""
+    path = tmp_path / "csrc"
+    path.mkdir()
+    if not spec.startswith("parent"):
+        (path / strip_parts._COMMON).write_text("")
+    with pytest.raises(SystemExit):
+        strip_parts.main(["--earlier", spec.format(path)])
