@@ -311,13 +311,11 @@ Phases, in order; any failure raises and the exit code is not 0:
     oracle; then
     the loop's step times again, to show how far the work before moved
     them;
-28. profiles, after every time: ``profiling.trace`` over the safe-learning and
-    the bench sweeps (``profile_sweep``), over 20 pretraining and 20
-    penalised ascent steps (``profile_training``) and over the adaptive
-    path's batches and certifies (``profile_adaptive``), the device's busy
-    share, its operations per unit and where its time goes; the ascent
-    fails if the host waits for the device inside its step loop
-    (``torch.cuda.set_sync_debug_mode``).
+28. after every time, the host's waits for the device over 20
+    pretraining and 20 penalised ascent steps (``profile_training``): the
+    ascent fails if the host waits inside its step loop
+    (``torch.cuda.set_sync_debug_mode``). Where a certify's time goes is
+    the benchmark's traced run (``portbench``, the port's spans).
 
 The end-to-end times (phases 7 to 19, the sweeps of 21, 22 and 23) come
 before the count cases and before any CUDA graph is captured.
@@ -2195,88 +2193,6 @@ def time_sweep(name, lyap, card):
                                  card))
 
 
-#: Kernel-name fragments of the profile's categories, first match wins.
-PROFILE_GROUPS = (("GP kernel", ("gp_predict", "gp_program")),
-                  ("cuBLAS", ("gemm", "gemv", "cublas", "xmma", "cutlass")),
-                  ("reduction", ("reduce",)),
-                  ("gather/index", ("index", "gather", "scatter")),
-                  ("elementwise", ("elementwise", "vectorized")),
-                  ("copy/fill", ("copy", "fill", "memcpy", "memset")))
-
-
-def profile_sweep(name, lyap, card, sweeps=5):
-    """``profile_window`` over ``sweeps`` sweeps."""
-    sweep = sweep_fn(lyap)
-
-    def run():
-        for _ in range(sweeps):
-            sweep()
-
-    return profile_window("{} sweep".format(name), run, sweeps, card)
-
-
-def profile_window(label, run, reps, card):
-    """Where the device time of ``run`` (``reps`` repetitions of a unit:
-    a sweep, an ascent step) goes: ``profiling.trace`` over one call after
-    a warm-up call, the call in a ``profiling.named_scope`` of ``label``,
-    kernels grouped by ``PROFILE_GROUPS``, beside the CUDA-event time of
-    the same window. Prints the device's busy share, the device
-    operations a unit, the largest kernels and the size of the Chrome
-    trace (written to a temporary directory and dropped); returns the
-    groups' milliseconds per unit."""
-    from torch.autograd import DeviceType
-
-    run()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    with tempfile.TemporaryDirectory() as log_dir:
-        with profiling.trace(log_dir) as prof:
-            with profiling.named_scope(label):
-                start.record()
-                run()
-                end.record()
-                torch.cuda.synchronize()
-        trace_bytes = sum(os.path.getsize(os.path.join(log_dir, f))
-                          for f in os.listdir(log_dir))
-    wall = start.elapsed_time(end) / reps
-    kernels, host = [], []
-    for ev in prof.key_averages():
-        # The named scope spans the window on both timelines; it is no
-        # operation of the host nor a kernel of the device.
-        if ev.key == label:
-            continue
-        if ev.device_type != DeviceType.CUDA:
-            host.append((ev.self_cpu_time_total / 1e3 / reps, ev.key))
-            continue
-        us = getattr(ev, "self_device_time_total", None)
-        if us is None:
-            us = ev.self_cuda_time_total
-        kernels.append((us / 1e3 / reps, ev.count / reps, ev.key))
-    busy = sum(ms for ms, _, _ in kernels)
-    print("{} trace: {} bytes of Chrome trace".format(label, trace_bytes))
-    print("{} host: {!r} ms a unit inside PyTorch's operators (self CPU "
-          "time under the profiler), the rest in Python; largest: {}".format(
-              label, sum(ms for ms, _ in host), ", ".join(
-                  "{} {:.4f} ms".format(key, ms)
-                  for ms, key in sorted(host, reverse=True)[:6])))
-    groups = {}
-    for ms, _, key in kernels:
-        group = next((g for g, frags in PROFILE_GROUPS
-                      if any(f in key.lower() for f in frags)), "other")
-        groups[group] = groups.get(group, 0.0) + ms
-    print("{} profile: {!r} ms a unit by CUDA events, device busy {!r} ms "
-          "({:.1%}), {!r} device operations a unit [{}]".format(
-              label, wall, busy, busy / wall if wall else 0.0,
-              sum(count for _, count, _ in kernels), card))
-    for group, ms in sorted(groups.items(), key=lambda kv: -kv[1]):
-        print("  {}: {!r} ms ({:.1%} of busy)".format(group, ms,
-                                                      ms / busy))
-    for ms, count, key in sorted(kernels, reverse=True)[:8]:
-        print("  {!r} ms, {!r} a unit: {}".format(ms, count, key[:110]))
-    return groups
-
-
 def graph_ms(fn, reps=10, batch=10):
     """Median milliseconds of one call of ``fn`` on the device: ``batch``
     calls captured in a CUDA graph, the graph replayed ``reps`` times
@@ -3802,10 +3718,11 @@ def training_times(card, trainer, minibatch):
 
 
 def profile_training(card, trainer, penalised, steps=20):
-    """``profile_window`` over ``steps`` ascent steps, penalised (learning
-    rate 0.01, minibatches from the safety grid) or as in pretraining (0.1,
-    the policy grid, no penalty), on a copy of the trainer's
-    ``PolicyIteration`` with its generator cloned."""
+    """The host's waits for the device over ``steps`` ascent steps,
+    penalised (learning rate 0.01, minibatches from the safety grid) or as
+    in pretraining (0.1, the policy grid, no penalty), on a copy of the
+    trainer's ``PolicyIteration`` with its generator cloned: every
+    synchronising call, by caller; fails on one a step or more."""
     rl = copy.copy(trainer.rl)
     lyap = trainer.lyap
     twin = torch.Generator(device=st.config.device)
@@ -3826,7 +3743,6 @@ def profile_training(card, trainer, penalised, steps=20):
 
     label = "{} ascent step".format("penalised" if penalised
                                     else "pretraining")
-    groups = profile_window(label, run, steps, card)
     # The host may wait for the device around an ascent (its box's limits
     # to the card, its losses back), never inside the step loop: every
     # synchronising call of one run is counted, by caller.
@@ -3845,7 +3761,6 @@ def profile_training(card, trainer, penalised, steps=20):
     if sum(syncs.values()) >= steps:
         raise AssertionError("the host waits for the device inside the "
                              "ascent's step loop")
-    return groups
 
 
 # ---------------------------------------------------------------------------
@@ -4178,7 +4093,7 @@ def phase_adaptive(card, updates=ADAPTIVE_UPDATES):
     launches replayed on the body they take and on the streamed body.
     Returns a namespace: ``lyap``, ``inst``, ``launches`` (kernel 3's
     over the run), ``chunk_states`` (the last refinement chunk's states),
-    ``gp_before_last`` (the GP the last batch started from), ``kernel3``
+    ``kernel3``
     (each kernel-3 launch's GP count by part: sampler steps, coarse
     passes, refinement chunks), ``step_rows`` (the last sampler step's
     rows) and ``first`` (the first certify's safe set, ``c_max`` and
@@ -4348,36 +4263,8 @@ def phase_adaptive(card, updates=ADAPTIVE_UPDATES):
         raise AssertionError("no certify ran a refinement chunk")
     return types.SimpleNamespace(
         lyap=lyap, inst=inst, launches=launches["gp_predict_stacked"],
-        chunk_states=last_chunk, gp_before_last=gp0, kernel3=kernel3,
+        chunk_states=last_chunk, kernel3=kernel3,
         step_rows=step_rows, first=first_result)
-
-
-def profile_adaptive(card, run, reps=3):
-    """``profile_window`` over the adaptive path's two units at its last
-    update: a 15-step batch from the GP the last batch started from
-    (``apply=False``: the GP stays as it is) and a certify (the same
-    safe set again: nothing changed since the last one)."""
-    lyap = run.lyap
-    final = lyap.dynamics
-
-    def batches():
-        lyap.dynamics = run.gp_before_last
-        try:
-            for seed in range(reps):
-                sample_batch(lyap, run.inst, np.random.default_rng(seed),
-                             apply=False, strict=False)
-        finally:
-            lyap.dynamics = final
-
-    def certifies():
-        for _ in range(reps):
-            lyap.update_safe_set(can_shrink=False,
-                                 max_refinement=ADAPTIVE_REFINEMENT)
-
-    with uncounted():
-        profile_window("adaptive batch of {} steps".format(ADAPTIVE_DATA),
-                       batches, reps, card)
-        profile_window("adaptive certify", certifies, reps, card)
 
 
 def product_blocks(n_q, rows_a_query):
@@ -5572,7 +5459,7 @@ def sweep_record(lyap, sweep, warm=True):
 def kernel_device_ms(sweep):
     """``(GP kernel ms, device busy ms)`` of one ``sweep()`` under
     ``profiling.trace``: the device time of the GP kernels' launches
-    (``PROFILE_GROUPS``' first group) and of every device operation."""
+    (``gp_predict_*``, ``gp_program_*``) and of every device operation."""
     from torch.autograd import DeviceType
 
     with tempfile.TemporaryDirectory() as log_dir:
@@ -5586,7 +5473,7 @@ def kernel_device_ms(sweep):
         us = getattr(ev, "self_device_time_total", None)
         ms = (ev.self_cuda_time_total if us is None else us) / 1e3
         busy += ms
-        if any(f in ev.key.lower() for f in PROFILE_GROUPS[0][1]):
+        if any(f in ev.key.lower() for f in ("gp_predict", "gp_program")):
             kernel += ms
     return kernel, busy
 
@@ -7615,11 +7502,8 @@ def main():
     # Profiles come after every time: the profiler's tracing may slow the
     # host's dispatch of what runs after it.
     with phase_clock(seconds, "profiles"):
-        profile_sweep("safe-learning", safe_lyap, card)
-        profile_sweep("bench", bench_lyap, card)
         profile_training(card, trainer, penalised=False)
         profile_training(card, trainer, penalised=True)
-        profile_adaptive(card, adaptive)
     print(json.dumps({"phase_seconds": seconds}))
     print(card)
     print(json.dumps({"kernels": kernel_rows(paths)}))

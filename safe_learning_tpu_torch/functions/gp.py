@@ -39,6 +39,7 @@ import copy
 import numpy as np
 import torch
 
+from .. import profiling
 from ..config import config
 from .base import (DeterministicFunction, UncertainFunction, as_tensor,
                    concatenate_inputs, dot)
@@ -442,6 +443,16 @@ def _append_rows(buf, rows, n):
     return out
 
 
+def _append_buffers(new, gp, x, y):
+    """``new``'s buffers: copies of ``gp``'s with the rows ``x`` and ``y``
+    written from its count, which ``new.count`` then passes (a
+    ``gp.append.buffers`` span of ``profiling``)."""
+    with profiling.named_scope("gp.append.buffers"):
+        new.X_buf = _append_rows(gp.X_buf, x, gp.count)
+        new.Y_buf = _append_rows(gp.Y_buf, y, gp.count)
+        new.count = gp.count + len(x)
+
+
 def _border_one(kernel, chol_inv, alpha, noise, x_buf, x_new, mask, i, s2,
                 target):
     """One output's bordered step at row ``i``: the new rows of
@@ -665,29 +676,31 @@ class GaussianProcess(UncertainFunction):
         With ``config.use_kernels`` and a kernel that has a fused route
         (:meth:`_fused_numerators`), the whole predict is one kernel call.
         Otherwise it is the plain matmul chain, as the JAX package's XLA
-        path.
+        path. A ``gp.predict`` span of ``profiling``.
         """
-        points = torch.atleast_2d(as_tensor(points))
-        s2 = self.scale ** 2
-        fused = None
-        if (not full_cov and config.use_kernels
-                and self.capacity <= config.kernel_max_capacity):
-            fused = self._fused_numerators(points)
-        if fused is not None:
-            mean_num, var_num = fused
-            mean = mean_num / self.scale + self._prior_mean(points)
-            var = self.kernel.diag(points) - var_num / s2
+        with profiling.named_scope("gp.predict"):
+            points = torch.atleast_2d(as_tensor(points))
+            s2 = self.scale ** 2
+            fused = None
+            if (not full_cov and config.use_kernels
+                    and self.capacity <= config.kernel_max_capacity):
+                fused = self._fused_numerators(points)
+            if fused is not None:
+                mean_num, var_num = fused
+                mean = mean_num / self.scale + self._prior_mean(points)
+                var = self.kernel.diag(points) - var_num / s2
+                var = torch.clamp(var, min=1e-12)[:, None]
+                return mean, var.expand(points.shape[0], self.output_dim)
+
+            kx = s2 * self.kernel(self.X_buf, points) * self._mask()[:, None]
+            a = dot(self.chol_inv, kx)
+            mean = (dot(a.T, self.alpha) / self.scale
+                    + self._prior_mean(points))
+            if full_cov:
+                return mean, self.kernel(points, points) - dot(a.T, a) / s2
+            var = self.kernel.diag(points) - (a * a).sum(dim=0) / s2
             var = torch.clamp(var, min=1e-12)[:, None]
             return mean, var.expand(points.shape[0], self.output_dim)
-
-        kx = s2 * self.kernel(self.X_buf, points) * self._mask()[:, None]
-        a = dot(self.chol_inv, kx)
-        mean = dot(a.T, self.alpha) / self.scale + self._prior_mean(points)
-        if full_cov:
-            return mean, self.kernel(points, points) - dot(a.T, a) / s2
-        var = self.kernel.diag(points) - (a * a).sum(dim=0) / s2
-        var = torch.clamp(var, min=1e-12)[:, None]
-        return mean, var.expand(points.shape[0], self.output_dim)
 
     def evaluate(self, points):
         """Return ``(mean, beta * std)``."""
@@ -715,39 +728,50 @@ class GaussianProcess(UncertainFunction):
         rows are written into copies of the buffers and, with the host
         factors at hand, the factors grow by :func:`_bordered_append`;
         otherwise (or when that refuses) they are refactorized
-        (``safe_learning_tpu/functions/gp.py:529-574``).
+        (``safe_learning_tpu/functions/gp.py:529-574``). Its phases are
+        spans of ``profiling`` under ``gp.add_data_point``:
+        ``gp.append.buffers``, ``gp.append.border``, ``gp.append.refactor``
+        (a rebuild past capacity, or a refactorization) and
+        ``gp.append.upload``.
         """
-        x = np.atleast_2d(np.asarray(x, dtype=config.np_dtype))
-        y = np.atleast_2d(np.asarray(y, dtype=config.np_dtype))
-        n, n_new = self.count, len(x)
-        if n + n_new > self.capacity:
-            return GaussianProcess(
-                self.kernel, np.vstack([self.X, x]), np.vstack([self.Y, y]),
-                float(self.noise_variance), beta=self.beta,
-                mean_function=self.mean_function,
-                capacity=_round_capacity(n + n_new), scale=self.scale)
-        new = copy.copy(self)
-        new.X_buf = _append_rows(self.X_buf, x, n)
-        new.Y_buf = _append_rows(self.Y_buf, y, n)
-        new.count = n + n_new
-        # The factors below are float64 host ones again.
-        new._device_appended = False
-        host = self._host_cache
-        host_new = None
-        if host is not None and host.count == n:
-            host_new = _bordered_append(
-                host, self.kernel, x, y, self.mean_function,
-                float(self.noise_variance), self.scale, self.capacity)
-        if host_new is None:
-            new._host_cache, new.chol_inv, new.alpha = _cache_parts(
-                self.kernel, _host(new.X_buf), _host(new.Y_buf),
-                self.mean_function, new.count, float(self.noise_variance),
-                self.scale)
-        else:
-            new._host_cache = host_new
-            new.chol_inv = as_tensor(np.ascontiguousarray(host_new.chol_inv))
-            new.alpha = as_tensor(np.ascontiguousarray(host_new.alpha))
-        return new
+        with profiling.named_scope("gp.add_data_point"):
+            x = np.atleast_2d(np.asarray(x, dtype=config.np_dtype))
+            y = np.atleast_2d(np.asarray(y, dtype=config.np_dtype))
+            n, n_new = self.count, len(x)
+            if n + n_new > self.capacity:
+                with profiling.named_scope("gp.append.refactor"):
+                    return GaussianProcess(
+                        self.kernel, np.vstack([self.X, x]),
+                        np.vstack([self.Y, y]), float(self.noise_variance),
+                        beta=self.beta, mean_function=self.mean_function,
+                        capacity=_round_capacity(n + n_new),
+                        scale=self.scale)
+            new = copy.copy(self)
+            _append_buffers(new, self, x, y)
+            # The factors below are float64 host ones again.
+            new._device_appended = False
+            host = self._host_cache
+            host_new = None
+            if host is not None and host.count == n:
+                with profiling.named_scope("gp.append.border"):
+                    host_new = _bordered_append(
+                        host, self.kernel, x, y, self.mean_function,
+                        float(self.noise_variance), self.scale,
+                        self.capacity)
+            if host_new is None:
+                with profiling.named_scope("gp.append.refactor"):
+                    new._host_cache, new.chol_inv, new.alpha = _cache_parts(
+                        self.kernel, _host(new.X_buf), _host(new.Y_buf),
+                        self.mean_function, new.count,
+                        float(self.noise_variance), self.scale)
+            else:
+                new._host_cache = host_new
+                with profiling.named_scope("gp.append.upload"):
+                    new.chol_inv = as_tensor(
+                        np.ascontiguousarray(host_new.chol_inv))
+                    new.alpha = as_tensor(
+                        np.ascontiguousarray(host_new.alpha))
+            return new
 
 
 #: The reference's two GP names are one class here
@@ -962,48 +986,51 @@ class StackedGaussianProcess(UncertainFunction):
         and ``num_fun * capacity**2 <= kernel_max_capacity**2``, all
         outputs run in one call of :func:`~safe_learning_tpu_torch.ops.
         gp_kernel.fused_gp_predict_stacked`. Otherwise each output takes
-        the plain matmul chain, as the JAX package's XLA path.
+        the plain matmul chain, as the JAX package's XLA path. A
+        ``gp.predict`` span of ``profiling``.
         """
-        points = torch.atleast_2d(as_tensor(points))
-        s2 = self.scale ** 2
-        mask = self._mask()
+        with profiling.named_scope("gp.predict"):
+            points = torch.atleast_2d(as_tensor(points))
+            s2 = self.scale ** 2
+            mask = self._mask()
 
-        if full_cov:
-            means, covs = [], []
+            if full_cov:
+                means, covs = [], []
+                for s in range(self.num_fun):
+                    a, mean = self._chain(s, points, mask)
+                    means.append(mean)
+                    covs.append(self.kernels[s](points, points)
+                                - dot(a.T, a) / s2)
+                mean = torch.cat(means, dim=1) + self._prior_means(points)
+                return mean, torch.stack(covs, dim=0)
+
+            compiled = None
+            if (config.use_kernels and self.num_fun * self.capacity ** 2
+                    <= config.kernel_max_capacity ** 2):
+                compiled = self._programs()
+            if compiled is not None:
+                from ..ops.gp_kernel import (fused_gp_predict_stacked,
+                                             program_params)
+
+                programs, param_list = compiled
+                mean_num, var_num = fused_gp_predict_stacked(
+                    points, self.X_buf, program_params(param_list, points),
+                    self.chol_inv, self.alpha[:, :, 0], mask, s2,
+                    programs, count=self.count)
+                mean = mean_num / self.scale + self._prior_means(points)
+                kdiag = torch.stack(
+                    [k.diag(points) for k in self.kernels], dim=1)
+                return mean, torch.clamp(kdiag - var_num / s2, min=1e-12)
+
+            means, variances = [], []
             for s in range(self.num_fun):
                 a, mean = self._chain(s, points, mask)
                 means.append(mean)
-                covs.append(self.kernels[s](points, points)
-                            - dot(a.T, a) / s2)
+                var = (self.kernels[s].diag(points)
+                       - (a * a).sum(dim=0) / s2)
+                variances.append(torch.clamp(var, min=1e-12))
             mean = torch.cat(means, dim=1) + self._prior_means(points)
-            return mean, torch.stack(covs, dim=0)
-
-        compiled = None
-        if (config.use_kernels and self.num_fun * self.capacity ** 2
-                <= config.kernel_max_capacity ** 2):
-            compiled = self._programs()
-        if compiled is not None:
-            from ..ops.gp_kernel import (fused_gp_predict_stacked,
-                                         program_params)
-
-            programs, param_list = compiled
-            mean_num, var_num = fused_gp_predict_stacked(
-                points, self.X_buf, program_params(param_list, points),
-                self.chol_inv, self.alpha[:, :, 0], mask, s2, programs,
-                count=self.count)
-            mean = mean_num / self.scale + self._prior_means(points)
-            kdiag = torch.stack([k.diag(points) for k in self.kernels],
-                                dim=1)
-            return mean, torch.clamp(kdiag - var_num / s2, min=1e-12)
-
-        means, variances = [], []
-        for s in range(self.num_fun):
-            a, mean = self._chain(s, points, mask)
-            means.append(mean)
-            var = self.kernels[s].diag(points) - (a * a).sum(dim=0) / s2
-            variances.append(torch.clamp(var, min=1e-12))
-        mean = torch.cat(means, dim=1) + self._prior_means(points)
-        return mean, torch.stack(variances, dim=1)
+            return mean, torch.stack(variances, dim=1)
 
     def _chain(self, s, points, mask):
         """Output ``s``'s plain matmul chain: ``(a, mean numerator /
@@ -1038,41 +1065,51 @@ class StackedGaussianProcess(UncertainFunction):
         One buffer append for all outputs, then each output's factors as
         :meth:`GaussianProcess.add_data_point` grows them; if one output's
         bordered append refuses, all are refactorized
-        (``safe_learning_tpu/functions/gp.py:1160-1224``).
+        (``safe_learning_tpu/functions/gp.py:1160-1224``). Its phases are
+        the spans of :meth:`GaussianProcess.add_data_point`, a
+        ``gp.append.border`` an output.
         """
-        x = np.atleast_2d(np.asarray(x, dtype=config.np_dtype))
-        y = np.atleast_2d(np.asarray(y, dtype=config.np_dtype))
-        n, n_new = self.count, len(x)
-        noises = _host(self.noise_variances).astype(np.float64)
-        if n + n_new > self.capacity:
-            return StackedGaussianProcess(
-                self.kernels, np.vstack([self.X, x]), np.vstack([self.Y, y]),
-                _host(self.noise_variances), betas=np.asarray(self.betas),
-                mean_functions=self.mean_functions,
-                capacity=_round_capacity(n + n_new), scale=self.scale)
-        new = copy.copy(self)
-        new.X_buf = _append_rows(self.X_buf, x, n)
-        new.Y_buf = _append_rows(self.Y_buf, y, n)
-        new.count = n + n_new
-        # The factors below are float64 host ones again.
-        new._device_appended = False
-        hosts = self._host_caches
-        hosts_new = None
-        if hosts is not None and all(h.count == n for h in hosts):
-            hosts_new = [_bordered_append(
-                hosts[s], self.kernels[s], x, y[:, s:s + 1],
-                self.mean_functions[s], float(noises[s]), self.scale,
-                self.capacity) for s in range(self.num_fun)]
-            if any(h is None for h in hosts_new):
-                hosts_new = None
-        if hosts_new is None:
-            new._host_caches, new.chol_inv, new.alpha = _stacked_cache(
-                self.kernels, _host(new.X_buf), _host(new.Y_buf),
-                self.mean_functions, new.count, noises, self.scale)
-        else:
-            new._host_caches = hosts_new
-            new.chol_inv, new.alpha = _upload_stacked(hosts_new)
-        return new
+        with profiling.named_scope("gp.add_data_point"):
+            x = np.atleast_2d(np.asarray(x, dtype=config.np_dtype))
+            y = np.atleast_2d(np.asarray(y, dtype=config.np_dtype))
+            n, n_new = self.count, len(x)
+            noises = _host(self.noise_variances).astype(np.float64)
+            if n + n_new > self.capacity:
+                with profiling.named_scope("gp.append.refactor"):
+                    return StackedGaussianProcess(
+                        self.kernels, np.vstack([self.X, x]),
+                        np.vstack([self.Y, y]), _host(self.noise_variances),
+                        betas=np.asarray(self.betas),
+                        mean_functions=self.mean_functions,
+                        capacity=_round_capacity(n + n_new),
+                        scale=self.scale)
+            new = copy.copy(self)
+            _append_buffers(new, self, x, y)
+            # The factors below are float64 host ones again.
+            new._device_appended = False
+            hosts = self._host_caches
+            hosts_new = None
+            if hosts is not None and all(h.count == n for h in hosts):
+                hosts_new = []
+                for s in range(self.num_fun):
+                    with profiling.named_scope("gp.append.border"):
+                        hosts_new.append(_bordered_append(
+                            hosts[s], self.kernels[s], x, y[:, s:s + 1],
+                            self.mean_functions[s], float(noises[s]),
+                            self.scale, self.capacity))
+                if any(h is None for h in hosts_new):
+                    hosts_new = None
+            if hosts_new is None:
+                with profiling.named_scope("gp.append.refactor"):
+                    new._host_caches, new.chol_inv, new.alpha = \
+                        _stacked_cache(self.kernels, _host(new.X_buf),
+                                       _host(new.Y_buf), self.mean_functions,
+                                       new.count, noises, self.scale)
+            else:
+                new._host_caches = hosts_new
+                with profiling.named_scope("gp.append.upload"):
+                    new.chol_inv, new.alpha = _upload_stacked(hosts_new)
+            return new
 
 
 def _stacked_cache(kernels, x_buf, y_buf, mean_functions, count, noises,

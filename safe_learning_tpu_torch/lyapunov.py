@@ -69,6 +69,7 @@ import warnings
 import numpy as np
 import torch
 
+from . import profiling
 from .config import config
 from .functions.base import Function, as_deterministic, as_tensor
 from .functions.simplex import Triangulation
@@ -233,6 +234,15 @@ def _refined_negative_batch(policy, dynamics, lyapunov_function,
     return ok.reshape(n, -1).all(dim=1)
 
 
+def _read(fetch, *args):
+    """``fetch(*args)``, a read that waits for the device and copies to the
+    host, inside a ``lyapunov.read`` span and counted in
+    ``lyapunov.host_reads``."""
+    profiling.count("lyapunov.host_reads")
+    with profiling.named_scope("lyapunov.read"):
+        return fetch(*args)
+
+
 def _values_batch(fun, points):
     """Evaluate a scalar function on a batch of points, flattened."""
     return fun(points).reshape(-1)
@@ -323,7 +333,7 @@ def _sharded_fused_update(policy, dynamics, lyapunov_function,
         local.append((pos, values, torch.where(eligible, inf, values).min()))
     # One host read for the shards' minima, one for their maxima (the
     # shards of one process share config.device).
-    mins = (torch.stack([m for _, _, m in local]).double().tolist()
+    mins = (_read(torch.stack([m for _, _, m in local]).double().tolist)
             if local else [])
     nan = any(np.isnan(m) for m in mins)
     v_bad, nan = reduce_scalars(
@@ -340,7 +350,7 @@ def _sharded_fused_update(policy, dynamics, lyapunov_function,
         tops.append(torch.stack([
             torch.where(safe[pos], values, -float("inf")).max().double(),
             safe[pos].any().double()]))
-    c_max, any_safe = (torch.stack(tops).max(dim=0).values.tolist()
+    c_max, any_safe = (_read(torch.stack(tops).max(dim=0).values.tolist)
                        if tops else (-np.inf, 0.0))
     c_max, any_safe = reduce_scalars([c_max, any_safe], "max", mesh)
     n = points.shape[0]
@@ -413,7 +423,7 @@ class _DecreaseCheck:
         width = width + 2.0 ** -52 * diff.abs()
         negative = diff < -width
         band = ~negative & (diff <= width)
-        n_band = int(band.sum())
+        n_band = _read(int, band.sum())
         self.band_states += n_band
         self.checked += int(states.shape[0])
         if n_band:
@@ -876,44 +886,45 @@ class Lyapunov:
         of this process evaluates its rows (:meth:`_sharded_points`, or its
         run of batches) and every process gathers the whole vector.
         """
-        direct = self._direct_grid_values()
-        if direct is not None:
-            self.values = direct
-            return
-        grid = self.discretization
-        nindex = grid.nindex
-        if batch_size is None and nindex <= self._fused_limit(None):
-            if self.mesh is None:
-                self.values = _values_batch(self.lyapunov_function,
-                                            self._device_points())
+        with profiling.named_scope("lyapunov.values"):
+            direct = self._direct_grid_values()
+            if direct is not None:
+                self.values = direct
                 return
-            points = self._sharded_points()
-            shards = [None] * self.mesh.size
-            for pos, _, pts in points.local():
-                shards[pos] = _values_batch(self.lyapunov_function, pts)
-            self.values = gather_rows(self.mesh, points.ranges, shards,
-                                      (nindex,), self._values_dtype(shards),
-                                      config.device)
-            return
-        batch = batch_size or max(int(config.gp_batch_size), 1)
-        shards = [None] * (1 if self.mesh is None else self.mesh.size)
-        for pos, lo, hi in self._batch_groups(batch):
-            values = None
-            for start in range(lo, hi, batch):
-                stop = min(start + batch, hi)
-                v = _values_batch(self.lyapunov_function,
-                                  grid.states_in_range(start, stop))
-                if values is None:
-                    values = torch.empty(hi - lo, dtype=v.dtype,
-                                         device=v.device)
-                values[start - lo:stop - lo] = v
-            shards[pos] = values
-        if self.mesh is None:
-            self.values = shards[0]
-            return
-        self.values = gather_rows(
-            self.mesh, self._batch_ranges(batch), shards, (nindex,),
-            self._values_dtype(shards), config.device)
+            grid = self.discretization
+            nindex = grid.nindex
+            if batch_size is None and nindex <= self._fused_limit(None):
+                if self.mesh is None:
+                    self.values = _values_batch(self.lyapunov_function,
+                                                self._device_points())
+                    return
+                points = self._sharded_points()
+                shards = [None] * self.mesh.size
+                for pos, _, pts in points.local():
+                    shards[pos] = _values_batch(self.lyapunov_function, pts)
+                self.values = gather_rows(
+                    self.mesh, points.ranges, shards, (nindex,),
+                    self._values_dtype(shards), config.device)
+                return
+            batch = batch_size or max(int(config.gp_batch_size), 1)
+            shards = [None] * (1 if self.mesh is None else self.mesh.size)
+            for pos, lo, hi in self._batch_groups(batch):
+                values = None
+                for start in range(lo, hi, batch):
+                    stop = min(start + batch, hi)
+                    v = _values_batch(self.lyapunov_function,
+                                      grid.states_in_range(start, stop))
+                    if values is None:
+                        values = torch.empty(hi - lo, dtype=v.dtype,
+                                             device=v.device)
+                    values[start - lo:stop - lo] = v
+                shards[pos] = values
+            if self.mesh is None:
+                self.values = shards[0]
+                return
+            self.values = gather_rows(
+                self.mesh, self._batch_ranges(batch), shards, (nindex,),
+                self._values_dtype(shards), config.device)
 
     @staticmethod
     def _values_dtype(shards):
@@ -956,60 +967,84 @@ class Lyapunov:
         plus twice the extended one, and only the band is checked in
         float64 (:class:`_DecreaseCheck`); its share over every shard is
         :attr:`last_band_fraction`.
+
+        With a ``torch.profiler`` session running, the sweep's phases are
+        spans of ``profiling`` under ``lyapunov.update_safe_set``:
+        ``lyapunov.masks``, ``lyapunov.values``, ``lyapunov.fused``,
+        ``lyapunov.sort``, ``lyapunov.coarse``, ``lyapunov.walk`` (a
+        ``lyapunov.walk.chunk`` a chunk), ``lyapunov.cut`` and
+        ``lyapunov.read`` (each read that waits for the device, counted in
+        ``lyapunov.host_reads``).
         """
-        if safety_factor != 1.0 or parallel_iterations is not None:
-            warnings.warn(
-                "safety_factor/parallel_iterations are accepted for "
-                "reference-API compatibility but have no effect",
-                RuntimeWarning, stacklevel=2)
-        if extended not in (False, True, "hybrid"):
-            raise ValueError(
-                "extended must be False, True, or 'hybrid'; got "
-                f"{extended!r}")
-        check = self._decrease_check(extended)
-        if self.adaptive:
-            self._update_safe_set_sorted(can_shrink, int(max_refinement),
-                                         batch_size, check)
-        elif self.discretization.nindex > self._fused_limit(batch_size):
-            self._update_safe_set_streamed(can_shrink, batch_size, check)
-        elif extended:
-            self._update_safe_set_sorted(can_shrink, 1, batch_size, check)
-        else:
-            self._update_safe_set_fused(can_shrink)
-        if extended == "hybrid":
-            band, checked = reduce_scalars(
-                [check.band_states, check.checked], "sum", self.mesh)
-            self.last_band_fraction = band / max(checked, 1)
+        with profiling.named_scope("lyapunov.update_safe_set"):
+            if safety_factor != 1.0 or parallel_iterations is not None:
+                warnings.warn(
+                    "safety_factor/parallel_iterations are accepted for "
+                    "reference-API compatibility but have no effect",
+                    RuntimeWarning, stacklevel=2)
+            if extended not in (False, True, "hybrid"):
+                raise ValueError(
+                    "extended must be False, True, or 'hybrid'; got "
+                    f"{extended!r}")
+            check = self._decrease_check(extended)
+            if self.adaptive:
+                self._update_safe_set_sorted(can_shrink, int(max_refinement),
+                                             batch_size, check)
+            elif self.discretization.nindex > self._fused_limit(batch_size):
+                self._update_safe_set_streamed(can_shrink, batch_size, check)
+            elif extended:
+                self._update_safe_set_sorted(can_shrink, 1, batch_size, check)
+            else:
+                self._update_safe_set_fused(can_shrink)
+            if extended == "hybrid":
+                band, checked = reduce_scalars(
+                    [check.band_states, check.checked], "sum", self.mesh)
+                self.last_band_fraction = band / max(checked, 1)
 
     def _exempt_and_previous(self, can_shrink):
         """``(initial, prev_safe, exempt)`` host masks: the initial set
         (all False without one), the safe set before the sweep, and the
         states that pass without the decrease check (the initial set, and
         the previous safe set when ``can_shrink`` is False)."""
-        nindex = self.discretization.nindex
-        initial = (self.initial_safe_set
-                   if self.initial_safe_set is not None
-                   else np.zeros(nindex, dtype=bool))
-        # Plain copies: TrackedMask.copy() shares the counter.
-        prev_safe = np.array(self.safe_set)
-        exempt = np.array(initial)
-        if not can_shrink:
-            exempt |= prev_safe
-        return initial, prev_safe, exempt
+        with profiling.named_scope("lyapunov.masks"):
+            nindex = self.discretization.nindex
+            initial = (self.initial_safe_set
+                       if self.initial_safe_set is not None
+                       else np.zeros(nindex, dtype=bool))
+            # Plain copies: TrackedMask.copy() shares the counter.
+            prev_safe = np.array(self.safe_set)
+            exempt = np.array(initial)
+            if not can_shrink:
+                exempt |= prev_safe
+            return initial, prev_safe, exempt
 
     def _store(self, safe, refinement, can_shrink, initial, prev_safe):
-        """Install a sweep's host safe mask and refinement levels, with the
-        previous safe set kept (``can_shrink=False``) and the initial set
-        added, each at a refinement of at least 1."""
-        if not can_shrink:
-            safe |= prev_safe
-            keep = prev_safe & (refinement == 0)
-            refinement[keep] = np.maximum(self._refinement[keep], 1)
-        if self.initial_safe_set is not None:
-            safe |= initial
-            refinement[initial] = np.maximum(refinement[initial], 1)
-        self.safe_set = safe
-        self._refinement = refinement
+        """Install a sweep's host safe mask and refinement levels (``None``:
+        1 wherever safe, else 0), with the previous safe set kept
+        (``can_shrink=False``) and the initial set added, each at a
+        refinement of at least 1."""
+        with profiling.named_scope("lyapunov.masks"):
+            if refinement is None:
+                refinement = np.where(safe, 1, 0)
+            if not can_shrink:
+                safe |= prev_safe
+                keep = prev_safe & (refinement == 0)
+                refinement[keep] = np.maximum(self._refinement[keep], 1)
+            if self.initial_safe_set is not None:
+                safe |= initial
+                refinement[initial] = np.maximum(refinement[initial], 1)
+            self.safe_set = safe
+            self._refinement = refinement
+
+    def _count_sweep(self, coarse_batches, refinement_chunks, refined_points,
+                     rescued_states):
+        """Keep a sweep's counts in ``last_sweep_counts`` and count its
+        refined points in ``profiling`` (``lyapunov.refined_points``)."""
+        self.last_sweep_counts = dict(
+            coarse_batches=coarse_batches,
+            refinement_chunks=refinement_chunks,
+            refined_points=refined_points, rescued_states=rescued_states)
+        profiling.count("lyapunov.refined_points", refined_points)
 
     def _update_safe_set_streamed(self, can_shrink, batch_size, check):
         """The streamed sweep: one pass over batches of flat indices.
@@ -1058,44 +1093,46 @@ class Lyapunov:
         inf = torch.full((), float("inf"), dtype=values.dtype, device=device)
         batches = 0
         scans = []
-        for pos, lo, hi in self._batch_groups(batch):
-            v_bad = inf
-            i_bad = torch.full((), nindex, dtype=torch.int64, device=device)
-            for start in range(lo, hi, batch):
-                stop = min(start + batch, hi)
-                negative = check.negative(
-                    grid.states_in_range(start, stop, device),
-                    margin if np.ndim(margin) == 0 else margin[start:stop],
-                    slice(start, stop))
-                v = values[start:stop]
-                failing = ~(negative | exempt_dev[start:stop]) \
-                    & ~torch.isnan(v)
-                v_min = torch.where(failing, v, inf).min()
-                first = (failing & (v == v_min)).to(torch.uint8).argmax()
-                i_min = torch.where(failing.any(), first + start, nindex)
-                better = (v_min < v_bad) | ((v_min == v_bad)
-                                            & (i_min < i_bad))
-                v_bad = torch.where(better, v_min, v_bad)
-                i_bad = torch.where(better, i_min, i_bad)
-                batches += 1
-            scans.append((pos, lo, hi, v_bad, i_bad))
-        self.last_sweep_counts = dict(coarse_batches=batches,
-                                      refinement_chunks=0, refined_points=0,
-                                      rescued_states=0)
-        self._streamed_cut(scans, batch, can_shrink, initial, prev_safe)
+        with profiling.named_scope("lyapunov.coarse"):
+            for pos, lo, hi in self._batch_groups(batch):
+                v_bad = inf
+                i_bad = torch.full((), nindex, dtype=torch.int64,
+                                   device=device)
+                for start in range(lo, hi, batch):
+                    stop = min(start + batch, hi)
+                    negative = check.negative(
+                        grid.states_in_range(start, stop, device),
+                        margin if np.ndim(margin) == 0
+                        else margin[start:stop], slice(start, stop))
+                    v = values[start:stop]
+                    failing = ~(negative | exempt_dev[start:stop]) \
+                        & ~torch.isnan(v)
+                    v_min = torch.where(failing, v, inf).min()
+                    first = (failing & (v == v_min)).to(torch.uint8).argmax()
+                    i_min = torch.where(failing.any(), first + start, nindex)
+                    better = (v_min < v_bad) | ((v_min == v_bad)
+                                                & (i_min < i_bad))
+                    v_bad = torch.where(better, v_min, v_bad)
+                    i_bad = torch.where(better, i_min, i_bad)
+                    batches += 1
+                scans.append((pos, lo, hi, v_bad, i_bad))
+        self._count_sweep(batches, 0, 0, 0)
+        with profiling.named_scope("lyapunov.cut"):
+            safe = self._streamed_cut(scans, batch)
+        self._store(safe, None, can_shrink, initial, prev_safe)
 
-    def _streamed_cut(self, scans, batch, can_shrink, initial, prev_safe):
+    def _streamed_cut(self, scans, batch):
         """The streamed sweep's cut: ``scans`` holds each local entry's
         ``(position, start, stop, v_bad, i_bad)`` (one, over the whole
         grid, without a mesh). The first failing state is the
         lexicographic minimum over the entries and processes (the smallest
         ``v_bad``, then the smallest ``i_bad`` among those holding it);
         each entry cuts its rows, and the safe mask is gathered on the
-        host."""
+        host. Sets ``c_max``; returns the host safe mask."""
         mesh = self.mesh
         nindex = self.discretization.nindex
         values = self.values
-        local = [(float(v), int(i)) for *_, v, i in scans]
+        local = [(_read(float, v), _read(int, i)) for *_, v, i in scans]
         v_loc, i_loc = min(local) if local else (np.inf, nindex)
         v_bad = reduce_scalars([v_loc], "min", mesh)[0]
         i_bad = int(reduce_scalars([i_loc if v_loc == v_bad else nindex],
@@ -1114,15 +1151,14 @@ class Lyapunov:
                 head = min(max(i_bad - lo, 0), hi - lo)
                 s[:head] |= v[:head] == cut
             safe[pos] = s
-            c_max = max(c_max, float(torch.where(s, v,
-                                                 -float("inf")).max()))
-            any_safe = max(any_safe, float(s.any()))
+            c_max = max(c_max, _read(float, torch.where(
+                s, v, -float("inf")).max()))
+            any_safe = max(any_safe, _read(float, s.any()))
         c_max, any_safe = reduce_scalars([c_max, any_safe], "max", mesh)
-        safe = gather_rows(mesh, self._batch_ranges(batch), safe, (nindex,),
-                           torch.bool, "cpu").numpy()
+        safe = _read(gather_rows, mesh, self._batch_ranges(batch), safe,
+                     (nindex,), torch.bool, "cpu").numpy()
         self.c_max = c_max if any_safe else -np.inf
-        self._store(safe, np.where(safe, 1, 0), can_shrink, initial,
-                    prev_safe)
+        return safe
 
     def _update_safe_set_sorted(self, can_shrink, max_refinement, batch_size,
                                 check):
@@ -1178,15 +1214,16 @@ class Lyapunov:
 
         self.update_values()
         values = self.values
-        order = torch.sort(values, stable=True).indices
-        sorted_values = values[order]
-        exempt_sorted = torch.as_tensor(exempt, device=device)[order]
-        margin = self.certificate_margin
-        if np.ndim(margin):
-            # Float64: the extended check compares against it in float64;
-            # the working-dtype check rounds it as before.
-            margin = torch.as_tensor(margin, dtype=torch.float64,
-                                     device=device)[order]
+        with profiling.named_scope("lyapunov.sort"):
+            order = torch.sort(values, stable=True).indices
+            sorted_values = values[order]
+            exempt_sorted = torch.as_tensor(exempt, device=device)[order]
+            margin = self.certificate_margin
+            if np.ndim(margin):
+                # Float64: the extended check compares against it in
+                # float64; the working-dtype check rounds it as before.
+                margin = torch.as_tensor(margin, dtype=torch.float64,
+                                         device=device)[order]
 
         def margin_at(index):
             return margin if isinstance(margin, float) else margin[index]
@@ -1204,72 +1241,78 @@ class Lyapunov:
             batch = rounded(min(batch, nindex))
         passed = torch.empty(nindex, dtype=torch.bool, device=device)
         batches = 0
-        for start in range(0, nindex, batch):
-            idx = order[start:start + batch]
-            passed[start:start + len(idx)] = self._map_rows(
-                len(idx), lambda lo, hi: check.negative(
-                    states_at(idx[lo:hi]),
-                    margin_at(slice(start + lo, start + hi)), idx[lo:hi]))
-            batches += 1
-        passed |= exempt_sorted
+        with profiling.named_scope("lyapunov.coarse"):
+            for start in range(0, nindex, batch):
+                idx = order[start:start + batch]
+                passed[start:start + len(idx)] = self._map_rows(
+                    len(idx), lambda lo, hi: check.negative(
+                        states_at(idx[lo:hi]),
+                        margin_at(slice(start + lo, start + hi)),
+                        idx[lo:hi]))
+                batches += 1
+            passed |= exempt_sorted
 
         # 3. The refinement walk over the failing states in value order.
-        failing = torch.nonzero(~passed).reshape(-1)
-        n_fail = int(failing.shape[0])
-        stop = nindex if n_fail == 0 else None
-        chunks = refined_points = rescued = 0
-        if n_fail and r > 1:
-            offsets = refinement_offsets(grid.unit_maxes, r, like)
-            chunk = rounded(max(1, REFINED_POINTS_PER_CHUNK
-                                // offsets.shape[0]))
-            for start in range(0, n_fail, chunk):
-                pos = failing[start:start + chunk]
-                ok = self._map_rows(len(pos), lambda lo, hi: check.refined(
-                    states_at(order[pos[lo:hi]]), offsets, r,
-                    margin_at(pos[lo:hi])))
-                chunks += 1
-                refined_points += len(pos) * offsets.shape[0]
-                # One read a chunk: whether every state passed, the first
-                # that did not, and its sorted position.
-                first = (~ok).long().argmax().reshape(1)
-                all_ok, first_bad, bad_pos = torch.cat(
-                    [ok.all().long().reshape(1), first,
-                     pos.gather(0, first)]).tolist()
-                if not all_ok:
-                    rescued += first_bad
-                    stop = bad_pos
-                    break
-                rescued += len(pos)
-            else:
-                stop = nindex
-        elif n_fail:
-            stop = int(failing[0])
-        self.last_sweep_counts = dict(coarse_batches=batches,
-                                      refinement_chunks=chunks,
-                                      refined_points=refined_points,
-                                      rescued_states=rescued)
+        with profiling.named_scope("lyapunov.walk"):
+            failing = _read(torch.nonzero, ~passed).reshape(-1)
+            n_fail = int(failing.shape[0])
+            stop = nindex if n_fail == 0 else None
+            chunks = refined_points = rescued = 0
+            if n_fail and r > 1:
+                offsets = refinement_offsets(grid.unit_maxes, r, like)
+                chunk = rounded(max(1, REFINED_POINTS_PER_CHUNK
+                                    // offsets.shape[0]))
+                for start in range(0, n_fail, chunk):
+                    with profiling.named_scope("lyapunov.walk.chunk"):
+                        pos = failing[start:start + chunk]
+                        ok = self._map_rows(
+                            len(pos), lambda lo, hi: check.refined(
+                                states_at(order[pos[lo:hi]]), offsets, r,
+                                margin_at(pos[lo:hi])))
+                        chunks += 1
+                        refined_points += len(pos) * offsets.shape[0]
+                        # One read a chunk: whether every state passed,
+                        # the first that did not, and its sorted position.
+                        first = (~ok).long().argmax().reshape(1)
+                        all_ok, first_bad, bad_pos = _read(torch.cat(
+                            [ok.all().long().reshape(1), first,
+                             pos.gather(0, first)]).tolist)
+                    if not all_ok:
+                        rescued += first_bad
+                        stop = bad_pos
+                        break
+                    rescued += len(pos)
+                else:
+                    stop = nindex
+            elif n_fail:
+                stop = _read(int, failing[0])
+        self._count_sweep(batches, chunks, refined_points, rescued)
 
         # 4. The prefix, trimmed by the level margin.
-        max_index = stop - 1
-        level_margin = self.level_margin
-        if level_margin > 0.0 and 0 <= max_index < nindex - 1:
-            trimmed = int(torch.searchsorted(
-                sorted_values, sorted_values[stop:stop + 1] - level_margin,
-                side="left")) - 1
-            max_index = min(max_index, trimmed)
-        self.c_max = (float(sorted_values[max_index]) if max_index >= 0
-                      else -np.inf)
+        with profiling.named_scope("lyapunov.cut"):
+            max_index = stop - 1
+            level_margin = self.level_margin
+            if level_margin > 0.0 and 0 <= max_index < nindex - 1:
+                trimmed = _read(int, torch.searchsorted(
+                    sorted_values,
+                    sorted_values[stop:stop + 1] - level_margin,
+                    side="left")) - 1
+                max_index = min(max_index, trimmed)
+            self.c_max = (_read(float, sorted_values[max_index])
+                          if max_index >= 0 else -np.inf)
 
-        rank = torch.arange(nindex, device=device)
-        in_prefix = rank <= max_index
-        ref_sorted = torch.where(passed, 1, torch.where(rank < stop, r, 0))
-        ref_sorted = torch.where(in_prefix, ref_sorted, 0)
-        safe_dev = torch.empty(nindex, dtype=torch.bool, device=device)
-        safe_dev[order] = in_prefix
-        ref_dev = torch.empty(nindex, dtype=ref_sorted.dtype, device=device)
-        ref_dev[order] = ref_sorted
-        safe = safe_dev.cpu().numpy()
-        refinement = ref_dev.cpu().numpy().astype(int)
+            rank = torch.arange(nindex, device=device)
+            in_prefix = rank <= max_index
+            ref_sorted = torch.where(passed, 1,
+                                     torch.where(rank < stop, r, 0))
+            ref_sorted = torch.where(in_prefix, ref_sorted, 0)
+            safe_dev = torch.empty(nindex, dtype=torch.bool, device=device)
+            safe_dev[order] = in_prefix
+            ref_dev = torch.empty(nindex, dtype=ref_sorted.dtype,
+                                  device=device)
+            ref_dev[order] = ref_sorted
+            safe = _read(safe_dev.cpu).numpy()
+            refinement = _read(ref_dev.cpu).numpy().astype(int)
         self._store(safe, refinement, can_shrink, initial, prev_safe)
 
     def _update_safe_set_fused(self, can_shrink):
@@ -1281,33 +1324,33 @@ class Lyapunov:
                                                 prev_safe, exempt)
             return
         points = self._device_points()
-        # With can_shrink the exempt mask is just the initial set; keep
-        # its device copy until that mask changes.
-        key = (id(self.initial_safe_set), self._initial_set_version,
-               getattr(self.initial_safe_set, "mutations", None),
-               points.device)
-        exempt_dev = (getattr(self, "_exempt_dev", None)
-                      if can_shrink and getattr(self, "_exempt_key",
-                                                None) == key
-                      else None)
-        if exempt_dev is None:
-            exempt_dev = torch.as_tensor(exempt, device=points.device)
-            if can_shrink:
-                self._exempt_dev = exempt_dev
-                self._exempt_key = key
+        with profiling.named_scope("lyapunov.fused"):
+            # With can_shrink the exempt mask is just the initial set; keep
+            # its device copy until that mask changes.
+            key = (id(self.initial_safe_set), self._initial_set_version,
+                   getattr(self.initial_safe_set, "mutations", None),
+                   points.device)
+            exempt_dev = (getattr(self, "_exempt_dev", None)
+                          if can_shrink and getattr(self, "_exempt_key",
+                                                    None) == key
+                          else None)
+            if exempt_dev is None:
+                exempt_dev = torch.as_tensor(exempt, device=points.device)
+                if can_shrink:
+                    self._exempt_dev = exempt_dev
+                    self._exempt_key = key
 
-        safe_dev, c_max, values, _ = _fused_update(
-            self.policy, self.dynamics, self.lyapunov_function,
-            self._lipschitz_lyapunov, self._lipschitz_dynamics, self.tau,
-            points, exempt_dev, self.certificate_margin, self.level_margin,
-            self._direct_grid_values())
+            safe_dev, c_max, values, _ = _fused_update(
+                self.policy, self.dynamics, self.lyapunov_function,
+                self._lipschitz_lyapunov, self._lipschitz_dynamics, self.tau,
+                points, exempt_dev, self.certificate_margin,
+                self.level_margin, self._direct_grid_values())
 
         # Values stay on the device; c_max is -inf when nothing verifies.
         self.values = values
-        safe = safe_dev.cpu().numpy()
-        self.c_max = float(c_max)
-        self._store(safe, np.where(safe, 1, 0), can_shrink, initial,
-                    prev_safe)
+        safe = _read(safe_dev.cpu).numpy()
+        self.c_max = _read(float, c_max)
+        self._store(safe, None, can_shrink, initial, prev_safe)
 
     def _update_safe_set_fused_sharded(self, can_shrink, initial, prev_safe,
                                        exempt):
@@ -1329,18 +1372,18 @@ class Lyapunov:
             if can_shrink:
                 self._exempt_sharded = (key, exempt_sh)
 
-        safe_sh, c_max, values, any_safe = _sharded_fused_update(
-            self.policy, self.dynamics, self.lyapunov_function,
-            self._lipschitz_lyapunov, self._lipschitz_dynamics, self.tau,
-            points, exempt_sh, self.certificate_margin, self.level_margin,
-            self._direct_grid_values())
-        direct = self._direct_grid_values()
-        self.values = (direct if direct is not None
-                       else values.gather(config.device))
-        safe = safe_sh.numpy()
+        with profiling.named_scope("lyapunov.fused"):
+            safe_sh, c_max, values, any_safe = _sharded_fused_update(
+                self.policy, self.dynamics, self.lyapunov_function,
+                self._lipschitz_lyapunov, self._lipschitz_dynamics, self.tau,
+                points, exempt_sh, self.certificate_margin,
+                self.level_margin, self._direct_grid_values())
+            direct = self._direct_grid_values()
+            self.values = (direct if direct is not None
+                           else values.gather(config.device))
+        safe = _read(safe_sh.numpy)
         self.c_max = c_max if any_safe else -np.inf
-        self._store(safe, np.where(safe, 1, 0), can_shrink, initial,
-                    prev_safe)
+        self._store(safe, None, can_shrink, initial, prev_safe)
 
 def smallest_boundary_value(fun, discretization):
     """Smallest value of ``fun`` on the boundary of the discretization.

@@ -8,6 +8,29 @@ CUDA device, of the card, and writes it as a Chrome trace (Perfetto or
 and series; ``show_program`` renders what one call ran, operator by
 operator, with the hand-written kernels it launched; and
 ``enable_nan_debugging`` raises at the first operation that makes a NaN.
+
+The port's spans and counts (these names stay out of ``__all__``,
+which is the JAX package's). Each costs one check of ``torch.autograd.
+_profiler_enabled()`` while no ``torch.profiler`` session runs, and
+records nothing. While one runs (``trace``, or any other):
+
+- ``named_scope(name)`` enters ``record_function(name)`` and keeps a
+  :class:`SpanRecord` ``(name, index, parent, call, start_ns, end_ns)``:
+  ``index`` is its place in the buffer, ``parent`` the enclosing span's
+  (-1 for none), ``call`` the outermost open span's, so every span of one
+  public call shares it; the times are on the profiler's own clock
+  (Unix-epoch nanoseconds, ``time.time_ns``), so the spans line up with
+  the device's events. Spans nest within one thread.
+- ``count(name, n=1)`` keeps a :class:`CountRecord` ``(name, n, t_ns)``,
+  so that a window's counts can be cut out by time.
+
+The buffer holds :data:`BUFFER_LIMIT` records; later ones are dropped
+and counted by ``dropped()``. ``spans()`` returns the buffer,
+``span_table()`` sums its spans by name (count, total and self seconds,
+self being the duration less its child spans). The buffer is cleared
+when a session starts: by ``trace``, and otherwise at the session's
+first span or count (a session begins, for the buffer, at the first span
+or count seen with the profiler on after one seen with it off).
 """
 
 from __future__ import annotations
@@ -16,7 +39,7 @@ import contextlib
 import html
 import os
 import time
-from collections import defaultdict
+from collections import defaultdict, namedtuple
 
 import numpy as np
 import torch
@@ -29,8 +52,142 @@ from .ops import gp_kernel
 __all__ = ["trace", "named_scope", "Timer", "MetricsRecorder",
            "enable_nan_debugging", "show_program"]
 
-#: Labels a range of the profile: ``with named_scope("sweep"): ...``.
-named_scope = torch.profiler.record_function
+#: Most records the buffer of spans and counts holds in one session.
+BUFFER_LIMIT = 1 << 19
+
+#: A span of the buffer (times in Unix-epoch nanoseconds; ``end_ns`` is
+#: ``None`` while the span is open).
+SpanRecord = namedtuple("SpanRecord",
+                        "name index parent call start_ns end_ns")
+#: A count added while a session ran.
+CountRecord = namedtuple("CountRecord", "name n t_ns")
+
+_profiler_on = torch.autograd._profiler_enabled
+
+
+class _Recorder:
+    """One session's buffer and stack of open spans. A span is kept as
+    ``(name, parent, call, start_ns)``, its end in ``ends`` under its
+    index, and a count as ``(name, n, t_ns)``: plain tuples of atoms,
+    which the garbage collector stops tracking."""
+
+    def __init__(self):
+        self.begin()
+        self.live = False
+
+    def begin(self):
+        """A new session: an empty buffer."""
+        self.records = []
+        self.ends = {}
+        self.open = []
+        self.dropped = 0
+        self.live = True
+
+
+_RECORDER = _Recorder()
+
+
+class _Span:
+    """One recorded ``named_scope``."""
+
+    __slots__ = ("scope", "records", "index")
+
+    def __init__(self, name):
+        self.scope = torch.profiler.record_function(name)
+
+    def __enter__(self):
+        rec = _RECORDER
+        if not rec.live:
+            rec.begin()
+        self.scope.__enter__()
+        start = time.time_ns()
+        records, open_ = rec.records, rec.open
+        self.records = records
+        self.index = index = len(records)
+        if index < BUFFER_LIMIT:
+            records.append((self.scope.name, open_[-1] if open_ else -1,
+                            records[open_[0]][2] if open_ else index,
+                            start))
+        else:
+            self.index = None
+            rec.dropped += 1
+        open_.append(self.index)
+        return self
+
+    def __exit__(self, *exc):
+        self.scope.__exit__(*exc)
+        end = time.time_ns()
+        rec = _RECORDER
+        if self.records is rec.records:
+            rec.open.pop()
+            if self.index is not None:
+                rec.ends[self.index] = end
+        return False
+
+
+_OFF = contextlib.nullcontext()
+
+
+def named_scope(name):
+    """Label a range of the profile: ``with named_scope("sweep"): ...``.
+
+    A shared no-op while no profiler session runs; during one, a
+    ``record_function`` span that is also kept in :func:`spans`."""
+    if not _profiler_on():
+        _RECORDER.live = False
+        return _OFF
+    return _Span(name)
+
+
+def count(name, n=1):
+    """During a profiler session, record ``n`` of ``name`` with its time
+    in :func:`spans`; otherwise nothing."""
+    if not _profiler_on():
+        _RECORDER.live = False
+        return
+    rec = _RECORDER
+    if not rec.live:
+        rec.begin()
+    if len(rec.records) < BUFFER_LIMIT:
+        rec.records.append((name, n, time.time_ns()))
+    else:
+        rec.dropped += 1
+
+
+def spans():
+    """The buffer: this session's :class:`SpanRecord`\\ s and
+    :class:`CountRecord`\\ s, in the order they began."""
+    ends = _RECORDER.ends
+    return [SpanRecord(r[0], i, r[1], r[2], r[3], ends.get(i))
+            if len(r) == 4 else CountRecord(*r)
+            for i, r in enumerate(_RECORDER.records)]
+
+
+def dropped():
+    """How many spans and counts this session left out of a full
+    buffer."""
+    return _RECORDER.dropped
+
+
+def span_table():
+    """``{name: {"count", "total_s", "self_s"}}`` over the buffer's closed
+    spans: how many, their summed duration, and their summed self time
+    (each span's duration less that of its closed child spans)."""
+    closed = [r for r in spans()
+              if isinstance(r, SpanRecord) and r.end_ns is not None]
+    children = defaultdict(int)
+    for r in closed:
+        if r.parent >= 0:
+            children[r.parent] += r.end_ns - r.start_ns
+    table = {}
+    for r in closed:
+        row = table.setdefault(r.name, dict(count=0, total_s=0.0,
+                                            self_s=0.0))
+        duration = r.end_ns - r.start_ns
+        row["count"] += 1
+        row["total_s"] += duration / 1e9
+        row["self_s"] += (duration - children[r.index]) / 1e9
+    return table
 
 
 def _activities():
@@ -49,10 +206,11 @@ def trace(log_dir):
     On exit the profile is written into ``log_dir`` (made if missing) as
     a Chrome trace, ``trace-<pid>-<ns>.json``. Yields the
     ``torch.profiler.profile``, whose ``key_averages()`` sum the block's
-    operators and kernels.
+    operators and kernels. The buffer of :func:`spans` starts empty.
     """
     os.makedirs(log_dir, exist_ok=True)
     with torch.profiler.profile(activities=_activities()) as prof:
+        _RECORDER.begin()
         yield prof
     prof.export_chrome_trace(os.path.join(
         log_dir, "trace-{}-{}.json".format(os.getpid(), time.time_ns())))
