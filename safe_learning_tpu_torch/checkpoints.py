@@ -26,6 +26,7 @@ import torch
 from .config import config
 from .functions.base import Function, as_tensor
 from .functions.gp import GaussianProcess, Kernel, StackedGaussianProcess
+from .lyapunov import level_dtypes
 
 __all__ = ["save_checkpoint", "restore_checkpoint", "lyapunov_state",
            "restore_lyapunov_state", "policy_iteration_state",
@@ -241,7 +242,8 @@ def lyapunov_state(lyapunov):
         "safe_set": np.asarray(lyapunov.safe_set),
         "c_max": np.asarray(lyapunov.c_max, dtype=np.float64),
         "values": _as_numpy(lyapunov.values),
-        "refinement": np.asarray(lyapunov._refinement),
+        # The JAX package's dtype, so that either package reads the file.
+        "refinement": np.asarray(lyapunov._refinement, dtype=np.int64),
         "lyapunov_parameters": lyapunov.lyapunov_function.parameters_dict,
         "policy_parameters": lyapunov.policy.parameters_dict,
     }
@@ -253,6 +255,15 @@ def lyapunov_state(lyapunov):
     return state
 
 
+def _levels(saved):
+    """Saved refinement levels (int64 in the file, as the JAX package
+    writes them) in the narrowest dtype that holds the largest: one byte a
+    state up to 255, as a sweep up to ``max_refinement=255`` stores
+    them."""
+    levels = np.asarray(saved)
+    return levels.astype(level_dtypes(int(levels.max(initial=0)))[0])
+
+
 def restore_lyapunov_state(lyapunov, state):
     """Write a restored :func:`lyapunov_state` back onto ``lyapunov``:
     host state assigned, the values on ``config.device``, functions
@@ -262,7 +273,7 @@ def restore_lyapunov_state(lyapunov, state):
     lyapunov.c_max = float(state["c_max"])
     lyapunov.values = as_tensor(np.asarray(state["values"]),
                                 dtype=config.dtype)
-    lyapunov._refinement = np.asarray(state["refinement"]).astype(int)
+    lyapunov._refinement = _levels(state["refinement"])
     if state.get("lyapunov_parameters"):
         lyapunov.lyapunov_function = \
             lyapunov.lyapunov_function.with_parameters(

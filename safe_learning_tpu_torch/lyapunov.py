@@ -77,7 +77,7 @@ from .grids import GridWorld
 from .parallel.distributed import (gather_rows, global_grid_points,
                                    put_global, reduce_scalars)
 from .parallel.mesh import Mesh, ShardedArray, grid_sharding, split_rows
-from .utils import tracked_mask
+from .utils import TrackedMask, tracked_mask
 
 __all__ = ["Lyapunov", "smallest_boundary_value",
            "get_lyapunov_region"]
@@ -86,6 +86,18 @@ __all__ = ["Lyapunov", "smallest_boundary_value",
 #: dynamics evaluation, and one GP kernel launch, a chunk). The result
 #: does not depend on it.
 REFINED_POINTS_PER_CHUNK = 2 ** 20
+
+#: The widths of refinement levels, narrowest first: ``(numpy, torch)``.
+_LEVEL_DTYPES = ((np.uint8, torch.uint8), (np.int16, torch.int16),
+                 (np.int32, torch.int32), (np.int64, torch.int64))
+
+
+def level_dtypes(max_level):
+    """``(numpy, torch)`` dtypes of refinement levels up to ``max_level``:
+    one byte a state up to 255 (every refinement the repo runs), else the
+    narrowest signed width that holds it."""
+    return next(pair for pair in _LEVEL_DTYPES
+                if max_level <= np.iinfo(pair[0]).max)
 
 
 def _as_lipschitz(lip):
@@ -537,9 +549,8 @@ class Lyapunov:
 
         self.c_max = 0.0
         self.values = None
-        self._refinement = np.zeros(nindex, dtype=int)
-        if self.initial_safe_set is not None:
-            self._refinement[self.initial_safe_set] = 1
+        # Refinement levels: 0 outside the safe set, at least 1 in it.
+        self._refinement = np.array(self.safe_set, dtype=np.uint8)
         self.update_values()
 
     # ------------------------------------------------------------------
@@ -1001,40 +1012,52 @@ class Lyapunov:
                     [check.band_states, check.checked], "sum", self.mesh)
                 self.last_band_fraction = band / max(checked, 1)
 
-    def _exempt_and_previous(self, can_shrink):
-        """``(initial, prev_safe, exempt)`` host masks: the initial set
-        (all False without one), the safe set before the sweep, and the
-        states that pass without the decrease check (the initial set, and
-        the previous safe set when ``can_shrink`` is False)."""
+    def _exempt(self, can_shrink):
+        """A fresh host mask of the states that pass without the decrease
+        check: the initial set (none without one), and the safe set before
+        the sweep when ``can_shrink`` is False."""
         with profiling.named_scope("lyapunov.masks"):
-            nindex = self.discretization.nindex
-            initial = (self.initial_safe_set
-                       if self.initial_safe_set is not None
-                       else np.zeros(nindex, dtype=bool))
-            # Plain copies: TrackedMask.copy() shares the counter.
-            prev_safe = np.array(self.safe_set)
-            exempt = np.array(initial)
+            initial = self.initial_safe_set
+            exempt = (np.zeros(self.discretization.nindex, dtype=bool)
+                      if initial is None else np.array(initial, dtype=bool))
             if not can_shrink:
-                exempt |= prev_safe
-            return initial, prev_safe, exempt
+                exempt |= np.asarray(self.safe_set, dtype=bool)
+            return exempt
 
-    def _store(self, safe, refinement, can_shrink, initial, prev_safe):
-        """Install a sweep's host safe mask and refinement levels (``None``:
-        1 wherever safe, else 0), with the previous safe set kept
-        (``can_shrink=False``) and the initial set added, each at a
-        refinement of at least 1."""
+    def _kept_levels(self):
+        """The host levels a sweep with ``can_shrink=False`` keeps where it
+        certifies nothing: ``max(level, 1)`` on the safe set before the
+        sweep, 1 on the rest of the initial set, 0 elsewhere (nonzero on
+        exactly the exempt states), in the dtype of the levels held."""
         with profiling.named_scope("lyapunov.masks"):
-            if refinement is None:
-                refinement = np.where(safe, 1, 0)
-            if not can_shrink:
-                safe |= prev_safe
-                keep = prev_safe & (refinement == 0)
-                refinement[keep] = np.maximum(self._refinement[keep], 1)
-            if self.initial_safe_set is not None:
-                safe |= initial
-                refinement[initial] = np.maximum(refinement[initial], 1)
-            self.safe_set = safe
-            self._refinement = refinement
+            old = self._refinement
+            initial = self.initial_safe_set
+            kept = (np.zeros(len(old), dtype=old.dtype) if initial is None
+                    else np.asarray(initial).astype(old.dtype))
+            np.maximum(old, 1, out=kept,
+                       where=np.asarray(self.safe_set, dtype=bool))
+            return kept
+
+    def _store(self, levels, can_shrink, merged=False):
+        """Install a sweep's host refinement levels, a fresh array that no
+        one else holds, and the safe mask ``levels != 0`` as a new
+        ``safe_set``. Unless the sweep ``merged`` them on the device, the
+        exempt states' levels are merged in first: where ``levels`` is 0,
+        :meth:`_kept_levels` with ``can_shrink=False``, else the initial
+        set at 1."""
+        with profiling.named_scope("lyapunov.masks"):
+            if not merged and not can_shrink:
+                kept = self._kept_levels()
+                levels = levels.astype(
+                    np.promote_types(levels.dtype, kept.dtype), copy=False)
+                np.copyto(levels, kept, where=levels == 0)
+            elif not merged and self.initial_safe_set is not None:
+                np.maximum(levels, np.asarray(self.initial_safe_set),
+                           out=levels)
+            self._refinement = levels
+            # A new array: wrapped, not copied as the setter copies.
+            self._safe_set = (levels != 0).view(TrackedMask)
+            self._safe_set_version += 1
 
     def _count_sweep(self, coarse_batches, refinement_chunks, refined_points,
                      rescued_states):
@@ -1084,7 +1107,7 @@ class Lyapunov:
         grid = self.discretization
         nindex = grid.nindex
         batch = batch_size or max(int(config.gp_batch_size), 1)
-        initial, prev_safe, exempt = self._exempt_and_previous(can_shrink)
+        exempt = self._exempt(can_shrink)
         self.update_values(batch_size=batch)
         values = self.values
         device = values.device
@@ -1119,7 +1142,8 @@ class Lyapunov:
         self._count_sweep(batches, 0, 0, 0)
         with profiling.named_scope("lyapunov.cut"):
             safe = self._streamed_cut(scans, batch)
-        self._store(safe, None, can_shrink, initial, prev_safe)
+        # The gathered mask, fresh, as levels 0 and 1.
+        self._store(safe.view(np.uint8), can_shrink)
 
     def _streamed_cut(self, scans, batch):
         """The streamed sweep's cut: ``scans`` holds each local entry's
@@ -1210,7 +1234,7 @@ class Lyapunov:
             states_at = grid.states_at
         like = torch.empty(0, dtype=config.dtype, device=device)
         r = max(int(max_refinement), 1)
-        initial, prev_safe, exempt = self._exempt_and_previous(can_shrink)
+        exempt = self._exempt(can_shrink)
 
         self.update_values()
         values = self.values
@@ -1301,59 +1325,64 @@ class Lyapunov:
             self.c_max = (_read(float, sorted_values[max_index])
                           if max_index >= 0 else -np.inf)
 
-            rank = torch.arange(nindex, device=device)
-            in_prefix = rank <= max_index
-            ref_sorted = torch.where(passed, 1,
-                                     torch.where(rank < stop, r, 0))
-            ref_sorted = torch.where(in_prefix, ref_sorted, 0)
-            safe_dev = torch.empty(nindex, dtype=torch.bool, device=device)
-            safe_dev[order] = in_prefix
-            ref_dev = torch.empty(nindex, dtype=ref_sorted.dtype,
-                                  device=device)
+            # In sorted order: 1 for a coarse pass, R for a refined rescue
+            # (every failing state before ``stop``), 0 past the prefix.
+            ref_sorted = torch.full((nindex,), r,
+                                    dtype=level_dtypes(r)[1], device=device)
+            ref_sorted.masked_fill_(passed, 1)
+            ref_sorted[max_index + 1:] = 0
+            ref_dev = torch.empty_like(ref_sorted)
             ref_dev[order] = ref_sorted
-            safe = _read(safe_dev.cpu).numpy()
-            refinement = _read(ref_dev.cpu).numpy().astype(int)
-        self._store(safe, refinement, can_shrink, initial, prev_safe)
+            levels = _read(ref_dev.cpu).numpy()
+        self._store(levels, can_shrink)
 
     def _update_safe_set_fused(self, can_shrink):
         """Whole-grid single-pass path (over :attr:`mesh` when one is set:
-        :meth:`_update_safe_set_fused_sharded`)."""
-        initial, prev_safe, exempt = self._exempt_and_previous(can_shrink)
+        :meth:`_update_safe_set_fused_sharded`).
+
+        The levels are made on the device, the exempt states' merged in,
+        and read to the host once, one byte a state."""
         if self.mesh is not None:
-            self._update_safe_set_fused_sharded(can_shrink, initial,
-                                                prev_safe, exempt)
+            self._update_safe_set_fused_sharded(can_shrink)
             return
         points = self._device_points()
+        # The exempt states' levels: with can_shrink the initial set as a
+        # mask, whose device copy is kept until that mask changes.
+        key = (id(self.initial_safe_set), self._initial_set_version,
+               getattr(self.initial_safe_set, "mutations", None),
+               points.device)
+        if not can_shrink:
+            kept = self._kept_levels()
+        elif getattr(self, "_exempt_key", None) != key:
+            kept = self._exempt(True)
+        else:
+            kept = None
         with profiling.named_scope("lyapunov.fused"):
-            # With can_shrink the exempt mask is just the initial set; keep
-            # its device copy until that mask changes.
-            key = (id(self.initial_safe_set), self._initial_set_version,
-                   getattr(self.initial_safe_set, "mutations", None),
-                   points.device)
-            exempt_dev = (getattr(self, "_exempt_dev", None)
-                          if can_shrink and getattr(self, "_exempt_key",
-                                                    None) == key
-                          else None)
-            if exempt_dev is None:
-                exempt_dev = torch.as_tensor(exempt, device=points.device)
+            if kept is None:
+                kept_dev = self._exempt_dev
+            else:
+                kept_dev = torch.as_tensor(kept, device=points.device)
                 if can_shrink:
-                    self._exempt_dev = exempt_dev
-                    self._exempt_key = key
-
+                    self._exempt_dev, self._exempt_key = kept_dev, key
+            exempt_dev = kept_dev if can_shrink else kept_dev != 0
             safe_dev, c_max, values, _ = _fused_update(
                 self.policy, self.dynamics, self.lyapunov_function,
                 self._lipschitz_lyapunov, self._lipschitz_dynamics, self.tau,
                 points, exempt_dev, self.certificate_margin,
                 self.level_margin, self._direct_grid_values())
+            # 1 where certified, else the exempt states' levels (a bool
+            # mask's are 0 and 1).
+            levels_dev = kept_dev.masked_fill(safe_dev, 1)
+            if levels_dev.dtype == torch.bool:
+                levels_dev = levels_dev.view(torch.uint8)
 
         # Values stay on the device; c_max is -inf when nothing verifies.
         self.values = values
-        safe = _read(safe_dev.cpu).numpy()
+        levels = _read(levels_dev.cpu).numpy()
         self.c_max = _read(float, c_max)
-        self._store(safe, None, can_shrink, initial, prev_safe)
+        self._store(levels, can_shrink, merged=True)
 
-    def _update_safe_set_fused_sharded(self, can_shrink, initial, prev_safe,
-                                       exempt):
+    def _update_safe_set_fused_sharded(self, can_shrink):
         """The fused path over :attr:`mesh`: :func:`_sharded_fused_update`
         on this process's rows, the safe mask and the values gathered onto
         every process. The exempt mask's shards are cached as the path
@@ -1368,7 +1397,8 @@ class Lyapunov:
         exempt_sh = (cached[1] if can_shrink and cached is not None
                      and cached[0] == key else None)
         if exempt_sh is None:
-            exempt_sh = put_global(exempt, grid_sharding(mesh, 1))
+            exempt_sh = put_global(self._exempt(can_shrink),
+                                   grid_sharding(mesh, 1))
             if can_shrink:
                 self._exempt_sharded = (key, exempt_sh)
 
@@ -1383,7 +1413,8 @@ class Lyapunov:
                            else values.gather(config.device))
         safe = _read(safe_sh.numpy)
         self.c_max = c_max if any_safe else -np.inf
-        self._store(safe, None, can_shrink, initial, prev_safe)
+        # The gathered mask, fresh, as levels 0 and 1.
+        self._store(safe.view(np.uint8), can_shrink)
 
 def smallest_boundary_value(fun, discretization):
     """Smallest value of ``fun`` on the boundary of the discretization.

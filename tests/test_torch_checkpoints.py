@@ -10,6 +10,8 @@ written one bit for bit (float64). Restored GPs predict as the saved
 ones to 1e-10.
 """
 
+import hashlib
+
 import jax
 import numpy as np
 import pytest
@@ -117,6 +119,36 @@ def composite_kernel(pkg):
     """``Matern32 x Linear`` over (x, u), the 1-D example's kernel."""
     return (pkg.Matern32(lengthscales=[0.8, 1.3], input_dim=2)
             * pkg.LinearKernel(variances=[0.2, 1.0], input_dim=2))
+
+
+def _digest(lyap):
+    """Hashes of a certificate's arrays: the safe set, the levels, ``c_max``
+    and the values."""
+    return [hashlib.sha1(np.ascontiguousarray(a).tobytes()).hexdigest()
+            for a in (np.asarray(lyap.safe_set), lyap._refinement,
+                      np.float64(lyap.c_max), to_numpy(lyap.values))]
+
+
+@pytest.mark.parametrize("writer", ["port", "jax"])
+def test_lyapunov_state_round_trip_hashes_the_same(tmp_path, writer):
+    """A checkpoint restored onto a port instance with other data and
+    state: the levels (int64 in the file, as the JAX package writes them)
+    come back one byte a state, as a sweep stores them, so the port's own
+    checkpoint hashes as the saved instance did."""
+    jlyap, plyap = lyapunov_pair()
+    before = _digest(plyap)
+    path = (pck.save_checkpoint(str(tmp_path / "port"),
+                                pck.lyapunov_state(plyap))
+            if writer == "port" else
+            jck.save_checkpoint(str(tmp_path / "jax"),
+                                jck.lyapunov_state(jlyap)))
+    _, other = lyapunov_pair(seed=1)
+    restored = pck.restore_lyapunov_state(
+        other, pck.restore_checkpoint(path, pck.lyapunov_state(other)))
+    assert restored._refinement.dtype == np.uint8
+    assert_array_equal(restored._refinement, jlyap._refinement)
+    if writer == "port":
+        assert _digest(restored) == before
 
 
 def test_composite_gp_state_both_ways(tmp_path):

@@ -4,9 +4,15 @@ The 1-D closed form of ``tests/test_lyapunov.py:31``, the semantics the
 JAX package keeps on purpose (``-inf`` when nothing verifies, previously
 safe states kept with ``can_shrink=False``), and ``bench.py``'s instance
 at 200x200 in float64: the same safe set and the same certified level as
-the JAX package.
+the JAX package. Every sweep (fused, sorted, streamed, each without and
+over an in-process mesh) leaves the JAX package's safe set, refinement
+levels and ``c_max``, with and without an initial set and keeping the
+previous set or not; its levels take one byte a state up to refinement
+255 (a wider dtype above), the safe set is exactly the nonzero levels, and
+neither aliases the other or an earlier sweep's arrays.
 """
 
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -14,6 +20,7 @@ from numpy.testing import assert_allclose, assert_array_equal
 
 import safe_learning_tpu as sl
 import safe_learning_tpu_torch as st
+from safe_learning_tpu_torch.parallel import make_mesh
 
 from _torch_parity import (jax_bench_lyapunov, port_gp, to_numpy,
                            working_dtype)
@@ -233,3 +240,141 @@ def test_v_decrease_bound_and_lipschitz_match_jax(bench_pair):
                         atol=1e-12)
         assert float(plyap.v_decrease_confidence(x, nxt[0])[1]) == 0.0
         assert plyap.lipschitz_dynamics(x) == jlyap.lipschitz_dynamics(pts)
+
+
+def _unstable_pair(adaptive, initial, mesh=None, n=32):
+    """``tests/test_lyapunov.py:281-308``'s instance in both packages (the
+    JAX package's first) on an ``n x n`` grid without the origin: ``x+ = x
+    (0.25 + 0.9 |x|^2)``, unstable outside ``|x| ~ 0.73``; the initial set
+    ``|x| <= 0.25`` or none. With an initial set the sorted sweep runs at
+    the grid's unit ``tau`` (the coarse check fails in a band outside the
+    initial set and refinement rescues it); else at 1/16 of it, where the
+    coarse check passes near the origin."""
+    pair = []
+    for pkg, xp in ((sl, jnp), (st, torch)):
+        grid = pkg.GridWorld([[-1, 1], [-1, 1]], n)
+
+        def f(xu):
+            x = xu[:, :2]
+            return x * (0.25 + 0.9 * (x ** 2).sum(1, keepdims=True))
+
+        tau = float(np.min(grid.unit_maxes)) / (
+            1.0 if adaptive and initial else 16.0)
+        init = (np.flatnonzero(np.linalg.norm(grid.all_points, axis=1)
+                               <= 0.25) if initial else None)
+        extra = {} if pkg is sl else dict(mesh=mesh)
+        pair.append(pkg.Lyapunov(
+            grid, pkg.QuadraticFunction(np.eye(2)),
+            pkg.LambdaFunction(f, input_dim=3, output_dim=2), 2.05,
+            pkg.LambdaFunction(lambda x, xp=xp: 2.0 * xp.abs(x)), tau,
+            pkg.LambdaFunction(lambda x: 0.0 * x[:, :1]),
+            initial_set=init, adaptive=adaptive, **extra))
+    return pair
+
+
+def _fail_one_state(lyap):
+    """Fail a certified state of value about 0.2 by its margin and take it
+    out of the safe set, so a sweep that keeps the previous set keeps the
+    states past it at their levels; add a corner state never certified.
+    Returns the failed state's index."""
+    points = lyap.discretization.all_points
+    k = int(np.argmin(np.abs((points ** 2).sum(axis=1) - 0.2)))
+    margin = np.zeros(len(points))
+    margin[k] = 10.0
+    lyap.certificate_margin = margin
+    lyap.safe_set[k] = False
+    lyap.safe_set[0] = True
+    return k
+
+
+def _assert_same_certificate(plyap, jlyap):
+    assert_array_equal(plyap.safe_set, jlyap.safe_set)
+    assert_array_equal(plyap._refinement, jlyap._refinement)
+    # One ulp: the packages round |x|^2 differently at a few states.
+    assert_allclose(plyap.c_max, jlyap.c_max, rtol=1e-14)
+    assert plyap._refinement.dtype == np.uint8
+    assert_array_equal(plyap.safe_set, plyap._refinement != 0)
+
+
+@pytest.mark.parametrize("initial", [True, False],
+                         ids=["initial", "no_initial"])
+@pytest.mark.parametrize("can_shrink", [True, False],
+                         ids=["shrink", "keep"])
+@pytest.mark.parametrize("entries", [None, 8], ids=["one", "mesh8"])
+@pytest.mark.parametrize("kind", ["fused", "sorted", "streamed"])
+def test_levels_one_byte_a_state_match_jax(kind, entries, can_shrink,
+                                           initial, monkeypatch):
+    """Each sweep, twice: from the initial set, then with one certified
+    state failed and taken out of the safe set (``_fail_one_state``), and
+    for an initial set once more after an in-place change of it (the fused
+    sweep's cached exempt copy must follow). Each time the safe set, the
+    levels (one byte a state) and ``c_max`` are the JAX package's, and the
+    safe set is the nonzero levels. An earlier sweep's arrays stay as they
+    were, and a change of the safe set leaves the levels alone."""
+    if kind == "streamed":
+        for cfg in (sl.config, st.config):
+            monkeypatch.setattr(cfg, "fused_sweep_limit", 256)
+            monkeypatch.setattr(cfg, "gp_batch_size", 256)
+    mesh = None if entries is None else make_mesh(devices=["cpu"] * entries)
+    with working_dtype("float64"):
+        jlyap, plyap = _unstable_pair(kind == "sorted", initial, mesh)
+        assert plyap._refinement.dtype == np.uint8
+        for lyap in (jlyap, plyap):
+            lyap.update_safe_set(max_refinement=8)
+        _assert_same_certificate(plyap, jlyap)
+        assert 100 < plyap.safe_set.sum() < 800
+        if kind == "sorted" and initial:
+            assert (plyap._refinement == 8).sum() > 100
+        for lyap in (jlyap, plyap):
+            k = _fail_one_state(lyap)
+        earlier = (plyap.safe_set, plyap._refinement)
+        copies = [np.array(a) for a in earlier]
+        for lyap in (jlyap, plyap):
+            lyap.update_safe_set(can_shrink=can_shrink, max_refinement=8)
+        _assert_same_certificate(plyap, jlyap)
+        assert plyap.safe_set.sum() < 200 if can_shrink else not (
+            plyap.safe_set[k] or plyap.safe_set.sum() < 500)
+        if kind == "sorted" and initial and not can_shrink:
+            # States past the cut kept at their refined level.
+            assert (plyap._refinement == 8).sum() > 100
+        if initial:
+            for lyap in (jlyap, plyap):
+                lyap.initial_safe_set[k] = True
+                lyap.update_safe_set(can_shrink=can_shrink,
+                                     max_refinement=8)
+            _assert_same_certificate(plyap, jlyap)
+            assert plyap.safe_set[k] and plyap.safe_set.sum() > 500
+    for kept, copy in zip(earlier, copies):
+        assert kept is not plyap.safe_set and kept is not plyap._refinement
+        assert_array_equal(kept, copy)
+    levels = plyap._refinement.copy()
+    plyap.safe_set[:] = ~plyap.safe_set
+    assert_array_equal(plyap._refinement, levels)
+
+
+@pytest.mark.parametrize("r,dtype", [(255, np.uint8), (300, np.int16)])
+def test_levels_widen_past_one_byte(r, dtype):
+    """A 1-D sorted sweep that rescues states at ``R``: one byte a state up
+    to ``R = 255``, a dtype that holds ``R`` past it; the levels are the
+    JAX package's."""
+    with working_dtype("float64"):
+        pair = []
+        for pkg, xp in ((sl, jnp), (st, torch)):
+            grid = pkg.GridWorld([[-1, 1]], 64)
+            pair.append(pkg.Lyapunov(
+                grid, pkg.QuadraticFunction(np.eye(1)),
+                pkg.LambdaFunction(
+                    lambda z: z[:, :1] * (0.25 + 0.9 * z[:, :1] ** 2),
+                    input_dim=2, output_dim=1), 2.05,
+                pkg.LambdaFunction(lambda x, xp=xp: 2.0 * xp.abs(x)),
+                float(grid.unit_maxes[0]),
+                pkg.LambdaFunction(lambda x: 0.0 * x),
+                initial_set=np.flatnonzero(np.abs(grid.all_points[:, 0])
+                                           <= 0.25), adaptive=True))
+            pair[-1].update_safe_set(max_refinement=r)
+        jlyap, plyap = pair
+    assert plyap._refinement.dtype == dtype
+    assert (plyap._refinement == r).sum() > 1
+    assert_array_equal(plyap._refinement, jlyap._refinement)
+    assert_array_equal(plyap.safe_set, plyap._refinement != 0)
+    assert_array_equal(plyap.safe_set, jlyap.safe_set)

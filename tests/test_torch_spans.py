@@ -59,7 +59,7 @@ def sweep(kind):
 
         def run():
             lyap.update_safe_set()
-            # The safe mask and c_max.
+            # The levels and c_max.
             return 2
     else:
         lyap = sorted_instance()
@@ -67,8 +67,8 @@ def sweep(kind):
         def run():
             lyap.update_safe_set(max_refinement=8)
             # The failing states' nonzero, a read a chunk, c_max and the
-            # two masks (no level margin: no searchsorted).
-            return 1 + lyap.last_sweep_counts["refinement_chunks"] + 3
+            # levels (no level margin: no searchsorted).
+            return 1 + lyap.last_sweep_counts["refinement_chunks"] + 2
     return lyap, run
 
 
